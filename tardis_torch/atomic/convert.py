@@ -1,0 +1,72 @@
+"""Atomic data as a flat dict of numpy arrays, and back.
+
+``atom_data_to_arrays`` flattens any prepared AtomData-shaped object (the
+port's, or the JAX package's, which has the same fields) into
+``{name: np.ndarray}``; ``atom_data_from_arrays`` rebuilds the port's
+``AtomData`` from such a dict.  Both packages then compute on identical
+inputs.  Keys: the AtomData array fields by name, the macro-atom and
+downbranch tables as ``macro_atom/<field>`` and ``downbranch/<field>``, and
+the nebular zeta tables as ``zeta_data/<Z>/<ion>/t_rads`` and ``.../zeta``.
+The JAX package's photoionization, collision and two-photon tables are not
+carried: the port refuses continuum and NLTE plasmas, the only paths that
+read them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from tardis_torch.atomic.atom_data import AtomData, MacroAtomData
+
+_MACRO_TABLES = ("macro_atom", "downbranch")
+
+
+def _array_fields(cls):
+    skip = {"meta", "zeta_data", *_MACRO_TABLES}
+    return [f.name for f in dataclasses.fields(cls) if f.name not in skip]
+
+
+def atom_data_to_arrays(atom) -> dict[str, np.ndarray]:
+    out = {}
+    for name in _array_fields(AtomData):
+        v = getattr(atom, name)
+        if v is not None:
+            out[name] = np.asarray(v).copy()
+    for table in _MACRO_TABLES:
+        m = getattr(atom, table)
+        if m is None:
+            continue
+        for f in dataclasses.fields(MacroAtomData):
+            v = getattr(m, f.name)
+            if v is not None:
+                out[f"{table}/{f.name}"] = np.asarray(v).copy()
+    for (z, ion), (t_rads, zeta) in (atom.zeta_data or {}).items():
+        out[f"zeta_data/{z}/{ion}/t_rads"] = np.asarray(t_rads).copy()
+        out[f"zeta_data/{z}/{ion}/zeta"] = np.asarray(zeta).copy()
+    return out
+
+
+def atom_data_from_arrays(arrays: dict[str, np.ndarray]) -> AtomData:
+    top = {k: np.asarray(v) for k, v in arrays.items() if "/" not in k}
+    missing = [n for n in _array_fields(AtomData)
+               if n not in top and n not in ("species_z", "species_ion",
+                                             "level_species_id")]
+    if missing:
+        raise KeyError(f"atom data arrays lack {missing}")
+    kw = dict(top)
+    for table in _MACRO_TABLES:
+        prefix = table + "/"
+        fields = {k[len(prefix):]: np.asarray(v)
+                  for k, v in arrays.items() if k.startswith(prefix)}
+        kw[table] = MacroAtomData(**fields) if fields else None
+    zeta = {}
+    for k, v in arrays.items():
+        if k.startswith("zeta_data/") and k.endswith("/t_rads"):
+            _, z, ion, _ = k.split("/")
+            zeta[(int(z), int(ion))] = (
+                np.asarray(v), np.asarray(arrays[k[:-len("t_rads")] + "zeta"])
+            )
+    kw["zeta_data"] = zeta or None
+    return AtomData(**kw)

@@ -1,0 +1,154 @@
+"""Per-iteration line tables: stim, tau, beta, dilute-Planck j_blues and the
+per-shell tau prefix, in f64 (kernel K3, ``csrc/line_tables.cu``).
+
+Counterpart of ``tardis_tpu/plasma/device_line.py`` and of the host line
+pass in ``tardis_tpu/plasma/solver.py``.  The formulas are those of
+``plasma/lte.py`` (stimulated_emission_factor, tau_sobolev, beta_sobolev,
+intensity_black_body).  The JAX device program worked in f32 with
+log-space populations and a two-float prefix; the H100 has f64, so both
+versions here compute in f64 and need neither.
+
+``line_tables`` launches the CUDA kernel for tensors on the card and runs
+the plain PyTorch version ``line_tables_plain`` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tardis_torch import cuda
+from tardis_torch.constants import C, H, K_B, SOBOLEV_COEFFICIENT
+
+F64 = torch.float64
+
+
+@dataclass
+class LineStatic:
+    """Iteration-invariant per-line inputs on one device."""
+
+    lower_idx: torch.Tensor  # (L,) i32
+    upper_idx: torch.Tensor  # (L,) i32
+    g_lower: torch.Tensor  # (L,) f64
+    g_upper: torch.Tensor  # (L,) f64
+    wl_flu: torch.Tensor  # (L,) f64 wavelength [cm] * f_lu
+    line_nu: torch.Tensor  # (L,) f64 Hz
+    nu3_coef: torch.Tensor  # (L,) f64 2 h nu^3 / c^2
+
+    @classmethod
+    def from_atom_data(cls, atom, device) -> "LineStatic":
+        nu = atom.line_nu
+
+        def t(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
+
+        return cls(
+            lower_idx=t(atom.line_lower_idx, torch.int32),
+            upper_idx=t(atom.line_upper_idx, torch.int32),
+            g_lower=t(atom.level_g[atom.line_lower_idx], F64),
+            g_upper=t(atom.level_g[atom.line_upper_idx], F64),
+            wl_flu=t(atom.line_wavelength_cm * atom.line_f_lu, F64),
+            line_nu=t(nu, F64),
+            nu3_coef=t(2.0 * H * nu**3 / C**2, F64),
+        )
+
+
+@dataclass
+class LineTables:
+    stim: torch.Tensor  # (L, S) f64
+    tau: torch.Tensor  # (L, S) f64
+    beta: torch.Tensor  # (L, S) f64
+    j_blues: torch.Tensor  # (L, S) f64
+    prefix: torch.Tensor  # (S, L+1) f64 inclusive tau prefix, leading 0
+
+
+def _shell_inputs(t_rad, jb_w, device):
+    t_rad = np.asarray(t_rad, np.float64)
+    h_over_kt = torch.as_tensor(H / (K_B * t_rad), dtype=F64, device=device)
+    w = torch.as_tensor(np.asarray(jb_w, np.float64), dtype=F64,
+                        device=device)
+    return h_over_kt, w
+
+
+def line_tables_plain(static: LineStatic, level_pop: torch.Tensor, t_rad,
+                      jb_w, time_explosion: float) -> LineTables:
+    """Plain PyTorch version of K3 (same formulas and evaluation order)."""
+    h_over_kt, w = _shell_inputs(t_rad, jb_w, level_pop.device)
+    n_lower = level_pop[static.lower_idx.long()]
+    n_upper = level_pop[static.upper_idx.long()]
+    ratio = (static.g_lower[:, None] * n_upper) / (
+        static.g_upper[:, None] * n_lower
+    )
+    ratio = torch.where(torch.isfinite(ratio), ratio, 1.0)
+    stim = torch.clamp(1.0 - ratio, min=0.0)
+    tau = (
+        SOBOLEV_COEFFICIENT * static.wl_flu[:, None] * time_explosion
+        * stim * n_lower
+    )
+    safe = torch.where(tau > 0, tau, 1.0)
+    beta = torch.where(
+        tau > 1e3,
+        1.0 / safe,
+        torch.where(tau < 1e-4, 1.0 - 0.5 * tau, -torch.expm1(-tau) / safe),
+    )
+    x = torch.clamp(static.line_nu[:, None] * h_over_kt[None, :], max=700.0)
+    jb = w[None, :] * (static.nu3_coef[:, None] / torch.expm1(x))
+    S = tau.shape[1]
+    prefix = torch.zeros((S, tau.shape[0] + 1), dtype=F64,
+                         device=tau.device)
+    torch.cumsum(tau.T, dim=1, out=prefix[:, 1:])
+    return LineTables(stim=stim, tau=tau, beta=beta, j_blues=jb,
+                      prefix=prefix)
+
+
+def line_tables(static: LineStatic, level_pop: torch.Tensor, t_rad, jb_w,
+                time_explosion: float) -> LineTables:
+    """K3 on the card; the plain version for CPU tensors."""
+    device = level_pop.device
+    if device.type == "cpu":
+        return line_tables_plain(static, level_pop, t_rad, jb_w,
+                                 time_explosion)
+    if device.type != "cuda":
+        raise ValueError(f"line_tables: unsupported device {device}")
+    level_pop = level_pop.to(F64).contiguous()
+    h_over_kt, w = _shell_inputs(t_rad, jb_w, device)
+    i32 = torch.int32
+    cuda.check_cuda(
+        "line_tables", device, level_pop=(level_pop, F64),
+        lower_idx=(static.lower_idx, i32), upper_idx=(static.upper_idx, i32),
+        g_lower=(static.g_lower, F64), g_upper=(static.g_upper, F64),
+        wl_flu=(static.wl_flu, F64), line_nu=(static.line_nu, F64),
+        nu3_coef=(static.nu3_coef, F64),
+    )
+    L = static.line_nu.shape[0]
+    S = level_pop.shape[1]
+    out = [torch.empty((L, S), dtype=F64, device=device) for _ in range(4)]
+    prefix = torch.empty((S, L + 1), dtype=F64, device=device)
+    lib = cuda.library("line_tables")
+    fn = lib.line_tables
+    fn.restype = ctypes.c_int
+    fn.argtypes = (
+        [ctypes.c_void_p] * 10 + [ctypes.c_double, ctypes.c_double,
+                                  ctypes.c_int64, ctypes.c_int]
+        + [ctypes.c_void_p] * 6
+    )
+    p = cuda.ptr
+    err = fn(
+        p(level_pop), p(static.lower_idx), p(static.upper_idx),
+        p(static.g_lower), p(static.g_upper), p(static.wl_flu),
+        p(static.line_nu), p(static.nu3_coef), p(h_over_kt), p(w),
+        float(SOBOLEV_COEFFICIENT), float(time_explosion), L, S,
+        *(p(t) for t in out), p(prefix), cuda.stream(),
+    )
+    cuda.check_launch("line_tables", err)
+    line_tables.launches += 1
+    stim, tau, beta, jb = out
+    return LineTables(stim=stim, tau=tau, beta=beta, j_blues=jb,
+                      prefix=prefix)
+
+
+line_tables.launches = 0
