@@ -28,7 +28,15 @@
 //     plain PyTorch version (tardis_torch/transport/kernel.py) reproduces
 //     this kernel bit for bit; built with --fmad=false for the same reason;
 //   - a packet still alive after max_events events is stopped without
-//     output and counted (summary[3]); the caller warns with the count.
+//     output and counted (summary[3]); the caller warns with the count;
+//   - with a record capacity > 0 (the final iteration with virtual packets)
+//     every birth and every interaction appends a spawn record
+//     (kernel.py:520-545,987-1008).  The slot comes from one global counter,
+//     taken once per group of converged threads (a warp-aggregated
+//     atomicAdd); attempts past the capacity are counted and dropped, as
+//     the JAX package's mode="drop" scatter does.  Slots race, so the record
+//     order differs from run to run: compare records as a multiset.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -59,6 +67,9 @@ struct Params {
   double* est_nubar;   // (S,)
   double* line_diff;   // ((L+1)*S*2,)
   double* summary;     // [emitted in window, reabsorbed, events, immortal]
+  float* vp_records;   // (vp_capacity, 8) spawn records
+  unsigned long long* vp_count;  // records attempted
+  int64_t vp_capacity;
   int64_t n_packets;
   int64_t L;
   int64_t max_events;
@@ -83,6 +94,23 @@ __device__ __forceinline__ int cdf_lower_bound(const float* row, int n, float u)
   return lo;
 }
 
+// one spawn record [r, mu, nu, energy, shell, next_line, li_type, out_line]
+__device__ __forceinline__ void spawn_record(const Params& p, float r, float mu,
+                                             float nu, float energy, int shell,
+                                             int64_t next_line, float li_type,
+                                             float out_line) {
+  namespace cg = cooperative_groups;
+  cg::coalesced_group g = cg::coalesced_threads();
+  unsigned long long base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(p.vp_count, (unsigned long long)g.size());
+  base = g.shfl(base, 0) + g.thread_rank();
+  if (base < (unsigned long long)p.vp_capacity) {
+    float4* row = reinterpret_cast<float4*>(p.vp_records + base * 8);
+    row[0] = make_float4(r, mu, nu, energy);
+    row[1] = make_float4((float)shell, (float)next_line, li_type, out_line);
+  }
+}
+
 __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
                             double* sh_nubar, double* sh_sum) {
   const int S = p.S;
@@ -105,6 +133,8 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
   float r = beta_inner;
   int shell = 0;
   const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)pid);
+  if (p.vp_capacity > 0)
+    spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
 
   int64_t ev = 0;
   for (;; ++ev) {
@@ -235,6 +265,11 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     energy = energy * dop_old_pos * inv_dop_new;
     r = r_new;
     mu = mu_draw;
+    if (p.vp_capacity > 0) {
+      const bool line = event == kEvLine;
+      spawn_record(p, r, mu, nu, energy, shell, next_line, line ? 2.0f : 1.0f,
+                   line ? (float)(next_line - 1) : -1.0f);
+    }
   }
   atomicAdd(&sh_sum[2], (double)(ev + 1 > p.max_events ? p.max_events : ev + 1));
 }
@@ -266,7 +301,7 @@ extern "C" int transport_loop(
     int W, int We, int mode, int disable_line_scattering, uint32_t k0,
     uint32_t k1, float nu_lo, float nu_hi, int64_t max_events, void* out,
     void* est_j, void* est_nubar, void* line_diff, void* summary,
-    void* stream) {
+    void* vp_records, void* vp_count, int64_t vp_capacity, void* stream) {
   Params p;
   p.pool_mu = (const float*)pool_mu;
   p.pool_nu = (const float*)pool_nu;
@@ -283,6 +318,9 @@ extern "C" int transport_loop(
   p.est_nubar = (double*)est_nubar;
   p.line_diff = (double*)line_diff;
   p.summary = (double*)summary;
+  p.vp_records = (float*)vp_records;
+  p.vp_count = (unsigned long long*)vp_count;
+  p.vp_capacity = vp_capacity;
   p.n_packets = n_packets;
   p.L = L;
   p.max_events = max_events;

@@ -19,6 +19,9 @@ on the device in f64 (segment sums by ``index_add_``, one batched
 ``torch.linalg.solve`` per component-size bucket) and rounded to f32 for
 the kernel.  These are table builds off the transport hot loop; they stay
 PyTorch ops in this slice.
+
+``solve_transition_probabilities`` is the host f64 copy of the JAX
+package's, which the formal integral's source function reads.
 """
 
 from __future__ import annotations
@@ -285,6 +288,29 @@ def chain_tables(ctx: _ChainContext, arrays: dict, pn: torch.Tensor):
         dim=2,
     ).reshape(S * M, W + 1)
     return chain_cdf, emit_cdf
+
+
+def solve_transition_probabilities(
+    macro: MacroAtomData,
+    beta_sobolev: np.ndarray,  # (L, S)
+    j_blues: np.ndarray,  # (L, S)
+    stim_factor: np.ndarray,  # (L, S)
+) -> np.ndarray:
+    """Block-normalized transition probabilities (T, S), host f64."""
+    line_idx = macro.transition_line_id
+    p = macro.coef[:, None] * beta_sobolev[line_idx]  # (T, S)
+    up = macro.transition_type == MACRO_INTERNAL_UP
+    p[up] *= stim_factor[line_idx[up]] * j_blues[line_idx[up]]
+
+    refs = macro.block_references
+    block_of = np.repeat(np.arange(len(refs) - 1), np.diff(refs))
+    T, S = p.shape
+    excl = np.zeros((T + 1, S))
+    np.cumsum(p, axis=0, out=excl[1:])
+    denom = (excl[refs[1:]] - excl[refs[:-1]])[block_of]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        p_norm = p / denom
+    return np.where(np.isfinite(p_norm), p_norm, 0.0)
 
 
 def solve_macro_chain(

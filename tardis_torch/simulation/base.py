@@ -1,21 +1,29 @@
 """Simulation orchestration: the classic convergence loop and final run.
 
 Counterpart of ``tardis_tpu/simulation/base.py`` (``Simulation``,
-``run_convergence``, ``run_final``, ``run_tardis``).  Each iteration solves
-the plasma (K3 line tables), builds the macro-atom chain tables, samples the
-packet pool (K2) and runs the event loop (K1); ``advance_state`` inverts the
-estimators and applies the damped updates; ``run_final`` runs one more
-transport at ``last_no_of_packets`` and builds the real-packet spectrum.
+``run_convergence``, ``run_final``, ``integrate_spectrum``, ``run_tardis``).
+Each iteration solves the plasma (K3 line tables), builds the macro-atom
+chain tables, samples the packet pool (K2) and runs the event loop (K1);
+``advance_state`` inverts the estimators and applies the damped updates.
+``run_final`` runs one more transport at ``last_no_of_packets``: with
+``no_of_virtual_packets`` > 0, K1 writes spawn records and the vpacket
+volley (K4) builds the virtual spectrum; it builds the real-packet spectrum
+and, with ``spectrum.method: integrated``, the formal-integral spectrum
+(host source function, rays on K5).
 
 Each stage runs inside a ``torch.profiler.record_function`` span named
 ``tardis.<stage>`` (plasma, macro_chain, transport_tables, packet_source,
-transport_loop, finalize, radiation_field, spectrum); a span costs a
-few microseconds when no profiler is recording, and ``chip_smoke.py``
-reads them.
+transport_loop, vpacket_volley, finalize, radiation_field, spectrum,
+source_function, formal_integral); a span costs a few microseconds when no
+profiler is recording, and ``chip_smoke.py`` reads them.
 
 Everything runs on one device, the card unless the caller passes another.
 Options outside this slice raise ``NotImplementedError`` naming the option
-(see ``check_supported``).  Checkpoint / resume is not ported.
+(see ``check_supported``): tracking, full relativity, the reflective inner
+boundary, nonhomologous expansion, non-simple packet sources, continuum,
+NLTE, detailed rates, helium, vpacket biasing, the macro-atom random-walk
+fallback, HDF atom data and more than one device.  Checkpoint / resume is
+not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from tardis_torch.spectrum.base import (
     frequency_grid,
     real_packet_spectrum,
 )
+from tardis_torch.spectrum.formal_integral import FormalIntegralSolver
 from tardis_torch.transport.solver import (
     TransportResult,
     TransportSolver,
@@ -63,16 +72,20 @@ class IterationRecord:
     reabsorbed_luminosity: float
 
 
+# the JAX package's accepted values; every one runs the rays on the
+# simulation's device
+INTEGRATED_COMPUTE = ("jax", "cpu", "gpu", "automatic", "")
+
+
 def check_supported(config: ConfigDict) -> None:
     """Raise ``NotImplementedError`` for every option this slice refuses."""
     mc = config.montecarlo
     plasma = config.plasma
     tracking = mc.get("tracking", {}) or {}
+    virtual = config.spectrum.get("virtual", {}) or {}
     refused = [
-        ("montecarlo.no_of_virtual_packets > 0",
-         int(mc.get("no_of_virtual_packets", 0)) > 0),
-        ("spectrum.method: integrated",
-         config.spectrum.get("method") == "integrated"),
+        ("spectrum.virtual.enable_biasing",
+         bool(virtual.get("enable_biasing", False))),
         ("montecarlo.tracking.track_last_interaction",
          bool(tracking.get("track_last_interaction", False))),
         ("montecarlo.tracking.track_rpacket",
@@ -94,13 +107,18 @@ def check_supported(config: ConfigDict) -> None:
          plasma.get("radiative_rates_type") == "detailed"),
         ("plasma.helium_treatment",
          plasma.get("helium_treatment", "none") not in ("none", None)),
-        ("spectrum.virtual.virtual_packet_logging",
-         bool((config.spectrum.get("virtual", {}) or {})
-              .get("virtual_packet_logging", False))),
     ]
     for name, hit in refused:
         if hit:
             raise NotImplementedError(f"{name} is not ported yet")
+    compute = str((config.spectrum.get("integrated", {}) or {})
+                  .get("compute", "jax")).lower()
+    if compute not in INTEGRATED_COMPUTE:
+        raise ValueError(
+            f"spectrum.integrated.compute={compute!r}: one device path "
+            "serves every value; accepted are " + ", ".join(
+                repr(c) for c in INTEGRATED_COMPUTE)
+        )
 
 
 class Simulation:
@@ -138,6 +156,8 @@ class Simulation:
         self.iterations_executed = 0
         self.last_transport_result: TransportResult | None = None
         self.spectrum_real: Spectrum | None = None
+        self.spectrum_virtual: Spectrum | None = None
+        self.spectrum_integrated: Spectrum | None = None
         spec = config.spectrum
         self.spectrum_nu_edges = frequency_grid(spec.start, spec.stop,
                                                 spec.num)
@@ -178,6 +198,9 @@ class Simulation:
                 "disable_electron_scattering", False),
             disable_line_scattering=config.plasma.get(
                 "disable_line_scattering", False),
+            vpacket_tracking=bool(
+                (config.spectrum.get("virtual", {}) or {})
+                .get("virtual_packet_logging", False)),
         )
         return cls(config, state, atom_data, plasma_solver, transport_solver)
 
@@ -273,7 +296,8 @@ class Simulation:
         return self
 
     def run_final(self):
-        """Final high-statistics iteration and the real-packet spectrum."""
+        """Final high-statistics iteration and its spectra: real packets,
+        virtual packets (if any) and the formal integral (if asked for)."""
         iteration = self.iterations_executed
         # the plasma is solved once more at the final (t_rad, W), as the
         # JAX package's final host-mode solve does (its n_e fixpoint
@@ -283,6 +307,10 @@ class Simulation:
             self.state, self.plasma_state, self.atom_data,
             n_packets=self.last_no_of_packets, seed=self.seed,
             iteration=iteration,
+            n_vpackets=int(self.config.montecarlo.get(
+                "no_of_virtual_packets", 0)),
+            spectrum_nu_edges=self.spectrum_nu_edges,
+            vpacket_spawn_nu_range=self._vpacket_spawn_nu_range(),
         )
         self.last_transport_result = result
         self.iterations_executed += 1
@@ -291,9 +319,46 @@ class Simulation:
                 result.output_nu, result.output_energy, result.emitted_mask,
                 self.spectrum_nu_edges, result.time_of_simulation,
             )
+            if result.virt_energy_hist is not None:
+                self.spectrum_virtual = Spectrum(
+                    nu_edges=result.virt_nu_edges,
+                    luminosity_nu=(result.virt_energy_hist
+                                   / result.time_of_simulation
+                                   / np.diff(result.virt_nu_edges)),
+                )
+        if self.config.spectrum.get("method") == "integrated":
+            self.integrate_spectrum()
         for cb in self._callbacks:
             cb(self)
         return self
+
+    def _vpacket_spawn_nu_range(self):
+        """``montecarlo.virtual_spectrum_spawn_range`` (wavelengths, cm) as
+        (nu_min, nu_max) in Hz."""
+        rng = self.config.montecarlo.get("virtual_spectrum_spawn_range", {})
+        start = float(rng.get("start", 0.0))
+        end = float(rng.get("end", float("inf")))
+        nu_hi = C / start if start > 0 else float("inf")
+        nu_lo = C / end if np.isfinite(end) and end > 0 else 0.0
+        return (nu_lo, nu_hi)
+
+    def integrate_spectrum(self) -> Spectrum:
+        """The formal-integral spectrum from the last iteration's line
+        estimators; the rays run on the simulation's device (K5)."""
+        if self.last_transport_result is None:
+            raise RuntimeError("run the simulation before integrating")
+        integ = self.config.spectrum.get("integrated", {}) or {}
+        solver = FormalIntegralSolver(
+            n_points=int(integ.get("points", 1000)),
+            interpolate_shells=int(integ.get("interpolate_shells", 0)),
+        )
+        self.spectrum_integrated = solver.solve(
+            self.spectrum_nu_edges, self.state, self.plasma_state,
+            self.last_transport_result, self.atom_data,
+            line_interaction_type=self.transport.line_interaction_type,
+            device=self.plasma_solver.device,
+        )
+        return self.spectrum_integrated
 
     def run(self):
         self.run_convergence()

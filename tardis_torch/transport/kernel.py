@@ -19,6 +19,15 @@ package's draws:
    interaction (scatter, downbranch or the macro-atom absorbing chain);
 5. death at the outer (emitted, +nu) or inner (reabsorbed, -nu) boundary.
 
+With ``vpacket_capacity`` > 0 (the final iteration with virtual packets)
+every birth and every interaction appends a spawn record for the vpacket
+volley (``transport/vpacket.py``), as ``kernel.py:520-545,987-1008`` of the
+JAX package do: ``[r, mu, nu, energy, shell, next_line, li_type, out_line]``
+f32, the birth row ``[beta_inner, mu, nu, energy, 0, birth_line, -1, -1]``,
+an interaction row the state after the scatter with ``li_type`` 1 for an
+e-scatter and 2 for a line and ``out_line = next_line - 1`` for a line.
+``vp_count`` counts every attempt; rows past the capacity are dropped.
+
 ``transport_loop`` launches the CUDA kernel (one thread per packet) for
 tensors on the card and runs the plain PyTorch version
 ``transport_loop_plain`` (a lockstep loop over lanes refilled from the
@@ -64,9 +73,16 @@ class TransportOutput:
     # [energy emitted inside the nu window, energy reabsorbed, events,
     #  packets stopped by the event cap]
     summary: torch.Tensor  # (4,) f64
+    vp_records: torch.Tensor  # (capacity, 8) f32 spawn records
+    vp_count: torch.Tensor  # (1,) i64 records attempted (may exceed capacity)
+
+    @property
+    def n_vp_records(self) -> int:
+        """Records written: the attempts, clipped to the capacity."""
+        return min(int(self.vp_count[0]), self.vp_records.shape[0])
 
 
-def _allocate(n_packets, S, L, device) -> TransportOutput:
+def _allocate(n_packets, S, L, capacity, device) -> TransportOutput:
     z = torch.zeros
     return TransportOutput(
         out=z((n_packets, 2), dtype=torch.float32, device=device),
@@ -74,7 +90,19 @@ def _allocate(n_packets, S, L, device) -> TransportOutput:
         est_nubar=z(S, dtype=torch.float64, device=device),
         line_diff=z(2 * (L + 1) * S, dtype=torch.float64, device=device),
         summary=z(4, dtype=torch.float64, device=device),
+        vp_records=z((capacity, 8), dtype=torch.float32, device=device),
+        vp_count=z(1, dtype=torch.int64, device=device),
     )
+
+
+def _spawn(res: TransportOutput, n_attempted: int, rows) -> int:
+    """Append ``rows`` after ``n_attempted`` records, dropping those past
+    the capacity; returns the new attempt count."""
+    cap = res.vp_records.shape[0]
+    keep = max(0, min(rows.shape[0], cap - n_attempted))
+    if keep:
+        res.vp_records[n_attempted:n_attempted + keep] = rows[:keep]
+    return n_attempted + rows.shape[0]
 
 
 def _window(nu_window):
@@ -127,17 +155,20 @@ def _emission(t: TransportTables, shell, i_ev, u_chain, u_emit):
 
 def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                          nu_window=(0.0, np.inf), batch_size: int = 65536,
-                         max_events: int = MAX_EVENTS) -> TransportOutput:
+                         max_events: int = MAX_EVENTS,
+                         vpacket_capacity: int = 0) -> TransportOutput:
     """Plain PyTorch version of K1: a lockstep loop over ``batch_size`` lanes.
 
     Dead lanes refill from the pool in packet-id order.  Every packet's
     arithmetic is elementwise and keyed by its id, so per-packet outputs do
-    not depend on ``batch_size``.
+    not depend on ``batch_size``.  Spawn records are appended in lane order
+    within a step, as the JAX package's cumsum slots are.
     """
     device = pool_mu.device
     N = pool_mu.shape[0]
     S, L = t.n_shells, t.n_lines
-    res = _allocate(N, S, L, device)
+    res = _allocate(N, S, L, vpacket_capacity, device)
+    n_vp = 0
     nu_lo, nu_hi = _window(nu_window)
     B = max(1, min(batch_size, N))
     f32, i64 = torch.float32, torch.int64
@@ -169,9 +200,15 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
             ids = torch.clamp(new_ids, max=N - 1)
             b_mu = pool_mu[ids]
             inv_dop = 1.0 / (1.0 - b_mu * beta_inner)
+            b_nu = pool_nu[ids] * inv_dop
+            if vpacket_capacity:
+                one = torch.ones_like(b_mu)
+                n_vp = _spawn(res, n_vp, torch.stack(
+                    [one * beta_inner, b_mu, b_nu, inv_dop, 0.0 * one,
+                     birth[ids].float(), -one, -one], dim=1)[fill])
             r = torch.where(fill, beta_inner, r)
             mu = torch.where(fill, b_mu, mu)
-            nu = torch.where(fill, pool_nu[ids] * inv_dop, nu)
+            nu = torch.where(fill, b_nu, nu)
             energy = torch.where(fill, inv_dop, energy)
             shell = torch.where(fill, 0, shell)
             next_line = torch.where(fill, birth[ids], next_line)
@@ -277,6 +314,12 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         mu = torch.where(interacts, mu_draw, torch.where(alive, mu_new, mu))
         shell = torch.where(is_boundary & ~emitted & ~reabsorbed, new_shell,
                             shell)
+        if vpacket_capacity:
+            li_type = torch.where(is_line, 2.0, 1.0).float()
+            out_line = torch.where(is_line, (next_line - 1).float(), -1.0)
+            n_vp = _spawn(res, n_vp, torch.stack(
+                [r, mu, nu_new, energy, shell.float(), next_line.float(),
+                 li_type, out_line], dim=1)[interacts])
 
         # ---- deaths (nu is unchanged by a boundary crossing)
         dying = emitted | reabsorbed
@@ -293,21 +336,25 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         eidx = eidx + 1
     res.summary[2] = n_events
     res.summary[3] = n_immortal
+    res.vp_count[0] = n_vp
     return res
 
 
 def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
                    nu_window=(0.0, np.inf),
-                   max_events: int = MAX_EVENTS) -> TransportOutput:
+                   max_events: int = MAX_EVENTS,
+                   vpacket_capacity: int = 0) -> TransportOutput:
     """K1 on the card; the plain version for CPU tensors.
 
     ``key`` is the iteration's run key; ``nu_window`` the (lo, hi)
-    emitted-luminosity window in NU_UNIT.
+    emitted-luminosity window in NU_UNIT; ``vpacket_capacity`` the number
+    of spawn records to keep (0: none are written).
     """
     device = pool_mu.device
     if device.type == "cpu":
         return transport_loop_plain(t, pool_mu, pool_nu, key, nu_window,
-                                    max_events=max_events)
+                                    max_events=max_events,
+                                    vpacket_capacity=vpacket_capacity)
     if device.type != "cuda":
         raise ValueError(f"transport_loop: unsupported device {device}")
     f32 = torch.float32
@@ -330,7 +377,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
             or (t.mode != LINE_SCATTER
                 and t.emit_cdf.shape != (rows, 3 * t.emit_width))):
         raise ValueError("transport_loop: table shapes do not agree")
-    res = _allocate(N, S, L, device)
+    res = _allocate(N, S, L, vpacket_capacity, device)
     nu_lo, nu_hi = _window(nu_window)
     fn = cuda.library("transport_loop").transport_loop
     fn.restype = ctypes.c_int
@@ -338,7 +385,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     fn.argtypes = (
         [vp, vp, i64] + [vp] * 8 + [i64] + [ci] * 6
         + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-           i64] + [vp] * 6
+           i64] + [vp] * 7 + [i64, vp]
     )
     p = cuda.ptr
     err = fn(
@@ -347,7 +394,8 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         p(t.emit_cdf), L, S, t.n_states, t.chain_width, t.emit_width,
         t.mode, int(t.disable_line_scattering), key[0], key[1], nu_lo, nu_hi,
         max_events, p(res.out), p(res.est_j), p(res.est_nubar),
-        p(res.line_diff), p(res.summary), cuda.stream(),
+        p(res.line_diff), p(res.summary), p(res.vp_records),
+        p(res.vp_count), vpacket_capacity, cuda.stream(),
     )
     cuda.check_launch("transport_loop", err)
     transport_loop.launches += 1

@@ -1,14 +1,20 @@
-"""Transport solver: one Monte Carlo iteration around kernels K2 and K1.
+"""Transport solver: one Monte Carlo iteration around kernels K2, K1, K4.
 
 Counterpart of ``tardis_tpu/transport/solver.py`` (``TransportSolver``
 .run_iteration / ._finalize, ``TransportResult``, ``solve_radiation_field``)
 for the classic mode.  The per-iteration keys follow the JAX package
 exactly: base = key(seed), source = fold_in(base, 2 it),
 run = fold_in(base, 2 it + 1), so both packages draw the same bits.
+
+With ``n_vpackets`` > 0 K1 keeps ``VPACKET_RECORDS_PER_PACKET`` spawn
+records per packet (the JAX package's default) and the vpacket volley (K4)
+turns them into the virtual spectrum; records past that capacity are
+dropped with a warning.
 """
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 
 import numpy as np
@@ -28,6 +34,11 @@ from tardis_torch.transport.kernel import (
 )
 from tardis_torch.transport.source import blackbody_source
 from tardis_torch.transport.tables import NU_UNIT, build_transport_tables
+from tardis_torch.transport.vpacket import trace_vpacket_records
+
+logger = logging.getLogger(__name__)
+
+VPACKET_RECORDS_PER_PACKET = 8
 
 
 @dataclass
@@ -50,6 +61,10 @@ class TransportResult:
     n_immortal: int
     # (nu_min, nu_max, emitted in window, reabsorbed) luminosities [erg/s]
     _lum_cache: tuple
+    virt_nu_edges: np.ndarray | None = None  # (M+1,) Hz
+    virt_energy_hist: np.ndarray | None = None  # (M,) erg per bin
+    vp_records: int = 0  # spawn records attempted
+    vpackets: dict | None = None  # virt_packet_* arrays (packet logging)
 
     def _materialize(self):
         if not hasattr(self, "_out_nu"):
@@ -108,6 +123,7 @@ class TransportSolver:
         line_interaction_type: str = "scatter",
         disable_electron_scattering: bool = False,
         disable_line_scattering: bool = False,
+        vpacket_tracking: bool = False,
     ):
         if line_interaction_type not in ("scatter", "downbranch",
                                          "macroatom"):
@@ -117,6 +133,7 @@ class TransportSolver:
         self.line_interaction_type = line_interaction_type
         self.disable_electron_scattering = disable_electron_scattering
         self.disable_line_scattering = disable_line_scattering
+        self.vpacket_tracking = vpacket_tracking
 
     def run_iteration(
         self,
@@ -126,6 +143,9 @@ class TransportSolver:
         n_packets: int,
         seed: int,
         iteration: int,
+        n_vpackets: int = 0,
+        spectrum_nu_edges: np.ndarray | None = None,
+        vpacket_spawn_nu_range: tuple = (0.0, np.inf),
         need_line_estimators: bool = True,
         lum_nu_window: tuple = (0.0, np.inf),
     ) -> TransportResult:
@@ -157,17 +177,75 @@ class TransportSolver:
             pool_mu, pool_nu = blackbody_source(src_key, n_packets,
                                                 sim_state.t_inner, device)
         lo, hi = lum_nu_window
+        capacity = n_packets * VPACKET_RECORDS_PER_PACKET \
+            if n_vpackets > 0 else 0
         with record_function("tardis.transport_loop"):
             res = transport_loop(
                 tables, pool_mu, pool_nu, run_key,
                 nu_window=(lo / NU_UNIT, hi / NU_UNIT),
+                vpacket_capacity=capacity,
             )
+        virtual = {}
+        if n_vpackets > 0:
+            with record_function("tardis.vpacket_volley"):
+                virtual = self._volley(tables, res, n_vpackets,
+                                       spectrum_nu_edges,
+                                       vpacket_spawn_nu_range, n_packets,
+                                       sim_state)
         with record_function("tardis.finalize"):
             return self._finalize(res, sim_state, atom_data, n_packets,
-                                  need_line_estimators, lum_nu_window)
+                                  need_line_estimators, lum_nu_window,
+                                  **virtual)
+
+    def _volley(self, tables, res, n_vpackets, nu_edges, spawn_nu_range,
+                n_packets, sim_state) -> dict:
+        """The virtual spectrum (and, with packet logging, every virtual
+        packet) from K1's spawn records."""
+        attempted = int(res.vp_count[0])
+        capacity = res.vp_records.shape[0]
+        if attempted > capacity:
+            logger.warning(
+                "%d vpacket spawn record(s) past the capacity of %d were "
+                "dropped", attempted - capacity, capacity,
+            )
+        records = res.vp_records[:res.n_vp_records]
+        nu_edges = np.asarray(nu_edges, dtype=np.float64)
+        lo, hi = spawn_nu_range
+        vol = trace_vpacket_records(
+            tables, records, n_vpackets,
+            torch.as_tensor((nu_edges / NU_UNIT).astype(np.float32),
+                            device=records.device),
+            spawn_nu_range=(lo / NU_UNIT, hi / NU_UNIT),
+            return_packets=self.vpacket_tracking,
+        )
+        e0 = 1.0 / n_packets
+        vpackets = None
+        if self.vpacket_tracking:
+            ve = vol.energy.cpu().numpy()
+            keep = np.nonzero(ve > 0)[0]
+            rec = keep // n_vpackets
+            vp = records.cpu().numpy().astype(np.float64)
+            # the reference's virt_packet_* names
+            vpackets = {
+                "virt_packet_nus":
+                    vol.nu.cpu().numpy()[keep].astype(np.float64) * NU_UNIT,
+                "virt_packet_energies": ve[keep].astype(np.float64) * e0,
+                "virt_packet_initial_rs":
+                    vp[rec, 0] * (C * sim_state.time_explosion),
+                "virt_packet_initial_mus": vp[rec, 1],
+                "virt_packet_last_interaction_in_nu": vp[rec, 2] * NU_UNIT,
+                "virt_packet_last_interaction_type":
+                    vp[rec, 6].astype(np.int8),
+                "virt_packet_last_line_interaction_out_id":
+                    vp[rec, 7].astype(np.int32),
+            }
+        return dict(virt_nu_edges=nu_edges,
+                    virt_energy_hist=vol.hist.cpu().numpy() * e0,
+                    vp_records=attempted, vpackets=vpackets)
 
     def _finalize(self, res, sim_state, atom_data, n_packets,
-                  need_line_estimators, lum_nu_window) -> TransportResult:
+                  need_line_estimators, lum_nu_window,
+                  **virtual) -> TransportResult:
         """Kernel units -> cgs: length c t_exp, frequency NU_UNIT, energy
         1/N erg (time of simulation = 1 erg / L_requested)."""
         ct = C * sim_state.time_explosion
@@ -203,6 +281,7 @@ class TransportSolver:
                 float(lum_nu_window[0]), float(lum_nu_window[1]),
                 float(summary[0]) * e0 / dt, float(summary[1]) * e0 / dt,
             ),
+            **virtual,
         )
 
 

@@ -51,10 +51,28 @@ def test_default_device_raises_without_a_card(monkeypatch):
         run_tardis(copy.deepcopy(CONFIG))
 
 
+def test_formal_integral_solver_defaults_to_the_card(monkeypatch):
+    """FormalIntegralSolver has no CPU default: without a device it asks for
+    the card and raises where there is none."""
+    from tardis_torch.spectrum.formal_integral import FormalIntegralSolver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FormalIntegralSolver().solve(None, None, None, None, None)
+
+
 def test_refused_options_name_themselves():
     cfg = copy.deepcopy(CONFIG)
-    cfg["montecarlo"]["no_of_virtual_packets"] = 3
-    with pytest.raises(NotImplementedError, match="no_of_virtual_packets"):
+    cfg["montecarlo"]["enable_full_relativity"] = True
+    with pytest.raises(NotImplementedError, match="enable_full_relativity"):
+        run_tardis(cfg, device="cpu")
+    cfg = copy.deepcopy(CONFIG)
+    cfg["spectrum"]["virtual"] = {"enable_biasing": True}
+    with pytest.raises(NotImplementedError, match="enable_biasing"):
+        run_tardis(cfg, device="cpu")
+    cfg = copy.deepcopy(CONFIG)
+    cfg["spectrum"]["integrated"] = {"compute": "numba"}
+    with pytest.raises(ValueError, match="compute"):
         run_tardis(cfg, device="cpu")
     cfg = copy.deepcopy(CONFIG)
     cfg["montecarlo"]["tracking"]["track_last_interaction"] = True
@@ -70,9 +88,11 @@ def test_wrappers_never_fall_back():
     checks refuse a wrong dtype."""
     from tardis_torch import cuda
     from tardis_torch.plasma.line_tables import LineStatic, line_tables
+    from tardis_torch.spectrum.formal_integral import integrate_rays
     from tardis_torch.transport.kernel import transport_loop
     from tardis_torch.transport.source import blackbody_source
     from tardis_torch.transport.tables import TransportTables
+    from tardis_torch.transport.vpacket import trace_vpacket_records
 
     meta = torch.device("meta")
 
@@ -94,8 +114,14 @@ def test_wrappers_never_fall_back():
     )
     with pytest.raises(ValueError, match="unsupported device"):
         transport_loop(tables, empty(8), empty(8), (0, 1))
+    with pytest.raises(ValueError, match="unsupported device"):
+        trace_vpacket_records(tables, empty(3, 8), 2, empty(5))
+    with pytest.raises(ValueError, match="unsupported device"):
+        integrate_rays(empty(3), empty(2), empty(2), empty(2), empty(2),
+                       empty(4), *(empty(2, 4) for _ in range(4)), empty(3))
     assert (blackbody_source.launches, line_tables.launches,
-            transport_loop.launches) == (0, 0, 0)
+            transport_loop.launches, trace_vpacket_records.launches,
+            integrate_rays.launches) == (0, 0, 0, 0, 0)
     cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="float64"):
         cuda.check_cuda("k", cpu, prefix=(torch.zeros(3), torch.float64))
