@@ -5,28 +5,43 @@ Usage (from the repository root, one CUDA card):  python3 chip_smoke.py
 
 Phases, one printed line each (plus one line per iteration):
   1. header: the card (nvidia-smi), torch and CUDA versions, and the
-     parallel nvcc build of every kernel in tardis_torch/csrc/;
-  2. checks at the main path's shapes (bench problem: synthetic atom data
+     parallel nvcc build of the kernel libraries in tardis_torch/csrc/
+     without options (K2, K3, K5);
+  2. checks at the paths' shapes (bench problem: synthetic atom data
      with 200 levels and level jumps up to 60, 20 shells, macroatom): the
      chain build timed alone, and each kernel against its plain PyTorch
-     version on the card (K3 line tables; K2 packet source at both packet
-     counts; K1 event loop without spawn records at the convergence
-     iterations' 2,097,152 packets and with them at the final iteration's
-     4,194,304; K4 vpacket volley in one launch on those records), with
-     CUDA-event times of both, the least time the card could take (bound)
-     and, where one PyTorch call computes the same function, its time;
+     version on the card, with CUDA-event times of both, the least time the
+     card could take (bound) and, where one PyTorch call computes the same
+     function, its time.  K3 line tables; K2's simple and relativistic pools
+     at both packet counts, the weighted pool at 2,097,152; then the K1 and
+     K4 instantiations the three paths select (kernel.variant and
+     vpacket.variant_name on the tables and pools built here), built in
+     parallel, and K1 at each path's shapes: the convergence iterations'
+     2,097,152 packets without spawn records and, on the main and
+     relativity paths, the final iteration's 4,194,304 with 8 records a
+     packet; K4 in one launch on each path's final-iteration records;
   3. the main path: run_tardis on the card, 4 convergence iterations of
      2,097,152 packets and the production final iteration (4,194,304
      packets, 2 virtual packets per spawn record, the formal integral at
-     1,000 frequencies), with the launch counts reset to 0 just before and
-     read just after;
-  4. K5 (formal-integral rays) against its plain version on the main
+     1,000 frequencies), tracking off as bench.py runs it;
+  4. the relativity path: the same run with enable_full_relativity and
+     last-interaction tracking at its default (on), so the relativistic
+     pool, K1's full-relativity instantiation with last-interaction rows
+     and K4's full-relativity branch;
+  5. the options path: 3 iterations of 2,097,152 packets with the weighted
+     pool, the reflective inner boundary (albedo 0.5) and the r-packet
+     tracker;
+     on each path the launch counts are reset to 0 just before the run and
+     read just after, every variant a wrapper launched under its own line;
+  6. K5 (formal-integral rays) against its plain version on the main
      path's own source-function tables;
-  5. where the time goes: torch.profiler over a two-iteration run of the
+  7. where the time goes: torch.profiler over a two-iteration run of the
      main path (device time by kernel, host time by tardis.* span, the
      device's busy share);
-  6. a JSON line of every kernel, the card's name and power limit, and the
-     result line {"ok": true, "device": {...}}.
+  8. a JSON line of every kernel (each K1, K2 and K4 variant on its own
+     line, with the launches of the path that runs it; the weighted pool's
+     line also counts its normalising launches), the card's name and power
+     limit, and the result line {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the result line.  The script
 imports nothing of JAX and nothing of the JAX package.
@@ -62,6 +77,9 @@ FINAL_PACKETS = 4_194_304
 N_VPACKETS = 2
 INTEGRATED_POINTS = 1000
 PLAIN_LANES = 65_536
+OPTIONS_ITERATIONS = 3
+ALBEDO = 0.5
+TRACKER_LENGTH = 10
 PROFILE_ITERATIONS = 2
 ITERATIONS = 5
 SEED = 23111963
@@ -86,6 +104,43 @@ BENCH_CONFIG = {
                  "num": 10000, "method": "integrated",
                  "integrated": {"points": INTEGRATED_POINTS}},
 }
+
+
+RELATIVITY_CONFIG = copy.deepcopy(BENCH_CONFIG)
+RELATIVITY_CONFIG["montecarlo"]["enable_full_relativity"] = True
+del RELATIVITY_CONFIG["montecarlo"]["tracking"]  # tracking at its default
+
+OPTIONS_CONFIG = copy.deepcopy(BENCH_CONFIG)
+OPTIONS_CONFIG["montecarlo"].update(
+    last_no_of_packets=N_PACKETS, iterations=OPTIONS_ITERATIONS,
+    no_of_virtual_packets=0,
+    packet_source="weighted", enable_reflective_inner_boundary=True,
+    inner_boundary_albedo=ALBEDO,
+    tracking={"track_last_interaction": False, "track_rpacket": True,
+              "initial_array_length": TRACKER_LENGTH})
+OPTIONS_CONFIG["spectrum"].update(method="real")
+del OPTIONS_CONFIG["spectrum"]["integrated"]
+
+# what each path hands K1: the transport tables' options, the pool, the
+# trackers, and whether its final iteration writes spawn records
+PATHS = {
+    "main": dict(tables={}, pool="simple", last_interaction=False,
+                 tracker_length=0, records=True),
+    "relativity": dict(tables={"full_relativity": True}, pool="relativistic",
+                       last_interaction=True, tracker_length=0, records=True),
+    "options": dict(tables={"inner_boundary_albedo": ALBEDO}, pool="weighted",
+                    last_interaction=False, tracker_length=TRACKER_LENGTH,
+                    records=False),
+}
+WITH_OPTIONS = ("transport_loop", "vpacket_volley")
+
+
+def line_name(kernel, variant):
+    """The kernels-line name of one variant of a wrapper (K2 by pool, K1
+    and K4 by the variant names of their modules)."""
+    if variant in ("simple", "classic"):
+        return kernel
+    return f"{kernel}[{variant}]"
 
 
 def say(phase, **kw):
@@ -187,8 +242,24 @@ def check_line_tables(state, atom, device):
     )
 
 
-def check_blackbody_source(state, device, n_packets, iteration):
-    """K2 at ``n_packets`` with the source key of ``iteration``."""
+REPLACES_K2 = {"simple": "tardis_tpu/transport/source.py:31",
+               "relativistic": "tardis_tpu/transport/source.py:89",
+               "weighted": "tardis_tpu/transport/source.py:58"}
+
+
+def beta_inner(state):
+    from tardis_torch.constants import C
+
+    return float(state.geometry.r_inner[0]
+                 / (C * state.geometry.time_explosion))
+
+
+def check_blackbody_source(state, device, n_packets, iteration,
+                           pool="simple"):
+    """K2 at ``n_packets`` with the source key of ``iteration``.  mu and nu
+    must agree bit for bit; w too for the relativistic pool (a constant),
+    and within rtol 1e-6 for the weighted one (its mean is an f64 sum whose
+    order differs: one ulp of the mean at most)."""
     from tardis_torch.transport.solver import iteration_keys
     from tardis_torch.transport.source import (
         blackbody_source,
@@ -196,25 +267,35 @@ def check_blackbody_source(state, device, n_packets, iteration):
     )
 
     key, _ = iteration_keys(SEED, iteration)
-    args = (key, n_packets, state.t_inner, device)
-    ms, (mu, nu) = cuda_ms(lambda: blackbody_source(*args), 10)
-    plain_ms, (mu_p, nu_p) = cuda_ms(lambda: blackbody_source_plain(*args), 3)
-    rel = max(((mu - mu_p).abs() / mu_p.abs().clamp_min(1e-30)).max().item(),
-              ((nu - nu_p).abs() / nu_p.abs().clamp_min(1e-30)).max().item())
-    if not (rel <= 1e-6):
-        raise AssertionError(f"blackbody_source: max rel {rel}")
-    max_abs = max((mu - mu_p).abs().max().item(),
-                  (nu - nu_p).abs().max().item())
-    # per packet: 7 threefry hashes, a ~10-step search, ~15 flops
-    b_ms, b_by = bound(nbytes(mu, nu) + 999 * 4,
-                       n_packets * (7 * THREEFRY_OPS + 30 + 15))
-    say("check_blackbody_source", n=n_packets, ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, max_rel=rel, bitwise_equal=bool(
-            torch.equal(mu, mu_p) and torch.equal(nu, nu_p)))
-    return (mu, nu), dict(
-        name="blackbody_source", route="cuda",
+    args = (key, n_packets, state.t_inner, device, pool, beta_inner(state))
+    ms, (mu, nu, w) = cuda_ms(lambda: blackbody_source(*args), 10)
+    plain_ms, (mu_p, nu_p, w_p) = cuda_ms(
+        lambda: blackbody_source_plain(*args), 3)
+    pairs = [(mu, mu_p), (nu, nu_p)] + ([] if w is None else [(w, w_p)])
+    rel = max(((a - b).abs() / b.abs().clamp_min(1e-30)).max().item()
+              for a, b in pairs)
+    bitwise = {name: bool(torch.equal(a, b))
+               for name, (a, b) in zip(("mu", "nu", "w"), pairs)}
+    need = {"simple": ("mu", "nu"), "relativistic": ("mu", "nu", "w"),
+            "weighted": ("mu", "nu")}[pool]
+    if not (rel <= 1e-6 and (pool == "simple"
+                             or all(bitwise[k] for k in need))):
+        raise AssertionError(f"blackbody_source[{pool}]: max rel {rel}, "
+                             f"bitwise {bitwise}")
+    max_abs = max((a - b).abs().max().item() for a, b in pairs)
+    # per packet: the key and six draws (the relativistic pool two more,
+    # the weighted pool two draws, an f64 exp and expm1), a ~10-step
+    # search, ~15 flops
+    hashes = {"simple": 7, "relativistic": 9, "weighted": 3}[pool]
+    n_out = nbytes(mu, nu) + (0 if w is None else nbytes(w))
+    b_ms, b_by = bound(n_out + 999 * 4,
+                       n_packets * (hashes * THREEFRY_OPS + 30 + 15))
+    say("check_blackbody_source", pool=pool, n=n_packets, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, max_rel=rel, bitwise=bitwise)
+    return (mu, nu, w), dict(
+        name=line_name("blackbody_source", pool), route="cuda",
         source="tardis_torch/csrc/blackbody_source.cu",
-        replaces="tardis_tpu/transport/source.py:31",
+        replaces=REPLACES_K2[pool],
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
     )
@@ -273,12 +354,12 @@ def check_chain_build(atom, ps):
     return chain
 
 
-def k1_bound(tables, n_packets, n_events, n_records=0):
-    """Least time for K1: every table read once, outputs (spawn records
-    included) written once, against the events' hashing, search and
-    arithmetic.  Every event hashes at least twice (its key and the tau
-    draw); interactions hash more, so counting two keeps the bound a lower
-    bound."""
+def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0):
+    """Least time for K1: every table read once, outputs (spawn records and
+    tracker rows included) written once, against the events' hashing,
+    search and arithmetic.  Every event hashes at least twice (its key and
+    the tau draw); interactions hash more, so counting two keeps the bound
+    a lower bound."""
     t = tables
     in_bytes = 8 * n_packets + nbytes(
         t.r_inner, t.r_outer, t.chi_e, t.line_nu, t.prefix, t.line2macro,
@@ -287,36 +368,42 @@ def k1_bound(tables, n_packets, n_events, n_records=0):
                                      + 2 * t.n_shells + 4) + 32 * n_records
     per_event = (2 * THREEFRY_OPS + 8 * math.ceil(math.log2(t.n_lines + 1))
                  + 60)
-    return bound(in_bytes + out_bytes, n_events * per_event)
+    return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event)
 
 
-def compare_transport_loop(tables, pool, run_key, cap):
-    """K1 against its plain version on one pool, with spawn-record capacity
-    ``cap`` (0: none).  Both versions draw the same bits and take the same
-    f32 steps (no FMA contraction), so every packet must end bitwise equal
-    and write the same spawn records (in another order: compared as sorted
-    multisets); the f64 sums differ only in the order of their atomic adds,
-    hence rtol 1e-9.  Returns the phase's numbers and K1's records."""
+def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
+                           tracker_length=0):
+    """K1 against its plain version on one pool (mu, nu, w; w None for the
+    simple pool), with spawn-record capacity ``cap`` (0: none) and the
+    trackers asked for.  Both versions draw the same bits and take the same
+    f32 steps (no FMA contraction), so every packet must end bitwise equal,
+    with bitwise equal last-interaction and tracker rows, and write the
+    same spawn records (in another order: compared as sorted multisets);
+    the f64 sums differ only in the order of their atomic adds, hence rtol
+    1e-9.  Returns the phase's numbers and both outputs."""
     from tardis_torch.transport.kernel import (
         transport_loop,
         transport_loop_plain,
     )
 
-    mu, nu = pool
+    mu, nu, w = pool
     n = mu.shape[0]
-    ms, k = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key,
-                                           vpacket_capacity=cap), 5)
+    kw = dict(vpacket_capacity=cap, pool_w=w,
+              last_interaction=last_interaction,
+              tracker_length=tracker_length)
+    ms, k = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key, **kw), 5)
     # the plain version's lockstep loop refills PLAIN_LANES lanes from the
     # pool; per-packet results do not depend on the lane count
     plain_ms, p = cuda_ms(
         lambda: transport_loop_plain(tables, mu, nu, run_key,
-                                     batch_size=PLAIN_LANES,
-                                     vpacket_capacity=cap), 1,
+                                     batch_size=PLAIN_LANES, **kw), 1,
         warmup=False)
     sk = torch.sign(k.out[:, 0])
     sp = torch.sign(p.out[:, 0])
     agree = (sk == sp).double().mean().item()
     bitwise = (k.out == p.out).all(dim=1).double().mean().item()
+    rows_equal = bool(torch.equal(k.last_interaction, p.last_interaction)
+                      and torch.equal(k.tracker, p.tracker))
     rels = {name: rel_err(getattr(k, name), getattr(p, name))
             for name in ("est_j", "est_nubar", "line_diff")}
     rels["L_window"] = rel_err(k.summary[0:1], p.summary[0:1])
@@ -330,76 +417,167 @@ def compare_transport_loop(tables, pool, run_key, cap):
     records_equal = (records[0] == records[1]
                      and k.n_vp_records == p.n_vp_records
                      and torch.equal(rows_k, rows_p))
-    if not (bitwise == 1.0 and bool((sk != 0).all())
+    if not (bitwise == 1.0 and bool((sk != 0).all()) and rows_equal
             and all(r <= 1e-9 for r in rels.values())
             and events[0] == events[1] and immortal == (0, 0)
             and records_equal and records[0] <= cap
             and (cap == 0 or records[0] > n)):
         raise AssertionError(
             f"transport_loop at {n} packets: bitwise packets {bitwise}, "
-            f"status agreement {agree}, max rel {rels}, events {events}, "
-            f"immortal {immortal}, records {records} of capacity {cap}, "
+            f"status agreement {agree}, tracker rows equal {rows_equal}, "
+            f"max rel {rels}, events {events}, immortal {immortal}, "
+            f"records {records} of capacity {cap}, "
             f"records equal {records_equal}")
     max_abs = max([(getattr(k, name) - getattr(p, name)).abs().max().item()
                    for name in ("out", "est_j", "est_nubar", "line_diff",
                                 "summary")]
                   + ([(rows_k - rows_p).abs().max().item()] if n_rec else []))
-    b_ms, b_by = k1_bound(tables, n, events[0], n_rec)
+    extra = (0 if w is None else nbytes(w)) + nbytes(k.last_interaction,
+                                                     k.tracker)
+    b_ms, b_by = k1_bound(tables, n, events[0], n_rec, extra)
     numbers = dict(n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, events=events[0], records=records[0],
                    record_capacity=cap, status_agreement=agree,
-                   bitwise_packets=bitwise,
+                   bitwise_packets=bitwise, tracker_rows_bitwise=rows_equal,
                    records_bitwise_as_multiset=records_equal, max_rel=rels,
                    max_abs_err=max_abs)
-    return numbers, k.vp_records[:n_rec]
+    return numbers, k, p
 
 
-def check_transport_loop(state, atom, ps, chain, pools, device):
-    """K1 at both of the main path's shapes: the convergence iterations'
-    (N_PACKETS, no records) and the final iteration's (FINAL_PACKETS,
-    VPACKET_RECORDS_PER_PACKET records a packet).  The kernels line takes
-    the convergence shape, four of K1's five launches on the main path."""
+def k1_entry(name, replaces, numbers):
+    return dict(name=name, route="cuda",
+                source="tardis_torch/csrc/transport_loop.cu",
+                replaces=replaces, max_abs_err=numbers["max_abs_err"],
+                ms=numbers["ms"], plain_ms=numbers["plain_ms"],
+                bound_ms=numbers["bound_ms"], bound_by=numbers["bound_by"],
+                library_ms=None)
+
+
+def main_tables(state, atom, ps, chain, **options):
+    from tardis_torch.transport.tables import build_transport_tables
+
+    return build_transport_tables(
+        state.geometry, ps.electron_densities, ps.tau_prefix, atom,
+        "macroatom", macro_chain=chain, **options)
+
+
+REPLACES_K1 = {"main": "tardis_tpu/transport/kernel.py:425",
+               "relativity": "tardis_tpu/transport/kernel.py:491",
+               "options": "tardis_tpu/transport/kernel.py:798"}
+
+
+def path_tables(state, atom, ps, chain):
+    """Each path's transport tables (the main path's problem with that
+    path's options)."""
+    return {path: main_tables(state, atom, ps, chain, **opts["tables"])
+            for path, opts in PATHS.items()}
+
+
+def k1_variant(path, tables, pool):
+    """The K1 instantiation ``path`` selects on these tables and pool."""
+    from tardis_torch.transport.kernel import variant
+
+    opts = PATHS[path]
+    return variant(tables, pool[2], opts["last_interaction"],
+                   opts["tracker_length"])
+
+
+def build_variants(tables, pools):
+    """Build, in parallel, the K1 and K4 instantiations the paths select
+    on their own tables and pools; returns the wall seconds and the ptxas
+    register lines."""
+    from tardis_torch import cuda
+    from tardis_torch.transport import kernel, vpacket
+
+    libs = []
+    for path, opts in PATHS.items():
+        t = tables[path]
+        flags = k1_variant(path, t, pools[opts["pool"]][N_PACKETS])
+        libs.append(("transport_loop", kernel.library_defines(flags)))
+        if opts["records"]:
+            libs.append(("vpacket_volley", vpacket.library_defines(t)))
+    return cuda.build(libs), ptxas_lines(libs)
+
+
+def tracker_counts(tables, k):
+    """What K1's trackers show: last-interaction types, and packets
+    reflected at the core within the r-packet tracker's events (a boundary
+    event that leaves a packet in shell 0 moving outward); with an albedo,
+    at least one packet must be reflected."""
+    counts = {}
+    if k.last_interaction.numel():
+        li = k.last_interaction[:, 0]
+        counts.update(line_interactions=int((li == 2).sum()),
+                      escat_interactions=int((li == 1).sum()),
+                      never_interacted=int((li == 0).sum()))
+    if k.tracker.numel():
+        tr = k.tracker
+        counts.update(
+            reflections_in_tracker=int(((tr[:, :, 4] == 3)
+                                        & (tr[:, :, 3] == 0)
+                                        & (tr[:, :, 5] > 0)).sum()),
+            reabsorbed=int((k.out[:, 0] < 0).sum()))
+        if (tables.inner_boundary_albedo > 0.0
+                and counts["reflections_in_tracker"] == 0):
+            raise AssertionError("transport_loop: no packet reflected")
+    return counts
+
+
+def check_transport_loop(path, tables, pools):
+    """K1 as ``path`` runs it, at each of its shapes, on the pool drawn
+    with that iteration's key: the convergence iterations' (N_PACKETS, no
+    records) and, where the final iteration writes spawn records, the
+    final iteration's (FINAL_PACKETS, VPACKET_RECORDS_PER_PACKET records a
+    packet).  The kernels line takes the convergence shape (four of the
+    five launches of the main and relativity paths, all of the options
+    path's).  Returns the line and the final iteration's records (None
+    without records)."""
+    from tardis_torch.transport.kernel import variant_name
     from tardis_torch.transport.solver import (
         VPACKET_RECORDS_PER_PACKET,
         iteration_keys,
     )
-    from tardis_torch.transport.tables import build_transport_tables
 
-    tables = build_transport_tables(
-        state.geometry, ps.electron_densities, ps.tau_prefix, atom,
-        "macroatom", macro_chain=chain,
-    )
+    opts = PATHS[path]
+    kw = dict(last_interaction=opts["last_interaction"],
+              tracker_length=opts["tracker_length"])
+    name = line_name("transport_loop", variant_name(
+        k1_variant(path, tables, pools[N_PACKETS])))
     _, run_key = iteration_keys(SEED, 0)
-    conv, _ = compare_transport_loop(tables, pools[N_PACKETS], run_key, 0)
-    say("check_transport_loop", **conv)
+    conv, k, _ = compare_transport_loop(tables, pools[N_PACKETS], run_key, 0,
+                                        **kw)
+    conv.update(tracker_counts(tables, k))
+    say("check_transport_loop", line=name, **conv)
+    del k
+    entry = k1_entry(name, REPLACES_K1[path], conv)
+    if not opts["records"]:
+        return entry, None
     _, run_key = iteration_keys(SEED, ITERATIONS - 1)
-    final, records = compare_transport_loop(
+    final, k, _ = compare_transport_loop(
         tables, pools[FINAL_PACKETS], run_key,
-        VPACKET_RECORDS_PER_PACKET * FINAL_PACKETS)
-    say("check_transport_loop_records", **final)
-    return tables, records, dict(
-        name="transport_loop", route="cuda",
-        source="tardis_torch/csrc/transport_loop.cu",
-        replaces="tardis_tpu/transport/kernel.py:425",
-        max_abs_err=max(conv["max_abs_err"], final["max_abs_err"]),
-        ms=conv["ms"], plain_ms=conv["plain_ms"], bound_ms=conv["bound_ms"],
-        bound_by=conv["bound_by"], library_ms=None,
-    )
+        VPACKET_RECORDS_PER_PACKET * FINAL_PACKETS, **kw)
+    final.update(tracker_counts(tables, k))
+    say("check_transport_loop_records", line=name, **final)
+    entry["max_abs_err"] = max(conv["max_abs_err"], final["max_abs_err"])
+    return entry, k.vp_records[:k.n_vp_records]
 
 
 def check_vpacket_volley(tables, records, device):
-    """K4 on K1's spawn records at the main path's shapes (the final
-    iteration's records, 2 virtual packets, 10,000 bins), one launch over
-    every ray as on the main path; the plain version takes them in chunks.
-    Per-ray frequencies and energies must be bitwise equal (same f32 steps,
-    f64 exp); the f64 histogram differs only in the order of its adds,
-    hence rtol 1e-9."""
+    """K4 on K1's spawn records at a path's shapes (the main path's final
+    iteration's records, or the full-relativity records of
+    ``check_transport_loop_relativity`` through K4's full-relativity
+    branch; 2 virtual packets, 10,000 bins), one launch over every ray as
+    on the paths; the plain version takes them in chunks.  Per-ray
+    frequencies and energies must be bitwise equal (same f32 steps, f64
+    exp); the f64 histogram differs only in the order of its adds, hence
+    rtol 1e-9."""
     from tardis_torch.config.reader import config_from_dict
     from tardis_torch.spectrum.base import frequency_grid
     from tardis_torch.transport.tables import NU_UNIT
     from tardis_torch.transport.vpacket import (
         trace_vpacket_records,
         trace_vpacket_records_plain,
+        variant_name,
     )
 
     spec = config_from_dict(BENCH_CONFIG).spectrum
@@ -410,9 +588,10 @@ def check_vpacket_volley(tables, records, device):
     ms, k = cuda_ms(lambda: trace_vpacket_records(*args), 5)
     plain_ms, p = cuda_ms(lambda: trace_vpacket_records_plain(*args), 1,
                           warmup=False)
-    before = trace_vpacket_records.launches
+    by = trace_vpacket_records.launches_by_variant
+    before = sum(by.values())
     kr = trace_vpacket_records(*args, return_packets=True)
-    launches = trace_vpacket_records.launches - before
+    launches = sum(by.values()) - before
     pr = trace_vpacket_records_plain(*args, return_packets=True)
     rays_bitwise = bool(torch.equal(kr.nu, pr.nu)
                         and torch.equal(kr.energy, pr.energy))
@@ -437,15 +616,19 @@ def check_vpacket_volley(tables, records, device):
     in_bytes = nbytes(records, tables.r_inner, tables.r_outer, tables.chi_e,
                       tables.line_nu, tables.prefix, edges)
     b_ms, b_by = bound(in_bytes + nbytes(k.hist), n_ops)
-    say("check_vpacket_volley", records=R, rays=n_rays, bins=M,
+    rel_branch = tables.full_relativity
+    name = line_name("vpacket_volley", variant_name(tables))
+    say("check_vpacket_volley", line=name, records=R,
+        rays=n_rays, bins=M,
         segments=segments[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, kernel_launches=launches,
         plain_chunks=math.ceil(n_rays / 8_388_608),
         rays_bitwise=rays_bitwise, hist_max_rel=rel, max_abs_err=max_abs)
     return dict(
-        name="vpacket_volley", route="cuda",
+        name=name, route="cuda",
         source="tardis_torch/csrc/vpacket_volley.cu",
-        replaces="tardis_tpu/transport/vpacket.py:224",
+        replaces=("tardis_tpu/transport/vpacket.py:"
+                  + ("260" if rel_branch else "224")),
         max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None,
     )
@@ -499,19 +682,50 @@ def check_formal_integral(sim, device):
     )
 
 
-def run_main_path(atom, device):
+def wrappers():
     from tardis_torch.plasma.line_tables import line_tables
-    from tardis_torch.simulation.base import run_tardis
     from tardis_torch.spectrum.formal_integral import integrate_rays
     from tardis_torch.transport.kernel import transport_loop
     from tardis_torch.transport.source import blackbody_source
     from tardis_torch.transport.vpacket import trace_vpacket_records
 
-    wrappers = {"line_tables": line_tables,
-                "blackbody_source": blackbody_source,
-                "transport_loop": transport_loop,
-                "vpacket_volley": trace_vpacket_records,
-                "formal_integral": integrate_rays}
+    return {"line_tables": line_tables, "blackbody_source": blackbody_source,
+            "transport_loop": transport_loop,
+            "vpacket_volley": trace_vpacket_records,
+            "formal_integral": integrate_rays}
+
+
+def reset_launches():
+    for w in wrappers().values():
+        if hasattr(w, "launches_by_variant"):
+            w.launches_by_variant.clear()
+        else:
+            w.launches = 0
+
+
+def read_launches():
+    """Launches by kernels-line name: K3 and K5, and every variant K1, K2
+    and K4 launched under its own line
+    (``transport_loop[full_relativity+last_interaction+weights]``)."""
+    out = {}
+    for kernel, w in wrappers().items():
+        if hasattr(w, "launches_by_variant"):
+            out.update((line_name(kernel, v), n)
+                       for v, n in w.launches_by_variant.items())
+        else:
+            out[kernel] = w.launches
+    return out
+
+
+def run_path(phase, config, atom, device, expected, bands=True):
+    """run_tardis on ``config`` with the launch counts reset to 0 just
+    before and read just after; every kernels line in ``expected`` must
+    have launched exactly that often (None: at least once) and every other
+    line, any variant of a wrapper included, never.  With ``bands``, the
+    final iteration's luminosity ratios must lie in the bands of PERF.md
+    section 2."""
+    from tardis_torch.simulation.base import run_tardis
+
     marks = []
 
     def on_iteration(sim):
@@ -520,62 +734,95 @@ def run_main_path(atom, device):
         res = sim.last_transport_result
         ratio = (res.emitted_luminosity(*sim._lum_nu_window())
                  / sim.state.luminosity_requested)
-        say("iteration", index=sim.iterations_executed - 1,
+        say("iteration", path=phase, index=sim.iterations_executed - 1,
             packets=res.n_packets, wall_s=now - marks[-1],
             t_inner=sim.state.t_inner, L_emitted_over_requested=ratio,
             events=res.n_events, vp_records=res.vp_records)
         marks.append(now)
 
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     marks.append(t0)
-    sim = run_tardis(BENCH_CONFIG, atom_data=atom, device=device,
+    sim = run_tardis(config, atom_data=atom, device=device,
                      callbacks=[on_iteration])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_launches()
 
     res = sim.last_transport_result
     final_ratio = (res.emitted_luminosity(*sim._lum_nu_window())
                    / sim.state.luminosity_requested)
     spectra = {"real": sim.spectrum_real, "virtual": sim.spectrum_virtual,
                "integrated": sim.spectrum_integrated}
+    spectra = {k: v for k, v in spectra.items() if v is not None}
     finite = bool(
-        all(s is not None and np.isfinite(s.luminosity_nu).all()
-            for s in spectra.values())
+        all(np.isfinite(s.luminosity_nu).all() for s in spectra.values())
         and np.isfinite(res.output_nu).all()
         and all(np.isfinite(h.t_radiative).all()
                 and np.isfinite(h.dilution_factor).all()
                 for h in sim.history))
-    lum = {k: s.luminosity for k, s in spectra.items() if s is not None}
+    lum = {k: s.luminosity for k, s in spectra.items()}
     virt_ratio = lum.get("virtual", np.nan) / lum["real"]
     int_ratio = lum.get("integrated", np.nan) / lum["real"]
-    n_total = sim.no_of_packets * (ITERATIONS - 1) + sim.last_no_of_packets
-    say("main_path", wall_s=wall, packets=n_total,
-        packets_per_s=n_total / wall, launches=launches,
-        final_L_emitted_over_requested=final_ratio,
+    n_total = (sim.no_of_packets * (sim.iterations - 1)
+               + sim.last_no_of_packets)
+    say(phase, wall_s=wall, packets=n_total, packets_per_s=n_total / wall,
+        launches=launches, final_L_emitted_over_requested=final_ratio,
         spectrum_bins=int(sim.spectrum_real.luminosity_nu.size),
         luminosity=lum, virtual_over_real=virt_ratio,
         integrated_over_real=int_ratio, vp_records=res.vp_records,
         finite=finite, immortal=res.n_immortal)
     if not finite:
-        raise AssertionError("main path produced non-finite values or "
-                             "lacks a spectrum")
-    if not 0.8 <= final_ratio <= 1.2:
-        raise AssertionError(f"final L_emitted/L_requested {final_ratio}")
-    if not 0.85 <= virt_ratio <= 1.18:
-        raise AssertionError(f"virtual / real luminosity {virt_ratio}")
-    if not 0.7 <= int_ratio <= 1.4:
-        raise AssertionError(f"integrated / real luminosity {int_ratio}")
-    if not (launches["line_tables"] >= ITERATIONS
-            and launches["blackbody_source"] == ITERATIONS
-            and launches["transport_loop"] == ITERATIONS
-            and launches["vpacket_volley"] == 1
-            and launches["formal_integral"] == 1):
-        raise AssertionError(f"kernel launches {launches}")
+        raise AssertionError(f"{phase} produced non-finite values")
+    if bands and not 0.8 <= final_ratio <= 1.2:
+        raise AssertionError(f"{phase}: final L_emitted/L_requested "
+                             f"{final_ratio}")
+    if bands and not 0.85 <= virt_ratio <= 1.18:
+        raise AssertionError(f"{phase}: virtual / real luminosity "
+                             f"{virt_ratio}")
+    if bands and not 0.7 <= int_ratio <= 1.4:
+        raise AssertionError(f"{phase}: integrated / real luminosity "
+                             f"{int_ratio}")
+    def off(line):
+        n, want = launches.get(line, 0), expected.get(line, 0)
+        return n < 1 if want is None else n != want
+
+    if any(off(line) for line in set(launches) | set(expected)):
+        raise AssertionError(f"{phase}: kernel launches {launches}, "
+                             f"expected {expected}")
     return sim, launches
+
+
+def run_relativity_path(atom, device, expected):
+    """The main path with full relativity and last-interaction tracking at
+    its default; the final result must carry one last-interaction row per
+    packet."""
+    sim, launches = run_path("relativity_path", RELATIVITY_CONFIG, atom,
+                             device, expected)
+    li = sim.last_transport_result.last_interaction
+    n_rows = None if li is None else len(li["type"])
+    say("relativity_path_last_interaction", rows=n_rows,
+        types={int(t): int(n) for t, n in
+               zip(*np.unique(li["type"], return_counts=True))}
+        if li is not None else None)
+    if n_rows != FINAL_PACKETS:
+        raise AssertionError(f"relativity path: last_interaction rows "
+                             f"{n_rows}, expected {FINAL_PACKETS}")
+    return launches
+
+
+def run_options_path(atom, device, expected):
+    """The weighted pool, the reflective inner boundary and the r-packet
+    tracker through run_tardis at N_PACKETS; the tracker must hold
+    TRACKER_LENGTH rows per packet.  The reflective boundary raises the
+    emitted luminosity, so the luminosity bands are not applied."""
+    sim, launches = run_path("options_path", OPTIONS_CONFIG, atom, device,
+                             expected, bands=False)
+    tr = sim.last_transport_result.rpacket_tracker
+    if tr is None or tr["type"].shape != (N_PACKETS, TRACKER_LENGTH):
+        raise AssertionError("options path: no r-packet tracker rows")
+    return launches
 
 
 def profile_main_path(atom, device):
@@ -615,6 +862,40 @@ def profile_main_path(atom, device):
         host_ms_by_span=[[k, ms, n] for k, ms, n in spans])
 
 
+def ptxas_lines(libs):
+    """ptxas's register and spill lines of each built library."""
+    from tardis_torch import cuda
+
+    out = {}
+    for name, defines in libs:
+        log = cuda.library_path(name, defines).with_suffix(".log")
+        if log.exists():
+            out[" ".join((name, *defines))] = [
+                ln.strip() for ln in log.read_text().splitlines()
+                if "registers" in ln or "spill" in ln]
+    return out
+
+
+def check_pools(state, device):
+    """K2 at the shapes the paths give it: each path's pool at N_PACKETS
+    with the first iteration's key and, where the path has a final
+    iteration of FINAL_PACKETS, at that size with its key.  Returns the
+    pools by name and packet count, and one kernels line per pool (timed
+    at N_PACKETS, with the larger error of its shapes)."""
+    pools, lines = {}, {}
+    for opts in PATHS.values():
+        pool = opts["pool"]
+        pools[pool] = {}
+        pools[pool][N_PACKETS], lines[pool] = check_blackbody_source(
+            state, device, N_PACKETS, 0, pool)
+        if opts["records"]:
+            pools[pool][FINAL_PACKETS], final = check_blackbody_source(
+                state, device, FINAL_PACKETS, ITERATIONS - 1, pool)
+            lines[pool]["max_abs_err"] = max(lines[pool]["max_abs_err"],
+                                             final["max_abs_err"])
+    return pools, lines
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -625,43 +906,77 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    build_s = cuda.build()
-    ptxas = {name: [ln.strip() for ln in
-                    (cuda.BUILD / f"{name}.log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
-             for name in cuda.KERNELS
-             if (cuda.BUILD / f"{name}.log").exists()}
+    libs = [(name, ()) for name in cuda.KERNELS if name not in WITH_OPTIONS]
+    build_s = cuda.build(libs)
     say("header", card=card, torch=torch.__version__,
-        cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas)
+        cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas_lines(libs))
 
     t = time.perf_counter()
     config, state, atom = build_problem(device)
     say("problem", lines=atom.n_lines, levels=atom.n_levels,
         shells=state.no_of_shells, setup_s=time.perf_counter() - t)
+    k1, k4 = {}, {}
     with torch.no_grad():
         t = time.perf_counter()
         ps, k3 = check_line_tables(state, atom, device)
-        pools = {}
-        pools[N_PACKETS], k2 = check_blackbody_source(state, device,
-                                                      N_PACKETS, 0)
-        pools[FINAL_PACKETS], _ = check_blackbody_source(
-            state, device, FINAL_PACKETS, ITERATIONS - 1)
+        pools, k2 = check_pools(state, device)
         chain = check_chain_build(atom, ps)
-        tables, records, k1 = check_transport_loop(state, atom, ps, chain,
-                                                   pools, device)
-        k4 = check_vpacket_volley(tables, records, device)
+        tables = path_tables(state, atom, ps, chain)
+        build_s, ptxas = build_variants(tables, pools)
+        say("build_variants", build_s=build_s, ptxas=ptxas)
+        for path, opts in PATHS.items():
+            k1[path], records = check_transport_loop(
+                path, tables[path], pools[opts["pool"]])
+            if records is not None:
+                k4[path] = check_vpacket_volley(tables[path], records,
+                                                device)
+            del records
+            torch.cuda.empty_cache()
         say("kernel_checks", wall_s=time.perf_counter() - t)
-        del ps, pools, chain, tables, records
+        del ps, chain, tables, pools
         torch.cuda.empty_cache()
-        sim, launches = run_main_path(atom, device)
+        # each path's launches: K3 every iteration, its own K2, K1 and K4
+        # lines as often as it runs them, and no other variant
+        expected = {path: {"line_tables": None,
+                           k2[opts["pool"]]["name"]: ITERATIONS,
+                           k1[path]["name"]: ITERATIONS}
+                    for path, opts in PATHS.items()}
+        for path in ("main", "relativity"):
+            expected[path].update({k4[path]["name"]: 1, "formal_integral": 1})
+        expected["options"].update({
+            k2["weighted"]["name"]: OPTIONS_ITERATIONS,
+            line_name("blackbody_source", "weighted_normalize"):
+                OPTIONS_ITERATIONS,
+            k1["options"]["name"]: OPTIONS_ITERATIONS})
+        launches = {}
+        sim, launches["main"] = run_path("main_path", BENCH_CONFIG, atom,
+                                         device, expected["main"])
         k5 = check_formal_integral(sim, device)
         del sim
         torch.cuda.empty_cache()
+        launches["relativity"] = run_relativity_path(
+            atom, device, expected["relativity"])
+        torch.cuda.empty_cache()
+        launches["options"] = run_options_path(atom, device,
+                                               expected["options"])
+        torch.cuda.empty_cache()
         profile_main_path(atom, device)
-    kernels = [k1, k2, k3, k4, k5]
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # each line's launches come from the path that runs it
+    lines = [(k1["main"], "main"), (k2["simple"], "main"), (k3, "main"),
+             (k4["main"], "main"), (k5, "main"),
+             (k1["relativity"], "relativity"),
+             (k2["relativistic"], "relativity"),
+             (k4["relativity"], "relativity"),
+             (k1["options"], "options"), (k2["weighted"], "options")]
+    for k, path in lines:
+        k["launches"] = launches[path][k["name"]]
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} never launched on its path")
+    # one weighted-pool call is two launches: the pool, then the division
+    # by its mean
+    k2["weighted"]["normalize_launches"] = launches["options"][
+        line_name("blackbody_source", "weighted_normalize")]
+    print(json.dumps({"kernels": [k for k, _ in lines]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,11 +36,51 @@
 //     atomicAdd); attempts past the capacity are counted and dropped, as
 //     the JAX package's mode="drop" scatter does.  Slots race, so the record
 //     order differs from run to run: compare records as a multiset.
+//
+// Options.  The JAX package's static config switches five branches of the
+// step; here each is a template parameter of the kernel, and the library
+// is built with one instantiation, chosen by -D flags (TL_FULL_RELATIVITY,
+// TL_LAST_INTERACTION, TL_TRACKER, TL_REFLECTIVE, TL_WEIGHTS; the wrapper
+// builds one library per combination it is asked for).  An option that is
+// off compiles to nothing, so the classic instantiation, which every
+// convergence iteration of the main path runs, carries no register or
+// branch for the others:
+//   - full relativity (kernel.py:491-498,565-570,609-611,625-663,697,
+//     742-750,811-821, tiled_search.py:494-500): gamma and aberration at
+//     birth and scatter, dop = (1 - mu r) gamma(r), chi_e * dop, the
+//     quadratic resonance distance in the search, the estimator path times
+//     dop, line-independent j_blue / e_dot increments;
+//   - last interaction (:969-985): one thread owns a packet, so the row
+//     [type, in_line, out_line, shell, in_nu, r] lives in registers and is
+//     written once, when the packet dies or the event cap stops it (a
+//     packet that never interacts writes the zero row);
+//   - tracker (:949-967): rows [r, nu, energy, shell, code, mu] after each
+//     of the first K events, written as they happen;
+//   - reflective inner boundary (:798-807,940-944): column 5 is hashed only
+//     when a packet hits the core (the bits are counter-based, so a lazy
+//     draw is the same draw);
+//   - weights (:503-505): the birth energy times the pool's weight.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
 #include "threefry.cuh"
+
+#ifndef TL_FULL_RELATIVITY
+#define TL_FULL_RELATIVITY 0
+#endif
+#ifndef TL_LAST_INTERACTION
+#define TL_LAST_INTERACTION 0
+#endif
+#ifndef TL_TRACKER
+#define TL_TRACKER 0
+#endif
+#ifndef TL_REFLECTIVE
+#define TL_REFLECTIVE 0
+#endif
+#ifndef TL_WEIGHTS
+#define TL_WEIGHTS 0
+#endif
 
 namespace {
 
@@ -50,10 +90,13 @@ constexpr int kEvBoundary = 0;
 constexpr int kEvLine = 1;
 constexpr int kEvEscat = 2;
 constexpr float kUMin = 1e-9f;
+constexpr float kGammaFloor = 1e-12f;
+constexpr uint32_t kColAlbedo = 5;
 
 struct Params {
   const float* pool_mu;
   const float* pool_nu;
+  const float* pool_w;  // (N,) weights (weights instantiation only)
   const float* r_inner;
   const float* r_outer;
   const float* chi_e;
@@ -69,17 +112,39 @@ struct Params {
   double* summary;     // [emitted in window, reabsorbed, events, immortal]
   float* vp_records;   // (vp_capacity, 8) spawn records
   unsigned long long* vp_count;  // records attempted
+  float* last_interaction;  // (N, 6)
+  float* tracker;           // (N, K, 6)
   int64_t vp_capacity;
   int64_t n_packets;
   int64_t L;
   int64_t max_events;
-  int S, M, W, We, mode, disable_line_scattering;
-  float nu_lo, nu_hi;
+  int S, M, W, We, mode, disable_line_scattering, tracker_length;
+  float nu_lo, nu_hi, albedo;
   tardis::Key key;
 };
 
 __device__ __forceinline__ float draw(tardis::Key k, uint32_t column) {
   return tardis::uniform_f32(tardis::random_bits(k, column), kUMin, 1.0f);
+}
+
+__device__ __forceinline__ float lorentz_gamma(float r) {
+  return 1.0f / sqrtf(fmaxf(1.0f - r * r, kGammaFloor));
+}
+
+// path to the resonance of nu_line (f32, as the plain version): the
+// quadratic root under full relativity, 1 - nu_line / nu - z otherwise
+template <bool kRel>
+__device__ __forceinline__ float resonance_distance(float nu_line, float nu, float z,
+                                                    float p2) {
+  if constexpr (kRel) {
+    const float a = nu_line * nu_line;
+    const float b = nu * nu;
+    const float disc = fmaxf(a * (a - (a + b) * p2), 0.0f);
+    const float y = (b - sqrtf(disc)) / (a + b);
+    return fmaxf(y - z, 0.0f);
+  } else {
+    return fmaxf((1.0f - nu_line / nu) - z, 0.0f);
+  }
 }
 
 // first index in [lo, hi) whose value is >= u (the count of entries < u on
@@ -111,6 +176,13 @@ __device__ __forceinline__ void spawn_record(const Params& p, float r, float mu,
   }
 }
 
+// the last-interaction row a packet carries in registers
+struct LastInteraction {
+  float type = 0.0f, in_line = 0.0f, out_line = 0.0f, shell = 0.0f, in_nu = 0.0f,
+        r = 0.0f;
+};
+
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights>
 __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
                             double* sh_nubar, double* sh_sum) {
   const int S = p.S;
@@ -127,14 +199,23 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     else hi = mid;
   }
   int64_t next_line = lo;
-  const float inv_dop0 = 1.0f / (1.0f - mu * beta_inner);
+  float inv_dop0;
+  if constexpr (kRel) {
+    const float gamma_in = 1.0f / sqrtf(1.0f - beta_inner * beta_inner);
+    inv_dop0 = (1.0f + mu * beta_inner) * gamma_in;
+    mu = (mu + beta_inner) / (1.0f + beta_inner * mu);
+  } else {
+    inv_dop0 = 1.0f / (1.0f - mu * beta_inner);
+  }
   float nu = nu_cmf0 * inv_dop0;
   float energy = inv_dop0;
+  if constexpr (kWeights) energy = energy * p.pool_w[pid];
   float r = beta_inner;
   int shell = 0;
   const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)pid);
   if (p.vp_capacity > 0)
     spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
+  LastInteraction li;
 
   int64_t ev = 0;
   for (;; ++ev) {
@@ -143,12 +224,15 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
       break;
     }
     const tardis::Key ke = tardis::fold_in(kp, (uint32_t)ev);
-    const float chi = p.chi_e[shell];
+    float chi = p.chi_e[shell];
     const float r_in = p.r_inner[shell];
     const float r_out = p.r_outer[shell];
     const float z = mu * r;
-    const float dop = 1.0f - z;
+    float dop;
+    if constexpr (kRel) dop = (1.0f - z) * lorentz_gamma(r);
+    else dop = 1.0f - z;
     const float nu_cmf = nu * dop;
+    if constexpr (kRel) chi = chi * dop;
 
     // distance to the shell boundary; a tangential ray (mu == 0) grazes
     // and exits outward
@@ -166,13 +250,20 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     // the boundary, or optical depth to line i above tau_event
     const double* prow = p.prefix + (int64_t)shell * (L + 1);
     const double c0 = prow[next_line];
-    const float nu_thresh = nu * (1.0f - (z + d_b));
+    float nu_thresh, p2 = 0.0f;
+    if constexpr (kRel) {
+      p2 = fmaxf((r * r) * (1.0f - mu * mu), 0.0f);
+      const float rb2 = (r * r + d_b * d_b) + ((2.0f * r) * d_b) * mu;
+      nu_thresh = (nu * (1.0f - (z + d_b))) / sqrtf(fmaxf(1.0f - rb2, kGammaFloor));
+    } else {
+      nu_thresh = nu * (1.0f - (z + d_b));
+    }
     lo = next_line;
     hi = L;
     while (lo < hi) {
       int64_t mid = (lo + hi) >> 1;
       const float nl = p.line_nu[mid];
-      const float s = fmaxf((1.0f - nl / nu) - z, 0.0f);
+      const float s = resonance_distance<kRel>(nl, nu, z, p2);
       const float g = (float)(prow[mid + 1] - c0) + chi * s;
       if ((nl <= nu_thresh) || (g > tau_event)) hi = mid;
       else lo = mid + 1;
@@ -180,7 +271,7 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     const int64_t i_ev = lo;
     const float nu_ev = i_ev < L ? p.line_nu[i_ev] : __int_as_float(0xff800000);
     const bool found = (i_ev < L) && (nu_ev > nu_thresh);
-    const float s_ev = fmaxf((1.0f - nu_ev / nu) - z, 0.0f);
+    const float s_ev = resonance_distance<kRel>(nu_ev, nu, z, p2);
     const float tau_at = (float)(prow[i_ev] - c0);
     const float d_cont = fmaxf((tau_event - tau_at) / chi, 0.0f);
     const bool escat_f = p.disable_line_scattering || (d_cont < s_ev);
@@ -197,12 +288,20 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     const int64_t end_line = (event == kEvLine) ? i_ev + 1 : i_ev;
 
     // estimators
-    const float w_j = (energy * dop) * distance;
+    float w_j;
+    if constexpr (kRel) w_j = (energy * dop) * (distance * dop);
+    else w_j = (energy * dop) * distance;
     atomicAdd(&sh_j[shell], (double)w_j);
     atomicAdd(&sh_nubar[shell], (double)(w_j * nu_cmf));
     if (end_line != next_line) {
-      const float w1 = energy / (nu * nu);
-      const float w2 = energy / nu;
+      float w1, w2;
+      if constexpr (kRel) {
+        w1 = energy / nu;
+        w2 = energy;
+      } else {
+        w1 = energy / (nu * nu);
+        w2 = energy / nu;
+      }
       double* a = p.line_diff + (next_line * S + shell) * 2;
       double* b = p.line_diff + (end_line * S + shell) * 2;
       atomicAdd(a, (double)w1);
@@ -218,8 +317,20 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
 
     if (event == kEvBoundary) {
       const int new_shell = shell + delta;
-      if (new_shell >= S || new_shell < 0) {
+      bool reflected = false;
+      if constexpr (kReflect)
+        reflected = new_shell < 0 && draw(ke, kColAlbedo) < p.albedo;
+      if (!reflected && (new_shell >= S || new_shell < 0)) {
         const bool emitted = new_shell >= S;
+        if constexpr (kTrack) {
+          if (ev < p.tracker_length) {
+            float2* row = reinterpret_cast<float2*>(
+                p.tracker + (pid * p.tracker_length + ev) * 6);
+            row[0] = make_float2(r_new, nu);
+            row[1] = make_float2(energy, (float)shell);
+            row[2] = make_float2(3.0f, mu_new);
+          }
+        }
         p.out[2 * pid] = emitted ? nu : -nu;
         p.out[2 * pid + 1] = energy;
         if (emitted) {
@@ -229,20 +340,44 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
         }
         break;
       }
-      shell = new_shell;
+      if (!reflected) shell = new_shell;
       r = r_new;
-      mu = mu_new;
+      mu = reflected ? -mu_new : mu_new;
       next_line = end_line;
+      if constexpr (kTrack) {
+        if (ev < p.tracker_length) {
+          float2* row = reinterpret_cast<float2*>(
+              p.tracker + (pid * p.tracker_length + ev) * 6);
+          row[0] = make_float2(r, nu);
+          row[1] = make_float2(energy, (float)shell);
+          row[2] = make_float2(3.0f, mu);
+        }
+      }
       continue;
     }
 
     // Thomson scatter or line interaction: new direction drawn in the CMF
     const float mu_draw = 2.0f * draw(ke, 1) - 1.0f;
-    const float dop_old_pos = 1.0f - mu_new * r_new;
-    const float inv_dop_new = 1.0f / (1.0f - mu_draw * r_new);
+    float dop_old_pos, inv_dop_new, mu_emit;
+    if constexpr (kRel) {
+      const float gamma_new = lorentz_gamma(r_new);
+      dop_old_pos = (1.0f - mu_new * r_new) * gamma_new;
+      inv_dop_new = (1.0f + mu_draw * r_new) * gamma_new;
+      mu_emit = (mu_draw + r_new) / (1.0f + r_new * mu_draw);
+    } else {
+      dop_old_pos = 1.0f - mu_new * r_new;
+      inv_dop_new = 1.0f / (1.0f - mu_draw * r_new);
+      mu_emit = mu_draw;
+    }
+    const float nu_in = nu;
     if (event == kEvEscat) {
       nu = nu * dop_old_pos * inv_dop_new;
       next_line = end_line;
+      if constexpr (kLast) {
+        li.type = 1.0f;
+        li.in_line = -1.0f;
+        li.out_line = -1.0f;
+      }
     } else {
       int64_t em_line = i_ev;
       float nu_em = nu_ev;
@@ -261,19 +396,45 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
       }
       nu = nu_em * inv_dop_new;
       next_line = em_line + 1;
+      if constexpr (kLast) {
+        li.type = 2.0f;
+        li.in_line = (float)i_ev;
+        li.out_line = (float)em_line;
+      }
+    }
+    if constexpr (kLast) {
+      li.shell = (float)shell;
+      li.in_nu = nu_in;
+      li.r = r_new;
     }
     energy = energy * dop_old_pos * inv_dop_new;
     r = r_new;
-    mu = mu_draw;
+    mu = mu_emit;
+    if constexpr (kTrack) {
+      if (ev < p.tracker_length) {
+        float2* row = reinterpret_cast<float2*>(
+            p.tracker + (pid * p.tracker_length + ev) * 6);
+        row[0] = make_float2(r, nu);
+        row[1] = make_float2(energy, (float)shell);
+        row[2] = make_float2(event == kEvLine ? 2.0f : 1.0f, mu);
+      }
+    }
     if (p.vp_capacity > 0) {
       const bool line = event == kEvLine;
       spawn_record(p, r, mu, nu, energy, shell, next_line, line ? 2.0f : 1.0f,
                    line ? (float)(next_line - 1) : -1.0f);
     }
   }
+  if constexpr (kLast) {
+    float2* row = reinterpret_cast<float2*>(p.last_interaction + pid * 6);
+    row[0] = make_float2(li.type, li.in_line);
+    row[1] = make_float2(li.out_line, li.shell);
+    row[2] = make_float2(li.in_nu, li.r);
+  }
   atomicAdd(&sh_sum[2], (double)(ev + 1 > p.max_events ? p.max_events : ev + 1));
 }
 
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights>
 __global__ void transport_loop_kernel(Params p) {
   extern __shared__ double shm[];
   double* sh_j = shm;
@@ -282,7 +443,8 @@ __global__ void transport_loop_kernel(Params p) {
   for (int i = threadIdx.x; i < 2 * p.S + 4; i += blockDim.x) shm[i] = 0.0;
   __syncthreads();
   const int64_t pid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pid < p.n_packets) walk_packet(p, pid, sh_j, sh_nubar, sh_sum);
+  if (pid < p.n_packets)
+    walk_packet<kRel, kLast, kTrack, kReflect, kWeights>(p, pid, sh_j, sh_nubar, sh_sum);
   __syncthreads();
   for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
     atomicAdd(&p.est_j[i], sh_j[i]);
@@ -294,17 +456,20 @@ __global__ void transport_loop_kernel(Params p) {
 }  // namespace
 
 extern "C" int transport_loop(
-    const void* pool_mu, const void* pool_nu, int64_t n_packets,
-    const void* r_inner, const void* r_outer, const void* chi_e,
-    const void* line_nu, const void* prefix, const void* line2macro,
-    const void* chain_cdf, const void* emit_cdf, int64_t L, int S, int M,
-    int W, int We, int mode, int disable_line_scattering, uint32_t k0,
-    uint32_t k1, float nu_lo, float nu_hi, int64_t max_events, void* out,
-    void* est_j, void* est_nubar, void* line_diff, void* summary,
-    void* vp_records, void* vp_count, int64_t vp_capacity, void* stream) {
+    const void* pool_mu, const void* pool_nu, const void* pool_w,
+    int64_t n_packets, const void* r_inner, const void* r_outer,
+    const void* chi_e, const void* line_nu, const void* prefix,
+    const void* line2macro, const void* chain_cdf, const void* emit_cdf,
+    int64_t L, int S, int M, int W, int We, int mode,
+    int disable_line_scattering, uint32_t k0, uint32_t k1, float nu_lo,
+    float nu_hi, float albedo, int64_t max_events, void* out, void* est_j,
+    void* est_nubar, void* line_diff, void* summary, void* vp_records,
+    void* vp_count, int64_t vp_capacity, void* last_interaction,
+    void* tracker, int tracker_length, void* stream) {
   Params p;
   p.pool_mu = (const float*)pool_mu;
   p.pool_nu = (const float*)pool_nu;
+  p.pool_w = (const float*)pool_w;
   p.r_inner = (const float*)r_inner;
   p.r_outer = (const float*)r_outer;
   p.chi_e = (const float*)chi_e;
@@ -320,6 +485,8 @@ extern "C" int transport_loop(
   p.summary = (double*)summary;
   p.vp_records = (float*)vp_records;
   p.vp_count = (unsigned long long*)vp_count;
+  p.last_interaction = (float*)last_interaction;
+  p.tracker = (float*)tracker;
   p.vp_capacity = vp_capacity;
   p.n_packets = n_packets;
   p.L = L;
@@ -330,14 +497,18 @@ extern "C" int transport_loop(
   p.We = We;
   p.mode = mode;
   p.disable_line_scattering = disable_line_scattering;
+  p.tracker_length = tracker_length;
   p.nu_lo = nu_lo;
   p.nu_hi = nu_hi;
+  p.albedo = albedo;
   p.key = tardis::Key{k0, k1};
   if (n_packets > 0) {
     const int threads = 128;
     const size_t shm = (size_t)(2 * S + 4) * sizeof(double);
-    transport_loop_kernel<<<(unsigned)((n_packets + threads - 1) / threads),
-                            threads, shm, (cudaStream_t)stream>>>(p);
+    transport_loop_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
+                          TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0>
+        <<<(unsigned)((n_packets + threads - 1) / threads), threads, shm,
+           (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,12 @@
 // outer edge and add its attenuated energy to the virtual spectrum.
 //
 // Replaces: tardis_tpu/transport/vpacket.py:224 `_trace_vpacket_records_chunk`
-// with `_trace_tau` (:41), driven by `trace_vpacket_records` (:129), in the
-// non-relativistic branch.
+// with `_trace_tau` (:41), driven by `trace_vpacket_records` (:129).  The
+// full-relativity branch (:96-111,260-287: directions stratified in the
+// comoving frame and aberrated back, the relativistic inner-boundary weight,
+// gamma in the Doppler factors, the segment threshold and chi_e) is a
+// template parameter; the library holds the one instantiation its
+// VV_FULL_RELATIVITY flag selects.
 //
 // Bound on the H100: memory latency.  A ray walks up to 2S + 2 shell
 // segments; each segment binary-searches the f32 line list (~18 dependent
@@ -27,7 +31,15 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#ifndef VV_FULL_RELATIVITY
+#define VV_FULL_RELATIVITY 0
+#endif
+
 namespace {
+
+__device__ __forceinline__ float lorentz_gamma(float r) {
+  return 1.0f / sqrtf(fmaxf(1.0f - r * r, 1e-12f));
+}
 
 struct Params {
   const float* records;  // (n_records, 8)
@@ -47,6 +59,7 @@ struct Params {
   float spawn_lo, spawn_hi;
 };
 
+template <bool kRel>
 __device__ unsigned trace_ray(const Params& p, int64_t ray) {
   const int64_t rec = ray / p.V;
   const int v = (int)(ray - rec * p.V);
@@ -65,10 +78,20 @@ __device__ unsigned trace_ray(const Params& p, int64_t ray) {
   const float frac = ((float)v + 0.5f) / vf;
   const bool on_inner = r0 <= beta_inner * 1.000001f;
   const float r_ratio = fminf(fmaxf(beta_inner / fmaxf(r0, beta_inner), 0.0f), 1.0f);
-  const float mu_min = on_inner ? 0.0f : -sqrtf(fmaxf(1.0f - r_ratio * r_ratio, 0.0f));
-  const float mu = mu_min + frac * (1.0f - mu_min);
-  const float weight = on_inner ? (2.0f * mu) / vf : (1.0f - mu_min) / (2.0f * vf);
-  const float ratio = (1.0f - mu0 * r0) / (1.0f - mu * r0);
+  float mu_min = on_inner ? 0.0f : -sqrtf(fmaxf(1.0f - r_ratio * r_ratio, 0.0f));
+  if constexpr (kRel) mu_min = on_inner ? 0.0f : (mu_min - r0) / (1.0f - r0 * mu_min);
+  float mu = mu_min + frac * (1.0f - mu_min);
+  float weight, ratio;
+  if constexpr (kRel) {
+    weight = on_inner ? (2.0f * (mu + beta_inner)) / ((2.0f * beta_inner + 1.0f) * vf)
+                      : (1.0f - mu_min) / (2.0f * vf);
+    mu = (mu + r0) / (1.0f + r0 * mu);
+    const float gamma_r = lorentz_gamma(r0);
+    ratio = ((1.0f - mu0 * r0) * gamma_r) / ((1.0f - mu * r0) * gamma_r);
+  } else {
+    weight = on_inner ? (2.0f * mu) / vf : (1.0f - mu_min) / (2.0f * vf);
+    ratio = (1.0f - mu0 * r0) / (1.0f - mu * r0);
+  }
   const float nu = nu0 * ratio;
   const float e_vp = (e0 * weight) * ratio;
 
@@ -85,7 +108,8 @@ __device__ unsigned trace_ray(const Params& p, int64_t ray) {
     const bool reaches_inner = (z < 0.0f) && (p2 < r_in * r_in);
     const float z_next = reaches_inner ? -sqrtf(fmaxf(r_in * r_in - p2, 0.0f))
                                        : sqrtf(fmaxf(r_out * r_out - p2, 0.0f));
-    const float nu_cmf_next = nu * (1.0f - z_next);
+    float nu_cmf_next = nu * (1.0f - z_next);
+    if constexpr (kRel) nu_cmf_next = nu_cmf_next * lorentz_gamma(reaches_inner ? r_in : r_out);
     // first line at or after i_cur with nu_line <= nu_cmf_next
     int64_t lo = i_cur, hi = L;
     while (lo < hi) {
@@ -95,7 +119,9 @@ __device__ unsigned trace_ray(const Params& p, int64_t ray) {
     }
     const double* prow = p.prefix + (int64_t)shell * (L + 1);
     const float d_line = (float)(prow[lo] - prow[i_cur]);
-    tau = tau + (d_line + p.chi_e[shell] * fmaxf(z_next - z, 0.0f));
+    float chi_e = p.chi_e[shell];
+    if constexpr (kRel) chi_e = (chi_e * (1.0f - z)) * lorentz_gamma(sqrtf(p2 + z * z));
+    tau = tau + (d_line + chi_e * fmaxf(z_next - z, 0.0f));
     z = z_next;
     i_cur = lo;
     shell += reaches_inner ? -1 : 1;
@@ -125,7 +151,7 @@ __global__ void vpacket_volley_kernel(Params p) {
   __syncthreads();
   const int64_t ray = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (ray < p.n_records * p.V)
-    atomicAdd(&sh_segments, (unsigned long long)trace_ray(p, ray));
+    atomicAdd(&sh_segments, (unsigned long long)trace_ray<VV_FULL_RELATIVITY != 0>(p, ray));
   __syncthreads();
   if (threadIdx.x == 0) atomicAdd(p.n_segments, sh_segments);
 }

@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use by ``nvcc`` for Hopper (``sm_90a``) into ``build/<name>-<hash>.so``,
-then loaded with ``ctypes``.  The hash covers the sources and the flags, so
+then loaded with ``ctypes``.  A kernel with compile-time options (K1, K4)
+is built once per combination it is asked for, each with its ``-D`` flags
+(``defines``).  The hash covers the sources, the flags and the defines, so
 an edited kernel is rebuilt and a stale library is never loaded.  Every
 kernel is compiled with ``--fmad=false``: eager PyTorch does not contract
 ``a*b+c`` into a fused multiply-add, so without the flag a kernel and its
@@ -32,7 +34,7 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -46,38 +48,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(name: str, defines: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     for src in (CSRC / f"{name}.cu", CSRC / "threefry.cuh"):
         h.update(src.read_bytes())
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=KERNELS) -> float:
-    """Compile every missing library, one ``nvcc`` per source, all at once.
+def build(libraries) -> float:
+    """Compile every missing library of ``libraries``, (kernel name,
+    defines) pairs, one ``nvcc`` per library, all at once.
 
     Returns the wall seconds spent; raises with the compiler's output if
     any build fails.  ``ptxas`` register and spill reports are kept in
-    ``build/<name>.log``.
+    ``build/<library>.log``.
     """
     t0 = time.perf_counter()
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in names:
-        out = library_path(name)
+    for name, defines in libraries:
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
+        procs.append((out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
     failed = []
-    for name, out, tmp, proc in procs:
+    for out, tmp, proc in procs:
         log, _ = proc.communicate()
-        (BUILD / f"{name}.log").write_text(log)
+        out.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{out.name}:\n{log}")
         else:
             os.replace(tmp, out)
     if failed:
@@ -85,13 +89,15 @@ def build(names=KERNELS) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library ``name``, built first if needed."""
-    lib = _loaded.get(name)
+def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` built with ``defines``, built
+    first if needed."""
+    key = (name, tuple(defines))
+    lib = _loaded.get(key)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        build((key,))
+        lib = ctypes.CDLL(str(library_path(name, defines)))
+        _loaded[key] = lib
     return lib
 
 

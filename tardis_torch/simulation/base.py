@@ -18,12 +18,15 @@ source_function, formal_integral); a span costs a few microseconds when no
 profiler is recording, and ``chip_smoke.py`` reads them.
 
 Everything runs on one device, the card unless the caller passes another.
-Options outside this slice raise ``NotImplementedError`` naming the option
-(see ``check_supported``): tracking, full relativity, the reflective inner
-boundary, nonhomologous expansion, non-simple packet sources, continuum,
-NLTE, detailed rates, helium, vpacket biasing, the macro-atom random-walk
-fallback, HDF atom data and more than one device.  Checkpoint / resume is
-not ported.
+The transport options are wired as the JAX package wires them:
+last-interaction tracking (on by default), the r-packet tracker
+(``initial_array_length`` events a packet), full relativity (which selects
+the relativistic packet pool), the reflective inner boundary (its albedo
+applies only when it is enabled) and the weighted pool.  Options outside
+the port raise ``NotImplementedError`` naming the option (see
+``check_supported``): nonhomologous expansion, continuum, NLTE, detailed
+rates, helium, vpacket biasing, the macro-atom random-walk fallback, HDF
+atom data and more than one device.  Checkpoint / resume is not ported.
 """
 
 from __future__ import annotations
@@ -81,23 +84,12 @@ def check_supported(config: ConfigDict) -> None:
     """Raise ``NotImplementedError`` for every option this slice refuses."""
     mc = config.montecarlo
     plasma = config.plasma
-    tracking = mc.get("tracking", {}) or {}
     virtual = config.spectrum.get("virtual", {}) or {}
     refused = [
         ("spectrum.virtual.enable_biasing",
          bool(virtual.get("enable_biasing", False))),
-        ("montecarlo.tracking.track_last_interaction",
-         bool(tracking.get("track_last_interaction", False))),
-        ("montecarlo.tracking.track_rpacket",
-         bool(tracking.get("track_rpacket", False))),
-        ("montecarlo.enable_full_relativity",
-         bool(mc.get("enable_full_relativity", False))),
-        ("montecarlo.enable_reflective_inner_boundary",
-         bool(mc.get("enable_reflective_inner_boundary", False))),
         ("montecarlo.enable_nonhomologous_expansion",
          bool(mc.get("enable_nonhomologous_expansion", False))),
-        ("montecarlo.packet_source other than simple",
-         mc.get("packet_source", "auto") not in ("auto", "simple")),
         ("plasma.continuum_interaction.species",
          bool((plasma.get("continuum_interaction", {}) or {})
               .get("species"))),
@@ -192,6 +184,8 @@ class Simulation:
                 "link_t_rad_t_electron", 0.9),
             w_epsilon=config.plasma.get("w_epsilon", 1e-10),
         )
+        mc = config.montecarlo
+        tracking = mc.get("tracking", {}) or {}
         transport_solver = TransportSolver(
             line_interaction_type=lit,
             disable_electron_scattering=config.plasma.get(
@@ -201,6 +195,18 @@ class Simulation:
             vpacket_tracking=bool(
                 (config.spectrum.get("virtual", {}) or {})
                 .get("virtual_packet_logging", False)),
+            track_last_interaction=bool(
+                tracking.get("track_last_interaction", True)),
+            enable_full_relativity=bool(
+                mc.get("enable_full_relativity", False)),
+            track_rpacket_length=(
+                int(tracking.get("initial_array_length", 10))
+                if tracking.get("track_rpacket", False) else 0),
+            inner_boundary_albedo=(
+                float(mc.get("inner_boundary_albedo", 0.0))
+                if mc.get("enable_reflective_inner_boundary", False)
+                else 0.0),
+            packet_source=mc.get("packet_source", "auto"),
         )
         return cls(config, state, atom_data, plasma_solver, transport_solver)
 

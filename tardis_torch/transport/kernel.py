@@ -6,8 +6,8 @@ of ``tardis_tpu/transport/solver.py`` ``_device_summary`` folded in.
 
 Per event, with every random number from
 ``uniform(fold_in(fold_in(key, packet_id), event_idx), (10,), 1e-9, 1)``
-(columns 0: tau, 1: mu, 6: chain row, 7: emission row), exactly the JAX
-package's draws:
+(columns 0: tau, 1: mu, 5: albedo, 6: chain row, 7: emission row), exactly
+the JAX package's draws:
 
 1. boundary distance (an inward hit needs mu < 0 strictly);
 2. the first line i >= next_line whose resonance lies past the boundary or
@@ -18,6 +18,28 @@ package's draws:
 4. the move, then a boundary crossing, a Thomson scatter or a line
    interaction (scatter, downbranch or the macro-atom absorbing chain);
 5. death at the outer (emitted, +nu) or inner (reabsorbed, -nu) boundary.
+
+Options, each a branch of the JAX step (``OPTIONS``; on the card each
+combination is its own compiled instantiation of K1):
+
+- ``full_relativity`` (``tables.full_relativity``, ``kernel.py:491-498,
+  565-570,609-611,625-663,697,742-750,811-821``): the birth transform with
+  gamma and aberration, dop = (1 - mu r) gamma(r), chi_e * dop, the
+  quadratic resonance distance (``tiled_search.py:494-500``), the estimator
+  path times dop, and line-independent j_blue / e_dot increments E / nu and
+  E (the solver then drops the nu_i factor);
+- ``reflective`` (``tables.inner_boundary_albedo`` > 0, ``:798-807,
+  940-944``): a packet at the inner boundary is reflected (mu -> -mu, it
+  stays in shell 0) when column 5 falls below the albedo;
+- ``weights`` (``pool_w``, ``:503-505``): the birth energy times the
+  pool's weight (weighted and relativistic pools);
+- ``last_interaction`` (``:969-985``): per packet the row
+  [type, in_line, out_line, shell, in_nu, r] of its last interaction
+  (type 2 line, 1 e-scatter; lines -1 for an e-scatter; in_nu before it,
+  r after the move; zeros for a packet that never interacts);
+- ``tracker`` (``tracker_length`` K > 0, ``:949-967``): the rows
+  [r, nu, energy, shell, code, mu] after each of a packet's first K events
+  (code 2 line, 1 e-scatter, 3 boundary).
 
 With ``vpacket_capacity`` > 0 (the final iteration with virtual packets)
 every birth and every interaction appends a spawn record for the vpacket
@@ -46,9 +68,11 @@ import torch
 from tardis_torch import cuda
 from tardis_torch.transport import rng
 from tardis_torch.transport.tables import (
+    GAMMA_FLOOR,
     LINE_MACROATOM,
     LINE_SCATTER,
     TransportTables,
+    lorentz_gamma,
 )
 
 STATUS_IN_PROCESS = 0
@@ -58,8 +82,15 @@ STATUS_REABSORBED = 2
 # without output and counted (the JAX package's immortal-lane guard)
 MAX_EVENTS = 500_000
 
-COL_TAU, COL_MU, COL_CHAIN, COL_EMIT = 0, 1, 6, 7
+COL_TAU, COL_MU, COL_ALBEDO, COL_CHAIN, COL_EMIT = 0, 1, 5, 6, 7
 U_MIN = 1e-9
+
+# interaction / tracker codes
+LI_ESCAT, LI_LINE, EV_BOUNDARY_CODE = 1, 2, 3
+
+# K1's compile-time options, in the order of their -D flags
+OPTIONS = ("full_relativity", "last_interaction", "tracker", "reflective",
+           "weights")
 
 logger = logging.getLogger(__name__)
 
@@ -75,6 +106,10 @@ class TransportOutput:
     summary: torch.Tensor  # (4,) f64
     vp_records: torch.Tensor  # (capacity, 8) f32 spawn records
     vp_count: torch.Tensor  # (1,) i64 records attempted (may exceed capacity)
+    # (N, 6) f32 [type, in_line, out_line, shell, in_nu, r] ((0, 6): off)
+    last_interaction: torch.Tensor
+    # (N, K, 6) f32 [r, nu, energy, shell, code, mu] ((0, 0, 6): off)
+    tracker: torch.Tensor
 
     @property
     def n_vp_records(self) -> int:
@@ -82,16 +117,36 @@ class TransportOutput:
         return min(int(self.vp_count[0]), self.vp_records.shape[0])
 
 
-def _allocate(n_packets, S, L, capacity, device) -> TransportOutput:
+def variant(t: TransportTables, pool_w=None, last_interaction=False,
+            tracker_length=0) -> tuple:
+    """The option flags (in ``OPTIONS`` order) of one K1 configuration."""
+    return (bool(t.full_relativity), bool(last_interaction),
+            tracker_length > 0, t.inner_boundary_albedo > 0.0,
+            pool_w is not None)
+
+
+def variant_name(flags) -> str:
+    """``classic`` or the options that are on, joined by ``+``."""
+    on = [name for name, f in zip(OPTIONS, flags) if f]
+    return "+".join(on) if on else "classic"
+
+
+def _allocate(n_packets, S, L, capacity, last_interaction, tracker_length,
+              device) -> TransportOutput:
     z = torch.zeros
+    f32 = torch.float32
     return TransportOutput(
-        out=z((n_packets, 2), dtype=torch.float32, device=device),
+        out=z((n_packets, 2), dtype=f32, device=device),
         est_j=z(S, dtype=torch.float64, device=device),
         est_nubar=z(S, dtype=torch.float64, device=device),
         line_diff=z(2 * (L + 1) * S, dtype=torch.float64, device=device),
         summary=z(4, dtype=torch.float64, device=device),
-        vp_records=z((capacity, 8), dtype=torch.float32, device=device),
+        vp_records=z((capacity, 8), dtype=f32, device=device),
         vp_count=z(1, dtype=torch.int64, device=device),
+        last_interaction=z((n_packets if last_interaction else 0, 6),
+                           dtype=f32, device=device),
+        tracker=z((n_packets if tracker_length else 0, tracker_length, 6),
+                  dtype=f32, device=device),
     )
 
 
@@ -118,8 +173,21 @@ def _draws(k0, k1, cols, device):
     return rng.uniform(bits, U_MIN, 1.0)
 
 
+def _resonance_distance(nu_line, nu, z, p2, full_relativity):
+    """Path from the packet to the resonance of ``nu_line``: 1 - nu_i / nu
+    - mu r, or under full relativity the root y - mu r of the resonance
+    quadratic with p^2 = r^2 (1 - mu^2); clipped at 0."""
+    if full_relativity:
+        a = nu_line * nu_line
+        b = nu * nu
+        disc = torch.clamp(a * (a - (a + b) * p2), min=0.0)
+        y = (b - torch.sqrt(disc)) / (a + b)
+        return torch.clamp(y - z, min=0.0)
+    return torch.clamp((1.0 - nu_line / nu) - z, min=0.0)
+
+
 def _search(t: TransportTables, shell, lo, chi, z, nu, tau_event,
-            nu_thresh, c0):
+            nu_thresh, c0, p2):
     """First i in [lo, L] with i == L, nu_i <= nu_thresh or g(i) > tau."""
     L = t.n_lines
     hi = torch.full_like(lo, L)
@@ -130,7 +198,7 @@ def _search(t: TransportTables, shell, lo, chi, z, nu, tau_event,
         mid = (lo + hi) >> 1
         midc = torch.clamp(mid, max=L - 1)
         nl = t.line_nu[midc]
-        s = torch.clamp((1.0 - nl / nu) - z, min=0.0)
+        s = _resonance_distance(nl, nu, z, p2, t.full_relativity)
         g = (pflat[row + midc + 1] - c0).float() + chi * s
         fire = (nl <= nu_thresh) | (g > tau_event)
         lo = torch.where(active & ~fire, mid + 1, lo)
@@ -156,7 +224,9 @@ def _emission(t: TransportTables, shell, i_ev, u_chain, u_emit):
 def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                          nu_window=(0.0, np.inf), batch_size: int = 65536,
                          max_events: int = MAX_EVENTS,
-                         vpacket_capacity: int = 0) -> TransportOutput:
+                         vpacket_capacity: int = 0, pool_w=None,
+                         last_interaction: bool = False,
+                         tracker_length: int = 0) -> TransportOutput:
     """Plain PyTorch version of K1: a lockstep loop over ``batch_size`` lanes.
 
     Dead lanes refill from the pool in packet-id order.  Every packet's
@@ -167,12 +237,18 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     device = pool_mu.device
     N = pool_mu.shape[0]
     S, L = t.n_shells, t.n_lines
-    res = _allocate(N, S, L, vpacket_capacity, device)
+    full_rel = t.full_relativity
+    reflective = t.inner_boundary_albedo > 0.0
+    res = _allocate(N, S, L, vpacket_capacity, last_interaction,
+                    tracker_length, device)
     n_vp = 0
     nu_lo, nu_hi = _window(nu_window)
     B = max(1, min(batch_size, N))
     f32, i64 = torch.float32, torch.int64
     beta_inner = t.r_inner[0]
+    albedo = torch.tensor(t.inner_boundary_albedo, dtype=f32, device=device)
+    cols = (COL_TAU, COL_MU, COL_CHAIN, COL_EMIT) + (
+        (COL_ALBEDO,) if reflective else ())
     birth = torch.searchsorted(-t.line_nu, -pool_nu, right=True)
     pid_all = torch.arange(N, dtype=i64, device=device)
     kp_all = rng.fold_in(key, pid_all)
@@ -199,17 +275,23 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
             fill = dead & (new_ids < N)
             ids = torch.clamp(new_ids, max=N - 1)
             b_mu = pool_mu[ids]
-            inv_dop = 1.0 / (1.0 - b_mu * beta_inner)
+            if full_rel:
+                gamma_in = 1.0 / torch.sqrt(1.0 - beta_inner * beta_inner)
+                inv_dop = (1.0 + b_mu * beta_inner) * gamma_in
+                b_mu = (b_mu + beta_inner) / (1.0 + beta_inner * b_mu)
+            else:
+                inv_dop = 1.0 / (1.0 - b_mu * beta_inner)
             b_nu = pool_nu[ids] * inv_dop
+            b_energy = inv_dop if pool_w is None else inv_dop * pool_w[ids]
             if vpacket_capacity:
                 one = torch.ones_like(b_mu)
                 n_vp = _spawn(res, n_vp, torch.stack(
-                    [one * beta_inner, b_mu, b_nu, inv_dop, 0.0 * one,
+                    [one * beta_inner, b_mu, b_nu, b_energy, 0.0 * one,
                      birth[ids].float(), -one, -one], dim=1)[fill])
             r = torch.where(fill, beta_inner, r)
             mu = torch.where(fill, b_mu, mu)
             nu = torch.where(fill, b_nu, nu)
-            energy = torch.where(fill, inv_dop, energy)
+            energy = torch.where(fill, b_energy, energy)
             shell = torch.where(fill, 0, shell)
             next_line = torch.where(fill, birth[ids], next_line)
             pid = torch.where(fill, ids, pid)
@@ -228,8 +310,7 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
 
         # ---- draws
         ke = rng.fold_in((kp0, kp1), eidx)
-        U = _draws(ke[0], ke[1], (COL_TAU, COL_MU, COL_CHAIN, COL_EMIT),
-                   device)
+        U = _draws(ke[0], ke[1], cols, device)
         tau_event = (-torch.log(U[:, 0].double())).float()
 
         # ---- trace
@@ -237,8 +318,10 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         r_in = t.r_inner[shell]
         r_out = t.r_outer[shell]
         z = mu * r
-        dop = 1.0 - z
+        dop = (1.0 - z) * lorentz_gamma(r) if full_rel else 1.0 - z
         nu_cmf = nu * dop
+        if full_rel:
+            chi = chi * dop
         out_d = torch.sqrt(torch.clamp(
             r_out * r_out + (mu * mu - 1.0) * r * r, min=0.0)) - r * mu
         check = r_in * r_in + r * r * (mu * mu - 1.0)
@@ -248,14 +331,21 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         delta = torch.where(hits_inner, -1, 1)
 
         c0 = t.prefix.reshape(-1)[shell * (L + 1) + next_line]
-        nu_thresh = nu * (1.0 - (z + d_b))
+        if full_rel:
+            p2 = torch.clamp((r * r) * (1.0 - mu * mu), min=0.0)
+            rb2 = (r * r + d_b * d_b) + ((2.0 * r) * d_b) * mu
+            nu_thresh = (nu * (1.0 - (z + d_b))) / torch.sqrt(
+                torch.clamp(1.0 - rb2, min=GAMMA_FLOOR))
+        else:
+            p2 = None
+            nu_thresh = nu * (1.0 - (z + d_b))
         i_ev = _search(t, shell, next_line.clone(), chi, z, nu, tau_event,
-                       nu_thresh, c0)
+                       nu_thresh, c0, p2)
         in_range = i_ev < L
         nu_ev = torch.where(in_range, t.line_nu[torch.clamp(i_ev, max=L - 1)],
                             -torch.inf)
         found = in_range & (nu_ev > nu_thresh)
-        s_ev = torch.clamp((1.0 - nu_ev / nu) - z, min=0.0)
+        s_ev = _resonance_distance(nu_ev, nu, z, p2, full_rel)
         tau_at = (t.prefix.reshape(-1)[shell * (L + 1) + i_ev] - c0).float()
         d_cont = torch.clamp((tau_event - tau_at) / chi, min=0.0)
         escat_f = d_cont < s_ev
@@ -272,13 +362,17 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         end_line = torch.where(is_line, i_ev + 1, i_ev)
 
         # ---- estimators
-        w_j = (energy * dop) * distance
+        path = distance * dop if full_rel else distance
+        w_j = (energy * dop) * path
         res.est_j.index_add_(0, shell[alive], w_j[alive].double())
         res.est_nubar.index_add_(0, shell[alive],
                                  (w_j * nu_cmf)[alive].double())
         crossed = alive & (end_line != next_line)
-        w1 = (energy / (nu * nu))[crossed].double()
-        w2 = (energy / nu)[crossed].double()
+        if full_rel:
+            w1, w2 = energy / nu, energy
+        else:
+            w1, w2 = energy / (nu * nu), energy / nu
+        w1, w2 = w1[crossed].double(), w2[crossed].double()
         a = (next_line[crossed] * S + shell[crossed]) * 2
         b = (end_line[crossed] * S + shell[crossed]) * 2
         res.line_diff.index_add_(0, torch.cat([a, a + 1, b, b + 1]),
@@ -293,10 +387,23 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         # ---- interactions
         new_shell = shell + delta
         emitted = is_boundary & (new_shell >= S)
-        reabsorbed = is_boundary & (new_shell < 0)
+        hits_core = is_boundary & (new_shell < 0)
+        if reflective:
+            reflected = hits_core & (U[:, cols.index(COL_ALBEDO)] < albedo)
+            reabsorbed = hits_core & ~reflected
+        else:
+            reflected = torch.zeros_like(hits_core)
+            reabsorbed = hits_core
         mu_draw = 2.0 * U[:, 1] - 1.0
-        dop_old_pos = 1.0 - mu_new * r_new
-        inv_dop_new = 1.0 / (1.0 - mu_draw * r_new)
+        if full_rel:
+            gamma_new = lorentz_gamma(r_new)
+            dop_old_pos = (1.0 - mu_new * r_new) * gamma_new
+            inv_dop_new = (1.0 + mu_draw * r_new) * gamma_new
+            mu_emit = (mu_draw + r_new) / (1.0 + r_new * mu_draw)
+        else:
+            dop_old_pos = 1.0 - mu_new * r_new
+            inv_dop_new = 1.0 / (1.0 - mu_draw * r_new)
+            mu_emit = mu_draw
         if t.mode == LINE_SCATTER:
             em_line, nu_em = i_ev, nu_ev
         else:
@@ -310,10 +417,24 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                              energy)
         next_line = torch.where(is_line, em_line + 1,
                                 torch.where(alive, end_line, next_line))
+        if last_interaction and bool(interacts.any()):
+            res.last_interaction[pid[interacts]] = torch.stack(
+                [torch.where(is_line, LI_LINE, LI_ESCAT).float(),
+                 torch.where(is_line, i_ev, -1).float(),
+                 torch.where(is_line, em_line, -1).float(),
+                 shell.float(), nu, r_new], dim=1)[interacts]
         r = torch.where(alive, r_new, r)
-        mu = torch.where(interacts, mu_draw, torch.where(alive, mu_new, mu))
-        shell = torch.where(is_boundary & ~emitted & ~reabsorbed, new_shell,
+        mu_after = torch.where(reflected, -mu_new, mu_new)
+        mu = torch.where(interacts, mu_emit,
+                         torch.where(alive, mu_after, mu))
+        shell = torch.where(is_boundary & ~emitted & ~hits_core, new_shell,
                             shell)
+        if tracker_length:
+            slot = alive & (eidx < tracker_length)
+            code = torch.where(is_line, LI_LINE, torch.where(
+                is_escat, LI_ESCAT, EV_BOUNDARY_CODE)).float()
+            res.tracker[pid[slot], eidx[slot]] = torch.stack(
+                [r, nu_new, energy, shell.float(), code, mu], dim=1)[slot]
         if vpacket_capacity:
             li_type = torch.where(is_line, 2.0, 1.0).float()
             out_line = torch.where(is_line, (next_line - 1).float(), -1.0)
@@ -343,21 +464,28 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
 def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
                    nu_window=(0.0, np.inf),
                    max_events: int = MAX_EVENTS,
-                   vpacket_capacity: int = 0) -> TransportOutput:
+                   vpacket_capacity: int = 0, pool_w=None,
+                   last_interaction: bool = False,
+                   tracker_length: int = 0) -> TransportOutput:
     """K1 on the card; the plain version for CPU tensors.
 
     ``key`` is the iteration's run key; ``nu_window`` the (lo, hi)
     emitted-luminosity window in NU_UNIT; ``vpacket_capacity`` the number
-    of spawn records to keep (0: none are written).
+    of spawn records to keep (0: none are written); ``pool_w`` the pool's
+    per-packet weights (None: all 1); ``last_interaction`` and
+    ``tracker_length`` turn on the two trackers.  On the card the options
+    select K1's compiled instantiation (``variant``).
     """
     device = pool_mu.device
     if device.type == "cpu":
-        return transport_loop_plain(t, pool_mu, pool_nu, key, nu_window,
-                                    max_events=max_events,
-                                    vpacket_capacity=vpacket_capacity)
+        return transport_loop_plain(
+            t, pool_mu, pool_nu, key, nu_window, max_events=max_events,
+            vpacket_capacity=vpacket_capacity, pool_w=pool_w,
+            last_interaction=last_interaction, tracker_length=tracker_length)
     if device.type != "cuda":
         raise ValueError(f"transport_loop: unsupported device {device}")
     f32 = torch.float32
+    N = pool_mu.shape[0]
     cuda.check_cuda(
         "transport_loop", device, pool_mu=(pool_mu, f32),
         pool_nu=(pool_nu, f32), r_inner=(t.r_inner, f32),
@@ -365,11 +493,12 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         line_nu=(t.line_nu, f32), prefix=(t.prefix, torch.float64),
         line2macro=(t.line2macro, torch.int32),
         chain_cdf=(t.chain_cdf, f32), emit_cdf=(t.emit_cdf, f32),
+        **({} if pool_w is None else {"pool_w": (pool_w, f32)}),
     )
-    N = pool_mu.shape[0]
     S, L = t.n_shells, t.n_lines
     rows = S * t.n_states
     if (pool_mu.shape != (N,) or pool_nu.shape != (N,)
+            or (pool_w is not None and pool_w.shape != (N,))
             or t.prefix.shape != (S, L + 1)
             or t.line2macro.shape != (L,)
             or (t.mode == LINE_MACROATOM
@@ -377,32 +506,46 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
             or (t.mode != LINE_SCATTER
                 and t.emit_cdf.shape != (rows, 3 * t.emit_width))):
         raise ValueError("transport_loop: table shapes do not agree")
-    res = _allocate(N, S, L, vpacket_capacity, device)
+    flags = variant(t, pool_w, last_interaction, tracker_length)
+    lib = cuda.library("transport_loop", library_defines(flags))
+    res = _allocate(N, S, L, vpacket_capacity, last_interaction,
+                    tracker_length, device)
     nu_lo, nu_hi = _window(nu_window)
-    fn = cuda.library("transport_loop").transport_loop
+    fn = lib.transport_loop
     fn.restype = ctypes.c_int
-    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    vp, i64, ci, cf = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_float)
     fn.argtypes = (
-        [vp, vp, i64] + [vp] * 8 + [i64] + [ci] * 6
-        + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float, ctypes.c_float,
-           i64] + [vp] * 7 + [i64, vp]
+        [vp, vp, vp, i64] + [vp] * 8 + [i64] + [ci] * 6
+        + [ctypes.c_uint32, ctypes.c_uint32, cf, cf, cf, i64] + [vp] * 7
+        + [i64, vp, vp, ci, vp]
     )
     p = cuda.ptr
     err = fn(
-        p(pool_mu), p(pool_nu), N, p(t.r_inner), p(t.r_outer), p(t.chi_e),
-        p(t.line_nu), p(t.prefix), p(t.line2macro), p(t.chain_cdf),
-        p(t.emit_cdf), L, S, t.n_states, t.chain_width, t.emit_width,
-        t.mode, int(t.disable_line_scattering), key[0], key[1], nu_lo, nu_hi,
+        p(pool_mu), p(pool_nu), None if pool_w is None else p(pool_w), N,
+        p(t.r_inner), p(t.r_outer), p(t.chi_e), p(t.line_nu), p(t.prefix),
+        p(t.line2macro), p(t.chain_cdf), p(t.emit_cdf), L, S, t.n_states,
+        t.chain_width, t.emit_width, t.mode, int(t.disable_line_scattering),
+        key[0], key[1], nu_lo, nu_hi, float(t.inner_boundary_albedo),
         max_events, p(res.out), p(res.est_j), p(res.est_nubar),
         p(res.line_diff), p(res.summary), p(res.vp_records),
-        p(res.vp_count), vpacket_capacity, cuda.stream(),
+        p(res.vp_count), vpacket_capacity, p(res.last_interaction),
+        p(res.tracker), tracker_length, cuda.stream(),
     )
     cuda.check_launch("transport_loop", err)
-    transport_loop.launches += 1
+    name = variant_name(flags)
+    by = transport_loop.launches_by_variant
+    by[name] = by.get(name, 0) + 1
     return res
 
 
-transport_loop.launches = 0
+transport_loop.launches_by_variant = {}  # launches by variant_name
+
+
+def library_defines(flags) -> tuple:
+    """nvcc -D flags of one K1 instantiation."""
+    return tuple(f"TL_{name.upper()}={int(f)}"
+                 for name, f in zip(OPTIONS, flags))
 
 
 def warn_immortal(res: TransportOutput) -> int:

@@ -8,6 +8,8 @@ bits makes per-packet trajectories of the two packages comparable.
 - ``key(seed)``: the raw key of ``jax.random.key(np.uint32(seed))``, (0, seed).
 - ``fold_in(k, d)``: threefry2x32(k, (0, d)).
 - ``random_bits(k, n)``: element i is y0 ^ y1 of threefry2x32(k, (0, i)).
+  A draw of shape ``()`` takes counter 0, the first element of any
+  ``(n,)`` draw under the same key (``scalar_bits``).
 - ``uniform``: (bits >> 9) | 0x3F800000 bit-cast to f32, minus 1, then
   ``max(minval, f * (maxval - minval) + minval)`` in f32.
 
@@ -61,6 +63,11 @@ def random_bits(k, counters):
     """32-bit draws at the given counters (partitionable layout)."""
     y0, y1 = threefry2x32(k[0], k[1], 0, counters)
     return y0 ^ y1
+
+
+def scalar_bits(k):
+    """The 32 bits of ``jax.random.uniform(k, ())``: counter 0."""
+    return random_bits(k, 0)
 
 
 def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:

@@ -10,12 +10,20 @@ With ``n_vpackets`` > 0 K1 keeps ``VPACKET_RECORDS_PER_PACKET`` spawn
 records per packet (the JAX package's default) and the vpacket volley (K4)
 turns them into the virtual spectrum; records past that capacity are
 dropped with a warning.
+
+The transport options of the JAX package's solver are taken as it takes
+them: ``packet_source`` "auto" is the relativistic pool under full
+relativity and the simple pool otherwise; ``track_last_interaction`` and
+``track_rpacket_length`` fill ``TransportResult.last_interaction`` and
+``.rpacket_tracker`` (kept on the device until first read);
+``inner_boundary_albedo`` > 0 reflects packets at the inner boundary.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
@@ -32,7 +40,7 @@ from tardis_torch.transport.kernel import (
     transport_loop,
     warn_immortal,
 )
-from tardis_torch.transport.source import blackbody_source
+from tardis_torch.transport.source import POOLS, blackbody_source
 from tardis_torch.transport.tables import NU_UNIT, build_transport_tables
 from tardis_torch.transport.vpacket import trace_vpacket_records
 
@@ -65,6 +73,44 @@ class TransportResult:
     virt_energy_hist: np.ndarray | None = None  # (M,) erg per bin
     vp_records: int = 0  # spawn records attempted
     vpackets: dict | None = None  # virt_packet_* arrays (packet logging)
+    # (N, 6) and (N, K, 6) f32 kernel-unit rows, read by the properties
+    _li: torch.Tensor | None = None
+    _tracker: torch.Tensor | None = None
+    length_unit: float = 1.0  # c t_exp, cm
+
+    @cached_property
+    def last_interaction(self) -> dict | None:
+        """Per packet, its last interaction: the JAX package's keys, units
+        and dtypes (type 0 for a packet that never interacted); read from
+        the device once."""
+        if self._li is None:
+            return None
+        li = self._li.cpu().numpy().astype(np.float64)
+        return {
+            "type": li[:, 0].astype(np.int8),
+            "in_line": li[:, 1].astype(np.int32),
+            "out_line": li[:, 2].astype(np.int32),
+            "shell": li[:, 3].astype(np.int32),
+            "in_nu": li[:, 4] * NU_UNIT,
+            "r": li[:, 5] * self.length_unit,
+        }
+
+    @cached_property
+    def rpacket_tracker(self) -> dict | None:
+        """Per packet, its first K events (N, K): the JAX package's keys,
+        units and dtypes (energy in packet birth units, type 0 past the
+        packet's last event); read from the device once."""
+        if self._tracker is None:
+            return None
+        tr = self._tracker.cpu().numpy().astype(np.float64)
+        return {
+            "r": tr[:, :, 0] * self.length_unit,
+            "nu": tr[:, :, 1] * NU_UNIT,
+            "energy": tr[:, :, 2],
+            "shell": tr[:, :, 3].astype(np.int32),
+            "type": tr[:, :, 4].astype(np.int8),
+            "mu": tr[:, :, 5],
+        }
 
     def _materialize(self):
         if not hasattr(self, "_out_nu"):
@@ -124,16 +170,36 @@ class TransportSolver:
         disable_electron_scattering: bool = False,
         disable_line_scattering: bool = False,
         vpacket_tracking: bool = False,
+        track_last_interaction: bool = False,
+        enable_full_relativity: bool = False,
+        track_rpacket_length: int = 0,
+        inner_boundary_albedo: float = 0.0,
+        packet_source: str = "auto",
     ):
         if line_interaction_type not in ("scatter", "downbranch",
                                          "macroatom"):
             raise ValueError(
                 f"line_interaction_type {line_interaction_type!r}"
             )
+        if packet_source not in ("auto", *POOLS):
+            raise ValueError(f"packet_source {packet_source!r}")
         self.line_interaction_type = line_interaction_type
         self.disable_electron_scattering = disable_electron_scattering
         self.disable_line_scattering = disable_line_scattering
         self.vpacket_tracking = vpacket_tracking
+        self.track_last_interaction = track_last_interaction
+        self.enable_full_relativity = enable_full_relativity
+        self.track_rpacket_length = int(track_rpacket_length)
+        self.inner_boundary_albedo = float(inner_boundary_albedo)
+        self.packet_source = packet_source
+
+    @property
+    def pool(self) -> str:
+        """The packet pool: "auto" is the relativistic one under full
+        relativity, the simple one otherwise."""
+        if self.packet_source != "auto":
+            return self.packet_source
+        return "relativistic" if self.enable_full_relativity else "simple"
 
     def run_iteration(
         self,
@@ -170,12 +236,16 @@ class TransportSolver:
                 macro_chain=macro_chain,
                 disable_electron_scattering=self.disable_electron_scattering,
                 disable_line_scattering=self.disable_line_scattering,
+                full_relativity=self.enable_full_relativity,
+                inner_boundary_albedo=self.inner_boundary_albedo,
             )
         src_key, run_key = iteration_keys(seed, iteration)
         device = plasma_state.tau_prefix.device
         with record_function("tardis.packet_source"):
-            pool_mu, pool_nu = blackbody_source(src_key, n_packets,
-                                                sim_state.t_inner, device)
+            pool_mu, pool_nu, pool_w = blackbody_source(
+                src_key, n_packets, sim_state.t_inner, device, self.pool,
+                beta_inner=float(sim_state.geometry.r_inner[0] / (
+                    C * sim_state.geometry.time_explosion)))
         lo, hi = lum_nu_window
         capacity = n_packets * VPACKET_RECORDS_PER_PACKET \
             if n_vpackets > 0 else 0
@@ -183,7 +253,9 @@ class TransportSolver:
             res = transport_loop(
                 tables, pool_mu, pool_nu, run_key,
                 nu_window=(lo / NU_UNIT, hi / NU_UNIT),
-                vpacket_capacity=capacity,
+                vpacket_capacity=capacity, pool_w=pool_w,
+                last_interaction=self.track_last_interaction,
+                tracker_length=self.track_rpacket_length,
             )
         virtual = {}
         if n_vpackets > 0:
@@ -263,7 +335,9 @@ class TransportSolver:
             diff = res.line_diff.reshape(L + 1, 2 * S).T.contiguous()
             cum = torch.cumsum(diff, dim=1)[:, :L].T.contiguous()
             cum = cum.cpu().numpy().reshape(L, S, 2)
-            nu_scaled = (atom_data.line_nu / NU_UNIT)[:, None]
+            # under full relativity the increments carry no nu_i factor
+            nu_scaled = (1.0 if self.enable_full_relativity else
+                         (atom_data.line_nu / NU_UNIT)[:, None])
             j_blue = cum[:, :, 0] * nu_scaled * (e0 / NU_UNIT)
             edot = cum[:, :, 1] * nu_scaled * e0
         n_immortal = warn_immortal(res)
@@ -281,6 +355,9 @@ class TransportSolver:
                 float(lum_nu_window[0]), float(lum_nu_window[1]),
                 float(summary[0]) * e0 / dt, float(summary[1]) * e0 / dt,
             ),
+            _li=res.last_interaction if self.track_last_interaction else None,
+            _tracker=res.tracker if self.track_rpacket_length else None,
+            length_unit=ct,
             **virtual,
         )
 

@@ -12,7 +12,9 @@ NU_UNIT, energies in packet birth units.  Homologous flow makes the
 combined optical depth to line i,
     g(i) = [P(i+1) - P(next_line)] + chi_e * s(i),
     s(i) = max(1 - nu_i / nu_lab - mu r, 0),
-monotone in i, so the event line is found by binary search.
+monotone in i, so the event line is found by binary search.  Under full
+relativity s(i) solves the resonance quadratic and chi_e carries the
+Doppler factor; s stays monotone in i, so the search is the same.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from tardis_torch.constants import C, SIGMA_THOMSON
 
 NU_UNIT = 1.0e15  # Hz
+GAMMA_FLOOR = 1e-12  # 1 - beta^2 is floored here before the square root
 
 # line interaction modes
 LINE_SCATTER = 0
@@ -32,6 +35,12 @@ LINE_DOWNBRANCH = 1
 LINE_MACROATOM = 2
 LINE_MODES = {"scatter": LINE_SCATTER, "downbranch": LINE_DOWNBRANCH,
               "macroatom": LINE_MACROATOM}
+
+
+def lorentz_gamma(r):
+    """Lorentz factor of the homologous flow at radius r (f32 tensor; beta
+    = r in these units), as the JAX package takes it."""
+    return 1.0 / torch.sqrt(torch.clamp(1.0 - r * r, min=GAMMA_FLOOR))
 
 
 @dataclass
@@ -49,6 +58,12 @@ class TransportTables:
     chain_width: int = 0  # W
     emit_width: int = 1  # We
     disable_line_scattering: bool = False
+    # special-relativistic transport (Lorentz factors, aberration, the
+    # quadratic resonance distance), as the JAX package's static config
+    full_relativity: bool = False
+    # probability that a packet hitting the inner boundary is reflected
+    # (0: every such packet is reabsorbed)
+    inner_boundary_albedo: float = 0.0
 
     @property
     def n_shells(self) -> int:
@@ -68,6 +83,8 @@ def build_transport_tables(
     macro_chain=None,
     disable_electron_scattering: bool = False,
     disable_line_scattering: bool = False,
+    full_relativity: bool = False,
+    inner_boundary_albedo: float = 0.0,
 ) -> TransportTables:
     """Tables on the device of ``prefix`` (the K3 tau prefix)."""
     device = prefix.device
@@ -106,5 +123,7 @@ def build_transport_tables(
         emit_cdf=emit_cdf.contiguous(),
         mode=mode,
         disable_line_scattering=disable_line_scattering,
+        full_relativity=full_relativity,
+        inner_boundary_albedo=float(inner_boundary_albedo),
         **kw,
     )

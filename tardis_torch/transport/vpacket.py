@@ -1,9 +1,9 @@
 """Virtual-packet volley (kernel K4, ``csrc/vpacket_volley.cu``).
 
 Counterpart of ``tardis_tpu/transport/vpacket.py`` (``trace_vpacket_records``,
-``_trace_vpacket_records_chunk``, ``_trace_tau``) in the non-relativistic
-branch.  K1 writes one spawn record per packet birth and interaction; each
-record sends ``n_vpackets`` virtual packets towards the observer:
+``_trace_vpacket_records_chunk``, ``_trace_tau``).  K1 writes one spawn
+record per packet birth and interaction; each record sends ``n_vpackets``
+virtual packets towards the observer:
 
 - stratified directions mu_v = mu_min + (v + 1/2) / V (1 - mu_min) with the
   Kerzendorf & Sim (2014) weights (2 mu_v / V on the inner boundary,
@@ -14,6 +14,12 @@ record sends ``n_vpackets`` virtual packets towards the observer:
   binary search of the line list per segment, in f64), the electron part
   chi_e * dz; a ray stops after 2S + 2 segments, at the inner or outer edge,
   or once tau >= 70;
+- under full relativity (``tables.full_relativity``, ``vpacket.py:96-111,
+  260-287``): mu_min aberrated into the comoving frame and the directions
+  stratified there, the inner-boundary weight 2 (mu + beta) / ((2 beta + 1)
+  V), each direction aberrated back to the lab frame, gamma(r) in both
+  Doppler factors, the segment's line threshold nu (1 - z_next)
+  gamma(r_next) and chi_e (1 - z) gamma(r_here);
 - the energy e^-tau (zero for a record of zero energy or outside the spawn
   range) added to the spectrum bin of the ray's frequency, in f64.
 
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 
 from tardis_torch import cuda
-from tardis_torch.transport.tables import TransportTables
+from tardis_torch.transport.tables import TransportTables, lorentz_gamma
 
 TAU_STOP = 70.0
 ON_INNER_REL = 1.0 + 1e-6  # a record within this factor of r_inner[0] is on it
@@ -59,7 +65,7 @@ def _volley_plain(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg):
     device = rec.device
     f32 = torch.float32
     S, L = t.n_shells, t.n_lines
-    R = rec.shape[0]
+    full_rel = t.full_relativity
     r0, mu0, nu0, e0 = rec[:, 0], rec[:, 1], rec[:, 2], rec[:, 3]
     beta_inner = t.r_inner[0]
     valid = (e0 > 0.0) & (nu0 >= lo) & (nu0 <= hi)
@@ -72,10 +78,26 @@ def _volley_plain(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg):
     mu_min = torch.where(
         on_inner, 0.0,
         -torch.sqrt(torch.clamp(1.0 - r_ratio * r_ratio, min=0.0)))
+    if full_rel:
+        # the limb aberrated into the comoving frame, where the directions
+        # are stratified (0 on the inner boundary)
+        mu_min = torch.where(on_inner, 0.0,
+                             (mu_min - r0) / (1.0 - r0 * mu_min))
     mu_vp = mu_min[:, None] + frac[None, :] * (1.0 - mu_min)[:, None]
-    weight = torch.where(on_inner[:, None], (2.0 * mu_vp) / v_t,
-                         ((1.0 - mu_min) / (2.0 * v_t))[:, None])
-    ratio = (1.0 - mu0 * r0)[:, None] / (1.0 - mu_vp * r0[:, None])
+    if full_rel:
+        weight = torch.where(
+            on_inner[:, None],
+            (2.0 * (mu_vp + beta_inner)) / ((2.0 * beta_inner + 1.0) * v_t),
+            ((1.0 - mu_min) / (2.0 * v_t))[:, None])
+        # comoving -> lab frame
+        mu_vp = (mu_vp + r0[:, None]) / (1.0 + r0[:, None] * mu_vp)
+        gamma_r = lorentz_gamma(r0)[:, None]
+        ratio = (((1.0 - mu0 * r0)[:, None] * gamma_r)
+                 / ((1.0 - mu_vp * r0[:, None]) * gamma_r))
+    else:
+        weight = torch.where(on_inner[:, None], (2.0 * mu_vp) / v_t,
+                             ((1.0 - mu_min) / (2.0 * v_t))[:, None])
+        ratio = (1.0 - mu0 * r0)[:, None] / (1.0 - mu_vp * r0[:, None])
     nu_vp = (nu0[:, None] * ratio).reshape(-1)
     e_vp = ((e0[:, None] * weight) * ratio).reshape(-1)
 
@@ -103,12 +125,18 @@ def _volley_plain(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg):
             reaches_inner, -torch.sqrt(torch.clamp(r_in * r_in - p2, min=0.0)),
             torch.sqrt(torch.clamp(r_out * r_out - p2, min=0.0)))
         nu_cmf_next = nu_vp * (1.0 - z_next)
+        if full_rel:
+            nu_cmf_next = nu_cmf_next * lorentz_gamma(
+                torch.where(reaches_inner, r_in, r_out))
         # lines with nu_line > nu_cmf at the segment's end are crossed
         i_next = torch.maximum(
             torch.searchsorted(neg_line_nu, -nu_cmf_next), i_cur)
         row = sc * (L + 1)
         d_line = (pflat[row + i_next] - pflat[row + i_cur]).float()
-        d_tau = d_line + t.chi_e[sc] * torch.clamp(z_next - z, min=0.0)
+        chi_e = t.chi_e[sc]
+        if full_rel:
+            chi_e = (chi_e * (1.0 - z)) * lorentz_gamma(torch.sqrt(p2 + z * z))
+        d_tau = d_line + chi_e * torch.clamp(z_next - z, min=0.0)
         tau = torch.where(active, tau + d_tau, tau)
         z = torch.where(active, z_next, z)
         i_cur = torch.where(active, i_next, i_cur)
@@ -127,9 +155,20 @@ def _volley_plain(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg):
     return nu_vp, e_out
 
 
+def variant_name(t: TransportTables) -> str:
+    """The K4 instantiation the tables select: ``classic`` or
+    ``full_relativity``."""
+    return "full_relativity" if t.full_relativity else "classic"
+
+
+def library_defines(t: TransportTables) -> tuple:
+    """nvcc -D flags of the K4 instantiation the tables select."""
+    return (f"VV_FULL_RELATIVITY={int(t.full_relativity)}",)
+
+
 def _volley_cuda(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg,
                  ray_nu, ray_e):
-    fn = cuda.library("vpacket_volley").vpacket_volley
+    fn = cuda.library("vpacket_volley", library_defines(t)).vpacket_volley
     fn.restype = ctypes.c_int
     vp, i64, ci, cf = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                        ctypes.c_float)
@@ -144,7 +183,9 @@ def _volley_cuda(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg,
         None if ray_e is None else p(ray_e), cuda.stream(),
     )
     cuda.check_launch("vpacket_volley", err)
-    trace_vpacket_records.launches += 1
+    name = variant_name(t)
+    by = trace_vpacket_records.launches_by_variant
+    by[name] = by.get(name, 0) + 1
 
 
 def _check_cuda(t: TransportTables, records, nu_edges):
@@ -223,4 +264,4 @@ def trace_vpacket_records(t: TransportTables, records, n_vpackets: int,
     return out
 
 
-trace_vpacket_records.launches = 0
+trace_vpacket_records.launches_by_variant = {}  # launches by variant_name

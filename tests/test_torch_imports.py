@@ -63,8 +63,9 @@ def test_formal_integral_solver_defaults_to_the_card(monkeypatch):
 
 def test_refused_options_name_themselves():
     cfg = copy.deepcopy(CONFIG)
-    cfg["montecarlo"]["enable_full_relativity"] = True
-    with pytest.raises(NotImplementedError, match="enable_full_relativity"):
+    cfg["montecarlo"]["enable_nonhomologous_expansion"] = True
+    with pytest.raises(NotImplementedError,
+                       match="enable_nonhomologous_expansion"):
         run_tardis(cfg, device="cpu")
     cfg = copy.deepcopy(CONFIG)
     cfg["spectrum"]["virtual"] = {"enable_biasing": True}
@@ -75,8 +76,8 @@ def test_refused_options_name_themselves():
     with pytest.raises(ValueError, match="compute"):
         run_tardis(cfg, device="cpu")
     cfg = copy.deepcopy(CONFIG)
-    cfg["montecarlo"]["tracking"]["track_last_interaction"] = True
-    with pytest.raises(NotImplementedError, match="track_last_interaction"):
+    cfg["plasma"]["continuum_interaction"] = {"species": ["H I"]}
+    with pytest.raises(NotImplementedError, match="continuum_interaction"):
         run_tardis(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="more than one device"):
         run_tardis(copy.deepcopy(CONFIG), device=["cuda:0", "cuda:1"])
@@ -99,8 +100,9 @@ def test_wrappers_never_fall_back():
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=meta)
 
-    with pytest.raises(ValueError, match="unsupported device"):
-        blackbody_source((0, 1), 8, 1e4, meta)
+    for pool in ("simple", "relativistic", "weighted"):
+        with pytest.raises(ValueError, match="unsupported device"):
+            blackbody_source((0, 1), 8, 1e4, meta, pool, beta_inner=0.03)
     static = LineStatic(*(empty(4, dtype=d) for d in (
         torch.int32, torch.int32, *[torch.float64] * 5)))
     with pytest.raises(ValueError, match="unsupported device"):
@@ -112,16 +114,22 @@ def test_wrappers_never_fall_back():
         line2macro=empty(4, dtype=torch.int32), chain_cdf=empty(1, 1),
         emit_cdf=empty(1, 3), mode=0,
     )
-    with pytest.raises(ValueError, match="unsupported device"):
-        transport_loop(tables, empty(8), empty(8), (0, 1))
-    with pytest.raises(ValueError, match="unsupported device"):
-        trace_vpacket_records(tables, empty(3, 8), 2, empty(5))
+    for full_relativity, albedo in ((False, 0.0), (True, 0.5)):
+        tables.full_relativity = full_relativity
+        tables.inner_boundary_albedo = albedo
+        for kw in ({}, dict(pool_w=empty(8), last_interaction=True,
+                            tracker_length=4)):
+            with pytest.raises(ValueError, match="unsupported device"):
+                transport_loop(tables, empty(8), empty(8), (0, 1), **kw)
+        with pytest.raises(ValueError, match="unsupported device"):
+            trace_vpacket_records(tables, empty(3, 8), 2, empty(5))
     with pytest.raises(ValueError, match="unsupported device"):
         integrate_rays(empty(3), empty(2), empty(2), empty(2), empty(2),
                        empty(4), *(empty(2, 4) for _ in range(4)), empty(3))
-    assert (blackbody_source.launches, line_tables.launches,
-            transport_loop.launches, trace_vpacket_records.launches,
-            integrate_rays.launches) == (0, 0, 0, 0, 0)
+    assert (line_tables.launches, integrate_rays.launches) == (0, 0)
+    assert not blackbody_source.launches_by_variant
+    assert not transport_loop.launches_by_variant
+    assert not trace_vpacket_records.launches_by_variant
     cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="float64"):
         cuda.check_cuda("k", cpu, prefix=(torch.zeros(3), torch.float64))

@@ -62,3 +62,22 @@ def test_source_uniforms_bit_equal(seed):
     got = rng.uniform(rng.random_bits((k[0][:, None], k[1][:, None]),
                                       torch.arange(6)[None, :])).numpy()
     np.testing.assert_array_equal(ref.view(np.uint32), got.view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_scalar_draw_bit_equal(seed):
+    """``jax.random.uniform(k, ())``, the relativistic pool's mu draw under
+    fold_in(fold_in(source key, pid), 7), takes counter 0: the first
+    column of any (n,) draw under the same key."""
+    src = jax.random.fold_in(jax.random.key(np.uint32(seed)), 4)
+    pids = np.arange(0, 4096, 37, dtype=np.uint32)
+    ref = np.asarray(jax.vmap(lambda p: jax.random.uniform(
+        jax.random.fold_in(jax.random.fold_in(src, p), 7), (),
+        jnp.float32))(jnp.asarray(pids)))
+    k = rng.fold_in(rng.fold_in(rng.fold_in(rng.key(seed), 4),
+                                torch.as_tensor(pids.astype(np.int64))), 7)
+    got = rng.uniform(rng.scalar_bits(k)).numpy()
+    np.testing.assert_array_equal(ref.view(np.uint32), got.view(np.uint32))
+    col0 = rng.uniform(rng.random_bits((k[0][:, None], k[1][:, None]),
+                                       torch.arange(3)[None, :]))[:, 0]
+    assert torch.equal(torch.as_tensor(got), col0)

@@ -23,11 +23,11 @@ def test_pool_matches_jax(seed, iteration, t_inner):
     mu_j, nu_j = (np.asarray(a) for a in
                   sample_blackbody_packets(jkey, N, t_inner))
     key = rng.fold_in(rng.key(seed), 2 * iteration)
-    mu, nu = blackbody_source(key, N, t_inner, "cpu")
-    assert mu.dtype == nu.dtype == torch.float32
+    mu, nu, w = blackbody_source(key, N, t_inner, "cpu")
+    assert mu.dtype == nu.dtype == torch.float32 and w is None
     np.testing.assert_allclose(mu.numpy(), mu_j, rtol=1e-6)
     np.testing.assert_allclose(nu.numpy(), nu_j, rtol=1e-6)
-    assert blackbody_source.launches == 0  # CPU tensors never launch
+    assert not blackbody_source.launches_by_variant  # CPU tensors never launch
 
 
 def test_wrapper_refuses_other_devices():

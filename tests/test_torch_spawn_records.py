@@ -45,9 +45,10 @@ SMALL = N // 2  # a capacity the records overflow
 MODE = "macroatom"
 
 
-def both_tables(mode=MODE):
+def both_tables(mode=MODE, full_relativity=False):
     """(JAX tables, static, port tables, geometry state, plasma) built from
-    one host-mode plasma solve of ``BASE_CONFIG``."""
+    one host-mode plasma solve of ``BASE_CONFIG``, for the classic or the
+    full-relativity event loop."""
     atom = make_synthetic_atom_data().prepare(
         selected_atoms=[8, 12, 14, 16, 18, 20], line_interaction_type=mode,
     )
@@ -66,7 +67,8 @@ def both_tables(mode=MODE):
                                  mode=mode,
                                  line_nu_scaled=atom.line_nu / NU_UNIT)
     tables, static = build_transport_tables(
-        state.geometry, ps, atom, mode, macro_chain=chain
+        state.geometry, ps, atom, mode, macro_chain=chain,
+        enable_full_relativity=full_relativity,
     )
     S, L = ps.tau_sobolev.shape[1], ps.tau_sobolev.shape[0]
     prefix = np.zeros((S, L + 1))
@@ -74,7 +76,7 @@ def both_tables(mode=MODE):
     pstate = TorchState.from_config(torch_config(BASE_CONFIG))
     pt = torch_tables(pstate.geometry, ps.electron_densities,
                       torch.as_tensor(prefix), port_atom, mode,
-                      macro_chain=port_chain)
+                      macro_chain=port_chain, full_relativity=full_relativity)
     return tables, static, pt, state, ps
 
 
