@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's main path on one NVIDIA GPU and check its kernels.
+"""Run the PyTorch port's paths on one NVIDIA GPU and check its kernels.
 
 Usage (from the repository root, one CUDA card):  python3 chip_smoke.py
 
@@ -14,31 +14,45 @@ Phases, one printed line each (plus one line per iteration):
      card could take (bound) and, where one PyTorch call computes the same
      function, its time.  K3 line tables; K2's simple and relativistic pools
      at both packet counts, the weighted pool at 2,097,152; then the K1 and
-     K4 instantiations the three paths select (kernel.variant and
-     vpacket.variant_name on the tables and pools built here), built in
+     K4 instantiations the paths select (kernel.variant and
+     vpacket.variant_name on the tables and pools built here, the two
+     continuum K1 instantiations of the IIP paths included), built in
      parallel, and K1 at each path's shapes: the convergence iterations'
      2,097,152 packets without spawn records and, on the main and
      relativity paths, the final iteration's 4,194,304 with 8 records a
      packet; K4 in one launch on each path's final-iteration records;
-  3. the main path: run_tardis on the card, 4 convergence iterations of
+  3. the IIP paths' kernels (the JAX package's IIP problem: H / He, H I
+     continua, 20 shells, 1,048,576 packets): K3 at its line tables, K2's
+     relativistic pool at 1,048,576, and each continuum K1 instantiation
+     (the IIP path's, and one with the two-photon and adiabatic channels,
+     boosted so both fire) timed uncapped as the path runs it, with its
+     per-packet event distribution, then bitwise against its plain
+     version with both stopped at IIP_EVENT_CAP events a packet;
+  4. the main path: run_tardis on the card, 4 convergence iterations of
      2,097,152 packets and the production final iteration (4,194,304
      packets, 2 virtual packets per spawn record, the formal integral at
      1,000 frequencies), tracking off as bench.py runs it;
-  4. the relativity path: the same run with enable_full_relativity and
+  5. the relativity path: the same run with enable_full_relativity and
      last-interaction tracking at its default (on), so the relativistic
      pool, K1's full-relativity instantiation with last-interaction rows
      and K4's full-relativity branch;
-  5. the options path: 3 iterations of 2,097,152 packets with the weighted
+  6. the options path: 3 iterations of 2,097,152 packets with the weighted
      pool, the reflective inner boundary (albedo 0.5) and the r-packet
      tracker;
+  7. the IIP path: TypeIIPWorkflow on the IIP problem, 3 convergence
+     iterations of 1,048,576 packets, each with its thermal balance (25
+     evaluations at most), and the final iteration; per iteration its
+     wall, thermal-balance host time, K1 milliseconds and luminosity;
+     then the IIP options path, 2 iterations with the two-photon and
+     adiabatic-cooling channels on;
      on each path the launch counts are reset to 0 just before the run and
      read just after, every variant a wrapper launched under its own line;
-  6. K5 (formal-integral rays) against its plain version on the main
+  8. K5 (formal-integral rays) against its plain version on the main
      path's own source-function tables;
-  7. where the time goes: torch.profiler over a two-iteration run of the
-     main path (device time by kernel, host time by tardis.* span, the
-     device's busy share);
-  8. a JSON line of every kernel (each K1, K2 and K4 variant on its own
+  9. where the time goes: torch.profiler over a two-iteration run of the
+     main path and of the IIP path (device time by kernel, host time by
+     tardis.* span, the device's busy share);
+ 10. a JSON line of every kernel (each K1, K2 and K4 variant on its own
      line, with the launches of the path that runs it; the weighted pool's
      line also counts its normalising launches), the card's name and power
      limit, and the result line {"ok": true, "device": {...}}.
@@ -83,6 +97,10 @@ TRACKER_LENGTH = 10
 PROFILE_ITERATIONS = 2
 ITERATIONS = 5
 SEED = 23111963
+IIP_PACKETS = 1_048_576
+IIP_ITERATIONS = 4  # 3 convergence iterations (each with its thermal balance)
+IIP_OPTIONS_ITERATIONS = 2  # and the final one
+IIP_EVENT_CAP = 2_000  # both sides of a continuum K1 check stop here
 
 BENCH_CONFIG = {
     "supernova": {"luminosity_requested": "9.44 log_lsun",
@@ -120,6 +138,25 @@ OPTIONS_CONFIG["montecarlo"].update(
               "initial_array_length": TRACKER_LENGTH})
 OPTIONS_CONFIG["spectrum"].update(method="real")
 del OPTIONS_CONFIG["spectrum"]["integrated"]
+
+# the JAX package's IIP problem (tardis_tpu/benchmarks/transport_bench.py:
+# 391-422): H / He, 20 shells, macroatom, H I continua, 1,000 bins
+IIP_CONFIG = {
+    "supernova": BENCH_CONFIG["supernova"],
+    "model": {"structure": BENCH_CONFIG["model"]["structure"],
+              "abundances": {"type": "uniform", "H": 0.8, "He": 0.2}},
+    "plasma": {"line_interaction_type": "macroatom",
+               "continuum_interaction": {"species": ["H I"]}},
+    "montecarlo": {"seed": SEED, "no_of_packets": IIP_PACKETS,
+                   "iterations": IIP_ITERATIONS,
+                   "last_no_of_packets": IIP_PACKETS},
+    "spectrum": {"start": "500 angstrom", "stop": "20000 angstrom",
+                 "num": 1000},
+}
+IIP_OPTIONS_CONFIG = copy.deepcopy(IIP_CONFIG)
+IIP_OPTIONS_CONFIG["montecarlo"]["iterations"] = IIP_OPTIONS_ITERATIONS
+IIP_OPTIONS_CONFIG["plasma"]["continuum_interaction"].update(
+    enable_two_photon_decay=True, enable_adiabatic_cooling=True)
 
 # what each path hands K1: the transport tables' options, the pool, the
 # trackers, and whether its final iteration writes spawn records
@@ -359,7 +396,11 @@ def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0):
     tracker rows included) written once, against the events' hashing,
     search and arithmetic.  Every event hashes at least twice (its key and
     the tau draw); interactions hash more, so counting two keeps the bound
-    a lower bound."""
+    a lower bound.  With continuum, an event also searches the bound-free
+    grid (~4 operations a probe), interpolates and sums the C continua (~8
+    operations each) and adds eight moments (counted as 8 operations), and
+    the continuum tables, moments, free-free heating and per-packet event
+    counts are read or written once."""
     t = tables
     in_bytes = 8 * n_packets + nbytes(
         t.r_inner, t.r_outer, t.chi_e, t.line_nu, t.prefix, t.line2macro,
@@ -368,6 +409,14 @@ def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0):
                                      + 2 * t.n_shells + 4) + 32 * n_records
     per_event = (2 * THREEFRY_OPS + 8 * math.ceil(math.log2(t.n_lines + 1))
                  + 60)
+    c = t.continuum
+    if c is not None:
+        in_bytes += nbytes(*(v for v in vars(c).values()
+                             if isinstance(v, torch.Tensor)))
+        out_bytes += (8 * 8 * (c.n_grid - 1) * t.n_shells
+                      + 8 * t.n_shells + 4 * n_packets)
+        per_event += (4 * math.ceil(math.log2(c.n_grid)) + 8 * c.n_continua
+                      + 8)
     return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event)
 
 
@@ -482,14 +531,18 @@ def k1_variant(path, tables, pool):
                    opts["tracker_length"])
 
 
-def build_variants(tables, pools):
+def build_variants(tables, pools, iip_tables=()):
     """Build, in parallel, the K1 and K4 instantiations the paths select
-    on their own tables and pools; returns the wall seconds and the ptxas
+    on their own tables and pools, and K1's continuum instantiations of
+    ``iip_tables`` (with the weighted pool and last-interaction rows, as
+    the IIP paths run them); returns the wall seconds and the ptxas
     register lines."""
     from tardis_torch import cuda
     from tardis_torch.transport import kernel, vpacket
 
-    libs = []
+    libs = [("transport_loop", kernel.library_defines(kernel.variant(
+        t, pools["relativistic"][N_PACKETS][2], last_interaction=True)))
+        for t in iip_tables]
     for path, opts in PATHS.items():
         t = tables[path]
         flags = k1_variant(path, t, pools[opts["pool"]][N_PACKETS])
@@ -825,6 +878,250 @@ def run_options_path(atom, device, expected):
     return launches
 
 
+def build_iip_problem():
+    """The IIP path's state and atom data: the JAX package's IIP problem
+    (H I continua, 10 levels per ion, L = 135 lines, C = 10 continua)."""
+    from tardis_torch.atomic.synthetic import make_synthetic_atom_data
+    from tardis_torch.config.reader import config_from_dict
+    from tardis_torch.model.state import SimulationState
+
+    state = SimulationState.from_config(config_from_dict(IIP_CONFIG))
+    atom = make_synthetic_atom_data(
+        atomic_numbers=(1, 2), max_ion_stage=2, n_levels=10,
+        continuum_species=((1, 0),),
+    ).prepare(line_interaction_type="macroatom")
+    return state, atom
+
+
+def iip_tables(state, atom, device, channels=False):
+    """K1's tables of the IIP path's first iteration: its first plasma
+    solve (link W^0.25, as the workflow starts), continuum state and
+    Markov macro atom.  With ``channels`` the two-photon and
+    adiabatic-cooling channels are added, boosted as the JAX package's own
+    tests boost them (tests/test_continuum.py:238,327: A_2ph 1e12 / s, the
+    adiabatic rate at t_exp / 1e8) so that both fire."""
+    from tardis_torch.opacities.continuum_macro import (
+        solve_continuum_macro_state,
+    )
+    from tardis_torch.plasma.continuum import ContinuumSolver
+    from tardis_torch.plasma.solver import PlasmaSolver
+    from tardis_torch.transport.tables import (
+        build_continuum_tables,
+        build_transport_tables,
+    )
+
+    pl = PlasmaSolver(atom, state, device)
+    pl.link_t_rad_t_electron = state.dilution_factor**0.25
+    ps = pl.update(state.t_radiative, state.dilution_factor)
+    cont = ContinuumSolver(atom, pl).update(ps)
+    kw = {}
+    if channels:
+        atom = copy.deepcopy(atom)
+        atom.two_photon.A_ul[:] = 1e12
+        kw = dict(enable_two_photon=True, enable_adiabatic_cooling=True,
+                  time_explosion=state.time_explosion / 1e8)
+    macro = solve_continuum_macro_state(atom, ps, cont, ps.j_blues, **kw)
+    ct = build_continuum_tables(state.geometry, atom, cont, macro, device)
+    return build_transport_tables(
+        state.geometry, ps.electron_densities, ps.tau_prefix, atom,
+        "macroatom", full_relativity=True, continuum=ct)
+
+
+def event_distribution(events, stopped):
+    """Mean, p99 and largest of K1's per-packet event counts, and the
+    packets the event cap stopped."""
+    ev = events.double()
+    return dict(mean=ev.mean().item(),
+                p99=torch.quantile(ev, 0.99).item(),
+                max=int(events.max().item()), stopped=int(stopped))
+
+
+def check_continuum_loop(tables, pool, run_key, replaces):
+    """A continuum K1 instantiation at the IIP path's width.  Timed as the
+    path runs it (uncapped: ``ms``, its events and event distribution), then
+    both versions run under IIP_EVENT_CAP events a packet (the plain
+    lockstep loop runs as many steps as its longest packet): every packet
+    must end bitwise equal (a stopped packet's row is zero in both), with
+    equal per-packet event counts, equal event and stopped totals, bitwise
+    last-interaction rows, and est_j, est_nubar, the free-free heating and
+    the moments within 1e-12 relative (f64 atomics in racing order; the
+    line difference array and luminosity sums, with cancelling terms,
+    within 1e-9 as for the classic K1).  The free-free heating sums
+    ~1.5e8 terms spanning decades per shell (chi_ff ~ nu^-3) in two racing
+    orders: 1.25e-12 apart at 1,048,576 packets on an H100 80GB HBM3 at
+    700 W, so it is held to 1e-11.  Returns the kernels-line entry."""
+    from tardis_torch.transport.kernel import (
+        transport_loop,
+        transport_loop_plain,
+        variant,
+        variant_name,
+    )
+
+    mu, nu, w = pool
+    n = mu.shape[0]
+    kw = dict(pool_w=w, last_interaction=True)
+    ms, full = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key, **kw),
+                       2)
+    dist = event_distribution(full.events, full.summary[3].item())
+    events_full = full.summary[2].item()
+    li = full.last_interaction[:, 0]
+    kinds = {"line": int((li == 2).sum()), "continuum": int((li == 3).sum()),
+             "escat": int((li == 1).sum()),
+             "adiabatic": int(((full.out[:, 0] < 0)
+                               & (full.out[:, 1] == 0)).sum())}
+    del full
+    capped_ms, k = cuda_ms(lambda: transport_loop(
+        tables, mu, nu, run_key, max_events=IIP_EVENT_CAP, **kw), 3)
+    plain_ms, p = cuda_ms(lambda: transport_loop_plain(
+        tables, mu, nu, run_key, batch_size=n, max_events=IIP_EVENT_CAP,
+        **kw), 1, warmup=False)
+    bitwise = (k.out == p.out).all(dim=1).double().mean().item()
+    events_equal = bool(torch.equal(k.events, p.events))
+    rows_equal = bool(torch.equal(k.last_interaction, p.last_interaction))
+    rels = {name: rel_err(getattr(k, name), getattr(p, name))
+            for name in ("est_j", "est_nubar", "est_ff_heat",
+                         "cont_moments", "line_diff")}
+    rels["L_window"] = rel_err(k.summary[0:1], p.summary[0:1])
+    rels["L_reabsorbed"] = rel_err(k.summary[1:2], p.summary[1:2])
+    totals = (k.summary[2].item(), p.summary[2].item(),
+              int(k.summary[3].item()), int(p.summary[3].item()))
+    limits = dict(est_j=1e-12, est_nubar=1e-12, cont_moments=1e-12,
+                  est_ff_heat=1e-11, line_diff=1e-9, L_window=1e-9,
+                  L_reabsorbed=1e-9)
+    if not (bitwise == 1.0 and events_equal and rows_equal
+            and totals[0] == totals[1] and totals[2] == totals[3]
+            and all(r <= limits[name] for name, r in rels.items())):
+        raise AssertionError(
+            f"continuum transport_loop at {n} packets: bitwise packets "
+            f"{bitwise}, per-packet events equal {events_equal}, "
+            f"last-interaction rows equal {rows_equal}, (events, stopped) "
+            f"{totals}, max rel {rels}")
+    max_abs = max((getattr(k, name) - getattr(p, name)).abs().max().item()
+                  for name in ("out", "est_j", "est_nubar", "est_ff_heat",
+                               "cont_moments", "line_diff", "summary"))
+    b_ms, b_by = k1_bound(tables, n, events_full,
+                          extra_bytes=nbytes(w, k.last_interaction))
+    name = line_name("transport_loop", variant_name(variant(
+        tables, w, last_interaction=True)))
+    numbers = dict(line=name, n=n, ms=ms, events=events_full,
+                   events_per_packet=dist, interactions=kinds,
+                   capped_ms=capped_ms, plain_ms=plain_ms,
+                   event_cap=IIP_EVENT_CAP, capped_events=totals[0],
+                   capped_stopped=totals[2], bound_ms=b_ms, bound_by=b_by,
+                   bitwise_packets=bitwise, events_bitwise=events_equal,
+                   last_interaction_bitwise=rows_equal, max_rel=rels,
+                   max_abs_err=max_abs)
+    say("check_continuum_loop", **numbers)
+    return k1_entry(name, replaces, numbers)
+
+
+def run_iip_path(phase, config, atom, device, expected):
+    """TypeIIPWorkflow(config).run() on the card with the launch counts
+    reset to 0 just before and read just after (every line in
+    ``expected`` exactly that often, None: at least once; no other).  One
+    line per iteration: wall seconds (the thermal balance, host time, also
+    on its own), K1's CUDA-event milliseconds, its events and their
+    per-packet distribution (mean, p99, largest, stopped by the cap), and
+    L_emitted / L_requested.  Every value
+    must be finite, link_t_rad_t_electron in (0, 1.5], n_e > 0 and the
+    photoionization estimator sum > 0."""
+    from tardis_torch.transport import solver as solver_module
+    from tardis_torch.workflows.type_iip import TypeIIPWorkflow
+
+    k1_events = []
+    launch_k1 = solver_module.transport_loop
+
+    def timed_k1(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = launch_k1(*args, **kw)
+        b.record()
+        k1_events.append((a, b))
+        return res
+
+    marks, balance_s, events = [], [], []
+
+    class Timed(TypeIIPWorkflow):
+        def solve_montecarlo(self, n_packets, iteration):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            res = super().solve_montecarlo(n_packets, iteration)
+            events.append(dict(events=res.n_events,
+                               per_packet=event_distribution(
+                                   res.events, res.n_immortal)))
+            return res
+
+        def solve_thermal_balance(self):
+            t0 = time.perf_counter()
+            out = super().solve_thermal_balance()
+            balance_s.append((time.perf_counter() - t0, int(out.nfev)))
+            return out
+
+    solver_module.transport_loop = timed_k1
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wf = Timed(copy.deepcopy(config), atom_data=atom, device=device)
+        wf.run()
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        solver_module.transport_loop = launch_k1
+    launches = read_launches()
+    sim = wf.sim
+    marks.append(end)
+    res = sim.last_transport_result
+    ratios = [h.emitted_luminosity / sim.state.luminosity_requested
+              for h in sim.history]
+    ratios.append(res.emitted_luminosity(*sim._lum_nu_window())
+                  / sim.state.luminosity_requested)
+    for i, (a, b) in enumerate(k1_events):
+        say("iip_iteration", path=phase, index=i,
+            wall_s=marks[i + 1] - marks[i],
+            thermal_balance_s=balance_s[i][0] if i < len(balance_s)
+            else None,
+            thermal_balance_nfev=balance_s[i][1] if i < len(balance_s)
+            else None,
+            k1_ms=a.elapsed_time(b), **events[i],
+            L_emitted_over_requested=ratios[i])
+    last = events[-1]["per_packet"]
+    link = np.asarray(sim.plasma_solver.link_t_rad_t_electron, float)
+    n_e = sim.plasma_state.electron_densities
+    est = wf.cont_estimators
+    pion = float(est.photo_ion.sum())
+    finite = bool(
+        np.isfinite(link).all() and np.isfinite(n_e).all()
+        and np.isfinite(sim.state.t_radiative).all()
+        and np.isfinite(sim.state.dilution_factor).all()
+        and np.isfinite(sim.spectrum_real.luminosity_nu).all()
+        and all(np.isfinite(getattr(est, f)).all()
+                for f in ("photo_ion", "stim_recomb", "bf_heating",
+                          "stim_recomb_cooling", "ff_heating")))
+    say(phase, wall_s=end - t0, packets=IIP_PACKETS * len(k1_events),
+        launches=launches, final_L_emitted_over_requested=ratios[-1],
+        final_events=res.n_events, final_events_per_packet=last,
+        link_range=[float(link.min()), float(link.max())],
+        n_e_range=[float(n_e.min()), float(n_e.max())],
+        t_inner=sim.state.t_inner, photo_ion_estimator_sum=pion,
+        finite=finite)
+    if not (finite and (link > 0).all() and (link <= 1.5).all()
+            and (n_e > 0).all() and pion > 0):
+        raise AssertionError(f"{phase}: finite {finite}, link "
+                             f"{link.min()}..{link.max()}, n_e min "
+                             f"{n_e.min()}, photoionization sum {pion}")
+
+    def off(line):
+        n, want = launches.get(line, 0), expected.get(line, 0)
+        return n < 1 if want is None else n != want
+
+    if any(off(line) for line in set(launches) | set(expected)):
+        raise AssertionError(f"{phase}: kernel launches {launches}, "
+                             f"expected {expected}")
+    return launches
+
+
 def profile_main_path(atom, device):
     """Where the time goes in a short run of the main path (one convergence
     iteration and the final one): device time by kernel, host time by
@@ -842,24 +1139,7 @@ def profile_main_path(atom, device):
         run_tardis(config, atom_data=atom, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device rows: kernels and copies (the spans' device-side twins and
-    # host operators that launched kernels are left out, so nothing counts
-    # twice); host rows: the tardis.* spans
-    events = prof.key_averages()
-    on_device = torch.autograd.DeviceType.CUDA
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in events
-         if e.device_type == on_device and not e.key.startswith("tardis.")),
-        key=lambda r: -r[1])
-    spans = sorted(
-        ((e.key, e.cpu_time_total / 1e3, e.count) for e in events
-         if e.device_type != on_device and e.key.startswith("tardis.")),
-        key=lambda r: -r[1])
-    device_ms = sum(ms for _, ms, _ in kernels)
-    say("profile", iterations=PROFILE_ITERATIONS, wall_ms=wall * 1e3,
-        device_busy_ms=device_ms, device_busy_share=device_ms / (wall * 1e3),
-        device_ms_by_kernel=[[k[:80], ms, n] for k, ms, n in kernels[:24]],
-        host_ms_by_span=[[k, ms, n] for k, ms, n in spans])
+    say_profile("profile", prof, wall)
 
 
 def ptxas_lines(libs):
@@ -896,6 +1176,74 @@ def check_pools(state, device):
     return pools, lines
 
 
+def check_iip_kernels(device, state, atom, tables, k2, k3):
+    """The IIP paths' kernels at their shapes: K3 on the IIP problem's
+    line tables, K2's relativistic pool at IIP_PACKETS with the IIP
+    path's first key (each kept under its existing line, with the larger
+    error), then K1's two continuum instantiations on ``tables`` (the IIP
+    path's, and the IIP options path's with the two-photon and adiabatic
+    channels).  Returns the K1 lines by path."""
+    from tardis_torch.transport.solver import iteration_keys
+
+    _, k3_iip = check_line_tables(state, atom, device)
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_iip["max_abs_err"])
+    pool, k2_iip = check_blackbody_source(state, device, IIP_PACKETS, 0,
+                                          "relativistic")
+    k2["relativistic"]["max_abs_err"] = max(
+        k2["relativistic"]["max_abs_err"], k2_iip["max_abs_err"])
+    _, run_key = iteration_keys(SEED, 0)
+    lines = {}
+    for path, replaces in (("iip", "tardis_tpu/transport/kernel.py:366"),
+                           ("iip_options",
+                            "tardis_tpu/transport/kernel.py:864")):
+        lines[path] = check_continuum_loop(tables[path], pool, run_key,
+                                           replaces)
+        torch.cuda.empty_cache()
+    return lines
+
+
+def profile_iip_path(atom, device):
+    """Where the time goes in a short IIP run (one convergence iteration
+    with its thermal balance, and the final one) at IIP_PACKETS."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tardis_torch.workflows.type_iip import TypeIIPWorkflow
+
+    config = copy.deepcopy(IIP_CONFIG)
+    config["montecarlo"]["iterations"] = PROFILE_ITERATIONS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        TypeIIPWorkflow(config, atom_data=atom, device=device).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    say_profile("profile_iip", prof, wall)
+
+
+def say_profile(phase, prof, wall):
+    """Device time by kernel, host time by tardis.* span and the device's
+    busy share of ``wall`` seconds, from a torch.profiler run."""
+    # device rows: kernels and copies (the spans' device-side twins and
+    # host operators that launched kernels are left out, so nothing counts
+    # twice); host rows: the tardis.* spans
+    events = prof.key_averages()
+    on_device = torch.autograd.DeviceType.CUDA
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in events
+         if e.device_type == on_device and not e.key.startswith("tardis.")),
+        key=lambda r: -r[1])
+    spans = sorted(
+        ((e.key, e.cpu_time_total / 1e3, e.count) for e in events
+         if e.device_type != on_device and e.key.startswith("tardis.")),
+        key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms, _ in kernels)
+    say(phase, iterations=PROFILE_ITERATIONS, wall_ms=wall * 1e3,
+        device_busy_ms=device_ms, device_busy_share=device_ms / (wall * 1e3),
+        device_ms_by_kernel=[[k[:80], ms, n] for k, ms, n in kernels[:24]],
+        host_ms_by_span=[[k, ms, n] for k, ms, n in spans])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -922,7 +1270,12 @@ def main() -> int:
         pools, k2 = check_pools(state, device)
         chain = check_chain_build(atom, ps)
         tables = path_tables(state, atom, ps, chain)
-        build_s, ptxas = build_variants(tables, pools)
+        iip_state, iip_atom = build_iip_problem()
+        tables_iip = {
+            "iip": iip_tables(iip_state, iip_atom, device),
+            "iip_options": iip_tables(iip_state, iip_atom, device,
+                                      channels=True)}
+        build_s, ptxas = build_variants(tables, pools, tables_iip.values())
         say("build_variants", build_s=build_s, ptxas=ptxas)
         for path, opts in PATHS.items():
             k1[path], records = check_transport_loop(
@@ -932,9 +1285,13 @@ def main() -> int:
                                                 device)
             del records
             torch.cuda.empty_cache()
-        say("kernel_checks", wall_s=time.perf_counter() - t)
         del ps, chain, tables, pools
         torch.cuda.empty_cache()
+        k1.update(check_iip_kernels(device, iip_state, iip_atom, tables_iip,
+                                    k2, k3))
+        del tables_iip
+        torch.cuda.empty_cache()
+        say("kernel_checks", wall_s=time.perf_counter() - t)
         # each path's launches: K3 every iteration, its own K2, K1 and K4
         # lines as often as it runs them, and no other variant
         expected = {path: {"line_tables": None,
@@ -948,6 +1305,11 @@ def main() -> int:
             line_name("blackbody_source", "weighted_normalize"):
                 OPTIONS_ITERATIONS,
             k1["options"]["name"]: OPTIONS_ITERATIONS})
+        for path, n in (("iip", IIP_ITERATIONS),
+                        ("iip_options", IIP_OPTIONS_ITERATIONS)):
+            expected[path] = {"line_tables": None,
+                              k2["relativistic"]["name"]: n,
+                              k1[path]["name"]: n}
         launches = {}
         sim, launches["main"] = run_path("main_path", BENCH_CONFIG, atom,
                                          device, expected["main"])
@@ -960,14 +1322,23 @@ def main() -> int:
         launches["options"] = run_options_path(atom, device,
                                                expected["options"])
         torch.cuda.empty_cache()
+        launches["iip"] = run_iip_path("iip_path", IIP_CONFIG, iip_atom,
+                                       device, expected["iip"])
+        torch.cuda.empty_cache()
+        launches["iip_options"] = run_iip_path(
+            "iip_options_path", IIP_OPTIONS_CONFIG, iip_atom, device,
+            expected["iip_options"])
+        torch.cuda.empty_cache()
         profile_main_path(atom, device)
+        profile_iip_path(iip_atom, device)
     # each line's launches come from the path that runs it
     lines = [(k1["main"], "main"), (k2["simple"], "main"), (k3, "main"),
              (k4["main"], "main"), (k5, "main"),
              (k1["relativity"], "relativity"),
              (k2["relativistic"], "relativity"),
              (k4["relativity"], "relativity"),
-             (k1["options"], "options"), (k2["weighted"], "options")]
+             (k1["options"], "options"), (k2["weighted"], "options"),
+             (k1["iip"], "iip"), (k1["iip_options"], "iip_options")]
     for k, path in lines:
         k["launches"] = launches[path][k["name"]]
         if k["launches"] < 1:

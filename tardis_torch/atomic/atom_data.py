@@ -22,6 +22,7 @@ internal-up transitions).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -82,6 +83,62 @@ class MacroAtomData:
 
 
 @dataclass
+class TwoPhotonData:
+    """Two-photon decay transitions (e.g. H I 2s -> 1s).
+
+    Counterpart of the reference's ``atomic_data.two_photon_data`` table
+    (tardis/io/atom_data/base.py:97-104: index (atomic_number, ion_number,
+    level_number_lower, level_number_upper), columns A_ul [1/s], nu0 [Hz],
+    alpha, beta, gamma — the Nussbaumer & Schmutz 1984 fit coefficients of
+    the frequency-dependent decay rate A(y)).
+    """
+
+    z: np.ndarray  # (T,) int
+    ion: np.ndarray  # (T,) int
+    level_lower: np.ndarray  # (T,) int
+    level_upper: np.ndarray  # (T,) int
+    A_ul: np.ndarray  # (T,) float 1/s
+    nu0: np.ndarray  # (T,) float Hz
+    alpha: np.ndarray  # (T,) float
+    beta: np.ndarray  # (T,) float
+    gamma: np.ndarray  # (T,) float
+
+
+@dataclass
+class PhotoIonizationData:
+    """Tabulated photoionization cross-sections (bound-free continua).
+
+    Counterpart of the reference's ``atomic_data.photoionization_data``
+    table as flat CSR blocks.  Continua are sorted by threshold frequency
+    DESCENDING (the reference's ``level2continuum_idx`` order,
+    tardis/iip_plasma/properties/continuum.py:1448-1452) and each
+    continuum's frequency grid is ascending within its block.
+    """
+
+    # per continuum (C,), threshold-nu descending order
+    cont_z: np.ndarray  # int
+    cont_ion: np.ndarray  # int (lower ion stage, e.g. 0 for H I)
+    cont_level: np.ndarray  # int level_number of the bound level
+    level_flat_idx: np.ndarray  # int32 flat index of the bound level
+    block_references: np.ndarray  # (C+1,) int32 offsets into point arrays
+    # per tabulation point (P,)
+    nu: np.ndarray  # Hz, ascending within each block
+    x_sect: np.ndarray  # cm^2
+
+    @property
+    def n_continua(self) -> int:
+        return len(self.cont_z)
+
+    @property
+    def nu_threshold(self) -> np.ndarray:
+        return self.nu[self.block_references[:-1]]
+
+    @property
+    def nu_max(self) -> np.ndarray:
+        return self.nu[self.block_references[1:] - 1]
+
+
+@dataclass
 class AtomData:
     """Flat-array atomic dataset.
 
@@ -118,6 +175,13 @@ class AtomData:
 
     # optional raw source (e.g. pandas frames) kept for HDF round trip
     meta: dict = field(default_factory=dict)
+
+    # bound-free continua (None when the dataset carries no
+    # photoionization tables; the Type IIP continuum workflow needs them)
+    photo_ion: PhotoIonizationData | None = None
+
+    # two-photon decay transitions (None when the dataset has none)
+    two_photon: TwoPhotonData | None = None
 
     # filled by prepare()
     species_z: np.ndarray | None = None  # (S,) unique species (Z, ion)
@@ -157,6 +221,37 @@ class AtomData:
         old_to_new[lmask] = np.arange(int(lmask.sum()))
         line_mask = np.isin(self.line_z, wanted)
 
+        photo_ion = None
+        if self.photo_ion is not None:
+            pi = self.photo_ion
+            keep = np.nonzero(np.isin(pi.cont_z, wanted))[0]
+            refs = pi.block_references
+            pts = np.concatenate(
+                [np.arange(refs[c], refs[c + 1]) for c in keep]
+            ) if len(keep) else np.zeros(0, dtype=np.int64)
+            new_refs = np.zeros(len(keep) + 1, dtype=np.int32)
+            np.cumsum([refs[c + 1] - refs[c] for c in keep],
+                      out=new_refs[1:])
+            photo_ion = PhotoIonizationData(
+                cont_z=pi.cont_z[keep],
+                cont_ion=pi.cont_ion[keep],
+                cont_level=pi.cont_level[keep],
+                level_flat_idx=old_to_new[pi.level_flat_idx[keep]].astype(
+                    np.int32),
+                block_references=new_refs,
+                nu=pi.nu[pts],
+                x_sect=pi.x_sect[pts],
+            )
+
+        two_photon = None
+        if self.two_photon is not None:
+            tp = self.two_photon
+            keep_tp = np.isin(tp.z, wanted)
+            if keep_tp.any():
+                two_photon = TwoPhotonData(**{
+                    f.name: getattr(tp, f.name)[keep_tp]
+                    for f in dataclasses.fields(TwoPhotonData)})
+
         return AtomData(
             atomic_numbers=self.atomic_numbers[emask],
             masses=self.masses[emask],
@@ -180,6 +275,8 @@ class AtomData:
             line_z=self.line_z[line_mask],
             line_ion=self.line_ion[line_mask],
             meta=dict(self.meta),
+            photo_ion=photo_ion,
+            two_photon=two_photon,
             zeta_data=self.zeta_data,
         )
 

@@ -4,12 +4,13 @@
 port's, or the JAX package's, which has the same fields) into
 ``{name: np.ndarray}``; ``atom_data_from_arrays`` rebuilds the port's
 ``AtomData`` from such a dict.  Both packages then compute on identical
-inputs.  Keys: the AtomData array fields by name, the macro-atom and
-downbranch tables as ``macro_atom/<field>`` and ``downbranch/<field>``, and
-the nebular zeta tables as ``zeta_data/<Z>/<ion>/t_rads`` and ``.../zeta``.
-The JAX package's photoionization, collision and two-photon tables are not
-carried: the port refuses continuum and NLTE plasmas, the only paths that
-read them.
+inputs.  Keys: the AtomData array fields by name; the macro-atom,
+downbranch, photoionization and two-photon tables as ``<table>/<field>``
+(``macro_atom``, ``downbranch``, ``photo_ion``, ``two_photon``); and the
+nebular zeta tables as ``zeta_data/<Z>/<ion>/t_rads`` and ``.../zeta``.
+The JAX package's tabulated collision strengths are not carried: they
+feed its NLTE plasma, which the port refuses; the port's continuum solver
+takes van Regemorter rates for every collisional transition.
 """
 
 from __future__ import annotations
@@ -18,13 +19,19 @@ import dataclasses
 
 import numpy as np
 
-from tardis_torch.atomic.atom_data import AtomData, MacroAtomData
+from tardis_torch.atomic.atom_data import (
+    AtomData,
+    MacroAtomData,
+    PhotoIonizationData,
+    TwoPhotonData,
+)
 
-_MACRO_TABLES = ("macro_atom", "downbranch")
+_TABLES = {"macro_atom": MacroAtomData, "downbranch": MacroAtomData,
+           "photo_ion": PhotoIonizationData, "two_photon": TwoPhotonData}
 
 
 def _array_fields(cls):
-    skip = {"meta", "zeta_data", *_MACRO_TABLES}
+    skip = {"meta", "zeta_data", *_TABLES}
     return [f.name for f in dataclasses.fields(cls) if f.name not in skip]
 
 
@@ -34,11 +41,11 @@ def atom_data_to_arrays(atom) -> dict[str, np.ndarray]:
         v = getattr(atom, name)
         if v is not None:
             out[name] = np.asarray(v).copy()
-    for table in _MACRO_TABLES:
-        m = getattr(atom, table)
+    for table, cls in _TABLES.items():
+        m = getattr(atom, table, None)
         if m is None:
             continue
-        for f in dataclasses.fields(MacroAtomData):
+        for f in dataclasses.fields(cls):
             v = getattr(m, f.name)
             if v is not None:
                 out[f"{table}/{f.name}"] = np.asarray(v).copy()
@@ -56,11 +63,11 @@ def atom_data_from_arrays(arrays: dict[str, np.ndarray]) -> AtomData:
     if missing:
         raise KeyError(f"atom data arrays lack {missing}")
     kw = dict(top)
-    for table in _MACRO_TABLES:
+    for table, cls in _TABLES.items():
         prefix = table + "/"
         fields = {k[len(prefix):]: np.asarray(v)
                   for k, v in arrays.items() if k.startswith(prefix)}
-        kw[table] = MacroAtomData(**fields) if fields else None
+        kw[table] = cls(**fields) if fields else None
     zeta = {}
     for k, v in arrays.items():
         if k.startswith("zeta_data/") and k.endswith("/t_rads"):

@@ -12,7 +12,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from tardis_torch.atomic.atom_data import ATOMIC_MASSES, AtomData
+from tardis_torch.atomic.atom_data import (
+    ATOMIC_MASSES,
+    AtomData,
+    PhotoIonizationData,
+    TwoPhotonData,
+)
 from tardis_torch.constants import H, M_U
 
 EV = 1.602176634e-12  # erg
@@ -24,6 +29,8 @@ def make_synthetic_atom_data(
     n_levels: int = 25,
     max_level_jump: int | None = None,
     seed: int = 42,
+    continuum_species=(),
+    n_photo_ion_points: int = 16,
 ) -> AtomData:
     """Build a synthetic AtomData.
 
@@ -40,6 +47,13 @@ def make_synthetic_atom_data(
     max_level_jump
         If set, only transitions with (upper - lower) <= max_level_jump are
         kept (controls the line count).
+    continuum_species
+        (Z, ion) pairs for which hydrogenic photoionization cross-section
+        tables are generated (sigma = sigma_0/(k+1) * (nu_th/nu)^3 on a
+        geometric grid of ``n_photo_ion_points`` frequencies per level), with
+        one 2s-like two-photon decay per species: the stand-in for the
+        reference's ``photoionization_data`` and ``two_photon_data`` tables
+        the Type IIP continuum workflow reads.
     """
     rng = np.random.RandomState(seed)
 
@@ -102,6 +116,12 @@ def make_synthetic_atom_data(
         [flat[(r[0], r[1], r[3])] for r in line_rows], dtype=np.int32
     )
 
+    photo_ion = two_photon = None
+    if continuum_species:
+        photo_ion = _photo_ion_tables(continuum_species, max_ion_stage,
+                                      n_levels, n_photo_ion_points, flat)
+        two_photon = _two_photon_tables(continuum_species, flat, lene)
+
     zs = np.asarray(sorted(set(int(z) for z in atomic_numbers)))
     zeta_t = np.linspace(2000.0, 40000.0, 20)
     zeta_data = {}
@@ -128,5 +148,64 @@ def make_synthetic_atom_data(
         line_z=line_z,
         line_ion=line_ion,
         meta={"source": "synthetic", "seed": seed},
+        photo_ion=photo_ion,
+        two_photon=two_photon,
         zeta_data=zeta_data,
+    )
+
+
+def _photo_ion_tables(continuum_species, max_ion_stage, n_levels, n_points,
+                      flat) -> PhotoIonizationData | None:
+    """Hydrogenic cross-sections for every level of each continuum species,
+    in the reference's continuum order (threshold nu descending)."""
+    rows = []  # (nu_threshold, z, ion, k, flat_idx, nus, xs)
+    for z, ion in continuum_species:
+        if ion >= min(int(z), max_ion_stage):
+            continue
+        chi_next = 13.6 * EV * ((ion + 1) ** 1.8) * (1.0 + z / 20.0)
+        energies = chi_next * (1.0 - 1.0 / (1.0 + np.arange(n_levels)) ** 2)
+        for k in range(n_levels):
+            nu_th = (chi_next - energies[k]) / H
+            nus = nu_th * np.geomspace(1.0, 30.0, n_points)
+            sigma0 = 6.3e-18 / (k + 1)  # hydrogenic-like scale [cm^2]
+            rows.append((nu_th, z, ion, k, flat[(z, ion, k)], nus,
+                         sigma0 * (nu_th / nus) ** 3))
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[0])
+    refs = np.zeros(len(rows) + 1, dtype=np.int32)
+    np.cumsum([len(r[5]) for r in rows], out=refs[1:])
+    return PhotoIonizationData(
+        cont_z=np.array([r[1] for r in rows], dtype=np.int64),
+        cont_ion=np.array([r[2] for r in rows], dtype=np.int64),
+        cont_level=np.array([r[3] for r in rows], dtype=np.int64),
+        level_flat_idx=np.array([r[4] for r in rows], dtype=np.int32),
+        block_references=refs,
+        nu=np.concatenate([r[5] for r in rows]),
+        x_sect=np.concatenate([r[6] for r in rows]),
+    )
+
+
+def _two_photon_tables(continuum_species, flat, level_energy
+                       ) -> TwoPhotonData | None:
+    """One 2s-like -> ground two-photon decay per continuum species, with
+    the H I 2s -> 1s Nussbaumer & Schmutz (1984) fit coefficients and
+    total rate (A = 8.2249 1/s, hydrogenic Z^6 scaling)."""
+    rows = []
+    for z, ion in continuum_species:
+        if (z, ion, 1) in flat and (z, ion, 0) in flat:
+            nu0 = (level_energy[flat[(z, ion, 1)]]
+                   - level_energy[flat[(z, ion, 0)]]) / H
+            if nu0 > 0:
+                rows.append((z, ion, 0, 1, 8.2249 * (ion + 1) ** 6, nu0,
+                             0.88, 1.53, 0.8))
+    if not rows:
+        return None
+    arr = np.asarray(rows, dtype=np.float64)
+    return TwoPhotonData(
+        z=arr[:, 0].astype(np.int64), ion=arr[:, 1].astype(np.int64),
+        level_lower=arr[:, 2].astype(np.int64),
+        level_upper=arr[:, 3].astype(np.int64),
+        A_ul=arr[:, 4], nu0=arr[:, 5],
+        alpha=arr[:, 6], beta=arr[:, 7], gamma=arr[:, 8],
     )

@@ -1,6 +1,7 @@
 // K1 transport_loop: the Monte Carlo packet event loop of one iteration
-// (classic mode: homologous flow, no continuum, scatter / downbranch /
-// macroatom line interaction), with the iteration's luminosity summary.
+// (homologous flow; scatter / downbranch / macroatom line interaction, or
+// the Type IIP continuum mode with its absorbing-Markov macro atom), with
+// the iteration's luminosity summary.
 //
 // Replaces: tardis_tpu/transport/kernel.py:425 `make_transport_step` with
 // `_step_uniforms` (:209), `_distance_boundary` (:256), `_chain_emission`
@@ -59,7 +60,43 @@
 //   - reflective inner boundary (:798-807,940-944): column 5 is hashed only
 //     when a packet hits the core (the bits are counter-based, so a lazy
 //     draw is the same draw);
-//   - weights (:503-505): the birth energy times the pool's weight.
+//   - weights (:503-505): the birth energy times the pool's weight;
+//   - continuum (TL_CONTINUUM; the Type IIP workflow;
+//     kernel.py:366-422,571-606,714-740,781-792,829-863,879-889): chi
+//     = chi_e + chi_bf + chi_ff in the comoving frame.  One search on
+//     the merged bound-free grid gives the cell and its weight; the C
+//     continua's interpolated cross-sections are summed left to right
+//     into one register, chi_bf, with no C-long array (C is a runtime
+//     size: 10 at the synthetic IIP problem, more with real atom data),
+//     and at a bound-free absorption the same running sum is
+//     recomputed, with the same operations, to pick the continuum (the
+//     JAX package takes it from the pre-move sum).  Each event adds
+//     seven moments [w, w/nu, w nu, wb, wb/nu, wb nu, 1] to row gcell *
+//     S + shell of a ((Ng-1) * S, 8) f64 array with global atomics
+//     (29,280 addresses at the IIP problem's 184-point grid and 20
+//     shells; column 7 stays 0), and w chi_ff to the per-shell
+//     free-free heating in shared memory, flushed once per block as
+//     est_j is.  A continuous event is a Thomson scatter if u2 < chi_e
+//     / chi, else a continuum process; lines and continuum processes
+//     activate the Markov macro atom: the absorbing state by a search
+//     of its cumulative row (u6), then the channel in that state's
+//     deactivation block (u7), each a first-true bisection clipped as
+//     the JAX package clips it.  The channel emits a line, a free-bound
+//     photon (u8 on the continuum's emission CDF, linear inverse
+//     interpolation) or a free-free photon (-ln u9 kT/h, the log in f64
+//     rounded to f32);
+//   - two-photon (TL_TWO_PHOTON, :864-878): the two-photon channel's
+//     frequency by linear interpolation of its inverse-CDF table (u8);
+//   - adiabatic cooling (TL_ADIABATIC, :917-928,1016-1021): the channel
+//     ends the packet with output (-nu before the interaction, energy 0).
+//   Bound of the continuum instantiation: still latency, not bandwidth.
+//   An event adds ~C x 12 operations and C x 4 table reads (L2-resident:
+//   the IIP tables are under 1 MB) to the classic event and seven f64
+//   atomics spread over 29,280 addresses.  The Markov walk is heavy-tailed
+//   (packets in continuum-thick shells random-walk 1e4-3e5 events), and a
+//   block stays resident until its longest packet dies; one thread per
+//   packet keeps that simple, and the tail's cost is measured, not
+//   designed around, in this instantiation.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -81,6 +118,41 @@
 #ifndef TL_WEIGHTS
 #define TL_WEIGHTS 0
 #endif
+#ifndef TL_CONTINUUM
+#define TL_CONTINUUM 0
+#endif
+#ifndef TL_TWO_PHOTON
+#define TL_TWO_PHOTON 0
+#endif
+#ifndef TL_ADIABATIC
+#define TL_ADIABATIC 0
+#endif
+
+// the continuum tables and outputs (TL_CONTINUUM); laid out as
+// ContinuumArgs in tardis_torch/transport/kernel.py
+struct ContinuumArgs {
+  const float* grid_nu;            // (Ng,) merged bound-free grid
+  const float* xsect;              // (Ng * C,)
+  const float* coef_a;             // (C * S,)
+  const float* coef_b;             // (C * S,)
+  const float* boltz_coef;         // (S,) h NU_UNIT / k T_e
+  const float* ff_coef;            // (S,)
+  const float* mk_cum_b;           // (S * M * M,)
+  const int32_t* deact_block_start;  // (M + 1,)
+  const float* deact_cum_prob;     // (D * S,)
+  const int8_t* deact_kind;        // (D,)
+  const int32_t* deact_id;         // (D,)
+  const int32_t* line2state;       // (L,)
+  const int32_t* photo_ion_state;  // (C,)
+  const float* fb_cdf;             // (P * S,)
+  const float* fb_nu;              // (P,)
+  const int32_t* pion_block_start;  // (C + 1,)
+  const float* two_photon_nu;      // (TPN,)
+  double* moments;                 // ((Ng - 1) * S * 8,)
+  double* ff_heat;                 // (S,)
+  int32_t* events;                 // (N,) events of each packet
+  int n_grid, n_continua, n_states, k_state, n_two_photon;
+};
 
 namespace {
 
@@ -91,7 +163,12 @@ constexpr int kEvLine = 1;
 constexpr int kEvEscat = 2;
 constexpr float kUMin = 1e-9f;
 constexpr float kGammaFloor = 1e-12f;
+constexpr uint32_t kColEscat = 2, kColBfFf = 3, kColContSel = 4;
 constexpr uint32_t kColAlbedo = 5;
+constexpr uint32_t kColMkRow = 6, kColMkDeact = 7, kColFb = 8, kColFf = 9;
+// deactivation kinds of the Markov macro atom (continuum_macro.py EMIT_*)
+constexpr int kEmitLine = 0, kEmitBf = 1, kEmitTwoPhoton = 3, kEmitAdiabatic = 4;
+
 
 struct Params {
   const float* pool_mu;
@@ -121,6 +198,7 @@ struct Params {
   int S, M, W, We, mode, disable_line_scattering, tracker_length;
   float nu_lo, nu_hi, albedo;
   tardis::Key key;
+  ContinuumArgs cont;
 };
 
 __device__ __forceinline__ float draw(tardis::Key k, uint32_t column) {
@@ -159,6 +237,59 @@ __device__ __forceinline__ int cdf_lower_bound(const float* row, int n, float u)
   return lo;
 }
 
+// first t in [lo, hi) with col[t * S + shell] >= u (hi if none), on a
+// column non-decreasing over [lo, hi)
+__device__ __forceinline__ int strided_lower_bound(const float* col, int lo, int hi,
+                                                   int S, int shell, float u) {
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (col[(int64_t)mid * S + shell] < u) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// the running bound-free sum over the continua at (gcell, tfrac, boltz),
+// left to right; with stop_at >= 0 it returns instead the first continuum
+// whose running sum reaches stop_at (C if none), the JAX package's count
+// of entries below it
+__device__ __forceinline__ float bound_free_sum(const ContinuumArgs& c, int S, int shell,
+                                               int gcell, float tfrac, float boltz,
+                                               float stop_at, int* first) {
+  const int C = c.n_continua;
+  const float* x0 = c.xsect + (int64_t)gcell * C;
+  const float* x1 = x0 + C;
+  float cum = 0.0f;
+  for (int k = 0; k < C; ++k) {
+    const float xs = x0[k] + tfrac * (x1[k] - x0[k]);
+    const float a = c.coef_a[k * S + shell];
+    const float b = c.coef_b[k * S + shell];
+    cum = cum + fmaxf(xs * (a - b * boltz), 0.0f);
+    if (first != nullptr && cum >= stop_at) {
+      *first = k;
+      return cum;
+    }
+  }
+  if (first != nullptr) *first = C;
+  return cum;
+}
+
+// free-bound emission frequency of continuum cont_id (kernel.py:401-422)
+__device__ __forceinline__ float free_bound_nu(const ContinuumArgs& c, int S, int shell,
+                                               int cont_id, float z) {
+  const int cc = min(max(cont_id, 0), c.n_continua - 1);
+  const int b0 = c.pion_block_start[cc];
+  const int b1 = c.pion_block_start[cc + 1];
+  int idx = strided_lower_bound(c.fb_cdf, b0, b1, S, shell, z);
+  idx = min(max(idx, b0 + 1), max(b1 - 1, b0 + 1));
+  const float cdf_i = c.fb_cdf[(int64_t)idx * S + shell];
+  const float cdf_im = c.fb_cdf[(int64_t)(idx - 1) * S + shell];
+  const float nu_i = c.fb_nu[idx];
+  const float nu_im = c.fb_nu[idx - 1];
+  const float frac = cdf_i > cdf_im ? (cdf_i - z) / (cdf_i - cdf_im) : 0.0f;
+  return nu_i - frac * (nu_i - nu_im);
+}
+
 // one spawn record [r, mu, nu, energy, shell, next_line, li_type, out_line]
 __device__ __forceinline__ void spawn_record(const Params& p, float r, float mu,
                                              float nu, float energy, int shell,
@@ -182,12 +313,14 @@ struct LastInteraction {
         r = 0.0f;
 };
 
-template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights>
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights,
+          bool kCont, bool kTwoPhoton, bool kAdiabatic>
 __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
-                            double* sh_nubar, double* sh_sum) {
+                            double* sh_nubar, double* sh_sum, double* sh_ff) {
   const int S = p.S;
   const int64_t L = p.L;
   const float beta_inner = p.r_inner[0];
+  const ContinuumArgs& cont = p.cont;
 
   // birth: next_line = number of lines with nu_line >= nu_cmf
   float mu = p.pool_mu[pid];
@@ -213,8 +346,10 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
   float r = beta_inner;
   int shell = 0;
   const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)pid);
-  if (p.vp_capacity > 0)
-    spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
+  if constexpr (!kCont) {
+    if (p.vp_capacity > 0)
+      spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
+  }
   LastInteraction li;
 
   int64_t ev = 0;
@@ -224,7 +359,7 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
       break;
     }
     const tardis::Key ke = tardis::fold_in(kp, (uint32_t)ev);
-    float chi = p.chi_e[shell];
+    const float chi_e = p.chi_e[shell];
     const float r_in = p.r_inner[shell];
     const float r_out = p.r_outer[shell];
     const float z = mu * r;
@@ -232,6 +367,31 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     if constexpr (kRel) dop = (1.0f - z) * lorentz_gamma(r);
     else dop = 1.0f - z;
     const float nu_cmf = nu * dop;
+    float chi = chi_e;
+
+    // continuum opacity in the comoving frame: the grid cell (last knot
+    // <= nu_cmf, clipped), its weight, b = exp(-h nu / k T_e), chi_bf and
+    // chi_ff
+    int gcell = 0;
+    float tfrac = 0.0f, boltz = 0.0f, chi_bf = 0.0f, chi_ff = 0.0f;
+    if constexpr (kCont) {
+      int glo = 0, ghi = cont.n_grid;
+      while (glo < ghi) {
+        const int mid = (glo + ghi) >> 1;
+        if (cont.grid_nu[mid] <= nu_cmf) glo = mid + 1;
+        else ghi = mid;
+      }
+      gcell = min(max(glo - 1, 0), cont.n_grid - 2);
+      const float g0 = cont.grid_nu[gcell];
+      const float dg = cont.grid_nu[gcell + 1] - g0;
+      tfrac = fminf(fmaxf((nu_cmf - g0) / fmaxf(dg, 1e-30f), 0.0f), 1.0f);
+      boltz = (float)exp(-(double)(nu_cmf * cont.boltz_coef[shell]));
+      chi_bf = bound_free_sum(cont, S, shell, gcell, tfrac, boltz, 0.0f, nullptr);
+      const float nuc = fmaxf(nu_cmf, 1e-30f);
+      chi_ff = cont.ff_coef[shell] / ((nuc * nuc) * nuc) * (1.0f - boltz);
+      chi = chi_e + chi_bf + chi_ff;
+    }
+    const float chi_cmf = chi;
     if constexpr (kRel) chi = chi * dop;
 
     // distance to the shell boundary; a tangential ray (mu == 0) grazes
@@ -293,6 +453,19 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     else w_j = (energy * dop) * distance;
     atomicAdd(&sh_j[shell], (double)w_j);
     atomicAdd(&sh_nubar[shell], (double)(w_j * nu_cmf));
+    if constexpr (kCont) {
+      const float inv_nu = 1.0f / fmaxf(nu_cmf, 1e-30f);
+      const float wb = w_j * boltz;
+      double* m = cont.moments + ((int64_t)gcell * S + shell) * 8;
+      atomicAdd(m, (double)w_j);
+      atomicAdd(m + 1, (double)(w_j * inv_nu));
+      atomicAdd(m + 2, (double)(w_j * nu_cmf));
+      atomicAdd(m + 3, (double)wb);
+      atomicAdd(m + 4, (double)(wb * inv_nu));
+      atomicAdd(m + 5, (double)(wb * nu_cmf));
+      atomicAdd(m + 6, 1.0);
+      atomicAdd(&sh_ff[shell], (double)(w_j * chi_ff));
+    }
     if (end_line != next_line) {
       float w1, w2;
       if constexpr (kRel) {
@@ -356,7 +529,15 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
       continue;
     }
 
-    // Thomson scatter or line interaction: new direction drawn in the CMF
+    // a continuous event is a Thomson scatter or, with continuum, a
+    // continuum process (chi_e / chi is the Thomson share)
+    bool contproc = false;
+    if constexpr (kCont) {
+      if (event == kEvEscat)
+        contproc = draw(ke, kColEscat) >= chi_e / fmaxf(chi_cmf, 1e-30f);
+    }
+
+    // Thomson scatter or absorption: new direction drawn in the CMF
     const float mu_draw = 2.0f * draw(ke, 1) - 1.0f;
     float dop_old_pos, inv_dop_new, mu_emit;
     if constexpr (kRel) {
@@ -370,13 +551,73 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
       mu_emit = mu_draw;
     }
     const float nu_in = nu;
-    if (event == kEvEscat) {
+    bool adiabatic = false;
+    if (event == kEvEscat && !contproc) {
       nu = nu * dop_old_pos * inv_dop_new;
       next_line = end_line;
       if constexpr (kLast) {
         li.type = 1.0f;
         li.in_line = -1.0f;
         li.out_line = -1.0f;
+      }
+    } else if constexpr (kCont) {
+      // the Markov macro atom, activated by the line's state, the chosen
+      // continuum's i-packet state or the k-packet state
+      int state0;
+      if (event == kEvLine) {
+        state0 = cont.line2state[i_ev];
+      } else if (draw(ke, kColBfFf) < chi_bf / fmaxf(chi_bf + chi_ff, 1e-30f)) {
+        int c_sel;
+        bound_free_sum(cont, S, shell, gcell, tfrac, boltz,
+                       draw(ke, kColContSel) * chi_bf, &c_sel);
+        state0 = cont.photo_ion_state[min(c_sel, cont.n_continua - 1)];
+      } else {
+        state0 = cont.k_state;
+      }
+      const int M = cont.n_states;
+      const float* brow = cont.mk_cum_b + ((int64_t)shell * M + state0) * M;
+      const int a = min(cdf_lower_bound(brow, M, draw(ke, kColMkRow)), M - 1);
+      const int b0 = cont.deact_block_start[a];
+      const int b1 = cont.deact_block_start[a + 1];
+      int t = strided_lower_bound(cont.deact_cum_prob, b0, b1, S, shell,
+                                  draw(ke, kColMkDeact));
+      t = min(max(t, b0), max(b1 - 1, b0));
+      const int kind = cont.deact_kind[t];
+      const int chan = cont.deact_id[t];
+      const int64_t em_line = chan < 0 ? 0 : (chan >= L ? L - 1 : (int64_t)chan);
+      float nu_cmf_em;
+      if (kind == kEmitLine) {
+        nu_cmf_em = p.line_nu[em_line];
+      } else if (kind == kEmitBf) {
+        nu_cmf_em = free_bound_nu(cont, S, shell, chan, draw(ke, kColFb));
+      } else if (kTwoPhoton && kind == kEmitTwoPhoton) {
+        const int tpn = cont.n_two_photon;
+        const float pos = draw(ke, kColFb) * (float)(tpn - 1);
+        const int i_tp = min(max((int)pos, 0), tpn - 2);
+        const float frac = pos - (float)i_tp;
+        nu_cmf_em = cont.two_photon_nu[i_tp] * (1.0f - frac)
+                    + cont.two_photon_nu[i_tp + 1] * frac;
+      } else {
+        nu_cmf_em = (float)(-log((double)draw(ke, kColFf))) / cont.boltz_coef[shell];
+      }
+      nu = nu_cmf_em * inv_dop_new;
+      if (kind == kEmitLine) {
+        next_line = em_line + 1;
+      } else {
+        int64_t nlo = 0, nhi = L;
+        while (nlo < nhi) {
+          const int64_t mid = (nlo + nhi) >> 1;
+          if (p.line_nu[mid] >= nu_cmf_em) nlo = mid + 1;
+          else nhi = mid;
+        }
+        next_line = nlo;
+      }
+      if constexpr (kAdiabatic) adiabatic = kind == kEmitAdiabatic;
+      if constexpr (kLast) {
+        const bool line = event == kEvLine;
+        li.type = line ? 2.0f : 3.0f;
+        li.in_line = line ? (float)i_ev : -1.0f;
+        li.out_line = line ? (float)em_line : -1.0f;
       }
     } else {
       int64_t em_line = i_ev;
@@ -416,13 +657,24 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
             p.tracker + (pid * p.tracker_length + ev) * 6);
         row[0] = make_float2(r, nu);
         row[1] = make_float2(energy, (float)shell);
-        row[2] = make_float2(event == kEvLine ? 2.0f : 1.0f, mu);
+        row[2] = make_float2(
+            event == kEvLine ? 2.0f : (contproc ? 4.0f : 1.0f), mu);
       }
     }
-    if (p.vp_capacity > 0) {
-      const bool line = event == kEvLine;
-      spawn_record(p, r, mu, nu, energy, shell, next_line, line ? 2.0f : 1.0f,
-                   line ? (float)(next_line - 1) : -1.0f);
+    if constexpr (kAdiabatic) {
+      if (adiabatic) {
+        // the energy went into expansion work: no luminosity either way
+        p.out[2 * pid] = -nu_in;
+        p.out[2 * pid + 1] = 0.0f;
+        break;
+      }
+    }
+    if constexpr (!kCont) {
+      if (p.vp_capacity > 0) {
+        const bool line = event == kEvLine;
+        spawn_record(p, r, mu, nu, energy, shell, next_line, line ? 2.0f : 1.0f,
+                     line ? (float)(next_line - 1) : -1.0f);
+      }
     }
   }
   if constexpr (kLast) {
@@ -431,24 +683,31 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     row[1] = make_float2(li.out_line, li.shell);
     row[2] = make_float2(li.in_nu, li.r);
   }
-  atomicAdd(&sh_sum[2], (double)(ev + 1 > p.max_events ? p.max_events : ev + 1));
+  const int64_t n_ev = ev + 1 > p.max_events ? p.max_events : ev + 1;
+  if constexpr (kCont) cont.events[pid] = (int32_t)n_ev;
+  atomicAdd(&sh_sum[2], (double)n_ev);
 }
 
-template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights>
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights,
+          bool kCont, bool kTwoPhoton, bool kAdiabatic>
 __global__ void transport_loop_kernel(Params p) {
   extern __shared__ double shm[];
   double* sh_j = shm;
   double* sh_nubar = shm + p.S;
   double* sh_sum = shm + 2 * p.S;
-  for (int i = threadIdx.x; i < 2 * p.S + 4; i += blockDim.x) shm[i] = 0.0;
+  double* sh_ff = shm + 2 * p.S + 4;  // continuum only
+  const int n_shared = 2 * p.S + 4 + (kCont ? p.S : 0);
+  for (int i = threadIdx.x; i < n_shared; i += blockDim.x) shm[i] = 0.0;
   __syncthreads();
   const int64_t pid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (pid < p.n_packets)
-    walk_packet<kRel, kLast, kTrack, kReflect, kWeights>(p, pid, sh_j, sh_nubar, sh_sum);
+    walk_packet<kRel, kLast, kTrack, kReflect, kWeights, kCont, kTwoPhoton,
+                kAdiabatic>(p, pid, sh_j, sh_nubar, sh_sum, sh_ff);
   __syncthreads();
   for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
     atomicAdd(&p.est_j[i], sh_j[i]);
     atomicAdd(&p.est_nubar[i], sh_nubar[i]);
+    if constexpr (kCont) atomicAdd(&p.cont.ff_heat[i], sh_ff[i]);
   }
   if (threadIdx.x < 4) atomicAdd(&p.summary[threadIdx.x], sh_sum[threadIdx.x]);
 }
@@ -465,7 +724,10 @@ extern "C" int transport_loop(
     float nu_hi, float albedo, int64_t max_events, void* out, void* est_j,
     void* est_nubar, void* line_diff, void* summary, void* vp_records,
     void* vp_count, int64_t vp_capacity, void* last_interaction,
-    void* tracker, int tracker_length, void* stream) {
+    void* tracker, int tracker_length, const ContinuumArgs* cont,
+    void* stream) {
+  constexpr bool kCont = TL_CONTINUUM != 0;
+  if (kCont != (cont != nullptr)) return (int)cudaErrorInvalidValue;
   Params p;
   p.pool_mu = (const float*)pool_mu;
   p.pool_nu = (const float*)pool_nu;
@@ -502,11 +764,13 @@ extern "C" int transport_loop(
   p.nu_hi = nu_hi;
   p.albedo = albedo;
   p.key = tardis::Key{k0, k1};
+  p.cont = kCont ? *cont : ContinuumArgs{};
   if (n_packets > 0) {
     const int threads = 128;
-    const size_t shm = (size_t)(2 * S + 4) * sizeof(double);
+    const size_t shm = (size_t)(2 * S + 4 + (kCont ? S : 0)) * sizeof(double);
     transport_loop_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
-                          TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0>
+                          TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0,
+                          kCont, TL_TWO_PHOTON != 0, TL_ADIABATIC != 0>
         <<<(unsigned)((n_packets + threads - 1) / threads), threads, shm,
            (cudaStream_t)stream>>>(p);
   }

@@ -166,8 +166,16 @@ class PlasmaSolver:
         out[np.isnan(out)] = 1.0
         return out
 
-    def update(self, t_rad: np.ndarray, w: np.ndarray) -> PlasmaState:
-        """Recompute the plasma state for the given radiation field."""
+    def update(self, t_rad: np.ndarray, w: np.ndarray,
+               j_blues: np.ndarray | None = None) -> PlasmaState:
+        """Recompute the plasma state for the given radiation field.
+
+        ``j_blues`` (L, S), the estimator mean intensities at the lines'
+        blue wings, is read only by ``detailed`` radiative rates, which
+        are refused; it is taken for the JAX package's signature.  The
+        Type IIP thermal balance sets ``link_t_rad_t_electron`` to a
+        per-shell array and ``_fixed_electron_densities`` to its n_e.
+        """
         atom = self.atom
         beta = lte.beta_rad(t_rad)
         t_electrons = self.link_t_rad_t_electron * t_rad

@@ -24,9 +24,12 @@ last-interaction tracking (on by default), the r-packet tracker
 the relativistic packet pool), the reflective inner boundary (its albedo
 applies only when it is enabled) and the weighted pool.  Options outside
 the port raise ``NotImplementedError`` naming the option (see
-``check_supported``): nonhomologous expansion, continuum, NLTE, detailed
-rates, helium, vpacket biasing, the macro-atom random-walk fallback, HDF
-atom data and more than one device.  Checkpoint / resume is not ported.
+``check_supported``): nonhomologous expansion, NLTE, detailed rates,
+helium, vpacket biasing, the macro-atom random-walk fallback, HDF atom
+data and more than one device.  Continuum species run only through the
+Type IIP workflow (``workflows/type_iip.py``); ``run_tardis`` refuses them,
+as its classic loop runs no continuum transport.  Checkpoint / resume is
+not ported.
 """
 
 from __future__ import annotations
@@ -80,8 +83,10 @@ class IterationRecord:
 INTEGRATED_COMPUTE = ("jax", "cpu", "gpu", "automatic", "")
 
 
-def check_supported(config: ConfigDict) -> None:
-    """Raise ``NotImplementedError`` for every option this slice refuses."""
+def check_supported(config: ConfigDict, continuum: bool = False) -> None:
+    """Raise ``NotImplementedError`` for every option this slice refuses;
+    continuum species pass only with ``continuum`` (the Type IIP
+    workflow)."""
     mc = config.montecarlo
     plasma = config.plasma
     virtual = config.spectrum.get("virtual", {}) or {}
@@ -91,8 +96,8 @@ def check_supported(config: ConfigDict) -> None:
         ("montecarlo.enable_nonhomologous_expansion",
          bool(mc.get("enable_nonhomologous_expansion", False))),
         ("plasma.continuum_interaction.species",
-         bool((plasma.get("continuum_interaction", {}) or {})
-              .get("species"))),
+         not continuum and bool((plasma.get("continuum_interaction", {})
+                                 or {}).get("species"))),
         ("plasma.nlte.species",
          bool((plasma.get("nlte", {}) or {}).get("species"))),
         ("plasma.radiative_rates_type: detailed",
@@ -157,9 +162,11 @@ class Simulation:
 
     @classmethod
     def from_config(cls, config: ConfigDict, atom_data=None,
-                    device=None) -> "Simulation":
+                    device=None, continuum: bool = False) -> "Simulation":
+        """``continuum`` lets continuum species through (the Type IIP
+        workflow runs their transport)."""
         device = resolve_device(device)
-        check_supported(config)
+        check_supported(config, continuum)
         state = SimulationState.from_config(config)
         lit = config.plasma.line_interaction_type
         if atom_data is None:
@@ -214,10 +221,11 @@ class Simulation:
         """fn(simulation) is called after each iteration."""
         self._callbacks.append(fn)
 
-    def _solve_plasma(self):
+    def _solve_plasma(self, estimator_j_blues=None):
         with record_function("tardis.plasma"):
             self.plasma_state = self.plasma_solver.update(
-                self.state.t_radiative, self.state.dilution_factor
+                self.state.t_radiative, self.state.dilution_factor,
+                j_blues=estimator_j_blues,
             )
 
     def _lum_nu_window(self):

@@ -1,13 +1,16 @@
 """Monte Carlo packet event loop (kernel K1, ``csrc/transport_loop.cu``).
 
 Counterpart of ``tardis_tpu/transport/kernel.py`` (``make_transport_step``
-driven by ``run_transport``) in classic mode, with the luminosity summary
-of ``tardis_tpu/transport/solver.py`` ``_device_summary`` folded in.
+driven by ``run_transport``), with the luminosity summary of
+``tardis_tpu/transport/solver.py`` ``_device_summary`` folded in.
 
 Per event, with every random number from
 ``uniform(fold_in(fold_in(key, packet_id), event_idx), (10,), 1e-9, 1)``
-(columns 0: tau, 1: mu, 5: albedo, 6: chain row, 7: emission row), exactly
-the JAX package's draws:
+(columns 0: tau, 1: mu, 2: Thomson / continuum split, 3: bound-free /
+free-free split, 4: continuum selection, 5: albedo, 6: chain row or
+absorbing state, 7: emission row or deactivation channel, 8: free-bound /
+two-photon frequency, 9: free-free frequency), exactly the JAX package's
+draws:
 
 1. boundary distance (an inward hit needs mu < 0 strictly);
 2. the first line i >= next_line whose resonance lies past the boundary or
@@ -35,11 +38,29 @@ combination is its own compiled instantiation of K1):
   pool's weight (weighted and relativistic pools);
 - ``last_interaction`` (``:969-985``): per packet the row
   [type, in_line, out_line, shell, in_nu, r] of its last interaction
-  (type 2 line, 1 e-scatter; lines -1 for an e-scatter; in_nu before it,
-  r after the move; zeros for a packet that never interacts);
+  (type 2 line, 1 e-scatter, 3 continuum process; lines -1 unless a line;
+  in_nu before it, r after the move; zeros for a packet that never
+  interacts);
 - ``tracker`` (``tracker_length`` K > 0, ``:949-967``): the rows
   [r, nu, energy, shell, code, mu] after each of a packet's first K events
-  (code 2 line, 1 e-scatter, 3 boundary).
+  (code 2 line, 1 e-scatter, 3 boundary, 4 continuum process);
+- ``continuum`` (``tables.continuum``, the Type IIP workflow; ``:366-422,
+  571-606,714-740,781-792,829-863,879-889``): chi = chi_e + chi_bf + chi_ff
+  with chi_bf summed over the continua on the merged bound-free grid; the
+  estimator moments [w, w/nu, w nu, wb, wb/nu, wb nu, 1, 0] per
+  (grid cell, shell) with b = exp(-h nu / k T_e) and the free-free heating
+  w chi_ff per shell; a continuous event is a Thomson scatter with
+  probability chi_e / chi, else a continuum process (bound-free with
+  probability chi_bf / (chi_bf + chi_ff), the continuum picked by column 4
+  on the running sum, or free-free); lines and continuum processes
+  activate the absorbing-Markov macro atom (two draws: the absorbing
+  state, then the deactivation channel), which emits a line, a free-bound
+  (column 8 on the continuum's emission CDF) or free-free photon
+  (-ln u9 k T_e / h);
+- ``two_photon`` (``:864-878``): the two-photon channel's frequency from
+  the inverse-CDF table (column 8);
+- ``adiabatic`` (``:917-928,1016-1021``): the adiabatic-cooling channel
+  ends the packet with output (-nu before the interaction, energy 0).
 
 With ``vpacket_capacity`` > 0 (the final iteration with virtual packets)
 every birth and every interaction appends a spawn record for the vpacket
@@ -49,6 +70,7 @@ f32, the birth row ``[beta_inner, mu, nu, energy, 0, birth_line, -1, -1]``,
 an interaction row the state after the scatter with ``li_type`` 1 for an
 e-scatter and 2 for a line and ``out_line = next_line - 1`` for a line.
 ``vp_count`` counts every attempt; rows past the capacity are dropped.
+Records with continuum transport are refused.
 
 ``transport_loop`` launches the CUDA kernel (one thread per packet) for
 tensors on the card and runs the plain PyTorch version
@@ -71,6 +93,7 @@ from tardis_torch.transport.tables import (
     GAMMA_FLOOR,
     LINE_MACROATOM,
     LINE_SCATTER,
+    ContinuumTables,
     TransportTables,
     lorentz_gamma,
 )
@@ -83,14 +106,19 @@ STATUS_REABSORBED = 2
 MAX_EVENTS = 500_000
 
 COL_TAU, COL_MU, COL_ALBEDO, COL_CHAIN, COL_EMIT = 0, 1, 5, 6, 7
+COL_ESCAT, COL_BFFF, COL_CONT_SEL, COL_FB, COL_FF = 2, 3, 4, 8, 9
 U_MIN = 1e-9
 
 # interaction / tracker codes
-LI_ESCAT, LI_LINE, EV_BOUNDARY_CODE = 1, 2, 3
+LI_ESCAT, LI_LINE, LI_CONTPROC, EV_BOUNDARY_CODE, EV_CONTPROC_CODE = (
+    1, 2, 3, 3, 4)
+# deactivation kinds of the Markov macro atom (opacities/continuum_macro.py
+# EMIT_*; free-free, 2, is the default branch)
+EMIT_LINE, EMIT_BF, EMIT_TWO_PHOTON, EMIT_ADIABATIC = 0, 1, 3, 4
 
 # K1's compile-time options, in the order of their -D flags
 OPTIONS = ("full_relativity", "last_interaction", "tracker", "reflective",
-           "weights")
+           "weights", "continuum", "two_photon", "adiabatic")
 
 logger = logging.getLogger(__name__)
 
@@ -110,6 +138,12 @@ class TransportOutput:
     last_interaction: torch.Tensor
     # (N, K, 6) f32 [r, nu, energy, shell, code, mu] ((0, 0, 6): off)
     tracker: torch.Tensor
+    # continuum only ((0, 8), (0,), (0,) otherwise): the estimator moments
+    # ((Ng - 1) * S, 8) f64 by row gcell * S + shell, the free-free heating
+    # (S,) f64, and each packet's event count (N,) i32
+    cont_moments: torch.Tensor
+    est_ff_heat: torch.Tensor
+    events: torch.Tensor
 
     @property
     def n_vp_records(self) -> int:
@@ -120,9 +154,11 @@ class TransportOutput:
 def variant(t: TransportTables, pool_w=None, last_interaction=False,
             tracker_length=0) -> tuple:
     """The option flags (in ``OPTIONS`` order) of one K1 configuration."""
+    c = t.continuum
     return (bool(t.full_relativity), bool(last_interaction),
             tracker_length > 0, t.inner_boundary_albedo > 0.0,
-            pool_w is not None)
+            pool_w is not None, c is not None,
+            c is not None and c.two_photon, c is not None and c.adiabatic)
 
 
 def variant_name(flags) -> str:
@@ -132,21 +168,26 @@ def variant_name(flags) -> str:
 
 
 def _allocate(n_packets, S, L, capacity, last_interaction, tracker_length,
-              device) -> TransportOutput:
+              device, cont: ContinuumTables | None = None) -> TransportOutput:
     z = torch.zeros
-    f32 = torch.float32
+    f32, f64 = torch.float32, torch.float64
+    n_moment_rows = 0 if cont is None else (cont.n_grid - 1) * S
     return TransportOutput(
         out=z((n_packets, 2), dtype=f32, device=device),
-        est_j=z(S, dtype=torch.float64, device=device),
-        est_nubar=z(S, dtype=torch.float64, device=device),
-        line_diff=z(2 * (L + 1) * S, dtype=torch.float64, device=device),
-        summary=z(4, dtype=torch.float64, device=device),
+        est_j=z(S, dtype=f64, device=device),
+        est_nubar=z(S, dtype=f64, device=device),
+        line_diff=z(2 * (L + 1) * S, dtype=f64, device=device),
+        summary=z(4, dtype=f64, device=device),
         vp_records=z((capacity, 8), dtype=f32, device=device),
         vp_count=z(1, dtype=torch.int64, device=device),
         last_interaction=z((n_packets if last_interaction else 0, 6),
                            dtype=f32, device=device),
         tracker=z((n_packets if tracker_length else 0, tracker_length, 6),
                   dtype=f32, device=device),
+        cont_moments=z((n_moment_rows, 8), dtype=f64, device=device),
+        est_ff_heat=z(0 if cont is None else S, dtype=f64, device=device),
+        events=z(0 if cont is None else n_packets, dtype=torch.int32,
+                 device=device),
     )
 
 
@@ -206,6 +247,19 @@ def _search(t: TransportTables, shell, lo, chi, z, nu, tau_event,
     return lo
 
 
+def _lower_bound(values, idx_of, lo, hi, u, steps):
+    """First t in [lo, hi) with values[idx_of(t)] >= u (hi if none), by
+    ``steps`` bisection steps over lanes; values are non-decreasing on
+    [lo, hi)."""
+    for _ in range(steps):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        below = values[idx_of(torch.minimum(mid, hi - 1).clamp(min=0))] < u
+        lo = torch.where(active & below, mid + 1, lo)
+        hi = torch.where(active & ~below, mid, hi)
+    return lo
+
+
 def _emission(t: TransportTables, shell, i_ev, u_chain, u_emit):
     """Macro-atom / downbranch emitted line id and frequency."""
     M, W, We = t.n_states, t.chain_width, t.emit_width
@@ -221,6 +275,107 @@ def _emission(t: TransportTables, shell, i_ev, u_chain, u_emit):
     return em_line, nu_em
 
 
+def _continuum_opacity(c: ContinuumTables, S, shell, nu_cmf):
+    """The bound-free grid cell, its interpolation weight, the Boltzmann
+    factor, the running bound-free sum over the continua (a list, one
+    (B,) tensor per continuum: the sum is taken left to right, as K1 does)
+    and chi_ff, all in the comoving frame."""
+    Ng, C = c.n_grid, c.n_continua
+    gcell = torch.clamp(torch.searchsorted(c.grid_nu, nu_cmf, right=True) - 1,
+                        0, Ng - 2)
+    g0 = c.grid_nu[gcell]
+    dg = c.grid_nu[gcell + 1] - g0
+    tfrac = torch.clamp((nu_cmf - g0) / torch.clamp(dg, min=1e-30), 0.0, 1.0)
+    boltz = torch.exp(-(nu_cmf * c.boltz_coef[shell]).double()).float()
+    xs = c.xsect.view(Ng, C)
+    x0, x1 = xs[gcell], xs[gcell + 1]  # (B, C)
+    ab = torch.arange(C, device=shell.device)[None, :] * S + shell[:, None]
+    term = torch.clamp(
+        (x0 + tfrac[:, None] * (x1 - x0))
+        * (c.coef_a[ab] - c.coef_b[ab] * boltz[:, None]), min=0.0)
+    cum, running = [], torch.zeros_like(tfrac)
+    for k in range(C):
+        running = running + term[:, k]
+        cum.append(running)
+    nuc = torch.clamp(nu_cmf, min=1e-30)
+    chi_ff = c.ff_coef[shell] / ((nuc * nuc) * nuc) * (1.0 - boltz)
+    return gcell, boltz, cum, chi_ff
+
+
+def _markov(c: ContinuumTables, S, shell, state0, u_row, u_deact):
+    """The absorbing-Markov macro atom (``kernel.py:366-398``): the
+    absorbing state from the state's cumulative row, then the channel in
+    that state's deactivation block; returns (kind, channel id)."""
+    M = c.n_states
+    row = c.mk_cum_b.view(S * M, M)[shell * M + state0]  # (B, M)
+    a = torch.clamp((row < u_row[:, None]).sum(1), max=M - 1)
+    b0 = c.deact_block_start[a].long()
+    b1 = c.deact_block_start[a + 1].long()
+    t = _lower_bound(c.deact_cum_prob, lambda i: i * S + shell, b0, b1,
+                     u_deact, c.deact_steps)
+    t = torch.minimum(torch.maximum(t, b0), torch.maximum(b1 - 1, b0))
+    return c.deact_kind[t].long(), c.deact_id[t].long()
+
+
+def _free_bound_nu(c: ContinuumTables, S, shell, cont_id, z):
+    """Free-bound emission frequency of continuum ``cont_id``: linear
+    inverse interpolation of its emission CDF (``kernel.py:401-422``)."""
+    cc = torch.clamp(cont_id, 0, c.n_continua - 1)
+    b0 = c.pion_block_start[cc].long()
+    b1 = c.pion_block_start[cc + 1].long()
+    idx = _lower_bound(c.fb_cdf, lambda i: i * S + shell, b0, b1, z,
+                       c.fb_steps)
+    idx = torch.minimum(torch.maximum(idx, b0 + 1),
+                        torch.maximum(b1 - 1, b0 + 1))
+    cdf_i = c.fb_cdf[idx * S + shell]
+    cdf_im = c.fb_cdf[(idx - 1) * S + shell]
+    nu_i, nu_im = c.fb_nu[idx], c.fb_nu[idx - 1]
+    gap = cdf_i > cdf_im
+    frac = torch.where(gap, (cdf_i - z) / torch.where(gap, cdf_i - cdf_im,
+                                                      1.0), 0.0)
+    return nu_i - frac * (nu_i - nu_im)
+
+
+def _markov_emission(t: TransportTables, shell, is_line, i_ev, cum, chi_ff,
+                     boltz_coef, U, col):
+    """Deactivation of the continuum macro atom for every lane: the
+    activated state, the channel, the emitted comoving frequency and the
+    next line; returns (kind, line id, nu_cmf, next_line)."""
+    c = t.continuum
+    S, L = t.n_shells, t.n_lines
+    chi_bf = cum[-1]
+    frac_bf = chi_bf / torch.clamp(chi_bf + chi_ff, min=1e-30)
+    is_bf = U[:, col[COL_BFFF]] < frac_bf
+    u_sel = U[:, col[COL_CONT_SEL]] * chi_bf
+    c_sel = torch.zeros_like(shell)
+    for run in cum:
+        c_sel += (run < u_sel).long()
+    c_sel = torch.clamp(c_sel, max=c.n_continua - 1)
+    state0 = torch.where(
+        is_line, c.line2state[torch.clamp(i_ev, max=L - 1)].long(),
+        torch.where(is_bf, c.photo_ion_state[c_sel].long(), c.k_state))
+    kind, chan = _markov(c, S, shell, state0, U[:, col[COL_CHAIN]],
+                         U[:, col[COL_EMIT]])
+    em_line = torch.clamp(chan, 0, L - 1)
+    u_fb = U[:, col[COL_FB]]
+    nu_fb = _free_bound_nu(c, S, shell, chan, u_fb)
+    nu_ff = (-torch.log(U[:, col[COL_FF]].double())).float() / boltz_coef
+    nu_em = torch.where(kind == EMIT_LINE, t.line_nu[em_line],
+                        torch.where(kind == EMIT_BF, nu_fb, nu_ff))
+    if c.two_photon:
+        tpn = c.two_photon_nu.shape[0]
+        pos = u_fb * float(tpn - 1)
+        i_tp = torch.clamp(pos.long(), 0, tpn - 2)
+        frac = pos - i_tp.float()
+        nu_tp = (c.two_photon_nu[i_tp] * (1.0 - frac)
+                 + c.two_photon_nu[i_tp + 1] * frac)
+        nu_em = torch.where(kind == EMIT_TWO_PHOTON, nu_tp, nu_em)
+    next_line = torch.where(
+        kind == EMIT_LINE, em_line + 1,
+        torch.searchsorted(-t.line_nu, -nu_em, right=True))
+    return kind, em_line, nu_em, next_line
+
+
 def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                          nu_window=(0.0, np.inf), batch_size: int = 65536,
                          max_events: int = MAX_EVENTS,
@@ -229,26 +384,37 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                          tracker_length: int = 0) -> TransportOutput:
     """Plain PyTorch version of K1: a lockstep loop over ``batch_size`` lanes.
 
-    Dead lanes refill from the pool in packet-id order.  Every packet's
-    arithmetic is elementwise and keyed by its id, so per-packet outputs do
-    not depend on ``batch_size``.  Spawn records are appended in lane order
-    within a step, as the JAX package's cumsum slots are.
+    Dead lanes refill from the pool in packet-id order; once the pool is
+    spent, the live lanes are packed together (in order) whenever fewer
+    than half are alive, so a long tail of a few packets steps at their
+    width.  Every packet's arithmetic is elementwise and keyed by its id,
+    so per-packet outputs do not depend on ``batch_size``.  Spawn records
+    are appended in lane order within a step, as the JAX package's cumsum
+    slots are.
     """
     device = pool_mu.device
     N = pool_mu.shape[0]
     S, L = t.n_shells, t.n_lines
     full_rel = t.full_relativity
     reflective = t.inner_boundary_albedo > 0.0
+    cont = t.continuum
+    if cont is not None and vpacket_capacity:
+        raise NotImplementedError("virtual packets with continuum transport")
     res = _allocate(N, S, L, vpacket_capacity, last_interaction,
-                    tracker_length, device)
+                    tracker_length, device, cont)
+    moments = res.cont_moments.view(-1)
     n_vp = 0
     nu_lo, nu_hi = _window(nu_window)
     B = max(1, min(batch_size, N))
     f32, i64 = torch.float32, torch.int64
     beta_inner = t.r_inner[0]
     albedo = torch.tensor(t.inner_boundary_albedo, dtype=f32, device=device)
-    cols = (COL_TAU, COL_MU, COL_CHAIN, COL_EMIT) + (
-        (COL_ALBEDO,) if reflective else ())
+    cols = [COL_TAU, COL_MU, COL_CHAIN, COL_EMIT]
+    if reflective:
+        cols.append(COL_ALBEDO)
+    if cont is not None:
+        cols += [COL_ESCAT, COL_BFFF, COL_CONT_SEL, COL_FB, COL_FF]
+    col = {c: i for i, c in enumerate(cols)}
     birth = torch.searchsorted(-t.line_nu, -pool_nu, right=True)
     pid_all = torch.arange(N, dtype=i64, device=device)
     kp_all = rng.fold_in(key, pid_all)
@@ -301,25 +467,43 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
             alive = alive | fill
             next_unborn += int(fill.sum())
         capped = alive & (eidx >= max_events)
-        n_immortal += int(capped.sum())
+        if bool(capped.any()):
+            n_immortal += int(capped.sum())
+            if cont is not None:
+                res.events[pid[capped]] = max_events
         alive = alive & ~capped
-        if not bool(alive.any()):
+        n_alive = int(alive.sum())
+        if n_alive == 0:
             if next_unborn >= N:
                 break
             continue
+        if next_unborn >= N and 2 * n_alive < B:
+            keep = alive.nonzero()[:, 0]
+            r, mu, nu, energy, shell, next_line, pid, eidx, kp0, kp1, \
+                alive = (x[keep] for x in (r, mu, nu, energy, shell,
+                                           next_line, pid, eidx, kp0, kp1,
+                                           alive))
+            B = n_alive
 
         # ---- draws
         ke = rng.fold_in((kp0, kp1), eidx)
         U = _draws(ke[0], ke[1], cols, device)
-        tau_event = (-torch.log(U[:, 0].double())).float()
+        tau_event = (-torch.log(U[:, col[COL_TAU]].double())).float()
 
         # ---- trace
-        chi = t.chi_e[shell]
+        chi_e = t.chi_e[shell]
         r_in = t.r_inner[shell]
         r_out = t.r_outer[shell]
         z = mu * r
         dop = (1.0 - z) * lorentz_gamma(r) if full_rel else 1.0 - z
         nu_cmf = nu * dop
+        chi = chi_e
+        if cont is not None:
+            boltz_coef = cont.boltz_coef[shell]
+            gcell, boltz, cum, chi_ff = _continuum_opacity(cont, S, shell,
+                                                           nu_cmf)
+            chi = chi_e + cum[-1] + chi_ff
+            escat_prob = chi_e / torch.clamp(chi, min=1e-30)
         if full_rel:
             chi = chi * dop
         out_d = torch.sqrt(torch.clamp(
@@ -367,6 +551,18 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         res.est_j.index_add_(0, shell[alive], w_j[alive].double())
         res.est_nubar.index_add_(0, shell[alive],
                                  (w_j * nu_cmf)[alive].double())
+        if cont is not None:
+            inv_nu = 1.0 / torch.clamp(nu_cmf, min=1e-30)
+            wb = w_j * boltz
+            m = torch.stack([w_j, w_j * inv_nu, w_j * nu_cmf, wb,
+                             wb * inv_nu, wb * nu_cmf,
+                             torch.ones_like(w_j)], dim=1)[alive]
+            base = ((gcell * S + shell) * 8)[alive]
+            moments.index_add_(
+                0, (base[:, None] + torch.arange(7, device=device)).reshape(-1),
+                m.reshape(-1).double())
+            res.est_ff_heat.index_add_(0, shell[alive],
+                                       (w_j * chi_ff)[alive].double())
         crossed = alive & (end_line != next_line)
         if full_rel:
             w1, w2 = energy / nu, energy
@@ -385,16 +581,21 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         mu_new = (mu * r + distance) / r_new
 
         # ---- interactions
+        if cont is not None:
+            is_contproc = is_escat & (U[:, col[COL_ESCAT]] >= escat_prob)
+            is_escat = is_escat & ~is_contproc
+        else:
+            is_contproc = torch.zeros_like(is_escat)
         new_shell = shell + delta
         emitted = is_boundary & (new_shell >= S)
         hits_core = is_boundary & (new_shell < 0)
         if reflective:
-            reflected = hits_core & (U[:, cols.index(COL_ALBEDO)] < albedo)
+            reflected = hits_core & (U[:, col[COL_ALBEDO]] < albedo)
             reabsorbed = hits_core & ~reflected
         else:
             reflected = torch.zeros_like(hits_core)
             reabsorbed = hits_core
-        mu_draw = 2.0 * U[:, 1] - 1.0
+        mu_draw = 2.0 * U[:, col[COL_MU]] - 1.0
         if full_rel:
             gamma_new = lorentz_gamma(r_new)
             dop_old_pos = (1.0 - mu_new * r_new) * gamma_new
@@ -404,22 +605,33 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
             dop_old_pos = 1.0 - mu_new * r_new
             inv_dop_new = 1.0 / (1.0 - mu_draw * r_new)
             mu_emit = mu_draw
-        if t.mode == LINE_SCATTER:
+        absorbs = is_line | is_contproc
+        adiabatic = torch.zeros_like(absorbs)
+        if cont is not None:
+            kind, em_line, nu_em, next_em = _markov_emission(
+                t, shell, is_line, i_ev, cum, chi_ff, boltz_coef, U, col)
+            if cont.adiabatic:
+                adiabatic = absorbs & (kind == EMIT_ADIABATIC)
+        elif t.mode == LINE_SCATTER:
             em_line, nu_em = i_ev, nu_ev
+            next_em = em_line + 1
         else:
-            em_line, nu_em = _emission(t, shell, i_ev, U[:, 2], U[:, 3])
-        interacts = is_escat | is_line
+            em_line, nu_em = _emission(t, shell, i_ev, U[:, col[COL_CHAIN]],
+                                       U[:, col[COL_EMIT]])
+            next_em = em_line + 1
+        interacts = is_escat | absorbs
         nu_new = torch.where(
             is_escat, nu * dop_old_pos * inv_dop_new,
-            torch.where(is_line, nu_em * inv_dop_new, nu),
+            torch.where(absorbs, nu_em * inv_dop_new, nu),
         )
         energy = torch.where(interacts, energy * dop_old_pos * inv_dop_new,
                              energy)
-        next_line = torch.where(is_line, em_line + 1,
+        next_line = torch.where(absorbs, next_em,
                                 torch.where(alive, end_line, next_line))
         if last_interaction and bool(interacts.any()):
             res.last_interaction[pid[interacts]] = torch.stack(
-                [torch.where(is_line, LI_LINE, LI_ESCAT).float(),
+                [torch.where(is_line, LI_LINE, torch.where(
+                    is_contproc, LI_CONTPROC, LI_ESCAT)).float(),
                  torch.where(is_line, i_ev, -1).float(),
                  torch.where(is_line, em_line, -1).float(),
                  shell.float(), nu, r_new], dim=1)[interacts]
@@ -432,7 +644,8 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         if tracker_length:
             slot = alive & (eidx < tracker_length)
             code = torch.where(is_line, LI_LINE, torch.where(
-                is_escat, LI_ESCAT, EV_BOUNDARY_CODE)).float()
+                is_escat, LI_ESCAT, torch.where(
+                    is_contproc, EV_CONTPROC_CODE, EV_BOUNDARY_CODE))).float()
             res.tracker[pid[slot], eidx[slot]] = torch.stack(
                 [r, nu_new, energy, shell.float(), code, mu], dim=1)[slot]
         if vpacket_capacity:
@@ -442,13 +655,16 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                 [r, mu, nu_new, energy, shell.float(), next_line.float(),
                  li_type, out_line], dim=1)[interacts])
 
-        # ---- deaths (nu is unchanged by a boundary crossing)
-        dying = emitted | reabsorbed
-        n_events += int(alive.sum())
+        # ---- deaths (nu is unchanged by a boundary crossing); an
+        # adiabatic death leaves (-nu before the interaction, energy 0)
+        dying = emitted | reabsorbed | adiabatic
+        n_events += n_alive
         if bool(dying.any()):
             dpid = pid[dying]
             res.out[dpid, 0] = torch.where(emitted, nu, -nu)[dying]
-            res.out[dpid, 1] = energy[dying]
+            res.out[dpid, 1] = torch.where(adiabatic, 0.0, energy)[dying]
+            if cont is not None:
+                res.events[dpid] = (eidx[dying] + 1).int()
             in_window = emitted & (nu > nu_lo) & (nu < nu_hi)
             res.summary[0] += energy[in_window].double().sum()
             res.summary[1] += energy[reabsorbed].double().sum()
@@ -459,6 +675,61 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     res.summary[3] = n_immortal
     res.vp_count[0] = n_vp
     return res
+
+
+class ContinuumArgs(ctypes.Structure):
+    """The C struct ``ContinuumArgs`` of ``csrc/transport_loop.cu``."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "grid_nu", "xsect", "coef_a", "coef_b", "boltz_coef", "ff_coef",
+        "mk_cum_b", "deact_block_start", "deact_cum_prob", "deact_kind",
+        "deact_id", "line2state", "photo_ion_state", "fb_cdf", "fb_nu",
+        "pion_block_start", "two_photon_nu", "moments", "ff_heat",
+        "events")] + [(name, ctypes.c_int) for name in (
+            "n_grid", "n_continua", "n_states", "k_state", "n_two_photon")]
+
+
+def _continuum_args(c: ContinuumTables, res: TransportOutput):
+    """K1's continuum tables and outputs as a ``ContinuumArgs``."""
+    p = cuda.ptr
+    return ContinuumArgs(
+        p(c.grid_nu), p(c.xsect), p(c.coef_a), p(c.coef_b), p(c.boltz_coef),
+        p(c.ff_coef), p(c.mk_cum_b), p(c.deact_block_start),
+        p(c.deact_cum_prob), p(c.deact_kind), p(c.deact_id), p(c.line2state),
+        p(c.photo_ion_state), p(c.fb_cdf), p(c.fb_nu), p(c.pion_block_start),
+        p(c.two_photon_nu), p(res.cont_moments), p(res.est_ff_heat),
+        p(res.events), c.n_grid, c.n_continua, c.n_states, c.k_state,
+        c.two_photon_nu.shape[0])
+
+
+def _check_continuum(c: ContinuumTables, t: TransportTables, device):
+    f32, i32 = torch.float32, torch.int32
+    cuda.check_cuda(
+        "transport_loop", device, grid_nu=(c.grid_nu, f32),
+        xsect=(c.xsect, f32), coef_a=(c.coef_a, f32), coef_b=(c.coef_b, f32),
+        boltz_coef=(c.boltz_coef, f32), ff_coef=(c.ff_coef, f32),
+        mk_cum_b=(c.mk_cum_b, f32),
+        deact_block_start=(c.deact_block_start, i32),
+        deact_cum_prob=(c.deact_cum_prob, f32),
+        deact_kind=(c.deact_kind, torch.int8), deact_id=(c.deact_id, i32),
+        line2state=(c.line2state, i32),
+        photo_ion_state=(c.photo_ion_state, i32), fb_cdf=(c.fb_cdf, f32),
+        fb_nu=(c.fb_nu, f32), pion_block_start=(c.pion_block_start, i32),
+        two_photon_nu=(c.two_photon_nu, f32),
+    )
+    S, L = t.n_shells, t.n_lines
+    Ng, C, M = c.n_grid, c.n_continua, c.n_states
+    D, P = c.deact_kind.shape[0], c.fb_nu.shape[0]
+    if (c.xsect.shape != (Ng * C,) or c.coef_a.shape != (C * S,)
+            or c.coef_b.shape != (C * S,) or c.boltz_coef.shape != (S,)
+            or c.ff_coef.shape != (S,) or c.mk_cum_b.shape != (S * M * M,)
+            or c.deact_cum_prob.shape != (D * S,)
+            or c.deact_id.shape != (D,) or c.line2state.shape != (L,)
+            or c.fb_cdf.shape != (P * S,)
+            or c.pion_block_start.shape != (C + 1,) or Ng < 2
+            or (c.two_photon and c.two_photon_nu.shape[0] < 2)):
+        raise ValueError("transport_loop: continuum table shapes do not "
+                         "agree")
 
 
 def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
@@ -484,6 +755,9 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
             last_interaction=last_interaction, tracker_length=tracker_length)
     if device.type != "cuda":
         raise ValueError(f"transport_loop: unsupported device {device}")
+    cont = t.continuum
+    if cont is not None and vpacket_capacity:
+        raise NotImplementedError("virtual packets with continuum transport")
     f32 = torch.float32
     N = pool_mu.shape[0]
     cuda.check_cuda(
@@ -497,19 +771,22 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     )
     S, L = t.n_shells, t.n_lines
     rows = S * t.n_states
+    classic_macro = cont is None and t.mode != LINE_SCATTER
     if (pool_mu.shape != (N,) or pool_nu.shape != (N,)
             or (pool_w is not None and pool_w.shape != (N,))
             or t.prefix.shape != (S, L + 1)
             or t.line2macro.shape != (L,)
-            or (t.mode == LINE_MACROATOM
+            or (classic_macro and t.mode == LINE_MACROATOM
                 and t.chain_cdf.shape != (rows, t.chain_width + 1))
-            or (t.mode != LINE_SCATTER
+            or (classic_macro
                 and t.emit_cdf.shape != (rows, 3 * t.emit_width))):
         raise ValueError("transport_loop: table shapes do not agree")
+    if cont is not None:
+        _check_continuum(cont, t, device)
     flags = variant(t, pool_w, last_interaction, tracker_length)
     lib = cuda.library("transport_loop", library_defines(flags))
     res = _allocate(N, S, L, vpacket_capacity, last_interaction,
-                    tracker_length, device)
+                    tracker_length, device, cont)
     nu_lo, nu_hi = _window(nu_window)
     fn = lib.transport_loop
     fn.restype = ctypes.c_int
@@ -518,9 +795,10 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     fn.argtypes = (
         [vp, vp, vp, i64] + [vp] * 8 + [i64] + [ci] * 6
         + [ctypes.c_uint32, ctypes.c_uint32, cf, cf, cf, i64] + [vp] * 7
-        + [i64, vp, vp, ci, vp]
+        + [i64, vp, vp, ci, ctypes.POINTER(ContinuumArgs), vp]
     )
     p = cuda.ptr
+    cargs = None if cont is None else ctypes.byref(_continuum_args(cont, res))
     err = fn(
         p(pool_mu), p(pool_nu), None if pool_w is None else p(pool_w), N,
         p(t.r_inner), p(t.r_outer), p(t.chi_e), p(t.line_nu), p(t.prefix),
@@ -530,7 +808,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         max_events, p(res.out), p(res.est_j), p(res.est_nubar),
         p(res.line_diff), p(res.summary), p(res.vp_records),
         p(res.vp_count), vpacket_capacity, p(res.last_interaction),
-        p(res.tracker), tracker_length, cuda.stream(),
+        p(res.tracker), tracker_length, cargs, cuda.stream(),
     )
     cuda.check_launch("transport_loop", err)
     name = variant_name(flags)

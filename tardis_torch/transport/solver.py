@@ -17,6 +17,13 @@ relativity and the simple pool otherwise; ``track_last_interaction`` and
 ``track_rpacket_length`` fill ``TransportResult.last_interaction`` and
 ``.rpacket_tracker`` (kept on the device until first read);
 ``inner_boundary_albedo`` > 0 reflects packets at the inner boundary.
+
+With a ``continuum_state`` and ``continuum_macro`` (the Type IIP workflow)
+K1 runs its continuum instantiation: full relativity is forced, and with
+it the relativistic pool under ``packet_source: auto``, as the JAX package
+forces them (``tardis_tpu/transport/solver.py:254-258,297-299,329-331``);
+``TransportResult.continuum`` holds the per-continuum estimators rebuilt
+from K1's grid moments (``reconstruct_continuum_estimators``).
 """
 
 from __future__ import annotations
@@ -29,8 +36,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from tardis_torch.constants import C, SIGMA_SB, T_RADIATIVE_ESTIMATOR_CONSTANT
+from tardis_torch.constants import (
+    C,
+    H,
+    SIGMA_SB,
+    T_RADIATIVE_ESTIMATOR_CONSTANT,
+)
 from tardis_torch.opacities.macro_atom_solver import solve_macro_chain
+from tardis_torch.plasma.continuum import ContinuumEstimators
 from tardis_torch.plasma.lte import intensity_black_body
 from tardis_torch.transport import rng
 from tardis_torch.transport.kernel import (
@@ -41,7 +54,12 @@ from tardis_torch.transport.kernel import (
     warn_immortal,
 )
 from tardis_torch.transport.source import POOLS, blackbody_source
-from tardis_torch.transport.tables import NU_UNIT, build_transport_tables
+from tardis_torch.transport.tables import (
+    NU_UNIT,
+    build_continuum_grid,
+    build_continuum_tables,
+    build_transport_tables,
+)
 from tardis_torch.transport.vpacket import trace_vpacket_records
 
 logger = logging.getLogger(__name__)
@@ -77,6 +95,11 @@ class TransportResult:
     _li: torch.Tensor | None = None
     _tracker: torch.Tensor | None = None
     length_unit: float = 1.0  # c t_exp, cm
+    # continuum transport: the normalized, undamped per-continuum
+    # estimators (plasma.continuum.ContinuumEstimators; None otherwise)
+    continuum: object | None = None
+    # continuum transport: each packet's event count (N,) i32 on the device
+    events: torch.Tensor | None = None
 
     @cached_property
     def last_interaction(self) -> dict | None:
@@ -193,13 +216,23 @@ class TransportSolver:
         self.inner_boundary_albedo = float(inner_boundary_albedo)
         self.packet_source = packet_source
 
+    def full_relativity(self, continuum: bool = False) -> bool:
+        """Whether transport runs fully relativistic: as configured, and
+        always with continuum."""
+        return self.enable_full_relativity or continuum
+
     @property
     def pool(self) -> str:
+        """The packet pool of classic transport."""
+        return self.pool_for()
+
+    def pool_for(self, continuum: bool = False) -> str:
         """The packet pool: "auto" is the relativistic one under full
         relativity, the simple one otherwise."""
         if self.packet_source != "auto":
             return self.packet_source
-        return "relativistic" if self.enable_full_relativity else "simple"
+        return ("relativistic" if self.full_relativity(continuum)
+                else "simple")
 
     def run_iteration(
         self,
@@ -214,10 +247,23 @@ class TransportSolver:
         vpacket_spawn_nu_range: tuple = (0.0, np.inf),
         need_line_estimators: bool = True,
         lum_nu_window: tuple = (0.0, np.inf),
+        continuum_state=None,
+        continuum_macro=None,
     ) -> TransportResult:
-        macro_chain = None
+        macro_chain = continuum = None
         lit = self.line_interaction_type
-        if lit in ("downbranch", "macroatom"):
+        device = plasma_state.tau_prefix.device
+        with_continuum = continuum_state is not None
+        if with_continuum and n_vpackets > 0:
+            raise NotImplementedError(
+                "virtual packets with continuum transport are not ported")
+        if with_continuum:
+            # the absorbing-Markov tables replace the macro-atom chain
+            with record_function("tardis.continuum_tables"):
+                continuum = build_continuum_tables(
+                    sim_state.geometry, atom_data, continuum_state,
+                    continuum_macro, device)
+        elif lit in ("downbranch", "macroatom"):
             macro = (atom_data.downbranch if lit == "downbranch"
                      else atom_data.macro_atom)
             with record_function("tardis.macro_chain"):
@@ -236,14 +282,15 @@ class TransportSolver:
                 macro_chain=macro_chain,
                 disable_electron_scattering=self.disable_electron_scattering,
                 disable_line_scattering=self.disable_line_scattering,
-                full_relativity=self.enable_full_relativity,
+                full_relativity=self.full_relativity(with_continuum),
                 inner_boundary_albedo=self.inner_boundary_albedo,
+                continuum=continuum,
             )
         src_key, run_key = iteration_keys(seed, iteration)
-        device = plasma_state.tau_prefix.device
         with record_function("tardis.packet_source"):
             pool_mu, pool_nu, pool_w = blackbody_source(
-                src_key, n_packets, sim_state.t_inner, device, self.pool,
+                src_key, n_packets, sim_state.t_inner, device,
+                self.pool_for(with_continuum),
                 beta_inner=float(sim_state.geometry.r_inner[0] / (
                     C * sim_state.geometry.time_explosion)))
         lo, hi = lum_nu_window
@@ -267,6 +314,7 @@ class TransportSolver:
         with record_function("tardis.finalize"):
             return self._finalize(res, sim_state, atom_data, n_packets,
                                   need_line_estimators, lum_nu_window,
+                                  self.full_relativity(with_continuum),
                                   **virtual)
 
     def _volley(self, tables, res, n_vpackets, nu_edges, spawn_nu_range,
@@ -316,7 +364,7 @@ class TransportSolver:
                     vp_records=attempted, vpackets=vpackets)
 
     def _finalize(self, res, sim_state, atom_data, n_packets,
-                  need_line_estimators, lum_nu_window,
+                  need_line_estimators, lum_nu_window, full_relativity,
                   **virtual) -> TransportResult:
         """Kernel units -> cgs: length c t_exp, frequency NU_UNIT, energy
         1/N erg (time of simulation = 1 erg / L_requested)."""
@@ -336,11 +384,15 @@ class TransportSolver:
             cum = torch.cumsum(diff, dim=1)[:, :L].T.contiguous()
             cum = cum.cpu().numpy().reshape(L, S, 2)
             # under full relativity the increments carry no nu_i factor
-            nu_scaled = (1.0 if self.enable_full_relativity else
+            nu_scaled = (1.0 if full_relativity else
                          (atom_data.line_nu / NU_UNIT)[:, None])
             j_blue = cum[:, :, 0] * nu_scaled * (e0 / NU_UNIT)
             edot = cum[:, :, 1] * nu_scaled * e0
         n_immortal = warn_immortal(res)
+        continuum = None
+        if res.cont_moments.numel():
+            continuum = reconstruct_continuum_estimators(
+                res, atom_data, sim_state, n_packets, dt)
         return TransportResult(
             _out=res.out,
             j_estimator=est_j,
@@ -358,8 +410,68 @@ class TransportSolver:
             _li=res.last_interaction if self.track_last_interaction else None,
             _tracker=res.tracker if self.track_rpacket_length else None,
             length_unit=ct,
+            continuum=continuum,
+            events=res.events if res.events.numel() else None,
             **virtual,
         )
+
+
+def reconstruct_continuum_estimators(res, atom_data, sim_state, n_packets,
+                                     time_of_simulation):
+    """Per-continuum estimators from K1's frequency-grid moments.
+
+    Counterpart of ``tardis_tpu/transport/solver.py:730``.  Within each
+    merged-grid cell every cross-section is linear in nu, sigma_c = alpha_c
+    + beta_c nu, so the reference's per-event sums over the active continua
+    (update_estimators_bound_free, radfield_estimator_calcs.py:57-125)
+    factor exactly into contractions of (alpha, beta) with the moments
+    M_k = sum w nu^k and Mb_k = sum w b nu^k.  Returns
+    ``plasma.continuum.ContinuumEstimators`` normalized by 1 / (dt V h)
+    (heatings times h), as the reference's IIP workflow normalizes them
+    (workflows/type_iip_workflow.py:768-790); the radiation-field damping
+    is left to the workflow.
+    """
+    pi = atom_data.photo_ion
+    ct = C * sim_state.time_explosion
+    e0 = 1.0 / n_packets
+    S = sim_state.no_of_shells
+    grid, xs = build_continuum_grid(pi)
+    grid_s = grid / NU_UNIT
+    m = res.cont_moments.cpu().numpy().reshape(len(grid) - 1, S, 8)
+    M0, M1, M2 = m[..., 0], m[..., 1], m[..., 2]
+    Mb0, Mb1, Mb2 = m[..., 3], m[..., 4], m[..., 5]
+    counts = m[..., 6]
+
+    dg = grid_s[1:] - grid_s[:-1]
+    beta = (xs[1:] - xs[:-1]) / np.maximum(dg, 1e-300)[:, None]
+    alpha = xs[:-1] - beta * grid_s[:-1, None]
+
+    def contract(ma, mb):
+        # sum_g alpha[g, c] ma[g, s] + beta[g, c] mb[g, s]
+        return (np.einsum("gc,gs->cs", alpha, ma)
+                + np.einsum("gc,gs->cs", beta, mb))
+
+    # sum w sigma / nu and sum w b sigma / nu
+    photo_ion = contract(M1, M0) * (ct / NU_UNIT) * e0
+    stim_recomb = contract(Mb1, Mb0) * (ct / NU_UNIT) * e0
+    # sum w sigma (1 - nu_th / nu)
+    nu_th = pi.nu_threshold / NU_UNIT
+    bf_heating = (contract(M0, M2) - nu_th[:, None] * contract(M1, M0)
+                  ) * ct * e0
+    stim_recomb_cooling = (contract(Mb0, Mb2)
+                           - nu_th[:, None] * contract(Mb1, Mb0)) * ct * e0
+    active = (xs[:-1] > 0) & (xs[1:] > 0)
+    stats = np.einsum("gc,gs->cs", active.astype(np.float64), counts)
+    ff_heating = res.est_ff_heat.cpu().numpy() * e0
+    norm = 1.0 / (time_of_simulation * sim_state.volume * H)  # (S,)
+    return ContinuumEstimators(
+        photo_ion=photo_ion * norm[None, :],
+        stim_recomb=stim_recomb * norm[None, :],
+        bf_heating=bf_heating * norm[None, :] * H,
+        stim_recomb_cooling=stim_recomb_cooling * norm[None, :] * H,
+        photo_ion_statistics=stats,
+        ff_heating=ff_heating * norm * H,
+    )
 
 
 def solve_radiation_field(result: TransportResult, sim_state, atom_data,

@@ -64,6 +64,9 @@ class TransportTables:
     # probability that a packet hitting the inner boundary is reflected
     # (0: every such packet is reabsorbed)
     inner_boundary_albedo: float = 0.0
+    # bound-free / free-free opacity and the absorbing-Markov macro atom
+    # of the Type IIP workflow (None: classic transport)
+    continuum: ContinuumTables | None = None
 
     @property
     def n_shells(self) -> int:
@@ -72,6 +75,146 @@ class TransportTables:
     @property
     def n_lines(self) -> int:
         return self.line_nu.shape[0]
+
+
+@dataclass
+class ContinuumTables:
+    """What K1's continuum branch reads, in the JAX package's layouts
+    (``tardis_tpu/transport/device_state.py:295-376``): flat arrays indexed
+    ``gcell * C + c``, ``c * S + shell``, ``(shell * M + state) * M + j``,
+    ``t * S + shell`` and ``point * S + shell``."""
+
+    grid_nu: torch.Tensor  # (Ng,) f32 merged bound-free grid, / NU_UNIT
+    xsect: torch.Tensor  # (Ng * C,) f32 cross-sections on the grid
+    coef_a: torch.Tensor  # (C * S,) f32 level population * c t_exp
+    coef_b: torch.Tensor  # (C * S,) f32 LTE population coefficient * c t_exp
+    boltz_coef: torch.Tensor  # (S,) f32 h NU_UNIT / (k T_e)
+    ff_coef: torch.Tensor  # (S,) f32 free-free opacity coefficient
+    mk_cum_b: torch.Tensor  # (S * M * M,) f32 cumulative absorbing rows
+    deact_block_start: torch.Tensor  # (M + 1,) i32
+    deact_cum_prob: torch.Tensor  # (D * S,) f32 cumulative per block
+    deact_kind: torch.Tensor  # (D,) i8 emission kind (EMIT_* codes)
+    deact_id: torch.Tensor  # (D,) i32 line or continuum id of a channel
+    line2state: torch.Tensor  # (L,) i32 state a line absorption activates
+    photo_ion_state: torch.Tensor  # (C,) i32 i-packet state of a continuum
+    fb_cdf: torch.Tensor  # (P * S,) f32 free-bound emission CDF per block
+    fb_nu: torch.Tensor  # (P,) f32 tabulation frequencies, / NU_UNIT
+    pion_block_start: torch.Tensor  # (C + 1,) i32
+    two_photon_nu: torch.Tensor  # (TPN,) f32 inverse CDF ((1,) when off)
+    k_state: int
+    two_photon: bool = False  # a two-photon deactivation channel exists
+    adiabatic: bool = False  # the adiabatic-cooling channel exists
+    # bisection steps that settle a search of any deactivation block and
+    # of any continuum's free-bound CDF block (the plain version's loops)
+    deact_steps: int = 1
+    fb_steps: int = 1
+
+    @property
+    def n_grid(self) -> int:
+        return self.grid_nu.shape[0]
+
+    @property
+    def n_continua(self) -> int:
+        return self.photo_ion_state.shape[0]
+
+    @property
+    def n_states(self) -> int:
+        return self.deact_block_start.shape[0] - 1
+
+
+def _bisection_steps(block_start) -> int:
+    widest = int(np.max(np.diff(np.asarray(block_start))))
+    return int(np.ceil(np.log2(widest + 1))) + 1
+
+
+def build_continuum_grid(photo_ion, edge_eps: float = 1e-6):
+    """Merged bound-free frequency grid and per-continuum cross-sections.
+
+    Returns (grid_nu (Ng,) ascending Hz, xsect (Ng, C)).  Each continuum
+    contributes its tabulation knots plus hard-edge sentinel knots just
+    outside its support, so linear interpolation on the merged grid
+    reproduces the per-block interpolation with hard thresholds of the
+    reference (opacities/opacities.py:88-180) with one search per event
+    instead of one per continuum.  Counterpart of
+    ``tardis_tpu/transport/device_state.py:175`` ``build_continuum_grid``.
+    """
+    pi = photo_ion
+    th, mx = pi.nu_threshold, pi.nu_max
+    lo, hi = pi.nu.min(), pi.nu.max()
+    grid = np.unique(np.concatenate([
+        pi.nu, th * (1.0 - edge_eps), mx * (1.0 + edge_eps),
+        np.array([lo * 0.5, lo * 0.75, hi * 1.5, hi * 2.0])]))
+    xs = np.zeros((len(grid), pi.n_continua))
+    for c in range(pi.n_continua):
+        a, b = pi.block_references[c], pi.block_references[c + 1]
+        nus = np.concatenate([[th[c] * (1.0 - edge_eps)], pi.nu[a:b],
+                              [mx[c] * (1.0 + edge_eps)]])
+        vals = np.concatenate([[0.0], pi.x_sect[a:b], [0.0]])
+        xs[:, c] = np.interp(grid, nus, vals, left=0.0, right=0.0)
+    return grid, xs
+
+
+def build_continuum_tables(geometry, atom_data, continuum_state,
+                           continuum_macro, device) -> ContinuumTables:
+    """K1's continuum tables from the host continuum state and Markov
+    macro-atom tables of one iteration, on ``device``."""
+    from tardis_torch.constants import H, K_B
+    from tardis_torch.opacities.continuum_macro import (
+        EMIT_TWO_PHOTON,
+        two_photon_inv_cdf,
+    )
+    from tardis_torch.plasma.continuum import FF_OPAC_CONST
+
+    cs, cm = continuum_state, continuum_macro
+    pi = atom_data.photo_ion
+    ct = C * geometry.time_explosion
+    grid, xs = build_continuum_grid(pi)
+
+    def dev(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                               device=device)
+
+    def f32(a):
+        return dev(np.asarray(a).reshape(-1), np.float32)
+
+    def i32(a):
+        return dev(np.asarray(a).reshape(-1), np.int32)
+
+    two_photon_nu = np.zeros(1)
+    if cm.n_two_photon:
+        if cm.n_two_photon > 1:
+            raise NotImplementedError(
+                "more than one two-photon decay transition (the reference "
+                "supports one, plasma/properties/atomic.py:400-402)")
+        tp = atom_data.two_photon
+        t = int(cm.deact_id[cm.deact_kind == EMIT_TWO_PHOTON][0])
+        two_photon_nu = two_photon_inv_cdf(
+            float(tp.alpha[t]), float(tp.beta[t]), float(tp.gamma[t])
+        ) * float(tp.nu0[t]) / NU_UNIT
+    return ContinuumTables(
+        grid_nu=f32(grid / NU_UNIT),
+        xsect=f32(xs),
+        coef_a=f32(cs.level_pop * ct),
+        coef_b=f32(cs.lte_pop_coef * ct),
+        boltz_coef=f32(H * NU_UNIT / (K_B * cs.t_electrons)),
+        ff_coef=f32(FF_OPAC_CONST * cs.ff_opacity_factor * ct / NU_UNIT**3),
+        mk_cum_b=f32(cm.cum_B),
+        deact_block_start=i32(cm.deact_block_start),
+        deact_cum_prob=f32(cm.deact_cum_prob),
+        deact_kind=dev(cm.deact_kind, np.int8),
+        deact_id=i32(cm.deact_id),
+        line2state=i32(cm.line2state),
+        photo_ion_state=i32(cm.photo_ion_state),
+        fb_cdf=f32(cs.fb_emission_cdf),
+        fb_nu=f32(pi.nu / NU_UNIT),
+        pion_block_start=i32(pi.block_references),
+        two_photon_nu=f32(two_photon_nu),
+        k_state=int(cm.k_state),
+        two_photon=cm.n_two_photon > 0,
+        adiabatic=bool(cm.has_adiabatic),
+        deact_steps=_bisection_steps(cm.deact_block_start),
+        fb_steps=_bisection_steps(pi.block_references),
+    )
 
 
 def build_transport_tables(
@@ -85,8 +228,12 @@ def build_transport_tables(
     disable_line_scattering: bool = False,
     full_relativity: bool = False,
     inner_boundary_albedo: float = 0.0,
+    continuum: ContinuumTables | None = None,
 ) -> TransportTables:
-    """Tables on the device of ``prefix`` (the K3 tau prefix)."""
+    """Tables on the device of ``prefix`` (the K3 tau prefix).  With
+    ``continuum`` (``build_continuum_tables``) the line interaction goes
+    through the absorbing-Markov macro atom and ``macro_chain`` is not
+    needed."""
     device = prefix.device
     ct = C * geometry.time_explosion
     L = atom_data.n_lines
@@ -97,7 +244,7 @@ def build_transport_tables(
         return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
     kw = {}
-    if mode == LINE_SCATTER:
+    if mode == LINE_SCATTER or continuum is not None:
         line2macro = torch.zeros(L, dtype=torch.int32, device=device)
         chain_cdf = torch.zeros((1, 1), dtype=torch.float32, device=device)
         emit_cdf = torch.zeros((1, 3), dtype=torch.float32, device=device)
@@ -125,5 +272,6 @@ def build_transport_tables(
         disable_line_scattering=disable_line_scattering,
         full_relativity=full_relativity,
         inner_boundary_albedo=float(inner_boundary_albedo),
+        continuum=continuum,
         **kw,
     )

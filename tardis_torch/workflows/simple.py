@@ -1,0 +1,124 @@
+"""Composable workflow API.
+
+Counterpart of ``tardis_tpu/workflows/simple.py`` (the reference's
+simple_tardis_workflow.py:36-540 and standard_tardis_workflow.py:16): the
+convergence loop of ``Simulation`` exposed as overridable stages
+(solve_plasma / solve_montecarlo / solve_simulation_state /
+solve_spectrum), so custom workflows subclass and replace single stages.
+Runs on the card unless ``device="cpu"`` is passed.  Live convergence
+plots are not ported: ``show_convergence_plots=True`` raises
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from tardis_torch.config.reader import ConfigDict, config_from_dict
+from tardis_torch.simulation.base import Simulation
+
+logger = logging.getLogger(__name__)
+
+
+class SimpleTARDISWorkflow:
+    """Stage-decomposed convergence workflow."""
+
+    # whether the workflow runs continuum transport (continuum species
+    # pass the simulation's checks only then)
+    continuum = False
+
+    def __init__(self, config, atom_data=None, device=None):
+        if not isinstance(config, ConfigDict):
+            config = config_from_dict(config)
+        self.sim = Simulation.from_config(config, atom_data=atom_data,
+                                          device=device,
+                                          continuum=self.continuum)
+        self.completed = False
+
+    # --- stages (override points) -------------------------------------
+    def solve_plasma(self, estimator_j_blues=None):
+        self.sim._solve_plasma(estimator_j_blues)
+        return self.sim.plasma_state
+
+    def solve_montecarlo(self, n_packets, iteration):
+        return self.sim.iterate(n_packets, iteration)
+
+    def solve_simulation_state(self, transport_result, iteration):
+        return self.sim.advance_state(transport_result, iteration)
+
+    def solve_spectrum(self):
+        self.sim.run_final()
+        return self.sim.spectrum_real
+
+    # --- the iteration loop -------------------------------------------
+    @torch.no_grad()
+    def run(self):
+        sim = self.sim
+        for iteration in range(sim.iterations - 1):
+            result = self.solve_montecarlo(sim.no_of_packets, iteration)
+            converged = self.solve_simulation_state(result, iteration)
+            sim.iterations_executed += 1
+            if converged and sim.stop_if_converged:
+                break
+        self.solve_spectrum()
+        self.completed = True
+        return self
+
+    # convenience accessors matching the reference attribute names
+    @property
+    def simulation_state(self):
+        return self.sim.state
+
+    @property
+    def spectrum_solver(self):
+        return self.sim
+
+    @property
+    def transport_state(self):
+        return self.sim.last_transport_result
+
+
+class StandardTARDISWorkflow(SimpleTARDISWorkflow):
+    """Adds per-iteration logging and an iteration progress bar (reference
+    standard_tardis_workflow.py:16)."""
+
+    def __init__(self, config, atom_data=None, show_convergence_plots=False,
+                 show_progress_bars=True, device=None):
+        if show_convergence_plots:
+            raise NotImplementedError(
+                "show_convergence_plots: the visualization package is not "
+                "ported")
+        super().__init__(config, atom_data, device)
+        self.show_convergence_plots = False
+        self.show_progress_bars = show_progress_bars
+
+    @torch.no_grad()
+    def run(self):
+        sim = self.sim
+        iterator = range(sim.iterations - 1)
+        if self.show_progress_bars:
+            try:
+                from tqdm.auto import tqdm
+
+                iterator = tqdm(iterator, desc="iterations")
+            except ImportError:  # pragma: no cover
+                pass
+        for iteration in iterator:
+            result = self.solve_montecarlo(sim.no_of_packets, iteration)
+            converged = self.solve_simulation_state(result, iteration)
+            sim.iterations_executed += 1
+            rec = sim.history[-1]
+            logger.info(
+                "iter %d: t_inner=%.1f L=%.3e/%.3e",
+                iteration,
+                rec.t_inner,
+                rec.emitted_luminosity,
+                sim.state.luminosity_requested,
+            )
+            if converged and sim.stop_if_converged:
+                break
+        self.solve_spectrum()
+        self.completed = True
+        return self

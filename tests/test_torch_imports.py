@@ -135,3 +135,63 @@ def test_wrappers_never_fall_back():
         cuda.check_cuda("k", cpu, prefix=(torch.zeros(3), torch.float64))
     with pytest.raises(ValueError, match="contiguous"):
         cuda.check_cuda("k", cpu, out=(torch.zeros(3, 2).T, torch.float32))
+
+
+def test_continuum_modules_are_scanned():
+    """The continuum plasma, the Markov macro atom and the workflows are
+    among the files the import scan reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("plasma/continuum.py", "opacities/continuum_macro.py",
+                 "workflows/simple.py", "workflows/type_iip.py"):
+        assert f"tardis_torch/{name}" in scanned, name
+
+
+def test_workflows_default_to_the_card(monkeypatch):
+    """The workflows, like run_tardis, ask for the card by default and
+    raise where there is none."""
+    from tardis_torch.workflows.simple import SimpleTARDISWorkflow
+    from tardis_torch.workflows.type_iip import TypeIIPWorkflow
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (SimpleTARDISWorkflow, TypeIIPWorkflow):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(copy.deepcopy(CONFIG))
+
+
+def test_continuum_wrapper_never_falls_back():
+    """K1 with continuum tables on a tensor that is neither on the CPU nor
+    on a card raises instead of taking its plain version, and refuses
+    spawn records."""
+    from tardis_torch.transport.kernel import transport_loop
+    from tardis_torch.transport.tables import (
+        ContinuumTables,
+        TransportTables,
+    )
+
+    meta = torch.device("meta")
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=meta)
+
+    i32 = torch.int32
+    cont = ContinuumTables(
+        grid_nu=empty(3), xsect=empty(6), coef_a=empty(4), coef_b=empty(4),
+        boltz_coef=empty(2), ff_coef=empty(2), mk_cum_b=empty(18),
+        deact_block_start=empty(4, dtype=i32), deact_cum_prob=empty(6),
+        deact_kind=empty(3, dtype=torch.int8), deact_id=empty(3, dtype=i32),
+        line2state=empty(4, dtype=i32), photo_ion_state=empty(2, dtype=i32),
+        fb_cdf=empty(8), fb_nu=empty(4), pion_block_start=empty(3, dtype=i32),
+        two_photon_nu=empty(1), k_state=2)
+    tables = TransportTables(
+        r_inner=empty(2), r_outer=empty(2), chi_e=empty(2), line_nu=empty(4),
+        prefix=empty(2, 5, dtype=torch.float64),
+        line2macro=empty(4, dtype=i32), chain_cdf=empty(1, 1),
+        emit_cdf=empty(1, 3), mode=2, full_relativity=True, continuum=cont,
+    )
+    with pytest.raises(ValueError, match="unsupported device"):
+        transport_loop(tables, empty(8), empty(8), (0, 1), pool_w=empty(8),
+                       last_interaction=True)
+    with pytest.raises(NotImplementedError, match="virtual packets"):
+        transport_loop(tables, torch.zeros(8), torch.zeros(8), (0, 1),
+                       vpacket_capacity=16)
+    assert not transport_loop.launches_by_variant
