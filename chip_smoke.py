@@ -27,7 +27,14 @@ Phases, one printed line each (plus one line per iteration):
      (the IIP path's, and one with the two-photon and adiabatic channels,
      boosted so both fire) timed uncapped as the path runs it, with its
      per-packet event distribution, then bitwise against its plain
-     version with both stopped at IIP_EVENT_CAP events a packet;
+     version with both stopped at IIP_EVENT_CAP events a packet; then K7
+     (nonhomologous event loop) on the bench problem under the perturbed
+     velocity law of the JAX package's end-to-end test, in scatter and in
+     macroatom mode (the RNG-walk macro atom) with last-interaction rows at
+     2,097,152 packets, bitwise against its plain version, and in scatter
+     mode under the homologous law against K1 (status agreement >= 0.999);
+     and K6 (gamma-ray step) at 4,194,304 packets in flight for one step
+     in each of its four instantiations, bitwise against its plain version;
   4. the main path: run_tardis on the card, 4 convergence iterations of
      2,097,152 packets and the production final iteration (4,194,304
      packets, 2 virtual packets per spawn record, the formal integral at
@@ -44,7 +51,13 @@ Phases, one printed line each (plus one line per iteration):
      evaluations at most), and the final iteration; per iteration its
      wall, thermal-balance host time, K1 milliseconds and luminosity;
      then the IIP options path, 2 iterations with the two-photon and
-     adiabatic-cooling channels on;
+     adiabatic-cooling channels on; the nonhomologous path,
+     NonhomologousTARDISWorkflow on the bench problem under the perturbed
+     law, 4 convergence iterations of 2,097,152 packets and a final one of
+     4,194,304 (real-packet spectrum); the gamma-ray path,
+     TARDISHEWorkflow on the bench model with Ni56 (0.6 in the inner 10
+     shells, 0.05 outside), 4,194,304 packets over 50 steps from 2 to 100
+     days, 100 energy bins and the path-length estimators;
      on each path the launch counts are reset to 0 just before the run and
      read just after, every variant a wrapper launched under its own line;
   8. K5 (formal-integral rays) against its plain version on the main
@@ -53,7 +66,8 @@ Phases, one printed line each (plus one line per iteration):
      main path and of the IIP path (device time by kernel, host time by
      tardis.* span, the device's busy share);
  10. a JSON line of every kernel (each K1, K2 and K4 variant on its own
-     line, with the launches of the path that runs it; the weighted pool's
+     line, K6 and K7 by the instantiation their paths run, with the
+     launches of the path that runs it; the weighted pool's
      line also counts its normalising launches), the card's name and power
      limit, and the result line {"ok": true, "device": {...}}.
 
@@ -70,6 +84,7 @@ run's.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -101,6 +116,14 @@ IIP_PACKETS = 1_048_576
 IIP_ITERATIONS = 4  # 3 convergence iterations (each with its thermal balance)
 IIP_OPTIONS_ITERATIONS = 2  # and the final one
 IIP_EVENT_CAP = 2_000  # both sides of a continuum K1 check stop here
+NONHOM_ITERATIONS = 5  # 4 convergence iterations and the final one
+NONHOM_PLAIN_LANES = 262_144  # K7's plain version: launch-bound steps
+GAMMA_PACKETS = 4_194_304
+GAMMA_STEPS = 50
+GAMMA_BINS = 100
+GAMMA_DAYS = (2.0, 100.0)
+GAMMA_CHECK_DAY = 10.0  # K6's check: every packet in flight at this epoch
+GAMMA_CHECK_STEP_DAYS = 1.0
 
 BENCH_CONFIG = {
     "supernova": {"luminosity_requested": "9.44 log_lsun",
@@ -158,6 +181,26 @@ IIP_OPTIONS_CONFIG["montecarlo"]["iterations"] = IIP_OPTIONS_ITERATIONS
 IIP_OPTIONS_CONFIG["plasma"]["continuum_interaction"].update(
     enable_two_photon_decay=True, enable_adiabatic_cooling=True)
 
+# the nonhomologous path: the bench problem under a perturbed velocity law
+# (the JAX package's end-to-end test, tests/test_nonhomologous.py:252-257),
+# tracking at its default (last-interaction rows), real-packet spectrum
+NONHOM_CONFIG = copy.deepcopy(BENCH_CONFIG)
+NONHOM_CONFIG["montecarlo"].update(iterations=NONHOM_ITERATIONS,
+                                   no_of_virtual_packets=0)
+del NONHOM_CONFIG["montecarlo"]["tracking"]
+NONHOM_CONFIG["spectrum"].update(method="real")
+del NONHOM_CONFIG["spectrum"]["integrated"]
+# the gamma-ray path: Ni56 0.6 in the bench model's inner 10 shells, 0.05
+# outside, with the path-length estimators
+GAMMA_RUN = dict(n_packets=GAMMA_PACKETS, n_time_steps=GAMMA_STEPS,
+                 n_energy_bins=GAMMA_BINS, collect_estimators=True)
+# K6's instantiations held against the plain version
+GAMMA_OPTIONS = {
+    "default": {}, "grey": dict(grey_opacity=0.05),
+    "kasen+artis": dict(photoabsorption_type="kasen",
+                        pair_creation_type="artis"),
+    "estimators": dict(collect_estimators=True)}
+
 # what each path hands K1: the transport tables' options, the pool, the
 # trackers, and whether its final iteration writes spawn records
 PATHS = {
@@ -169,13 +212,14 @@ PATHS = {
                     last_interaction=False, tracker_length=TRACKER_LENGTH,
                     records=False),
 }
-WITH_OPTIONS = ("transport_loop", "vpacket_volley")
+WITH_OPTIONS = ("transport_loop", "vpacket_volley", "nonhom_loop",
+                "gamma_step")
 
 
 def line_name(kernel, variant):
     """The kernels-line name of one variant of a wrapper (K2 by pool, K1
     and K4 by the variant names of their modules)."""
-    if variant in ("simple", "classic"):
+    if variant in ("simple", "classic", "scatter", "default"):
         return kernel
     return f"{kernel}[{variant}]"
 
@@ -533,16 +577,21 @@ def k1_variant(path, tables, pool):
 
 def build_variants(tables, pools, iip_tables=()):
     """Build, in parallel, the K1 and K4 instantiations the paths select
-    on their own tables and pools, and K1's continuum instantiations of
+    on their own tables and pools, K1's continuum instantiations of
     ``iip_tables`` (with the weighted pool and last-interaction rows, as
-    the IIP paths run them); returns the wall seconds and the ptxas
-    register lines."""
+    the IIP paths run them), K7's NONHOM_VARIANTS and K6's GAMMA_OPTIONS;
+    returns the wall seconds and the ptxas register lines."""
     from tardis_torch import cuda
-    from tardis_torch.transport import kernel, vpacket
+    from tardis_torch.energy_input import gamma_kernel
+    from tardis_torch.transport import kernel, nonhomologous, vpacket
 
     libs = [("transport_loop", kernel.library_defines(kernel.variant(
         t, pools["relativistic"][N_PACKETS][2], last_interaction=True)))
         for t in iip_tables]
+    libs += [("nonhom_loop", nonhomologous.library_defines(flags))
+             for flags in NONHOM_VARIANTS.values()]
+    libs += [("gamma_step", gamma_kernel.library_defines(
+        gamma_kernel.variant(**opts))) for opts in GAMMA_OPTIONS.values()]
     for path, opts in PATHS.items():
         t = tables[path]
         flags = k1_variant(path, t, pools[opts["pool"]][N_PACKETS])
@@ -738,14 +787,18 @@ def check_formal_integral(sim, device):
 def wrappers():
     from tardis_torch.plasma.line_tables import line_tables
     from tardis_torch.spectrum.formal_integral import integrate_rays
+    from tardis_torch.energy_input.gamma_kernel import gamma_step_transport
     from tardis_torch.transport.kernel import transport_loop
+    from tardis_torch.transport.nonhomologous import nonhom_transport_loop
     from tardis_torch.transport.source import blackbody_source
     from tardis_torch.transport.vpacket import trace_vpacket_records
 
     return {"line_tables": line_tables, "blackbody_source": blackbody_source,
             "transport_loop": transport_loop,
             "vpacket_volley": trace_vpacket_records,
-            "formal_integral": integrate_rays}
+            "formal_integral": integrate_rays,
+            "nonhom_loop": nonhom_transport_loop,
+            "gamma_step": gamma_step_transport}
 
 
 def reset_launches():
@@ -757,8 +810,8 @@ def reset_launches():
 
 
 def read_launches():
-    """Launches by kernels-line name: K3 and K5, and every variant K1, K2
-    and K4 launched under its own line
+    """Launches by kernels-line name: K3 and K5, and every variant K1, K2,
+    K4, K6 and K7 launched under its own line
     (``transport_loop[full_relativity+last_interaction+weights]``)."""
     out = {}
     for kernel, w in wrappers().items():
@@ -837,13 +890,7 @@ def run_path(phase, config, atom, device, expected, bands=True):
     if bands and not 0.7 <= int_ratio <= 1.4:
         raise AssertionError(f"{phase}: integrated / real luminosity "
                              f"{int_ratio}")
-    def off(line):
-        n, want = launches.get(line, 0), expected.get(line, 0)
-        return n < 1 if want is None else n != want
-
-    if any(off(line) for line in set(launches) | set(expected)):
-        raise AssertionError(f"{phase}: kernel launches {launches}, "
-                             f"expected {expected}")
+    check_launches(phase, launches, expected)
     return sim, launches
 
 
@@ -1015,12 +1062,59 @@ def check_continuum_loop(tables, pool, run_key, replaces):
     return k1_entry(name, replaces, numbers)
 
 
+@contextlib.contextmanager
+def timed_launches(module, attr, keep):
+    """Swaps ``module.attr`` (a kernel wrapper as a path calls it) for one
+    that records a CUDA event just before and just after each call; yields
+    the list of (start, end, keep(result)) and restores the attribute on
+    exit.  ``keep`` takes only what the caller reads: holding a path's
+    whole results would keep the card's allocator from reusing them."""
+    launch = getattr(module, attr)
+    calls = []
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = launch(*args, **kw)
+        b.record()
+        calls.append((a, b, keep(res)))
+        return res
+
+    setattr(module, attr, timed)
+    try:
+        yield calls
+    finally:
+        setattr(module, attr, launch)
+
+
+def path_end():
+    """The end of a path: the host clock after the card has finished, and
+    an event recorded when the card reaches it."""
+    end = torch.cuda.Event(enable_timing=True)
+    end.record()
+    torch.cuda.synchronize()
+    return time.perf_counter(), end
+
+
+def launch_periods(calls, end):
+    """Per launch of ``timed_launches``: its milliseconds, and the
+    milliseconds from its start to the next launch's start (the last: to
+    ``end``), both on the card's clock.  The period is an iteration's (or a
+    time step's) wall time, host work between the launches included, taken
+    without a host synchronization inside the path."""
+    starts = [a for a, _, _ in calls[1:]] + [end]
+    return [(a.elapsed_time(b), a.elapsed_time(nxt))
+            for (a, b, _), nxt in zip(calls, starts)]
+
+
 def run_iip_path(phase, config, atom, device, expected):
     """TypeIIPWorkflow(config).run() on the card with the launch counts
     reset to 0 just before and read just after (every line in
     ``expected`` exactly that often, None: at least once; no other).  One
-    line per iteration: wall seconds (the thermal balance, host time, also
-    on its own), K1's CUDA-event milliseconds, its events and their
+    line per iteration: wall seconds (``launch_periods``; the thermal
+    balance, host time, also on its own), K1's CUDA-event milliseconds,
+    its events and their
     per-packet distribution (mean, p99, largest, stopped by the cap), and
     L_emitted / L_requested.  Every value
     must be finite, link_t_rad_t_electron in (0, 1.5], n_e > 0 and the
@@ -1028,24 +1122,12 @@ def run_iip_path(phase, config, atom, device, expected):
     from tardis_torch.transport import solver as solver_module
     from tardis_torch.workflows.type_iip import TypeIIPWorkflow
 
-    k1_events = []
-    launch_k1 = solver_module.transport_loop
-
-    def timed_k1(*args, **kw):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        res = launch_k1(*args, **kw)
-        b.record()
-        k1_events.append((a, b))
-        return res
-
-    marks, balance_s, events = [], [], []
+    balance_s, events = [], []
 
     class Timed(TypeIIPWorkflow):
+        """Keeps each iteration's event counts and thermal balance time."""
+
         def solve_montecarlo(self, n_packets, iteration):
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
             res = super().solve_montecarlo(n_packets, iteration)
             events.append(dict(events=res.n_events,
                                per_packet=event_distribution(
@@ -1058,33 +1140,28 @@ def run_iip_path(phase, config, atom, device, expected):
             balance_s.append((time.perf_counter() - t0, int(out.nfev)))
             return out
 
-    solver_module.transport_loop = timed_k1
-    try:
+    with timed_launches(solver_module, "transport_loop",
+                        lambda res: None) as k1_calls:
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         wf = Timed(copy.deepcopy(config), atom_data=atom, device=device)
         wf.run()
-        torch.cuda.synchronize()
-        end = time.perf_counter()
-    finally:
-        solver_module.transport_loop = launch_k1
+        end = path_end()
     launches = read_launches()
     sim = wf.sim
-    marks.append(end)
     res = sim.last_transport_result
     ratios = [h.emitted_luminosity / sim.state.luminosity_requested
               for h in sim.history]
     ratios.append(res.emitted_luminosity(*sim._lum_nu_window())
                   / sim.state.luminosity_requested)
-    for i, (a, b) in enumerate(k1_events):
-        say("iip_iteration", path=phase, index=i,
-            wall_s=marks[i + 1] - marks[i],
+    for i, (k1_ms, period_ms) in enumerate(launch_periods(k1_calls, end[1])):
+        say("iip_iteration", path=phase, index=i, wall_s=period_ms / 1e3,
             thermal_balance_s=balance_s[i][0] if i < len(balance_s)
             else None,
             thermal_balance_nfev=balance_s[i][1] if i < len(balance_s)
             else None,
-            k1_ms=a.elapsed_time(b), **events[i],
+            k1_ms=k1_ms, **events[i],
             L_emitted_over_requested=ratios[i])
     last = events[-1]["per_packet"]
     link = np.asarray(sim.plasma_solver.link_t_rad_t_electron, float)
@@ -1099,7 +1176,7 @@ def run_iip_path(phase, config, atom, device, expected):
         and all(np.isfinite(getattr(est, f)).all()
                 for f in ("photo_ion", "stim_recomb", "bf_heating",
                           "stim_recomb_cooling", "ff_heating")))
-    say(phase, wall_s=end - t0, packets=IIP_PACKETS * len(k1_events),
+    say(phase, wall_s=end[0] - t0, packets=IIP_PACKETS * len(k1_calls),
         launches=launches, final_L_emitted_over_requested=ratios[-1],
         final_events=res.n_events, final_events_per_packet=last,
         link_range=[float(link.min()), float(link.max())],
@@ -1111,14 +1188,7 @@ def run_iip_path(phase, config, atom, device, expected):
         raise AssertionError(f"{phase}: finite {finite}, link "
                              f"{link.min()}..{link.max()}, n_e min "
                              f"{n_e.min()}, photoionization sum {pion}")
-
-    def off(line):
-        n, want = launches.get(line, 0), expected.get(line, 0)
-        return n < 1 if want is None else n != want
-
-    if any(off(line) for line in set(launches) | set(expected)):
-        raise AssertionError(f"{phase}: kernel launches {launches}, "
-                             f"expected {expected}")
+    check_launches(phase, launches, expected)
     return launches
 
 
@@ -1244,6 +1314,450 @@ def say_profile(phase, prof, wall):
         host_ms_by_span=[[k, ms, n] for k, ms, n in spans])
 
 
+def perturbed_geometry(geometry):
+    """The JAX package's end-to-end perturbation of a homologous law
+    (tests/test_nonhomologous.py:252-257): radii kept, v_inner and v_outer
+    scaled by 1 + 0.1 sin(i) and 1 + 0.1 sin(i + 1)."""
+    from tardis_torch.model.geometry import NonhomologousRadial1DGeometry
+
+    geom = NonhomologousRadial1DGeometry.from_homologous(geometry)
+    i = np.arange(geom.no_of_shells)
+    geom.v_inner = geom.v_inner * (1.0 + 0.1 * np.sin(i))
+    geom.v_outer = geom.v_outer * (1.0 + 0.1 * np.sin(i + 1.0))
+    return geom
+
+
+# K7's instantiations (flags in nonhomologous.OPTIONS order): both checked
+# modes with last-interaction rows, the nonhomologous path's tracking
+NONHOM_VARIANTS = {"scatter": (False, True, False, False),
+                   "macroatom": (True, True, False, False)}
+
+
+def nonhom_tables(state, atom, ps, geometry, mode):
+    """K7's tables on the bench problem's plasma state under ``geometry``
+    (the walk tables in macroatom mode, built as the solver builds them)."""
+    from tardis_torch.opacities.macro_atom_solver import solve_macro_state
+    from tardis_torch.transport.nonhomologous import (
+        build_nonhom_tables,
+        nonhomologous_plasma_state,
+    )
+
+    ps_nh = nonhomologous_plasma_state(ps, geometry)
+    walk = None
+    if mode == "macroatom":
+        walk = solve_macro_state(atom.macro_atom, ps_nh.beta_sobolev,
+                                 ps_nh.j_blues,
+                                 ps_nh.stimulated_emission_factor)
+    return build_nonhom_tables(geometry, ps_nh, atom, mode, walk=walk)
+
+
+def k7_bound(t, n_packets, n_events, extra_bytes=0):
+    """Least time for K7: the tables read once (both prefixes, the walk
+    tables), the outputs written once, against the events' two hashes and
+    their line search (~8 operations a probe) and ~60 operations of the
+    event; the bisection, the walk and the window searches, which only
+    some events run, are not counted, so the bound stays a lower bound."""
+    in_bytes = 8 * n_packets + nbytes(t.r_inner, t.r_outer, t.beta_in,
+                                      t.m_grad, t.chi_e, t.line_nu, t.prefix,
+                                      t.rev_prefix)
+    if t.walk is not None:
+        in_bytes += nbytes(*t.walk)
+    out_bytes = 8 * n_packets + 8 * (2 * (t.n_lines + 1) * t.n_shells
+                                     + 2 * t.n_shells + 4)
+    per_event = (2 * THREEFRY_OPS + 8 * math.ceil(math.log2(t.n_lines + 1))
+                 + 60)
+    return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event)
+
+
+def check_nonhom_loop(state, atom, ps, pools):
+    """K7 on the bench problem under the perturbed law against its plain
+    version at NONHOM_PLAIN_LANES lanes, at each shape the nonhomologous
+    path gives it: in scatter and in macroatom mode with last-interaction
+    rows at N_PACKETS on the simple pool of the first iteration, and in
+    macroatom mode at FINAL_PACKETS on the final iteration's pool with its
+    key (``pools`` by packet count).  The walk tables' sizes (the rows of
+    ``solve_macro_state``'s dense layout among them) and the macroatom
+    tables' build time go on a line of their own.  Every packet,
+    every last-interaction
+    row and the event totals
+    bitwise equal; est_j and est_nubar within 1e-12 relative (f64 atomics
+    in racing order), the line difference array and the luminosity sums
+    within 1e-9 (their terms cancel, as for K1).  Then K7 in scatter mode
+    under the homologous law against K1's classic instantiation on the same pool:
+    status agreement at least 0.999 (the JAX package's own bar,
+    tests/test_nonhomologous.py:85).  Returns the kernels-line entry of the
+    macroatom instantiation (the nonhomologous path's), timed at N_PACKETS
+    (four of the path's five launches), with the largest error of its
+    shapes."""
+    from tardis_torch.model.geometry import NonhomologousRadial1DGeometry
+    from tardis_torch.transport.kernel import transport_loop
+    from tardis_torch.transport.nonhomologous import (
+        nonhom_transport_loop,
+        nonhom_transport_loop_plain,
+        variant,
+        variant_name,
+    )
+    from tardis_torch.transport.solver import iteration_keys
+    from tardis_torch.transport.tables import build_transport_tables
+
+    geom = perturbed_geometry(state.geometry)
+    entry = None
+    max_abs = 0.0
+    cases = (("scatter", N_PACKETS, 0), ("macroatom", N_PACKETS, 0),
+             ("macroatom", FINAL_PACKETS, NONHOM_ITERATIONS - 1))
+    tables = {mode: nonhom_tables(state, atom, ps, geom, mode)
+              for mode in ("scatter", "macroatom")}
+    sizes = torch.diff(tables["macroatom"].walk.block_start).cpu().numpy()
+    group = np.ceil(np.log2(np.maximum(sizes, 1)))
+    build_ms, _ = cuda_ms(lambda: nonhom_tables(state, atom, ps, geom,
+                                                "macroatom"), 3)
+    say("walk_tables", transitions=int(sizes.sum()), blocks=sizes.size,
+        widest_block=int(sizes.max()),
+        dense_rows=sum(int((group == g).sum() * sizes[group == g].max())
+                       for g in np.unique(group)),
+        tables_ms=build_ms)
+    for mode, n, iteration in cases:
+        t = tables[mode]
+        mu, nu, _ = pools[n]
+        _, run_key = iteration_keys(SEED, iteration)
+        kw = dict(last_interaction=True)
+        ms, k = cuda_ms(lambda: nonhom_transport_loop(t, mu, nu, run_key,
+                                                      **kw), 3)
+        plain_ms, p = cuda_ms(lambda: nonhom_transport_loop_plain(
+            t, mu, nu, run_key, batch_size=NONHOM_PLAIN_LANES, **kw), 1,
+            warmup=False)
+        bitwise = (k.out == p.out).all(dim=1).double().mean().item()
+        rows_equal = bool(torch.equal(k.last_interaction,
+                                      p.last_interaction))
+        rels = {name: rel_err(getattr(k, name), getattr(p, name))
+                for name in ("est_j", "est_nubar", "line_diff")}
+        rels["L_window"] = rel_err(k.summary[0:1], p.summary[0:1])
+        rels["L_reabsorbed"] = rel_err(k.summary[1:2], p.summary[1:2])
+        limits = dict(est_j=1e-12, est_nubar=1e-12, line_diff=1e-9,
+                      L_window=1e-9, L_reabsorbed=1e-9)
+        events = k.summary[2].item(), p.summary[2].item()
+        stopped = int(k.summary[3].item()), int(p.summary[3].item())
+        if not (bitwise == 1.0 and rows_equal and events[0] == events[1]
+                and stopped == (0, 0) and bool((k.out[:, 0] != 0).all())
+                and all(r <= limits[name] for name, r in rels.items())):
+            raise AssertionError(
+                f"nonhom_loop[{mode}] at {n} packets: bitwise packets "
+                f"{bitwise}, last-interaction rows equal {rows_equal}, "
+                f"events {events}, stopped {stopped}, max rel {rels}")
+        abs_err = max((getattr(k, name) - getattr(p, name)).abs().max().item()
+                      for name in ("out", "est_j", "est_nubar", "line_diff",
+                                   "summary"))
+        max_abs = max(max_abs, abs_err)
+        li = k.last_interaction[:, 0]
+        b_ms, b_by = k7_bound(t, n, events[0],
+                              extra_bytes=nbytes(k.last_interaction))
+        flags = variant(t, last_interaction=True)
+        name = line_name("nonhom_loop", variant_name(flags))
+        numbers = dict(line=name, mode=mode, n=n, ms=ms, plain_ms=plain_ms,
+                       plain_lanes=NONHOM_PLAIN_LANES, bound_ms=b_ms,
+                       bound_by=b_by,
+                       events=events[0], events_per_packet=events[0] / n,
+                       line_interactions=int((li == 2).sum()),
+                       escat_interactions=int((li == 1).sum()),
+                       emitted=int((k.out[:, 0] > 0).sum()),
+                       bitwise_packets=bitwise,
+                       last_interaction_bitwise=rows_equal, max_rel=rels,
+                       max_abs_err=abs_err)
+        say("check_nonhom_loop", **numbers)
+        if mode == "macroatom" and n == N_PACKETS:
+            entry = dict(name=name, route="cuda",
+                         source="tardis_torch/csrc/nonhom_loop.cu",
+                         replaces="tardis_tpu/transport/nonhomologous.py:198",
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+        del k, p
+        torch.cuda.empty_cache()
+    entry["max_abs_err"] = max_abs
+    del tables
+
+    # the homologous law: K7 against K1 on the same pool and key
+    mu, nu, _ = pools[N_PACKETS]
+    n = N_PACKETS
+    _, run_key = iteration_keys(SEED, 0)
+    geom_h = NonhomologousRadial1DGeometry.from_homologous(state.geometry)
+    t7 = nonhom_tables(state, atom, ps, geom_h, "scatter")
+    t1 = build_transport_tables(state.geometry, ps.electron_densities,
+                                ps.tau_prefix, atom, "scatter")
+    k7 = nonhom_transport_loop(t7, mu, nu, run_key, last_interaction=True)
+    k1 = transport_loop(t1, mu, nu, run_key)
+    torch.cuda.synchronize()
+    agree = (torch.sign(k7.out[:, 0]) == torch.sign(k1.out[:, 0])
+             ).double().mean().item()
+    same = ((torch.sign(k7.out[:, 0]) == torch.sign(k1.out[:, 0]))
+            & ((k7.out[:, 0] - k1.out[:, 0]).abs()
+               <= 5e-6 * k1.out[:, 0].abs())).double().mean().item()
+    say("check_nonhom_homologous", n=n, status_agreement=agree,
+        nu_within_5e_6=same, events_k7=k7.summary[2].item(),
+        events_k1=k1.summary[2].item(),
+        est_j_max_rel=rel_err(k7.est_j, k1.est_j))
+    if not agree >= 0.999:
+        raise AssertionError(f"nonhom_loop under the homologous law: status "
+                             f"agreement with K1 {agree}")
+    return entry
+
+
+def gamma_step_inputs(state, device, n_packets):
+    """K6's inputs at the gamma path's widths with every packet in flight:
+    the path's pool (Ni56 0.6 inner, 0.05 outer, GAMMA_DAYS), each packet
+    placed at its birth position at GAMMA_CHECK_DAY with a budget of
+    GAMMA_CHECK_STEP_DAYS of flight, and the shells' opacities at that
+    epoch."""
+    from tardis_torch.constants import C, DAY, M_U
+    from tardis_torch.energy_input.decay import sample_gamma_packets
+    from tardis_torch.energy_input.gamma_kernel import build_kn_table
+    from tardis_torch.workflows.high_energy import TARDISHEWorkflow
+
+    wf = TARDISHEWorkflow(state, isotope_mass_fractions=gamma_fractions(state),
+                          seed=SEED, device=device)
+    pool = sample_gamma_packets(n_packets, wf.isotope_numbers,
+                                GAMMA_DAYS[0] * DAY, GAMMA_DAYS[1] * DAY,
+                                seed=SEED)
+    iron, z_over_a, z4_over_a = wf._composition_sums()
+    t = GAMMA_CHECK_DAY * DAY
+    scale = (t / state.time_explosion) ** -3
+    g = state.geometry
+    v_pos = g.v_inner[pool.shell] + pool.radius_frac * (
+        g.v_outer[pool.shell] - g.v_inner[pool.shell])
+    rho = state.composition.density
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device).to(
+            torch.float32)
+
+    kn_log_e, kn_table = build_kn_table(device=device)
+    packets = (f32(v_pos * t), f32(pool.mu), f32(pool.energy_kev),
+               f32(np.ones(n_packets)),
+               torch.as_tensor(pool.shell, dtype=torch.int32, device=device),
+               torch.zeros(n_packets, dtype=torch.int32, device=device),
+               f32(np.full(n_packets, C * GAMMA_CHECK_STEP_DAYS * DAY)))
+    shells = (f32(g.v_inner * t), f32(g.v_outer * t),
+              f32(rho * z_over_a / M_U * scale), f32(rho * scale), f32(iron))
+    ebins = f32(np.logspace(1.0, np.log10(4000.0), GAMMA_BINS + 1))
+    return (packets + ((0, SEED),) + shells + (kn_log_e, kn_table, ebins),
+            f32(rho * z4_over_a / M_U * scale))
+
+
+def gamma_fractions(state):
+    """Ni56 mass fractions of the gamma path: 0.6 in the inner 10 shells,
+    0.05 outside."""
+    S = state.no_of_shells
+    return {"Ni56": np.where(np.arange(S) < 10, 0.6, 0.05)}
+
+
+def check_gamma_step(state, device):
+    """K6 at GAMMA_PACKETS packets for one step with every packet in flight
+    (gamma_step_inputs), in each instantiation of GAMMA_OPTIONS, against
+    its plain version: every packet's r, mu, energy, weight, shell, status
+    and event count bitwise equal; deposition, escape histogram and
+    estimators within 1e-12 relative (f64 atomics in racing order).
+    Returns the kernels-line entry of the estimators instantiation (the
+    gamma path's) with the largest error of all."""
+    from tardis_torch.energy_input.gamma_kernel import (
+        gamma_step_transport,
+        gamma_step_transport_plain,
+        variant,
+        variant_name,
+    )
+
+    args, kasen_z4 = gamma_step_inputs(state, device, GAMMA_PACKETS)
+    n = GAMMA_PACKETS
+    entry, max_abs = None, 0.0
+    for label, opts in GAMMA_OPTIONS.items():
+        kw = dict(kasen_z4=kasen_z4, **opts)
+        ms, k = cuda_ms(lambda: gamma_step_transport(*args, **kw), 3)
+        plain_ms, p = cuda_ms(lambda: gamma_step_transport_plain(*args, **kw),
+                              1, warmup=False)
+        fields = ("r", "mu", "energy_kev", "weight", "shell", "status",
+                  "events")
+        bitwise = {f: bool(torch.equal(getattr(k, f), getattr(p, f)))
+                   for f in fields}
+        rels = {f: rel_err(getattr(k, f), getattr(p, f))
+                for f in ("deposition", "escape_hist", "estimators")
+                if getattr(k, f).numel()}
+        if not (all(bitwise.values())
+                and all(r <= 1e-12 for r in rels.values())):
+            raise AssertionError(f"gamma_step[{label}]: bitwise {bitwise}, "
+                                 f"max rel {rels}")
+        abs_err = max((getattr(k, f) - getattr(p, f)).abs().max().item()
+                      for f in rels)
+        max_abs = max(max_abs, abs_err)
+        ev = k.events.double()
+        n_events = ev.sum().item()
+        status = torch.bincount(k.status, minlength=4).tolist()
+        b_ms, b_by = k6_bound(args, n, n_events, opts)
+        name = line_name("gamma_step", variant_name(variant(**opts)))
+        say("check_gamma_step", line=name, n=n, ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, events=n_events,
+            events_per_packet=dict(mean=ev.mean().item(),
+                                   p99=torch.quantile(ev, 0.99).item(),
+                                   max=int(k.events.max().item())),
+            status_counts=status, bitwise=bitwise, max_rel=rels,
+            max_abs_err=abs_err)
+        if label == "estimators":
+            entry = dict(name=name, route="cuda",
+                         source="tardis_torch/csrc/gamma_step.cu",
+                         replaces=("tardis_tpu/energy_input/"
+                                   "gamma_kernel.py:249"),
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+        del k, p
+        torch.cuda.empty_cache()
+    entry["max_abs_err"] = max_abs
+    return entry
+
+
+def k6_bound(args, n_packets, n_events, opts):
+    """Least time for K6: the packet state read and written once (7 and 7
+    words a packet), the tables read once, against each event's two hashes
+    (its key and the optical-depth draw) and ~80 operations of opacities,
+    distances and the move; the estimators' 100-point quadrature adds ~1,000
+    operations an event.  Interactions hash more and some events take the
+    KN lookup: not counted, so the bound stays a lower bound."""
+    tables = [a for a in args[8:] if isinstance(a, torch.Tensor)]
+    in_bytes = 28 * n_packets + nbytes(*tables)
+    per_event = 2 * THREEFRY_OPS + 80
+    if opts.get("collect_estimators"):
+        per_event += 1000
+    return bound(in_bytes + 28 * n_packets, n_events * per_event)
+
+
+def run_nonhom_path(atom, device, expected):
+    """NonhomologousTARDISWorkflow on NONHOM_CONFIG under the perturbed law,
+    launch counts reset to 0 just before and read just after (each line in
+    ``expected`` exactly that often, None: at least once; no other).  One
+    line per iteration: wall seconds, K7's CUDA-event milliseconds and
+    events, L_emitted / L_requested.  t_rad must stay finite and above
+    1,000 K and the real spectrum finite and positive (the JAX package's
+    bars, tests/test_nonhomologous.py:259-264).  Wall seconds per
+    iteration come from ``launch_periods``."""
+    from tardis_torch.transport import solver as solver_module
+    from tardis_torch.workflows.nonhomologous import (
+        NonhomologousTARDISWorkflow,
+    )
+
+    with timed_launches(solver_module, "nonhom_transport_loop",
+                        lambda res: res.summary) as k7_calls:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wf = NonhomologousTARDISWorkflow(
+            copy.deepcopy(NONHOM_CONFIG), atom_data=atom,
+            show_progress_bars=False, device=device)
+        geom = perturbed_geometry(wf.geometry)
+        wf.geometry.v_inner, wf.geometry.v_outer = geom.v_inner, geom.v_outer
+        wf.run()
+        end = path_end()
+    launches = read_launches()
+    sim = wf.sim
+    res = sim.last_transport_result
+    ratios = [h.emitted_luminosity / sim.state.luminosity_requested
+              for h in sim.history]
+    ratios.append(res.emitted_luminosity(*sim._lum_nu_window())
+                  / sim.state.luminosity_requested)
+    k7_ms = []
+    for i, ((ms, period_ms), (_, _, summary)) in enumerate(
+            zip(launch_periods(k7_calls, end[1]), k7_calls)):
+        k7_ms.append(ms)
+        say("nonhom_iteration", index=i, wall_s=period_ms / 1e3, k7_ms=ms,
+            events=summary[2].item(), L_emitted_over_requested=ratios[i])
+    t_rad = sim.state.t_radiative
+    lum = np.asarray(sim.spectrum_real.luminosity_nu)
+    finite = bool(np.isfinite(t_rad).all() and np.isfinite(lum).all()
+                  and all(np.isfinite(h.t_radiative).all()
+                          and np.isfinite(h.dilution_factor).all()
+                          for h in sim.history))
+    say("nonhom_path", wall_s=end[0] - t0,
+        packets=N_PACKETS * (NONHOM_ITERATIONS - 1) + FINAL_PACKETS,
+        launches=launches, k7_ms=k7_ms,
+        final_L_emitted_over_requested=ratios[-1],
+        t_rad_range=[float(t_rad.min()), float(t_rad.max())],
+        t_inner=sim.state.t_inner, spectrum_luminosity=float(lum.sum()),
+        immortal=res.n_immortal, finite=finite)
+    if not (finite and (t_rad > 1000).all() and lum.sum() > 0
+            and (lum >= 0).all()):
+        raise AssertionError(f"nonhom path: finite {finite}, t_rad "
+                             f"{t_rad.min()}..{t_rad.max()}, spectrum sum "
+                             f"{lum.sum()}")
+    check_launches("nonhom_path", launches, expected)
+    return launches
+
+
+def run_gamma_path(state, device, expected):
+    """TARDISHEWorkflow at GAMMA_RUN on the bench model (gamma_fractions),
+    launch counts reset to 0 just before and read just after.  Per step:
+    wall seconds (``launch_periods``: no host synchronization between the
+    steps), K6's CUDA-event milliseconds and the per-packet event
+    distribution; total_escaped + total_deposited must lie in [0.3, 1.02]
+    x total_emitted (tests/test_gamma.py:71-72)."""
+    from tardis_torch.constants import DAY
+    from tardis_torch.workflows import high_energy
+
+    with timed_launches(high_energy, "gamma_step_transport",
+                        lambda out: (out.events, out.status)) as k6_calls:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wf = high_energy.TARDISHEWorkflow(
+            state, isotope_mass_fractions=gamma_fractions(state), seed=SEED,
+            device=device)
+        res = wf.run(t_start=GAMMA_DAYS[0] * DAY, t_end=GAMMA_DAYS[1] * DAY,
+                     **GAMMA_RUN)
+        end = path_end()
+    launches = read_launches()
+    k6_ms, steps = [], []
+    for i, ((ms, period_ms), (_, _, (ev, status))) in enumerate(
+            zip(launch_periods(k6_calls, end[1]), k6_calls)):
+        k6_ms.append(ms)
+        moved = ev[ev > 0].double()
+        steps.append(dict(
+            index=i, wall_s=period_ms / 1e3, k6_ms=ms,
+            events=moved.sum().item(), packets_moved=int(moved.numel()),
+            events_per_moved_packet=dict(
+                mean=moved.mean().item() if moved.numel() else 0.0,
+                max=int(ev.max().item())),
+            status_counts=torch.bincount(status, minlength=4).tolist()))
+    all_events = torch.stack([ev for _, _, (ev, _) in k6_calls]
+                             ).double().sum(0)
+    accounted = (res.total_escaped + res.total_deposited) / res.total_emitted
+    finite = bool(np.isfinite(res.deposition).all()
+                  and np.isfinite(res.escape_spectrum).all()
+                  and all(np.isfinite(v).all()
+                          for v in res.estimators.values()))
+    say("gamma_steps", steps=steps)
+    say("gamma_path", wall_s=end[0] - t0, packets=GAMMA_PACKETS,
+        time_steps=GAMMA_STEPS, energy_bins=GAMMA_BINS, launches=launches,
+        k6_ms_total=sum(k6_ms), k6_ms_median=statistics.median(k6_ms),
+        events_per_packet=dict(mean=all_events.mean().item(),
+                               p99=torch.quantile(all_events, 0.99).item(),
+                               max=int(all_events.max().item())),
+        total_emitted=res.total_emitted, total_escaped=res.total_escaped,
+        total_deposited=res.total_deposited,
+        accounted_over_emitted=accounted, finite=finite)
+    if not (finite and 0.3 <= accounted <= 1.02
+            and res.total_deposited > 0 and res.total_escaped > 0):
+        raise AssertionError(f"gamma path: finite {finite}, accounted / "
+                             f"emitted {accounted}")
+    check_launches("gamma_path", launches, expected)
+    return launches, statistics.median(k6_ms)
+
+
+def check_launches(phase, launches, expected):
+    """Every line in ``expected`` launched exactly that often (None: at
+    least once) and no other line at all."""
+    def off(line):
+        n, want = launches.get(line, 0), expected.get(line, 0)
+        return n < 1 if want is None else n != want
+
+    if any(off(line) for line in set(launches) | set(expected)):
+        raise AssertionError(f"{phase}: kernel launches {launches}, "
+                             f"expected {expected}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1285,11 +1799,17 @@ def main() -> int:
                                                 device)
             del records
             torch.cuda.empty_cache()
+        ps_main, pools_main = ps, pools["simple"]
         del ps, chain, tables, pools
         torch.cuda.empty_cache()
         k1.update(check_iip_kernels(device, iip_state, iip_atom, tables_iip,
                                     k2, k3))
         del tables_iip
+        torch.cuda.empty_cache()
+        k7 = check_nonhom_loop(state, atom, ps_main, pools_main)
+        del ps_main, pools_main
+        torch.cuda.empty_cache()
+        k6 = check_gamma_step(state, device)
         torch.cuda.empty_cache()
         say("kernel_checks", wall_s=time.perf_counter() - t)
         # each path's launches: K3 every iteration, its own K2, K1 and K4
@@ -1310,6 +1830,10 @@ def main() -> int:
             expected[path] = {"line_tables": None,
                               k2["relativistic"]["name"]: n,
                               k1[path]["name"]: n}
+        expected["nonhom"] = {"line_tables": None,
+                              k2["simple"]["name"]: NONHOM_ITERATIONS,
+                              k7["name"]: NONHOM_ITERATIONS}
+        expected["gamma"] = {k6["name"]: GAMMA_STEPS}
         launches = {}
         sim, launches["main"] = run_path("main_path", BENCH_CONFIG, atom,
                                          device, expected["main"])
@@ -1329,6 +1853,11 @@ def main() -> int:
             "iip_options_path", IIP_OPTIONS_CONFIG, iip_atom, device,
             expected["iip_options"])
         torch.cuda.empty_cache()
+        launches["nonhom"] = run_nonhom_path(atom, device, expected["nonhom"])
+        torch.cuda.empty_cache()
+        launches["gamma"], k6["path_ms_median"] = run_gamma_path(
+            state, device, expected["gamma"])
+        torch.cuda.empty_cache()
         profile_main_path(atom, device)
         profile_iip_path(iip_atom, device)
     # each line's launches come from the path that runs it
@@ -1338,7 +1867,8 @@ def main() -> int:
              (k2["relativistic"], "relativity"),
              (k4["relativity"], "relativity"),
              (k1["options"], "options"), (k2["weighted"], "options"),
-             (k1["iip"], "iip"), (k1["iip_options"], "iip_options")]
+             (k1["iip"], "iip"), (k1["iip_options"], "iip_options"),
+             (k7, "nonhom"), (k6, "gamma")]
     for k, path in lines:
         k["launches"] = launches[path][k["name"]]
         if k["launches"] < 1:

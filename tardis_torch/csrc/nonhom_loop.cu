@@ -1,0 +1,476 @@
+// K7 nonhom_loop: the Monte Carlo packet event loop of one iteration under
+// a piecewise-linear velocity law (nonhomologous expansion), scatter /
+// downbranch / macroatom line interaction, with the iteration's luminosity
+// summary.
+//
+// Replaces: tardis_tpu/transport/nonhomologous.py:198 `make_nonhom_step`
+// with `_nonhom_pred_search` (:133) and `_beta_los` (:128), driven by
+// `nonhom_transport_loop` (:540); the RNG-walk macro atom
+// tardis_tpu/transport/kernel.py:281 `_macro_walk` with `_uniform_from_key`
+// (:229) and `_bsearch_first_true` (:240) is the device function
+// `macro_walk` below; `_step_uniforms` (:209) and `_distance_boundary`
+// (:256) as in K1.
+//
+// Bound on the H100: memory latency, as K1.  An event hashes two or three
+// uniforms, runs one dependent binary search of ~18 probes into the f64 tau
+// prefix of its shell (forward, or the reversed-order prefix for a
+// blueshifting walk; 2 x 29 MB at bench scale against the 50 MB L2), a
+// fixed 30-step f32 bisection for the event line's distance (arithmetic,
+// ~20 operations a step), and scatters four f64 atomics into the line
+// difference array; a line interaction in the macro modes walks up to 40
+// jumps, each a hash and a search of one transition block.  Design:
+//   - one thread per packet walks the packet's whole life (the JAX
+//     package's lockstep refill has no counterpart);
+//   - the per-row predicate is the JAX package's inverted one (the line lies
+//     beyond the line-of-sight velocity at the distance the remaining
+//     optical depth allows), evaluated on f64 prefix differences rounded to
+//     f32 instead of two-float pairs, with a plain binary search instead of
+//     the 128-ary tiles; the walked window's bounds are searches of the
+//     descending line list with the JAX package's sides (strictly above,
+//     at or above) and its 3e-7 margin;
+//   - beta_los's rsqrt is written x * (1 / sqrt(.)), both correctly
+//     rounded, so the plain PyTorch version reproduces it; tau_event =
+//     -log(u) in f64 rounded to f32; built with --fmad=false;
+//   - the walk's jump draws are uniform(fold_in(event key, 8 + jump), ()),
+//     hashed only when a line interaction walks, so a scatter-mode event
+//     hashes no more than K1's;
+//   - bulk estimators and the luminosity sums go to shared memory and are
+//     flushed once per block; the line difference array takes global f64
+//     atomics;
+//   - a packet still alive after max_events events is stopped without
+//     output and counted (summary[3]).
+//
+// Options, each a compile-time template parameter chosen by -D flags
+// (NH_MACRO, NH_LAST_INTERACTION, NH_TRACKER, NH_REFLECTIVE; the wrapper
+// builds one library per combination): the macro-atom walk (downbranch
+// and macroatom; max_jumps 1 and 40), last-interaction rows [type,
+// in_line, out_line, shell, in_nu, r] kept in registers, the r-packet
+// tracker rows [r, nu, energy, shell, code, 0] after each of the first K
+// events, the reflective inner boundary (column 5 hashed only at the core).
+#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "threefry.cuh"
+
+#ifndef NH_MACRO
+#define NH_MACRO 0
+#endif
+#ifndef NH_LAST_INTERACTION
+#define NH_LAST_INTERACTION 0
+#endif
+#ifndef NH_TRACKER
+#define NH_TRACKER 0
+#endif
+#ifndef NH_REFLECTIVE
+#define NH_REFLECTIVE 0
+#endif
+
+namespace {
+
+constexpr int kEvBoundary = 0;
+constexpr int kEvLine = 1;
+constexpr int kEvEscat = 2;
+constexpr float kUMin = 1e-9f;
+constexpr float kCloseLine = 1.0000003f;  // 1 + CLOSE_LINE_MARGIN in f32
+constexpr float kXReqCap = 1e15f;
+constexpr int kBisectionSteps = 30;
+constexpr uint32_t kColAlbedo = 5;
+constexpr uint32_t kWalkTag = 8;
+
+struct Params {
+  const float* pool_mu;
+  const float* pool_nu;
+  const float* r_inner;
+  const float* r_outer;
+  const float* beta_in;
+  const float* m_grad;
+  const float* chi_e;
+  const float* line_nu;
+  const double* prefix;      // (S, L+1) forward
+  const double* rev_prefix;  // (S, L+1) reversed line order
+  const int32_t* line2macro;
+  const float* cum_prob;     // (T, S)
+  const int32_t* block_start;
+  const int32_t* dest;
+  const bool* emit;
+  const int32_t* mline;
+  float* out;          // (N, 2): signed nu, energy
+  double* est_j;       // (S,)
+  double* est_nubar;   // (S,)
+  double* line_diff;   // ((L+1)*S*2,)
+  double* summary;     // [emitted in window, reabsorbed, events, immortal]
+  float* last_interaction;  // (N, 6)
+  float* tracker;           // (N, K, 6)
+  int64_t n_packets;
+  int64_t L;
+  int64_t max_events;
+  int S, max_jumps, disable_line_scattering, tracker_length;
+  float nu_lo, nu_hi, albedo;
+  tardis::Key key;
+};
+
+__device__ __forceinline__ float draw(tardis::Key k, uint32_t column) {
+  return tardis::uniform_f32(tardis::random_bits(k, column), kUMin, 1.0f);
+}
+
+__device__ __forceinline__ float beta_los(float m, float q, float p2, float x) {
+  return m * x + q * x * (1.0f / sqrtf(p2 + x * x));
+}
+
+// lines with nu_i > nu (kIncl false) or nu_i >= nu (true), on the
+// descending line list
+template <bool kIncl>
+__device__ __forceinline__ int64_t count_above(const float* line_nu, int64_t L,
+                                               float nu) {
+  int64_t lo = 0, hi = L;
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    const bool above = kIncl ? (line_nu[mid] >= nu) : (line_nu[mid] > nu);
+    if (above) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// the macro-atom walk from the level line i_ev activates
+// (kernel.py:281-326): each jump draws u from its own key, takes the first
+// transition of the level's block whose cumulative probability reaches u
+// (clipped into the block), and ends on an emission; a walk that never
+// emits re-emits the absorbed line
+__device__ __forceinline__ int64_t macro_walk(const Params& p, tardis::Key ke,
+                                              int shell, int64_t i_ev) {
+  const int S = p.S;
+  int level = p.line2macro[i_ev];
+  for (int jump = 0; jump < p.max_jumps; ++jump) {
+    const tardis::Key kw = tardis::fold_in(ke, kWalkTag + (uint32_t)jump);
+    const float u = tardis::uniform_f32(tardis::random_bits(kw, 0u), kUMin, 1.0f);
+    const int b0 = p.block_start[level];
+    const int b1 = p.block_start[level + 1];
+    int lo = b0, hi = b1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (p.cum_prob[(int64_t)mid * S + shell] < u) lo = mid + 1;
+      else hi = mid;
+    }
+    const int t = min(max(lo, b0), max(b1 - 1, b0));
+    if (p.emit[t]) return (int64_t)p.mline[t];
+    level = p.dest[t];
+  }
+  return i_ev;
+}
+
+__device__ __forceinline__ void track(const Params& p, int64_t pid, int64_t ev,
+                                      float r, float nu, float energy, int shell,
+                                      float code) {
+  if (ev < p.tracker_length) {
+    float2* row = reinterpret_cast<float2*>(
+        p.tracker + (pid * p.tracker_length + ev) * 6);
+    row[0] = make_float2(r, nu);
+    row[1] = make_float2(energy, (float)shell);
+    row[2] = make_float2(code, 0.0f);
+  }
+}
+
+struct LastInteraction {
+  float type = 0.0f, in_line = 0.0f, out_line = 0.0f, shell = 0.0f, in_nu = 0.0f,
+        r = 0.0f;
+};
+
+template <bool kMacro, bool kLast, bool kTrack, bool kReflect>
+__device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
+                            double* sh_nubar, double* sh_sum) {
+  const int S = p.S;
+  const int64_t L = p.L;
+  const float r_birth = p.r_inner[0];
+  const float beta_birth = p.beta_in[0];
+
+  // birth: next_line = number of lines with nu_line >= nu_cmf
+  float mu = p.pool_mu[pid];
+  const float nu_cmf0 = p.pool_nu[pid];
+  int64_t next_line = count_above<true>(p.line_nu, L, nu_cmf0);
+  const float inv_dop0 = 1.0f / (1.0f - mu * beta_birth);
+  float nu = nu_cmf0 * inv_dop0;
+  float energy = inv_dop0;
+  float r = r_birth;
+  int shell = 0;
+  const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)pid);
+  LastInteraction li;
+
+  int64_t ev = 0;
+  for (;; ++ev) {
+    if (ev >= p.max_events) {
+      atomicAdd(&sh_sum[3], 1.0);
+      break;
+    }
+    const tardis::Key ke = tardis::fold_in(kp, (uint32_t)ev);
+    const float r_in = p.r_inner[shell];
+    const float r_out = p.r_outer[shell];
+    const float m = p.m_grad[shell];
+    const float b_in = p.beta_in[shell];
+    const float q = b_in - m * r_in;
+    const float dop = 1.0f - mu * (b_in + m * (r - r_in));
+    const float nu_cmf = nu * dop;
+    const float inv_chi = 1.0f / p.chi_e[shell];
+
+    // distance to the shell boundary (an inward hit needs mu < 0 strictly)
+    const float out_d =
+        sqrtf(fmaxf(r_out * r_out + (mu * mu - 1.0f) * r * r, 0.0f)) - r * mu;
+    const float check = r_in * r_in + r * r * (mu * mu - 1.0f);
+    const bool hits_inner = (mu < 0.0f) && (check >= 0.0f);
+    const float in_d = -r * mu - sqrtf(fmaxf(check, 0.0f));
+    const float d_b = fmaxf(hits_inner ? in_d : out_d, 0.0f);
+    const int delta = hits_inner ? -1 : 1;
+    const float x0 = mu * r;
+    const float xb = x0 + d_b;
+    const float p2 = fmaxf(r * r * (1.0f - mu * mu), 0.0f);
+    const float nu_cmf_b = nu * (1.0f - beta_los(m, q, p2, xb));
+    const bool fwd = nu_cmf_b <= nu_cmf;
+
+    const float tau_event = (float)(-log((double)draw(ke, 0)));
+
+    // the walked window [lo, hi) in walk-order indices: forward from
+    // next_line to the lines above nu_cmf at the boundary; backward over
+    // the reversed order, from the reddest line above nu_cmf (with the
+    // margin) to the last line at or above the boundary frequency
+    int64_t lo, hi, lo_f = 0, cnt_m = 0;
+    const double* prow;
+    if (fwd) {
+      lo_f = next_line < 0 ? 0 : (next_line > L ? L : next_line);
+      const int64_t c = count_above<false>(p.line_nu, L, nu_cmf_b);
+      lo = lo_f;
+      hi = c < lo_f ? lo_f : (c > L ? L : c);
+      prow = p.prefix + (int64_t)shell * (L + 1);
+    } else {
+      cnt_m = count_above<false>(p.line_nu, L, nu_cmf * kCloseLine);
+      const int64_t c = count_above<true>(p.line_nu, L, nu_cmf_b);
+      lo = L - cnt_m;
+      hi = L - (c < cnt_m ? c : cnt_m);
+      prow = p.rev_prefix + (int64_t)shell * (L + 1);
+    }
+    const double c0 = prow[lo];
+    int64_t a = lo, b = hi;
+    while (a < b) {
+      const int64_t mid = (a + b) >> 1;
+      const float dC = (float)(prow[mid + 1] - c0);
+      const float d_req = (tau_event - dC) * inv_chi;
+      const float x_req = fminf(x0 + fmaxf(d_req, 0.0f), kXReqCap);
+      const float b_req = beta_los(m, q, p2, x_req);
+      const float nl = fwd ? p.line_nu[mid] : p.line_nu[L - 1 - mid];
+      const float n_row = 1.0f - nl / nu;
+      const bool ahead = fwd ? (n_row > b_req) : (n_row < b_req);
+      if ((d_req < 0.0f) || ahead) b = mid;
+      else a = mid + 1;
+    }
+    const bool found = a < hi;
+    const int64_t k_before = a - lo;
+    int64_t i_ev = fwd ? a : L - 1 - a;
+    i_ev = i_ev < 0 ? 0 : (i_ev > L - 1 ? L - 1 : i_ev);
+    const float tau_before = (float)(prow[a] - c0);
+    const float tau_total = (float)(prow[hi] - c0);
+
+    // the event line's distance: fixed-trip bisection of beta_los = n_ev
+    // on [x0, xb]
+    float s_ev = 0.0f;
+    if (found) {
+      const float n_ev = 1.0f - p.line_nu[i_ev] / nu;
+      float lox = x0, hix = xb;
+      for (int k = 0; k < kBisectionSteps; ++k) {
+        const float xm = 0.5f * (lox + hix);
+        const float f = beta_los(m, q, p2, xm) - n_ev;
+        const bool go_lo = fwd ? (f < 0.0f) : (f > 0.0f);
+        if (go_lo) lox = xm;
+        else hix = xm;
+      }
+      s_ev = fmaxf(0.5f * (lox + hix) - x0, 0.0f);
+    }
+    const float d_cont_f = fmaxf((tau_event - tau_before) * inv_chi, 0.0f);
+    const bool escat_f = p.disable_line_scattering || (d_cont_f < s_ev);
+    const float d_cont_nf = fmaxf((tau_event - tau_total) * inv_chi, 0.0f);
+    const bool escat_nf = d_cont_nf < d_b;
+    int event;
+    float distance;
+    int64_t k_crossed;
+    if (found) {
+      event = escat_f ? kEvEscat : kEvLine;
+      distance = escat_f ? d_cont_f : s_ev;
+      k_crossed = escat_f ? k_before : k_before + 1;
+    } else {
+      event = escat_nf ? kEvEscat : kEvBoundary;
+      distance = escat_nf ? d_cont_nf : d_b;
+      k_crossed = hi - lo;
+    }
+
+    // estimators
+    const float w_j = (energy * dop) * distance;
+    atomicAdd(&sh_j[shell], (double)w_j);
+    atomicAdd(&sh_nubar[shell], (double)(w_j * nu_cmf));
+    const int64_t rng_lo = fwd ? lo_f : cnt_m - k_crossed;
+    const int64_t rng_hi = fwd ? lo_f + k_crossed : cnt_m;
+    if (rng_lo != rng_hi) {
+      const float w1 = energy / (nu * nu);
+      const float w2 = energy / nu;
+      double* da = p.line_diff + (rng_lo * S + shell) * 2;
+      double* db = p.line_diff + (rng_hi * S + shell) * 2;
+      atomicAdd(da, (double)w1);
+      atomicAdd(da + 1, (double)w2);
+      atomicAdd(db, -(double)w1);
+      atomicAdd(db + 1, -(double)w2);
+    }
+
+    // move
+    const float r_new = sqrtf(fmaxf(
+        r * r + distance * distance + 2.0f * r * distance * mu, 1e-20f));
+    const float mu_new = (mu * r + distance) / r_new;
+
+    if (event == kEvBoundary) {
+      const int new_shell = shell + delta;
+      bool reflected = false;
+      if constexpr (kReflect)
+        reflected = new_shell < 0 && draw(ke, kColAlbedo) < p.albedo;
+      if (!reflected && (new_shell >= S || new_shell < 0)) {
+        const bool emitted = new_shell >= S;
+        if constexpr (kTrack) track(p, pid, ev, r_new, nu, energy, shell, 3.0f);
+        p.out[2 * pid] = emitted ? nu : -nu;
+        p.out[2 * pid + 1] = energy;
+        if (emitted) {
+          if (nu > p.nu_lo && nu < p.nu_hi) atomicAdd(&sh_sum[0], (double)energy);
+        } else {
+          atomicAdd(&sh_sum[1], (double)energy);
+        }
+        break;
+      }
+      if (!reflected) shell = new_shell;
+      r = r_new;
+      mu = reflected ? -mu_new : mu_new;
+      next_line = fwd ? rng_hi : rng_lo;
+      if constexpr (kTrack) track(p, pid, ev, r, nu, energy, shell, 3.0f);
+      continue;
+    }
+
+    // Thomson scatter or line interaction: new direction drawn in the CMF
+    // at the interaction point (interactions stay in the shell)
+    const float mu_draw = 2.0f * draw(ke, 1) - 1.0f;
+    const float beta_new = b_in + m * (r_new - r_in);
+    const float dop_old_pos = 1.0f - mu_new * beta_new;
+    const float inv_dop_new = 1.0f / (1.0f - mu_draw * beta_new);
+    const float nu_in = nu;
+    if (event == kEvEscat) {
+      nu = nu * dop_old_pos * inv_dop_new;
+      next_line = fwd ? rng_hi : rng_lo;
+      if constexpr (kLast) {
+        li.type = 1.0f;
+        li.in_line = -1.0f;
+        li.out_line = -1.0f;
+      }
+    } else {
+      int64_t em_line = i_ev;
+      if constexpr (kMacro) em_line = macro_walk(p, ke, shell, i_ev);
+      nu = p.line_nu[em_line] * inv_dop_new;
+      next_line = em_line + 1;
+      if constexpr (kLast) {
+        li.type = 2.0f;
+        li.in_line = (float)i_ev;
+        li.out_line = (float)em_line;
+      }
+    }
+    if constexpr (kLast) {
+      li.shell = (float)shell;
+      li.in_nu = nu_in;
+      li.r = r_new;
+    }
+    energy = energy * dop_old_pos * inv_dop_new;
+    r = r_new;
+    mu = mu_draw;
+    if constexpr (kTrack)
+      track(p, pid, ev, r, nu, energy, shell, event == kEvLine ? 2.0f : 1.0f);
+  }
+  if constexpr (kLast) {
+    float2* row = reinterpret_cast<float2*>(p.last_interaction + pid * 6);
+    row[0] = make_float2(li.type, li.in_line);
+    row[1] = make_float2(li.out_line, li.shell);
+    row[2] = make_float2(li.in_nu, li.r);
+  }
+  const int64_t n_ev = ev + 1 > p.max_events ? p.max_events : ev + 1;
+  atomicAdd(&sh_sum[2], (double)n_ev);
+}
+
+template <bool kMacro, bool kLast, bool kTrack, bool kReflect>
+__global__ void nonhom_loop_kernel(Params p) {
+  extern __shared__ double shm[];
+  double* sh_j = shm;
+  double* sh_nubar = shm + p.S;
+  double* sh_sum = shm + 2 * p.S;
+  for (int i = threadIdx.x; i < 2 * p.S + 4; i += blockDim.x) shm[i] = 0.0;
+  __syncthreads();
+  const int64_t pid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pid < p.n_packets)
+    walk_packet<kMacro, kLast, kTrack, kReflect>(p, pid, sh_j, sh_nubar, sh_sum);
+  __syncthreads();
+  for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
+    atomicAdd(&p.est_j[i], sh_j[i]);
+    atomicAdd(&p.est_nubar[i], sh_nubar[i]);
+  }
+  if (threadIdx.x < 4) atomicAdd(&p.summary[threadIdx.x], sh_sum[threadIdx.x]);
+}
+
+}  // namespace
+
+extern "C" int nonhom_loop(
+    const void* pool_mu, const void* pool_nu, int64_t n_packets,
+    const void* r_inner, const void* r_outer, const void* beta_in,
+    const void* m_grad, const void* chi_e, const void* line_nu,
+    const void* prefix, const void* rev_prefix, const void* line2macro,
+    const void* cum_prob, const void* block_start, const void* dest,
+    const void* emit, const void* mline, int64_t L, int S, int max_jumps,
+    int disable_line_scattering, uint32_t k0, uint32_t k1, float nu_lo,
+    float nu_hi, float albedo, int64_t max_events, void* out, void* est_j,
+    void* est_nubar, void* line_diff, void* summary, void* last_interaction,
+    void* tracker, int tracker_length, void* stream) {
+  constexpr bool kMacro = NH_MACRO != 0;
+  if (kMacro && (cum_prob == nullptr || line2macro == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.pool_mu = (const float*)pool_mu;
+  p.pool_nu = (const float*)pool_nu;
+  p.r_inner = (const float*)r_inner;
+  p.r_outer = (const float*)r_outer;
+  p.beta_in = (const float*)beta_in;
+  p.m_grad = (const float*)m_grad;
+  p.chi_e = (const float*)chi_e;
+  p.line_nu = (const float*)line_nu;
+  p.prefix = (const double*)prefix;
+  p.rev_prefix = (const double*)rev_prefix;
+  p.line2macro = (const int32_t*)line2macro;
+  p.cum_prob = (const float*)cum_prob;
+  p.block_start = (const int32_t*)block_start;
+  p.dest = (const int32_t*)dest;
+  p.emit = (const bool*)emit;
+  p.mline = (const int32_t*)mline;
+  p.out = (float*)out;
+  p.est_j = (double*)est_j;
+  p.est_nubar = (double*)est_nubar;
+  p.line_diff = (double*)line_diff;
+  p.summary = (double*)summary;
+  p.last_interaction = (float*)last_interaction;
+  p.tracker = (float*)tracker;
+  p.n_packets = n_packets;
+  p.L = L;
+  p.max_events = max_events;
+  p.S = S;
+  p.max_jumps = max_jumps;
+  p.disable_line_scattering = disable_line_scattering;
+  p.tracker_length = tracker_length;
+  p.nu_lo = nu_lo;
+  p.nu_hi = nu_hi;
+  p.albedo = albedo;
+  p.key = tardis::Key{k0, k1};
+  if (n_packets > 0) {
+    const int threads = 128;
+    const size_t shm = (size_t)(2 * S + 4) * sizeof(double);
+    nonhom_loop_kernel<kMacro, NH_LAST_INTERACTION != 0, NH_TRACKER != 0,
+                       NH_REFLECTIVE != 0>
+        <<<(unsigned)((n_packets + threads - 1) / threads), threads, shm,
+           (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first
 use by ``nvcc`` for Hopper (``sm_90a``) into ``build/<name>-<hash>.so``,
-then loaded with ``ctypes``.  A kernel with compile-time options (K1, K4)
-is built once per combination it is asked for, each with its ``-D`` flags
-(``defines``).  The hash covers the sources, the flags and the defines, so
+then loaded with ``ctypes``.  A kernel with compile-time options (K1,
+K4, K6, K7) is built once per combination it is asked for, each with its
+``-D`` flags (``defines``).  The hash covers the sources, the flags and the defines, so
 an edited kernel is rebuilt and a stale library is never loaded.  Every
 kernel is compiled with ``--fmad=false``: eager PyTorch does not contract
 ``a*b+c`` into a fused multiply-add, so without the flag a kernel and its
@@ -28,7 +28,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 KERNELS = ("line_tables", "blackbody_source", "transport_loop",
-           "vpacket_volley", "formal_integral")
+           "vpacket_volley", "formal_integral", "nonhom_loop", "gamma_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",

@@ -22,11 +22,15 @@ PyTorch ops in this slice.
 
 ``solve_transition_probabilities`` is the host f64 copy of the JAX
 package's, which the formal integral's source function reads.
+``solve_macro_state`` builds the per-block cumulative probabilities that
+the nonhomologous event loop's RNG walk reads (the JAX package's
+nonhomologous mode always walks them, never the chain tables).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -311,6 +315,89 @@ def solve_transition_probabilities(
     with np.errstate(divide="ignore", invalid="ignore"):
         p_norm = p / denom
     return np.where(np.isfinite(p_norm), p_norm, 0.0)
+
+
+class MacroWalkTables(NamedTuple):
+    """The RNG-walk macro atom's tables on one device (the nonhomologous
+    event loop, K7, walks them)."""
+
+    cum_prob: torch.Tensor  # (T, S) f32 block-normalized cumulative
+    block_start: torch.Tensor  # (M+1,) i32 block offsets
+    dest: torch.Tensor  # (T,) i32 destination level (emission: -1)
+    emit: torch.Tensor  # (T,) bool emission transition
+    line: torch.Tensor  # (T,) i32 line of the transition
+    line2macro: torch.Tensor  # (L,) i32 level a line absorption activates
+
+
+def solve_macro_state(
+    macro: MacroAtomData,
+    beta_sobolev: torch.Tensor,  # (L, S) f64
+    j_blues: torch.Tensor,
+    stim_factor: torch.Tensor,
+) -> MacroWalkTables:
+    """Per-block cumulative transition probabilities for the RNG walk, on
+    the device of ``beta_sobolev``.
+
+    Counterpart of ``tardis_tpu/opacities/macro_atom_solver.py``
+    ``solve_macro_state``: p = coef x beta (internal up also x stim x
+    J_blue); within each source-level block the running sum (f64, in
+    transition order) is rounded to f32 and multiplied by the f32
+    reciprocal of the block's total; a block without probability mass is
+    all 1 (its first entry wins); each block ends at exactly 1.  This is
+    the arithmetic of the JAX package's host-library path, which its
+    ``solve_macro_state`` takes where that library is built; its numpy
+    fallback takes differences of one global prefix, which loses digits
+    in late blocks (up to ~100 f32 ulps on small entries).
+    """
+    device = beta_sobolev.device
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    li = dev(macro.transition_line_id, torch.int64)
+    up = dev(macro.transition_type == MACRO_INTERNAL_UP)
+    p = dev(macro.coef, F64)[:, None] * beta_sobolev.to(F64)[li]
+    p = torch.where(up[:, None],
+                    p * (stim_factor.to(F64)[li] * j_blues.to(F64)[li]), p)
+    T, S = p.shape
+    refs = np.asarray(macro.block_references, np.int64)
+    sizes = np.diff(refs)
+    M = len(sizes)
+    block_of = np.repeat(np.arange(M), sizes)
+    pos = np.arange(T) - refs[block_of]
+    # each block's running sums along its own row of a dense layout, the
+    # blocks grouped by their width rounded up to a power of two and each
+    # group as wide as its widest block: no differences of a long global
+    # prefix, and under 2x padding whatever the widest block
+    block_group = np.ceil(np.log2(np.maximum(sizes, 1))).astype(np.int64)
+    group = block_group[block_of]
+    cum = torch.empty_like(p)
+    for g in np.unique(block_group[sizes > 0]):
+        blocks = np.flatnonzero((block_group == g) & (sizes > 0))
+        rank = np.zeros(M, np.int64)
+        rank[blocks] = np.arange(len(blocks))
+        rows = np.flatnonzero(group == g)
+        w = int(sizes[blocks].max())
+        dense_idx = dev(rank[block_of[rows]] * w + pos[rows], torch.int64)
+        rows = dev(rows, torch.int64)
+        dense = torch.zeros((len(blocks) * w, S), dtype=F64, device=device)
+        dense[dense_idx] = p[rows]
+        run = torch.cumsum(dense.view(len(blocks), w, S), dim=1)
+        cum[rows] = run.view(-1, S)[dense_idx]
+    last = dev(refs[1:] - 1, torch.int64)
+    total = cum[last[dev(block_of, torch.int64)]]
+    inv = torch.where(total > 0, 1.0 / torch.where(total > 0, total, 1.0),
+                      0.0).float()
+    cum = torch.where(total > 0, cum.float() * inv, 1.0)
+    cum[last[dev(sizes > 0)]] = 1.0
+    return MacroWalkTables(
+        cum_prob=cum.float().contiguous(),
+        block_start=dev(refs, torch.int32),
+        dest=dev(macro.destination_level_id, torch.int32),
+        emit=dev(macro.transition_type < 0),
+        line=dev(macro.transition_line_id, torch.int32),
+        line2macro=dev(macro.line2macro_level_upper, torch.int32),
+    )
 
 
 def solve_macro_chain(

@@ -74,6 +74,16 @@ def _shell_inputs(t_rad, jb_w, device):
     return h_over_kt, w
 
 
+def beta_sobolev(tau: torch.Tensor) -> torch.Tensor:
+    """Escape probability (1 - exp(-tau)) / tau with K3's stable branches."""
+    safe = torch.where(tau > 0, tau, 1.0)
+    return torch.where(
+        tau > 1e3,
+        1.0 / safe,
+        torch.where(tau < 1e-4, 1.0 - 0.5 * tau, -torch.expm1(-tau) / safe),
+    )
+
+
 def line_tables_plain(static: LineStatic, level_pop: torch.Tensor, t_rad,
                       jb_w, time_explosion: float) -> LineTables:
     """Plain PyTorch version of K3 (same formulas and evaluation order)."""
@@ -89,12 +99,7 @@ def line_tables_plain(static: LineStatic, level_pop: torch.Tensor, t_rad,
         SOBOLEV_COEFFICIENT * static.wl_flu[:, None] * time_explosion
         * stim * n_lower
     )
-    safe = torch.where(tau > 0, tau, 1.0)
-    beta = torch.where(
-        tau > 1e3,
-        1.0 / safe,
-        torch.where(tau < 1e-4, 1.0 - 0.5 * tau, -torch.expm1(-tau) / safe),
-    )
+    beta = beta_sobolev(tau)
     x = torch.clamp(static.line_nu[:, None] * h_over_kt[None, :], max=700.0)
     jb = w[None, :] * (static.nu3_coef[:, None] / torch.expm1(x))
     S = tau.shape[1]

@@ -24,9 +24,11 @@ last-interaction tracking (on by default), the r-packet tracker
 the relativistic packet pool), the reflective inner boundary (its albedo
 applies only when it is enabled) and the weighted pool.  Options outside
 the port raise ``NotImplementedError`` naming the option (see
-``check_supported``): nonhomologous expansion, NLTE, detailed rates,
-helium, vpacket biasing, the macro-atom random-walk fallback, HDF atom
-data and more than one device.  Continuum species run only through the
+``check_supported``): NLTE, detailed rates, helium, vpacket biasing, the
+macro-atom random-walk fallback of the chain tables, HDF atom data and
+more than one device.  ``montecarlo.enable_nonhomologous_expansion``
+selects the nonhomologous transport solver (K7), as the JAX package
+does.  Continuum species run only through the
 Type IIP workflow (``workflows/type_iip.py``); ``run_tardis`` refuses them,
 as its classic loop runs no continuum transport.  Checkpoint / resume is
 not ported.
@@ -58,6 +60,7 @@ from tardis_torch.spectrum.base import (
 )
 from tardis_torch.spectrum.formal_integral import FormalIntegralSolver
 from tardis_torch.transport.solver import (
+    NonhomologousTransportSolver,
     TransportResult,
     TransportSolver,
     solve_radiation_field,
@@ -93,8 +96,6 @@ def check_supported(config: ConfigDict, continuum: bool = False) -> None:
     refused = [
         ("spectrum.virtual.enable_biasing",
          bool(virtual.get("enable_biasing", False))),
-        ("montecarlo.enable_nonhomologous_expansion",
-         bool(mc.get("enable_nonhomologous_expansion", False))),
         ("plasma.continuum_interaction.species",
          not continuum and bool((plasma.get("continuum_interaction", {})
                                  or {}).get("species"))),
@@ -193,7 +194,10 @@ class Simulation:
         )
         mc = config.montecarlo
         tracking = mc.get("tracking", {}) or {}
-        transport_solver = TransportSolver(
+        solver_cls = (NonhomologousTransportSolver
+                      if mc.get("enable_nonhomologous_expansion", False)
+                      else TransportSolver)
+        transport_solver = solver_cls(
             line_interaction_type=lit,
             disable_electron_scattering=config.plasma.get(
                 "disable_electron_scattering", False),

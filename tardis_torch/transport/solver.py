@@ -42,7 +42,11 @@ from tardis_torch.constants import (
     SIGMA_SB,
     T_RADIATIVE_ESTIMATOR_CONSTANT,
 )
-from tardis_torch.opacities.macro_atom_solver import solve_macro_chain
+from tardis_torch.model.geometry import NonhomologousRadial1DGeometry
+from tardis_torch.opacities.macro_atom_solver import (
+    solve_macro_chain,
+    solve_macro_state,
+)
 from tardis_torch.plasma.continuum import ContinuumEstimators
 from tardis_torch.plasma.lte import intensity_black_body
 from tardis_torch.transport import rng
@@ -52,6 +56,11 @@ from tardis_torch.transport.kernel import (
     STATUS_REABSORBED,
     transport_loop,
     warn_immortal,
+)
+from tardis_torch.transport.nonhomologous import (
+    build_nonhom_tables,
+    nonhom_transport_loop,
+    nonhomologous_plasma_state,
 )
 from tardis_torch.transport.source import POOLS, blackbody_source
 from tardis_torch.transport.tables import (
@@ -414,6 +423,85 @@ class TransportSolver:
             events=res.events if res.events.numel() else None,
             **virtual,
         )
+
+
+class NonhomologousTransportSolver(TransportSolver):
+    """Transport under an arbitrary piecewise-linear velocity law.
+
+    Counterpart of ``tardis_tpu/transport/solver.py``
+    ``NonhomologousTransportSolver``: the Sobolev depths are rescaled to
+    the local velocity gradient, the macro modes build the RNG-walk tables
+    (``solve_macro_state``, never the chain tables), the simple pool is
+    drawn (K2) and the nonhomologous event loop (K7) runs.  A homologous
+    geometry is lifted to the piecewise-linear representation (the
+    ``enable_nonhomologous_expansion`` path).  Full relativity and
+    continuum raise, as in the JAX package.  Virtual packets are not
+    traced in this mode: ``n_vpackets`` is taken and no virtual spectrum
+    results, as in the JAX package.
+    """
+
+    def run_iteration(
+        self,
+        sim_state,
+        plasma_state,
+        atom_data,
+        n_packets: int,
+        seed: int,
+        iteration: int,
+        n_vpackets: int = 0,
+        spectrum_nu_edges: np.ndarray | None = None,
+        vpacket_spawn_nu_range: tuple = (0.0, np.inf),
+        need_line_estimators: bool = True,
+        lum_nu_window: tuple = (0.0, np.inf),
+        continuum_state=None,
+        continuum_macro=None,
+    ) -> TransportResult:
+        if self.enable_full_relativity:
+            raise NotImplementedError(
+                "Full relativity not supported for non-homology.")
+        if continuum_state is not None:
+            raise NotImplementedError(
+                "Continuum processes not supported for non-homology.")
+        if n_vpackets > 0:
+            logger.warning(
+                "nonhomologous transport traces no virtual packets: "
+                "no_of_virtual_packets=%d gives no virtual spectrum",
+                n_vpackets)
+        geometry = sim_state.geometry
+        if not hasattr(geometry, "velocity_gradient"):
+            geometry = NonhomologousRadial1DGeometry.from_homologous(geometry)
+        lit = self.line_interaction_type
+        device = plasma_state.tau_prefix.device
+        with record_function("tardis.transport_tables"):
+            plasma_nh = nonhomologous_plasma_state(plasma_state, geometry)
+            walk = None
+            if lit in ("downbranch", "macroatom"):
+                macro = (atom_data.downbranch if lit == "downbranch"
+                         else atom_data.macro_atom)
+                walk = solve_macro_state(
+                    macro, plasma_nh.beta_sobolev, plasma_nh.j_blues,
+                    plasma_nh.stimulated_emission_factor)
+            tables = build_nonhom_tables(
+                geometry, plasma_nh, atom_data, lit, walk=walk,
+                disable_electron_scattering=self.disable_electron_scattering,
+                disable_line_scattering=self.disable_line_scattering,
+                inner_boundary_albedo=self.inner_boundary_albedo,
+            )
+        src_key, run_key = iteration_keys(seed, iteration)
+        with record_function("tardis.packet_source"):
+            pool_mu, pool_nu, _ = blackbody_source(
+                src_key, n_packets, sim_state.t_inner, device, "simple")
+        lo, hi = lum_nu_window
+        with record_function("tardis.transport_loop"):
+            res = nonhom_transport_loop(
+                tables, pool_mu, pool_nu, run_key,
+                nu_window=(lo / NU_UNIT, hi / NU_UNIT),
+                last_interaction=self.track_last_interaction,
+                tracker_length=self.track_rpacket_length,
+            )
+        with record_function("tardis.finalize"):
+            return self._finalize(res, sim_state, atom_data, n_packets,
+                                  need_line_estimators, lum_nu_window, False)
 
 
 def reconstruct_continuum_estimators(res, atom_data, sim_state, n_packets,

@@ -63,9 +63,8 @@ def test_formal_integral_solver_defaults_to_the_card(monkeypatch):
 
 def test_refused_options_name_themselves():
     cfg = copy.deepcopy(CONFIG)
-    cfg["montecarlo"]["enable_nonhomologous_expansion"] = True
-    with pytest.raises(NotImplementedError,
-                       match="enable_nonhomologous_expansion"):
+    cfg["plasma"]["helium_treatment"] = "recomb-nlte"
+    with pytest.raises(NotImplementedError, match="helium_treatment"):
         run_tardis(cfg, device="cpu")
     cfg = copy.deepcopy(CONFIG)
     cfg["spectrum"]["virtual"] = {"enable_biasing": True}
@@ -88,9 +87,14 @@ def test_wrappers_never_fall_back():
     wrapper raise instead of taking its plain version, and the pointer
     checks refuse a wrong dtype."""
     from tardis_torch import cuda
+    from tardis_torch.energy_input.gamma_kernel import gamma_step_transport
     from tardis_torch.plasma.line_tables import LineStatic, line_tables
     from tardis_torch.spectrum.formal_integral import integrate_rays
     from tardis_torch.transport.kernel import transport_loop
+    from tardis_torch.transport.nonhomologous import (
+        NonhomTables,
+        nonhom_transport_loop,
+    )
     from tardis_torch.transport.source import blackbody_source
     from tardis_torch.transport.tables import TransportTables
     from tardis_torch.transport.vpacket import trace_vpacket_records
@@ -126,10 +130,31 @@ def test_wrappers_never_fall_back():
     with pytest.raises(ValueError, match="unsupported device"):
         integrate_rays(empty(3), empty(2), empty(2), empty(2), empty(2),
                        empty(4), *(empty(2, 4) for _ in range(4)), empty(3))
+    nh = NonhomTables(
+        r_inner=empty(2), r_outer=empty(2), beta_in=empty(2),
+        m_grad=empty(2), chi_e=empty(2), line_nu=empty(4),
+        prefix=empty(2, 5, dtype=torch.float64),
+        rev_prefix=empty(2, 5, dtype=torch.float64), mode=0)
+    for albedo in (0.0, 0.5):
+        nh.inner_boundary_albedo = albedo
+        for kw in ({}, dict(last_interaction=True, tracker_length=4)):
+            with pytest.raises(ValueError, match="unsupported device"):
+                nonhom_transport_loop(nh, empty(8), empty(8), (0, 1), **kw)
+    packets = [empty(8) for _ in range(4)] + [
+        empty(8, dtype=torch.int32), empty(8, dtype=torch.int32), empty(8)]
+    shells = [empty(2) for _ in range(5)]
+    for opts in ({}, dict(grey_opacity=0.1), dict(collect_estimators=True),
+                 dict(photoabsorption_type="kasen", pair_creation_type="artis",
+                      kasen_z4=empty(2))):
+        with pytest.raises(ValueError, match="unsupported device"):
+            gamma_step_transport(*packets, (0, 1), *shells, empty(64),
+                                 empty(64, 128), empty(11), **opts)
     assert (line_tables.launches, integrate_rays.launches) == (0, 0)
     assert not blackbody_source.launches_by_variant
     assert not transport_loop.launches_by_variant
     assert not trace_vpacket_records.launches_by_variant
+    assert not nonhom_transport_loop.launches_by_variant
+    assert not gamma_step_transport.launches_by_variant
     cpu = torch.device("cpu")
     with pytest.raises(ValueError, match="float64"):
         cuda.check_cuda("k", cpu, prefix=(torch.zeros(3), torch.float64))
@@ -146,14 +171,36 @@ def test_continuum_modules_are_scanned():
         assert f"tardis_torch/{name}" in scanned, name
 
 
+def test_nonhomologous_and_gamma_modules_are_scanned():
+    """The nonhomologous loop, the gamma-ray step, the decay modules and
+    their workflows are among the files the import scan reads, and their
+    kernels are registered for the build."""
+    from tardis_torch import cuda
+
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("model/geometry.py", "model/decay.py",
+                 "opacities/macro_atom_solver.py",
+                 "transport/nonhomologous.py", "energy_input/decay.py",
+                 "energy_input/gamma_kernel.py", "workflows/nonhomologous.py",
+                 "workflows/high_energy.py"):
+        assert f"tardis_torch/{name}" in scanned, name
+    for kernel in ("nonhom_loop", "gamma_step"):
+        assert kernel in cuda.KERNELS
+        assert (ROOT / "tardis_torch" / "csrc" / f"{kernel}.cu").exists()
+
+
 def test_workflows_default_to_the_card(monkeypatch):
     """The workflows, like run_tardis, ask for the card by default and
     raise where there is none."""
+    from tardis_torch.workflows.nonhomologous import (
+        NonhomologousTARDISWorkflow,
+    )
     from tardis_torch.workflows.simple import SimpleTARDISWorkflow
     from tardis_torch.workflows.type_iip import TypeIIPWorkflow
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for cls in (SimpleTARDISWorkflow, TypeIIPWorkflow):
+    for cls in (SimpleTARDISWorkflow, TypeIIPWorkflow,
+                NonhomologousTARDISWorkflow):
         with pytest.raises(RuntimeError, match="CUDA"):
             cls(copy.deepcopy(CONFIG))
 
