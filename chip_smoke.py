@@ -6,13 +6,15 @@ Usage (from the repository root, one CUDA card):  python3 chip_smoke.py
 Phases, one printed line each (plus one line per iteration):
   1. header: the card (nvidia-smi), torch and CUDA versions, and the
      parallel nvcc build of the kernel libraries in tardis_torch/csrc/
-     without options (K2, K3, K5);
+     without options (K2, K3, K5 and the probe's three kernels);
   2. checks at the paths' shapes (bench problem: synthetic atom data
      with 200 levels and level jumps up to 60, 20 shells, macroatom): the
      chain build timed alone, and each kernel against its plain PyTorch
      version on the card, with CUDA-event times of both, the least time the
      card could take (bound) and, where one PyTorch call computes the same
-     function, its time.  K3 line tables; K2's simple and relativistic pools
+     function, its time.  The probe kernels (check_probe2: scale2,
+     take_1d, take_along_rows, bitwise at the probe's shapes and at one
+     large shape each); K3 line tables; K2's simple and relativistic pools
      at both packet counts, the weighted pool at 2,097,152; then the K1 and
      K4 instantiations the paths select (kernel.variant and
      vpacket.variant_name on the tables and pools built here, the two
@@ -21,13 +23,19 @@ Phases, one printed line each (plus one line per iteration):
      2,097,152 packets without spawn records and, on the main and
      relativity paths, the final iteration's 4,194,304 with 8 records a
      packet; K4 in one launch on each path's final-iteration records;
+     then the sharding of parallel/transport.py on this one card
+     (check_sharded_transport): the main path's K1 over 1, 2 and 4 shards
+     (cuda:0 repeated) against one device, the final iteration's records
+     over 2 shards, and _final_reduce timed alone;
   3. the IIP paths' kernels (the JAX package's IIP problem: H / He, H I
      continua, 20 shells, 1,048,576 packets): K3 at its line tables, K2's
      relativistic pool at 1,048,576, and each continuum K1 instantiation
      (the IIP path's, and one with the two-photon and adiabatic channels,
      boosted so both fire) timed uncapped as the path runs it, with its
      per-packet event distribution, then bitwise against its plain
-     version with both stopped at IIP_EVENT_CAP events a packet; then K7
+     version with both stopped at IIP_EVENT_CAP events a packet, and the
+     IIP path's over 2 shards against one device (check_sharded_continuum,
+     the same cap); then K7
      (nonhomologous event loop) on the bench problem under the perturbed
      velocity law of the JAX package's end-to-end test, in scatter and in
      macroatom mode (the RNG-walk macro atom) with last-interaction rows at
@@ -38,7 +46,11 @@ Phases, one printed line each (plus one line per iteration):
   4. the main path: run_tardis on the card, 4 convergence iterations of
      2,097,152 packets and the production final iteration (4,194,304
      packets, 2 virtual packets per spawn record, the formal integral at
-     1,000 frequencies), tracking off as bench.py runs it;
+     1,000 frequencies), tracking off as bench.py runs it; then the
+     sharded path, the same run with device=[card, card] (K1 twice an
+     iteration; each iteration replayed on one device from the same
+     inputs, bitwise per packet; t_inner, t_rad and the luminosities
+     within 1e-5 of the main path's separate run);
   5. the relativity path: the same run with enable_full_relativity and
      last-interaction tracking at its default (on), so the relativistic
      pool, K1's full-relativity instantiation with last-interaction rows
@@ -57,7 +69,8 @@ Phases, one printed line each (plus one line per iteration):
      4,194,304 (real-packet spectrum); the gamma-ray path,
      TARDISHEWorkflow on the bench model with Ni56 (0.6 in the inner 10
      shells, 0.05 outside), 4,194,304 packets over 50 steps from 2 to 100
-     days, 100 energy bins and the path-length estimators;
+     days, 100 energy bins and the path-length estimators; the probe path,
+     tardis_torch.benchmarks.probe2.main() (its JSON lines);
      on each path the launch counts are reset to 0 just before the run and
      read just after, every variant a wrapper launched under its own line;
   8. K5 (formal-integral rays) against its plain version on the main
@@ -243,6 +256,26 @@ def cuda_ms(fn, reps, warmup=True):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times), out
+
+
+def cuda_ms_queued(fn, reps, hold_cycles=40_000_000):
+    """Device milliseconds per call of ``fn`` over ``reps`` calls queued
+    back to back after a warm-up, for kernels of a few hundredths of a
+    millisecond, where a single call's events would time the host's launch
+    overhead: the card first spins ``hold_cycles`` clock cycles (~20 ms)
+    while the host queues every call, so the events around the calls see
+    the card's work alone.  Returns (ms, last result)."""
+    out = fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(hold_cycles)
+    a.record()
+    for _ in range(reps):
+        out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps, out
 
 
 def bound(n_bytes, n_ops):
@@ -785,6 +818,7 @@ def check_formal_integral(sim, device):
 
 
 def wrappers():
+    from tardis_torch.benchmarks import probe2
     from tardis_torch.plasma.line_tables import line_tables
     from tardis_torch.spectrum.formal_integral import integrate_rays
     from tardis_torch.energy_input.gamma_kernel import gamma_step_transport
@@ -798,7 +832,9 @@ def wrappers():
             "vpacket_volley": trace_vpacket_records,
             "formal_integral": integrate_rays,
             "nonhom_loop": nonhom_transport_loop,
-            "gamma_step": gamma_step_transport}
+            "gamma_step": gamma_step_transport, "scale2": probe2.scale2,
+            "take_1d": probe2.take_1d,
+            "take_along_rows": probe2.take_along_rows}
 
 
 def reset_launches():
@@ -891,15 +927,15 @@ def run_path(phase, config, atom, device, expected, bands=True):
         raise AssertionError(f"{phase}: integrated / real luminosity "
                              f"{int_ratio}")
     check_launches(phase, launches, expected)
-    return sim, launches
+    return sim, launches, wall
 
 
 def run_relativity_path(atom, device, expected):
     """The main path with full relativity and last-interaction tracking at
     its default; the final result must carry one last-interaction row per
     packet."""
-    sim, launches = run_path("relativity_path", RELATIVITY_CONFIG, atom,
-                             device, expected)
+    sim, launches, _ = run_path("relativity_path", RELATIVITY_CONFIG, atom,
+                                device, expected)
     li = sim.last_transport_result.last_interaction
     n_rows = None if li is None else len(li["type"])
     say("relativity_path_last_interaction", rows=n_rows,
@@ -917,8 +953,8 @@ def run_options_path(atom, device, expected):
     tracker through run_tardis at N_PACKETS; the tracker must hold
     TRACKER_LENGTH rows per packet.  The reflective boundary raises the
     emitted luminosity, so the luminosity bands are not applied."""
-    sim, launches = run_path("options_path", OPTIONS_CONFIG, atom, device,
-                             expected, bands=False)
+    sim, launches, _ = run_path("options_path", OPTIONS_CONFIG, atom,
+                                device, expected, bands=False)
     tr = sim.last_transport_result.rpacket_tracker
     if tr is None or tr["type"].shape != (N_PACKETS, TRACKER_LENGTH):
         raise AssertionError("options path: no r-packet tracker rows")
@@ -1746,6 +1782,327 @@ def run_gamma_path(state, device, expected):
     return launches, statistics.median(k6_ms)
 
 
+# K1's sharded path (parallel/transport.py): shard counts held against one
+# device, a world of one included; the continuum check takes two
+SHARDS = (1, 2, 4)
+# the sums of a sharded run against one device (f64 atomics in racing
+# order on both sides), relative (rel_err)
+SHARD_LIMITS = dict(est_j=1e-12, est_nubar=1e-12, summary=1e-12,
+                    line_diff=1e-12, cont_moments=1e-12, est_ff_heat=1e-12)
+
+
+def compare_sharded(tables, pool, run_key, devices, one, cap=0, **kw):
+    """K1 over ``devices`` (one shard each) against ``one``, the same pool
+    on one device: every packet, last-interaction, tracker row and
+    per-packet event count bitwise, the spawn records equal as a multiset
+    with the same attempts, the sums within SHARD_LIMITS.  Returns the
+    phase's numbers."""
+    from tardis_torch.parallel.transport import run_transport_sharded
+
+    mu, nu, w = pool
+    ms, s = cuda_ms(lambda: run_transport_sharded(
+        tables, mu, nu, run_key, devices, vpacket_capacity=cap, pool_w=w,
+        **kw), 3)
+    rows = {name: bool(torch.equal(getattr(s, name), getattr(one, name)))
+            for name in ("out", "last_interaction", "tracker", "events")}
+    rels = {name: rel_err(getattr(s, name), getattr(one, name))
+            for name in SHARD_LIMITS if getattr(one, name).numel()}
+    records = (int(s.vp_count[0]), int(one.vp_count[0]),
+               s.n_vp_records, one.n_vp_records)
+    records_equal = records[0] == records[1] and records[2] == records[3]
+    if cap and records_equal:
+        records_equal = bool(torch.equal(
+            sorted_rows(s.vp_records[:s.n_vp_records]),
+            sorted_rows(one.vp_records[:one.n_vp_records])))
+    numbers = dict(shards=len(devices), n=mu.shape[0], ms=ms,
+                   rows_bitwise=rows, max_rel=rels,
+                   records=records[0], records_kept=records[2],
+                   records_equal_as_multiset=records_equal)
+    if not (all(rows.values()) and records_equal
+            and all(r <= SHARD_LIMITS[name] for name, r in rels.items())):
+        say("check_sharded_transport", failed=True, **numbers)
+        raise AssertionError(f"sharded transport_loop: {numbers}")
+    return numbers
+
+
+def reduce_bound(parts, out):
+    """Least time of _final_reduce: every shard's partials and rows read
+    once and the result written once."""
+    from tardis_torch.parallel.transport import CAT_FIELDS, SUM_FIELDS
+
+    fields = SUM_FIELDS + CAT_FIELDS + ("vp_records",)
+    read = sum(nbytes(getattr(p, f)) for p in parts for f in fields)
+    adds = sum(getattr(out, f).numel() for f in SUM_FIELDS) * (len(parts) - 1)
+    return bound(read + sum(nbytes(getattr(out, f)) for f in fields), adds)
+
+
+def check_sharded_transport(tables, pools, device):
+    """K1's classic macroatom instantiation (the main path's) on the bench
+    problem at N_PACKETS over 1, 2 and 4 shards on this one card, against
+    one device (the sharding: the packet-id offsets, the pool's slices,
+    the gather and the fixed-order sums); the final iteration's records
+    instantiation at FINAL_PACKETS over 2 shards; _final_reduce timed alone
+    on the 2-shard partials."""
+    from tardis_torch.parallel.transport import _final_reduce
+    from tardis_torch.transport.kernel import transport_loop
+    from tardis_torch.transport.solver import (
+        VPACKET_RECORDS_PER_PACKET,
+        iteration_keys,
+    )
+
+    _, run_key = iteration_keys(SEED, 0)
+    mu, nu, _ = pools[N_PACKETS]
+    one_ms, one = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key), 3)
+    for n_dev in SHARDS:
+        say("check_sharded_transport", one_device_ms=one_ms,
+            events=one.summary[2].item(), **compare_sharded(
+                tables, pools[N_PACKETS], run_key, [device] * n_dev, one))
+    half = N_PACKETS // 2
+    parts = [transport_loop(tables, mu[d * half:(d + 1) * half],
+                            nu[d * half:(d + 1) * half], run_key,
+                            pid_offset=d * half) for d in range(2)]
+    reduce_ms, out = cuda_ms(lambda: _final_reduce(parts, device), 10)
+    r_ms, r_by = reduce_bound(parts, out)
+    del one, parts, out
+    _, run_key = iteration_keys(SEED, ITERATIONS - 1)
+    mu, nu, _ = pools[FINAL_PACKETS]
+    cap = VPACKET_RECORDS_PER_PACKET * FINAL_PACKETS
+    one = transport_loop(tables, mu, nu, run_key, vpacket_capacity=cap)
+    records = compare_sharded(tables, pools[FINAL_PACKETS], run_key,
+                              [device] * 2, one, cap)
+    say("check_sharded_transport_records", **records)
+    say("final_reduce", shards=2, n=N_PACKETS, ms=reduce_ms,
+        bound_ms=r_ms, bound_by=r_by)
+
+
+def check_sharded_continuum(tables, state, device):
+    """K1's continuum instantiation of the IIP path (relativistic pool,
+    last-interaction rows) at IIP_PACKETS, both sides stopped at
+    IIP_EVENT_CAP events a packet, over 2 shards against one device."""
+    from tardis_torch.transport.kernel import transport_loop
+    from tardis_torch.transport.solver import iteration_keys
+    from tardis_torch.transport.source import blackbody_source
+
+    src_key, run_key = iteration_keys(SEED, 0)
+    pool = blackbody_source(src_key, IIP_PACKETS, state.t_inner, device,
+                            "relativistic", beta_inner(state))
+    kw = dict(last_interaction=True, max_events=IIP_EVENT_CAP)
+    one = transport_loop(tables, pool[0], pool[1], run_key, pool_w=pool[2],
+                         **kw)
+    numbers = compare_sharded(tables, pool, run_key, [device] * 2, one, **kw)
+    say("check_sharded_continuum", event_cap=IIP_EVENT_CAP,
+        events=one.summary[2].item(), **numbers)
+
+
+PROBE_REPLACES = {
+    "scale2": "tardis_tpu/benchmarks/probe2.py:128",
+    "take_1d": "tardis_tpu/benchmarks/probe2.py:146",
+    "take_along_rows": "tardis_tpu/benchmarks/probe2.py:167"}
+
+
+def check_probe2(device):
+    """The probe kernels against their plain versions, bitwise, at the
+    probe's shapes (scale2 at each VMEM_MB size; take_1d on a (4,096,)
+    table with 1,024 indices; take_along_rows at (1,024, 128)), at shapes
+    that take the scalar tails (a length not a multiple of 4, a view not
+    16-byte aligned) and at one large shape each (scale2 at 120 MB;
+    take_1d on the probe's scalar gather, a 12,000,000-entry table with
+    1,048,576 indices; take_along_rows at (131,072, 128)).  Timed at the
+    large shape (cuda_ms_queued; the 12,000,000-entry table fits the 50
+    MB L2 and stays warm, as in the JAX probe's repeated runs) beside the
+    plain version, one library call (``torch.mul``,
+    ``torch.index_select``, ``torch.gather`` on int64 indices made before
+    the timing) and the bound: bytes over 3.35 TB/s, the table entries the
+    indices touch, the indices and the output each moved once.  Returns
+    the kernels lines by name."""
+    from tardis_torch.benchmarks import probe2
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    def indices(high, *shape):
+        return torch.randint(0, high, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def rows_touched(idx):
+        hit = torch.zeros(idx.shape, dtype=torch.bool, device=device)
+        return int(hit.scatter_(1, idx.long(), True).sum())
+
+    cases = {
+        "scale2": ([(uniform(1_000_003),), (uniform(1_000_003)[1:],)]
+                   + [(uniform(mb * 1024 * 1024 // 4 // probe2.ROW,
+                               probe2.ROW),) for mb in probe2.VMEM_MB],
+                   lambda x: torch.mul(x, 2.0),
+                   lambda x: 8 * x.numel()),
+        "take_1d": ([(uniform(4096), indices(4096, 1024)),
+                     (uniform(4096), indices(4096, 1027)),
+                     (uniform(4096), indices(4096, 1027)[1:]),
+                     (uniform(12_000_000), indices(12_000_000, 1_048_576))],
+                    lambda t, i: torch.index_select(t, 0, i),
+                    lambda t, i: 4 * torch.unique(i).numel()
+                    + 8 * i.numel()),
+        "take_along_rows": (
+            [(uniform(1024, probe2.ROW), indices(probe2.ROW, 1024,
+                                                 probe2.ROW)),
+             (uniform(131_072, probe2.ROW), indices(probe2.ROW, 131_072,
+                                                    probe2.ROW))],
+            lambda t, i: torch.gather(t, 1, i),
+            lambda t, i: 4 * rows_touched(i) + 8 * i.numel()),
+    }
+    lines = {}
+    for name, (shapes, library, n_bytes) in cases.items():
+        kernel = getattr(probe2, name)
+        plain = getattr(probe2, f"{name}_plain")
+        bitwise = [bool(torch.equal(kernel(*a), plain(*a))) for a in shapes]
+        args = shapes[-1]
+        ms, k = cuda_ms_queued(lambda: kernel(*args), 50)
+        plain_ms, p = cuda_ms_queued(lambda: plain(*args), 50)
+        lib_args = args if name != "take_along_rows" else (
+            args[0], args[1].long())
+        library_ms, _ = cuda_ms_queued(lambda: library(*lib_args), 50)
+        b_ms, b_by = bound(n_bytes(*args), 0)
+        max_abs = (k - p).abs().max().item()
+        say("check_probe2", kernel=name,
+            shapes=[[list(t.shape) for t in a] for a in shapes],
+            bitwise=bitwise, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=max_abs)
+        if not all(bitwise):
+            raise AssertionError(f"{name}: bitwise {bitwise}")
+        lines[name] = dict(
+            name=name, route="cuda", source="tardis_torch/csrc/probe2.cu",
+            replaces=PROBE_REPLACES[name], max_abs_err=max_abs, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms)
+    return lines
+
+
+def run_probe_path(device, expected):
+    """tardis_torch.benchmarks.probe2.main() on the card with the launch
+    counts reset to 0 just before and read just after: each probe kernel
+    must launch and report its bitwise check "ok"."""
+    from tardis_torch.benchmarks import probe2
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = probe2.main(device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    say("probe_path", wall_s=time.perf_counter() - t0, launches=launches)
+    if not (results["vmem_roundtrip_ok_mb"] == max(probe2.VMEM_MB)
+            and results["pallas_take_1d"] == "ok"
+            and results["pallas_take_along_lanes"] == "ok"):
+        raise AssertionError(f"probe path: {results}")
+    check_launches("probe_path", launches, expected)
+    return launches
+
+
+@contextlib.contextmanager
+def recorded_iterations():
+    """Keeps, for every TransportSolver.run_iteration call while open,
+    what a replay needs: the solver, its arguments, the state's t_inner
+    (which advance_state moves afterwards) and the result."""
+    from tardis_torch.transport.solver import TransportSolver
+
+    run = TransportSolver.run_iteration
+    calls = []
+
+    def recording(self, sim_state, plasma_state, atom_data, **kw):
+        res = run(self, sim_state, plasma_state, atom_data, **kw)
+        calls.append((self, (sim_state, plasma_state, atom_data), kw,
+                      sim_state.t_inner, res))
+        return res
+
+    TransportSolver.run_iteration = recording
+    try:
+        yield calls
+    finally:
+        TransportSolver.run_iteration = run
+
+
+def max_rel(a, b):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300)))
+
+
+def run_sharded_path(atom, device, expected, main):
+    """The main path with its packets split over two shards on this card
+    (run_tardis(device=[card, card])); K1 must launch twice per
+    iteration.  After the path, every iteration runs again on one device
+    from the inputs the path gave it: every packet's output must be
+    bitwise equal, the estimators and the two luminosities within 1e-12,
+    the event and spawn-record counts equal and the virtual histogram
+    within 1e-12.  Against the main path (``main``), a separate run: K1's
+    f64 atomics sum in another order in every run, so t_rad differs in
+    its last bits after the first iteration, and where that moves an f32
+    rounding in K1 a packet parts from its twin; the runs agree far
+    beyond the Monte Carlo noise (~1e-3) but not to 1e-9 (t_rad 1.2e-10,
+    the integrated spectrum 1.9e-8 a bin and the virtual one 9.4e-7 a bin
+    apart in my third run), so t_inner, t_rad and the three luminosities
+    are held within 1e-5 and the spectra bin by bin are reported."""
+    from tardis_torch.transport.solver import TransportSolver
+
+    with recorded_iterations() as calls:
+        sim, launches, wall = run_path("sharded_path", BENCH_CONFIG, atom,
+                                       [device, device], expected)
+    replays = []
+    for solver, args, kw, t_inner, res in calls:
+        state = args[0]
+        t_now, state.t_inner = state.t_inner, t_inner
+        solver.mesh = None
+        one = TransportSolver.run_iteration(solver, *args, **kw)
+        state.t_inner = t_now
+        replay = dict(
+            packets=res.n_packets,
+            out_bitwise=bool(torch.equal(res._out, one._out)),
+            j=max_rel(res.j_estimator, one.j_estimator),
+            nu_bar=max_rel(res.nu_bar_estimator, one.nu_bar_estimator),
+            luminosities=max_rel(res._lum_cache[2:], one._lum_cache[2:]),
+            events=(res.n_events, one.n_events),
+            vp_records=(res.vp_records, one.vp_records))
+        if res.virt_energy_hist is not None:
+            replay["virtual_bins"] = max_rel(res.virt_energy_hist,
+                                             one.virt_energy_hist)
+        replays.append(replay)
+        del one
+    got = path_numbers(sim)
+    rels = {k: max_rel(got[k], main[k]) for k in main if k != "wall_s"}
+    n_total = N_PACKETS * (ITERATIONS - 1) + FINAL_PACKETS
+    say("sharded_path_against_main", max_rel=rels,
+        iterations_on_one_device=replays, wall_s=wall,
+        packets_per_s=n_total / wall, main_wall_s=main["wall_s"],
+        main_packets_per_s=n_total / main["wall_s"])
+    exact = all(
+        r["out_bitwise"] and r["events"][0] == r["events"][1]
+        and r["vp_records"][0] == r["vp_records"][1]
+        and max(r["j"], r["nu_bar"], r["luminosities"],
+                r.get("virtual_bins", 0.0)) <= 1e-12 for r in replays)
+    if not (exact and len(replays) == ITERATIONS
+            and all(rels[k] <= 1e-5 for k in MAIN_HELD)):
+        raise AssertionError(f"sharded path: against one device {replays}, "
+                             f"against the main path {rels}")
+    return launches
+
+
+# what the sharded path holds against the main path's separate run
+MAIN_HELD = ("t_inner", "t_rad", "real_luminosity", "virtual_luminosity",
+             "integrated_luminosity")
+
+
+def path_numbers(sim):
+    """What the sharded path compares with the main path."""
+    out = dict(t_inner=np.array([sim.state.t_inner]),
+               t_rad=np.asarray(sim.state.t_radiative, float))
+    for name in ("real", "virtual", "integrated"):
+        spectrum = getattr(sim, f"spectrum_{name}")
+        out[name] = np.asarray(spectrum.luminosity_nu)
+        out[f"{name}_luminosity"] = np.array([spectrum.luminosity])
+    return out
+
+
 def check_launches(phase, launches, expected):
     """Every line in ``expected`` launched exactly that often (None: at
     least once) and no other line at all."""
@@ -1780,6 +2137,7 @@ def main() -> int:
     k1, k4 = {}, {}
     with torch.no_grad():
         t = time.perf_counter()
+        k_probe = check_probe2(device)
         ps, k3 = check_line_tables(state, atom, device)
         pools, k2 = check_pools(state, device)
         chain = check_chain_build(atom, ps)
@@ -1799,11 +2157,14 @@ def main() -> int:
                                                 device)
             del records
             torch.cuda.empty_cache()
+        check_sharded_transport(tables["main"], pools["simple"], device)
+        torch.cuda.empty_cache()
         ps_main, pools_main = ps, pools["simple"]
         del ps, chain, tables, pools
         torch.cuda.empty_cache()
         k1.update(check_iip_kernels(device, iip_state, iip_atom, tables_iip,
                                     k2, k3))
+        check_sharded_continuum(tables_iip["iip"], iip_state, device)
         del tables_iip
         torch.cuda.empty_cache()
         k7 = check_nonhom_loop(state, atom, ps_main, pools_main)
@@ -1834,11 +2195,20 @@ def main() -> int:
                               k2["simple"]["name"]: NONHOM_ITERATIONS,
                               k7["name"]: NONHOM_ITERATIONS}
         expected["gamma"] = {k6["name"]: GAMMA_STEPS}
+        # the main path with two shards: K1 twice an iteration
+        expected["sharded"] = dict(expected["main"])
+        expected["sharded"][k1["main"]["name"]] = 2 * ITERATIONS
+        expected["probe"] = {name: None for name in k_probe}
         launches = {}
-        sim, launches["main"] = run_path("main_path", BENCH_CONFIG, atom,
-                                         device, expected["main"])
+        sim, launches["main"], wall = run_path("main_path", BENCH_CONFIG,
+                                               atom, device,
+                                               expected["main"])
         k5 = check_formal_integral(sim, device)
+        main = dict(path_numbers(sim), wall_s=wall)
         del sim
+        torch.cuda.empty_cache()
+        launches["sharded"] = run_sharded_path(atom, device,
+                                               expected["sharded"], main)
         torch.cuda.empty_cache()
         launches["relativity"] = run_relativity_path(
             atom, device, expected["relativity"])
@@ -1858,6 +2228,8 @@ def main() -> int:
         launches["gamma"], k6["path_ms_median"] = run_gamma_path(
             state, device, expected["gamma"])
         torch.cuda.empty_cache()
+        launches["probe"] = run_probe_path(device, expected["probe"])
+        torch.cuda.empty_cache()
         profile_main_path(atom, device)
         profile_iip_path(iip_atom, device)
     # each line's launches come from the path that runs it
@@ -1868,7 +2240,8 @@ def main() -> int:
              (k4["relativity"], "relativity"),
              (k1["options"], "options"), (k2["weighted"], "options"),
              (k1["iip"], "iip"), (k1["iip_options"], "iip_options"),
-             (k7, "nonhom"), (k6, "gamma")]
+             (k7, "nonhom"), (k6, "gamma")] + [
+                 (k, "probe") for k in k_probe.values()]
     for k, path in lines:
         k["launches"] = launches[path][k["name"]]
         if k["launches"] < 1:
@@ -1877,6 +2250,9 @@ def main() -> int:
     # by its mean
     k2["weighted"]["normalize_launches"] = launches["options"][
         line_name("blackbody_source", "weighted_normalize")]
+    # the same K1 instantiation, two shards an iteration on the sharded path
+    k1["main"]["sharded_path_launches"] = launches["sharded"][
+        k1["main"]["name"]]
     print(json.dumps({"kernels": [k for k, _ in lines]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -195,6 +195,10 @@ struct Params {
   int64_t n_packets;
   int64_t L;
   int64_t max_events;
+  // global id of this launch's first packet: a shard of a pool split over
+  // devices hashes the ids of the whole pool (parallel/transport.py), and
+  // reads and writes its own rows by the local id
+  int64_t pid_offset;
   int S, M, W, We, mode, disable_line_scattering, tracker_length;
   float nu_lo, nu_hi, albedo;
   tardis::Key key;
@@ -345,7 +349,7 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
   if constexpr (kWeights) energy = energy * p.pool_w[pid];
   float r = beta_inner;
   int shell = 0;
-  const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)pid);
+  const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + pid));
   if constexpr (!kCont) {
     if (p.vp_capacity > 0)
       spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
@@ -721,11 +725,11 @@ extern "C" int transport_loop(
     const void* line2macro, const void* chain_cdf, const void* emit_cdf,
     int64_t L, int S, int M, int W, int We, int mode,
     int disable_line_scattering, uint32_t k0, uint32_t k1, float nu_lo,
-    float nu_hi, float albedo, int64_t max_events, void* out, void* est_j,
-    void* est_nubar, void* line_diff, void* summary, void* vp_records,
-    void* vp_count, int64_t vp_capacity, void* last_interaction,
-    void* tracker, int tracker_length, const ContinuumArgs* cont,
-    void* stream) {
+    float nu_hi, float albedo, int64_t max_events, int64_t pid_offset,
+    void* out, void* est_j, void* est_nubar, void* line_diff, void* summary,
+    void* vp_records, void* vp_count, int64_t vp_capacity,
+    void* last_interaction, void* tracker, int tracker_length,
+    const ContinuumArgs* cont, void* stream) {
   constexpr bool kCont = TL_CONTINUUM != 0;
   if (kCont != (cont != nullptr)) return (int)cudaErrorInvalidValue;
   Params p;
@@ -753,6 +757,7 @@ extern "C" int transport_loop(
   p.n_packets = n_packets;
   p.L = L;
   p.max_events = max_events;
+  p.pid_offset = pid_offset;
   p.S = S;
   p.M = M;
   p.W = W;

@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 KERNELS = ("line_tables", "blackbody_source", "transport_loop",
-           "vpacket_volley", "formal_integral", "nonhom_loop", "gamma_step")
+           "vpacket_volley", "formal_integral", "nonhom_loop", "gamma_step",
+           "probe2")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",

@@ -17,20 +17,25 @@ transport_loop, vpacket_volley, finalize, radiation_field, spectrum,
 source_function, formal_integral); a span costs a few microseconds when no
 profiler is recording, and ``chip_smoke.py`` reads them.
 
-Everything runs on one device, the card unless the caller passes another.
-The transport options are wired as the JAX package wires them:
-last-interaction tracking (on by default), the r-packet tracker
-(``initial_array_length`` events a packet), full relativity (which selects
-the relativistic packet pool), the reflective inner boundary (its albedo
-applies only when it is enabled) and the weighted pool.  Options outside
-the port raise ``NotImplementedError`` naming the option (see
-``check_supported``): NLTE, detailed rates, helium, vpacket biasing, the
-macro-atom random-walk fallback of the chain tables, HDF atom data and
-more than one device.  ``montecarlo.enable_nonhomologous_expansion``
-selects the nonhomologous transport solver (K7), as the JAX package
-does.  Continuum species run only through the
-Type IIP workflow (``workflows/type_iip.py``); ``run_tardis`` refuses them,
-as its classic loop runs no continuum transport.  Checkpoint / resume is
+Everything runs on one device, the card unless the caller passes another,
+except the classic event loop: as in the JAX package, its packets are
+split over every visible card when there is more than one
+(``TransportSolver(mesh="auto")``), or over the devices of a list passed
+as ``device`` (``run_tardis(config, device=["cuda:0", "cuda:1"])``; the
+simulation lives on the first, and a device may repeat), by
+``parallel/transport.py``.  The transport options are wired as the JAX
+package wires them: last-interaction tracking (on by default), the
+r-packet tracker (``initial_array_length`` events a packet), full
+relativity (which selects the relativistic packet pool), the reflective
+inner boundary (its albedo applies only when it is enabled) and the
+weighted pool.  Options outside the port raise ``NotImplementedError``
+naming the option (see ``check_supported``): NLTE, detailed rates, helium,
+vpacket biasing, the macro-atom random-walk fallback of the chain tables
+and HDF atom data.  ``montecarlo.enable_nonhomologous_expansion`` selects
+the nonhomologous transport solver (K7), as the JAX package does.
+Continuum species run only through the Type IIP workflow
+(``workflows/type_iip.py``); ``run_tardis`` refuses them, as its classic
+loop runs no continuum transport.  Checkpoint / resume is
 not ported.
 """
 
@@ -48,6 +53,7 @@ from tardis_torch.config.reader import ConfigDict
 from tardis_torch.constants import C
 from tardis_torch.cuda import resolve_device
 from tardis_torch.model.state import SimulationState
+from tardis_torch.parallel.transport import packet_devices
 from tardis_torch.plasma.solver import PlasmaSolver
 from tardis_torch.simulation.convergence import (
     ConvergenceState,
@@ -165,7 +171,13 @@ class Simulation:
     def from_config(cls, config: ConfigDict, atom_data=None,
                     device=None, continuum: bool = False) -> "Simulation":
         """``continuum`` lets continuum species through (the Type IIP
-        workflow runs their transport)."""
+        workflow runs their transport).  ``device`` may be a list of
+        devices: the simulation lives on the first, and the classic event
+        loop splits its packets over all of them."""
+        mesh = "auto"
+        if isinstance(device, (list, tuple)):
+            mesh = packet_devices([resolve_device(d) for d in device])
+            device = mesh[0]
         device = resolve_device(device)
         check_supported(config, continuum)
         state = SimulationState.from_config(config)
@@ -193,6 +205,11 @@ class Simulation:
             w_epsilon=config.plasma.get("w_epsilon", 1e-10),
         )
         mc = config.montecarlo
+        if int(mc.get("nthreads", 1)) != 1:
+            logger.info(
+                "montecarlo.nthreads is a no-op: packet parallelism runs "
+                "on the devices (every visible card, or the list passed as "
+                "device), one thread per packet")
         tracking = mc.get("tracking", {}) or {}
         solver_cls = (NonhomologousTransportSolver
                       if mc.get("enable_nonhomologous_expansion", False)
@@ -218,6 +235,7 @@ class Simulation:
                 if mc.get("enable_reflective_inner_boundary", False)
                 else 0.0),
             packet_source=mc.get("packet_source", "auto"),
+            mesh=mesh,
         )
         return cls(config, state, atom_data, plasma_solver, transport_solver)
 
@@ -317,10 +335,15 @@ class Simulation:
         """Final high-statistics iteration and its spectra: real packets,
         virtual packets (if any) and the formal integral (if asked for)."""
         iteration = self.iterations_executed
-        # the plasma is solved once more at the final (t_rad, W), as the
-        # JAX package's final host-mode solve does (its n_e fixpoint
-        # restarts from the previous n_e, which refines n_e slightly)
-        self._solve_plasma()
+        # the JAX package re-solves the plasma at the final (t_rad, W) only
+        # where there is none yet or its convergence loop solved it in
+        # device-line mode, a mode only the classic solver takes
+        # (tardis_tpu/simulation/base.py:256-258,435-441); the re-solve
+        # takes one more step of the n_e fixpoint, so the nonhomologous
+        # solver transports on the plasma of the last advance_state
+        if (self.plasma_state is None
+                or type(self.transport) is TransportSolver):
+            self._solve_plasma()
         result = self.transport.run_iteration(
             self.state, self.plasma_state, self.atom_data,
             n_packets=self.last_no_of_packets, seed=self.seed,
@@ -389,17 +412,14 @@ def run_tardis(config_or_path, atom_data=None, device=None,
     """Top-level API: build, converge and run the final iteration.
 
     ``device`` defaults to the CUDA card and raises where there is none;
-    pass ``device="cpu"`` for the plain PyTorch versions of the kernels.
+    pass ``device="cpu"`` for the plain PyTorch versions of the kernels,
+    or a list of devices to split the packets of the classic event loop
+    over them (the simulation lives on the first; a device may repeat).
     Each of ``callbacks`` is called with the simulation after every
     iteration.
     """
     from tardis_torch.config.reader import config_from_dict, config_from_yaml
 
-    if isinstance(device, (list, tuple)):
-        if len(device) > 1:
-            raise NotImplementedError("more than one device is not ported")
-        device = device[0] if device else None
-    device = resolve_device(device)
     if isinstance(config_or_path, str):
         config = config_from_yaml(config_or_path)
     elif isinstance(config_or_path, ConfigDict):

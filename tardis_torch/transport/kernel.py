@@ -381,7 +381,8 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                          max_events: int = MAX_EVENTS,
                          vpacket_capacity: int = 0, pool_w=None,
                          last_interaction: bool = False,
-                         tracker_length: int = 0) -> TransportOutput:
+                         tracker_length: int = 0,
+                         pid_offset: int = 0) -> TransportOutput:
     """Plain PyTorch version of K1: a lockstep loop over ``batch_size`` lanes.
 
     Dead lanes refill from the pool in packet-id order; once the pool is
@@ -416,7 +417,7 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         cols += [COL_ESCAT, COL_BFFF, COL_CONT_SEL, COL_FB, COL_FF]
     col = {c: i for i, c in enumerate(cols)}
     birth = torch.searchsorted(-t.line_nu, -pool_nu, right=True)
-    pid_all = torch.arange(N, dtype=i64, device=device)
+    pid_all = torch.arange(N, dtype=i64, device=device) + pid_offset
     kp_all = rng.fold_in(key, pid_all)
 
     r = torch.zeros(B, dtype=f32, device=device)
@@ -737,22 +738,26 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
                    max_events: int = MAX_EVENTS,
                    vpacket_capacity: int = 0, pool_w=None,
                    last_interaction: bool = False,
-                   tracker_length: int = 0) -> TransportOutput:
+                   tracker_length: int = 0,
+                   pid_offset: int = 0) -> TransportOutput:
     """K1 on the card; the plain version for CPU tensors.
 
     ``key`` is the iteration's run key; ``nu_window`` the (lo, hi)
     emitted-luminosity window in NU_UNIT; ``vpacket_capacity`` the number
     of spawn records to keep (0: none are written); ``pool_w`` the pool's
     per-packet weights (None: all 1); ``last_interaction`` and
-    ``tracker_length`` turn on the two trackers.  On the card the options
-    select K1's compiled instantiation (``variant``).
+    ``tracker_length`` turn on the two trackers; ``pid_offset`` is the
+    global id of the pool's first packet (a shard of a larger pool hashes
+    the global ids and writes its rows by the local ones).  On the card the
+    options select K1's compiled instantiation (``variant``).
     """
     device = pool_mu.device
     if device.type == "cpu":
         return transport_loop_plain(
             t, pool_mu, pool_nu, key, nu_window, max_events=max_events,
             vpacket_capacity=vpacket_capacity, pool_w=pool_w,
-            last_interaction=last_interaction, tracker_length=tracker_length)
+            last_interaction=last_interaction, tracker_length=tracker_length,
+            pid_offset=pid_offset)
     if device.type != "cuda":
         raise ValueError(f"transport_loop: unsupported device {device}")
     cont = t.continuum
@@ -794,7 +799,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
                        ctypes.c_float)
     fn.argtypes = (
         [vp, vp, vp, i64] + [vp] * 8 + [i64] + [ci] * 6
-        + [ctypes.c_uint32, ctypes.c_uint32, cf, cf, cf, i64] + [vp] * 7
+        + [ctypes.c_uint32, ctypes.c_uint32, cf, cf, cf, i64, i64] + [vp] * 7
         + [i64, vp, vp, ci, ctypes.POINTER(ContinuumArgs), vp]
     )
     p = cuda.ptr
@@ -805,7 +810,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         p(t.line2macro), p(t.chain_cdf), p(t.emit_cdf), L, S, t.n_states,
         t.chain_width, t.emit_width, t.mode, int(t.disable_line_scattering),
         key[0], key[1], nu_lo, nu_hi, float(t.inner_boundary_albedo),
-        max_events, p(res.out), p(res.est_j), p(res.est_nubar),
+        max_events, pid_offset, p(res.out), p(res.est_j), p(res.est_nubar),
         p(res.line_diff), p(res.summary), p(res.vp_records),
         p(res.vp_count), vpacket_capacity, p(res.last_interaction),
         p(res.tracker), tracker_length, cargs, cuda.stream(),

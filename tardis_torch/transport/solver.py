@@ -18,6 +18,17 @@ relativity and the simple pool otherwise; ``track_last_interaction`` and
 ``.rpacket_tracker`` (kept on the device until first read);
 ``inner_boundary_albedo`` > 0 reflects packets at the inner boundary.
 
+``mesh`` spreads the packets of an iteration over several devices, as the
+JAX package's solver does (``tardis_tpu/transport/solver.py:203-209,
+376-400``): "auto" takes every visible CUDA card when more than one is
+visible and the pool lies on a card, ``None`` one device, and a list of
+devices is taken as given (its first entry must be the simulation's
+device: the outputs are gathered there).  The pool is drawn on the
+simulation's device and split by ``parallel/transport.py``; an iteration
+whose packet count is not a multiple of the device count runs on one
+device, as in the JAX package, and the solver logs it once.  The virtual
+packets (K4) and every later step run on the gathered outputs.
+
 With a ``continuum_state`` and ``continuum_macro`` (the Type IIP workflow)
 K1 runs its continuum instantiation: full relativity is forced, and with
 it the relativistic pool under ``packet_source: auto``, as the JAX package
@@ -46,6 +57,10 @@ from tardis_torch.model.geometry import NonhomologousRadial1DGeometry
 from tardis_torch.opacities.macro_atom_solver import (
     solve_macro_chain,
     solve_macro_state,
+)
+from tardis_torch.parallel.transport import (
+    packet_devices,
+    run_transport_sharded,
 )
 from tardis_torch.plasma.continuum import ContinuumEstimators
 from tardis_torch.plasma.lte import intensity_black_body
@@ -207,6 +222,7 @@ class TransportSolver:
         track_rpacket_length: int = 0,
         inner_boundary_albedo: float = 0.0,
         packet_source: str = "auto",
+        mesh: object = "auto",
     ):
         if line_interaction_type not in ("scatter", "downbranch",
                                          "macroatom"):
@@ -224,6 +240,23 @@ class TransportSolver:
         self.track_rpacket_length = int(track_rpacket_length)
         self.inner_boundary_albedo = float(inner_boundary_albedo)
         self.packet_source = packet_source
+        self.mesh = mesh
+        self._logged_one_device = False
+
+    def devices_for(self, device: torch.device) -> list[torch.device]:
+        """The devices an iteration's packets run on, the pool's device
+        ``device`` first under "auto"."""
+        if self.mesh is None:
+            return [device]
+        if self.mesh == "auto":
+            if device.type != "cuda" or torch.cuda.device_count() < 2:
+                return [device]
+            return [device] + [d for d in packet_devices() if d != device]
+        devices = packet_devices(self.mesh)
+        if devices[0] != device:
+            raise ValueError(f"mesh {devices}: the first device must be "
+                             f"the pool's, {device}")
+        return devices
 
     def full_relativity(self, continuum: bool = False) -> bool:
         """Whether transport runs fully relativistic: as configured, and
@@ -305,14 +338,23 @@ class TransportSolver:
         lo, hi = lum_nu_window
         capacity = n_packets * VPACKET_RECORDS_PER_PACKET \
             if n_vpackets > 0 else 0
+        kw = dict(nu_window=(lo / NU_UNIT, hi / NU_UNIT),
+                  vpacket_capacity=capacity, pool_w=pool_w,
+                  last_interaction=self.track_last_interaction,
+                  tracker_length=self.track_rpacket_length)
+        devices = self.devices_for(device)
+        sharded = len(devices) > 1 and n_packets % len(devices) == 0
+        if len(devices) > 1 and not sharded and not self._logged_one_device:
+            logger.info(
+                "%d packets do not split over %d devices: the iteration "
+                "runs on %s", n_packets, len(devices), device)
+            self._logged_one_device = True
         with record_function("tardis.transport_loop"):
-            res = transport_loop(
-                tables, pool_mu, pool_nu, run_key,
-                nu_window=(lo / NU_UNIT, hi / NU_UNIT),
-                vpacket_capacity=capacity, pool_w=pool_w,
-                last_interaction=self.track_last_interaction,
-                tracker_length=self.track_rpacket_length,
-            )
+            if sharded:
+                res = run_transport_sharded(tables, pool_mu, pool_nu,
+                                            run_key, devices, **kw)
+            else:
+                res = transport_loop(tables, pool_mu, pool_nu, run_key, **kw)
         virtual = {}
         if n_vpackets > 0:
             with record_function("tardis.vpacket_volley"):

@@ -19,6 +19,7 @@ Doppler factor; s stays monotone in i, so the search is the same.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -76,6 +77,11 @@ class TransportTables:
     def n_lines(self) -> int:
         return self.line_nu.shape[0]
 
+    def to(self, device) -> TransportTables:
+        """The tables on ``device`` (continuum tables included); the
+        tables themselves where they are there already."""
+        return _tables_to(self, device)
+
 
 @dataclass
 class ContinuumTables:
@@ -120,6 +126,31 @@ class ContinuumTables:
     @property
     def n_states(self) -> int:
         return self.deact_block_start.shape[0] - 1
+
+    def to(self, device) -> ContinuumTables:
+        """The tables on ``device``; the tables themselves where they are
+        there already."""
+        return _tables_to(self, device)
+
+
+def _tables_to(tables, device):
+    """A copy of a tables dataclass with every tensor (and the nested
+    continuum tables) moved to ``device`` by an asynchronous copy, ordered
+    on the current streams of both devices; ``tables`` itself when nothing
+    moves."""
+    device = torch.device(device)
+    moved = {}
+    for field in dataclasses.fields(tables):
+        v = getattr(tables, field.name)
+        if isinstance(v, ContinuumTables):
+            v_on = v.to(device)
+        elif isinstance(v, torch.Tensor):
+            v_on = v.to(device, non_blocking=True)
+        else:
+            continue
+        if v_on is not v:
+            moved[field.name] = v_on
+    return dataclasses.replace(tables, **moved) if moved else tables
 
 
 def _bisection_steps(block_start) -> int:

@@ -5,8 +5,11 @@ simple_tardis_workflow.py:36-540 and standard_tardis_workflow.py:16): the
 convergence loop of ``Simulation`` exposed as overridable stages
 (solve_plasma / solve_montecarlo / solve_simulation_state /
 solve_spectrum), so custom workflows subclass and replace single stages.
-Runs on the card unless ``device="cpu"`` is passed.  Live convergence
-plots are not ported: ``show_convergence_plots=True`` raises
+Runs on the card unless ``device="cpu"`` is passed; with a list of
+devices the simulation lives on the first and the classic event loop
+splits its packets over all of them, as the JAX workflows' default
+``TransportSolver(mesh="auto")`` does over every visible device.  Live
+convergence plots are not ported: ``show_convergence_plots=True`` raises
 ``NotImplementedError``.
 """
 

@@ -18,7 +18,9 @@ TypeIIPWorkflow, workflows/type_iip_workflow.py:41-1011).  Per iteration:
    plasma solve (K3) and a continuum-state update.
 
 The final iteration runs transport at ``last_no_of_packets`` and builds
-the real-packet spectrum.  Runs on the card unless ``device="cpu"``.
+the real-packet spectrum.  Runs on the card unless ``device="cpu"``;
+with a list of devices the transport of step 3 splits its packets over
+them (``simulation/base.py``).
 Each stage runs inside a ``torch.profiler.record_function`` span:
 ``tardis.continuum_plasma``, ``tardis.continuum_macro`` and
 ``tardis.thermal_balance`` beside the simulation's own.

@@ -78,8 +78,6 @@ def test_refused_options_name_themselves():
     cfg["plasma"]["continuum_interaction"] = {"species": ["H I"]}
     with pytest.raises(NotImplementedError, match="continuum_interaction"):
         run_tardis(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        run_tardis(copy.deepcopy(CONFIG), device=["cuda:0", "cuda:1"])
 
 
 def test_wrappers_never_fall_back():
@@ -187,6 +185,27 @@ def test_nonhomologous_and_gamma_modules_are_scanned():
     for kernel in ("nonhom_loop", "gamma_step"):
         assert kernel in cuda.KERNELS
         assert (ROOT / "tardis_torch" / "csrc" / f"{kernel}.cu").exists()
+
+
+def test_parallel_and_probe_modules_are_scanned():
+    """The packet-parallel transport and the probe are among the files
+    the import scan reads, and the probe's kernels are registered for the
+    build."""
+    from tardis_torch import cuda
+
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("parallel/transport.py", "benchmarks/probe2.py"):
+        assert f"tardis_torch/{name}" in scanned, name
+    assert "probe2" in cuda.KERNELS
+    assert (ROOT / "tardis_torch" / "csrc" / "probe2.cu").exists()
+
+
+def test_device_list_asks_for_the_cards(monkeypatch):
+    """A list of CUDA devices is no longer refused: without a card it
+    raises as the default device does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_tardis(copy.deepcopy(CONFIG), device=["cuda:0", "cuda:1"])
 
 
 def test_workflows_default_to_the_card(monkeypatch):
