@@ -14,7 +14,14 @@ Phases, one printed line each (plus one line per iteration):
      card could take (bound) and, where one PyTorch call computes the same
      function, its time.  The probe kernels (check_probe2: scale2,
      take_1d, take_along_rows, bitwise at the probe's shapes and at one
-     large shape each); K3 line tables; K2's simple and relativistic pools
+     large shape each); K3 line tables (bitwise equal run to run, timed
+     as device time of queued calls and with the host's launch work,
+     beside torch.cumsum of its prefix both ways; then at 100 and 200
+     shells, the bench lines with the shells repeated, past one block's
+     chunk of 87 shells and past the 128 shells whose inputs go by value:
+     against the plain version, bitwise run to run and bitwise equal to
+     the 20-shell run in each repeated shell); K2's simple and
+     relativistic pools
      at both packet counts, the weighted pool at 2,097,152; then the K1 and
      K4 instantiations the paths select (kernel.variant and
      vpacket.variant_name on the tables and pools built here, the two
@@ -31,11 +38,14 @@ Phases, one printed line each (plus one line per iteration):
      continua, 20 shells, 1,048,576 packets): K3 at its line tables, K2's
      relativistic pool at 1,048,576, and each continuum K1 instantiation
      (the IIP path's, and one with the two-photon and adiabatic channels,
-     boosted so both fire) timed uncapped as the path runs it, with its
-     per-packet event distribution, then bitwise against its plain
-     version with both stopped at IIP_EVENT_CAP events a packet, and the
-     IIP path's over 2 shards against one device (check_sharded_continuum,
-     the same cap); then K7
+     boosted so both fire) timed uncapped as the path runs it (one
+     launch of the persistent grid), with its per-packet event
+     distribution, in both table placements (shared and device memory),
+     bitwise per packet against each other; against its plain version
+     with both stopped at IIP_EVENT_CAP events a packet; and the longest
+     packet alone, the floor of any schedule; and the IIP path's over 2
+     shards against one device
+     (check_sharded_continuum, the same cap); then K7
      (nonhomologous event loop) on the bench problem under the perturbed
      velocity law of the JAX package's end-to-end test, in scatter and in
      macroatom mode (the RNG-walk macro atom) with last-interaction rows at
@@ -310,7 +320,42 @@ def build_problem(device):
     return config, state, atom
 
 
-def check_line_tables(state, atom, device):
+K3_NAMES = ("stim", "tau", "beta", "j_blues", "prefix")
+# shell counts past K3's one chunk of shells a block (87) and past its
+# per-shell inputs by value (128): the bench lines with the shells repeated
+K3_WIDE_SHELLS = (100, 200)
+
+
+def compare_line_tables(k, p, what):
+    """K3's outputs ``k`` against its plain version's ``p``: the four
+    tables within 1e-12, the prefix, summed in another order, within
+    1e-10, relative.  Returns the largest absolute error."""
+    max_abs = 0.0
+    for name in K3_NAMES:
+        a, b = getattr(k, name), getattr(p, name)
+        rel = ((a - b).abs() / b.abs().clamp_min(1e-300)).max().item()
+        limit = 1e-10 if name == "prefix" else 1e-12
+        if not (rel <= limit):
+            raise AssertionError(f"line_tables {what} {name}: max rel {rel}")
+        max_abs = max(max_abs, (a - b).abs().max().item())
+    return max_abs
+
+
+def line_tables_bitwise(a, b):
+    return all(torch.equal(getattr(a, name), getattr(b, name))
+               for name in K3_NAMES)
+
+
+def check_line_tables(state, atom, device, wide_shells=()):
+    """K3 against its plain version (``compare_line_tables``), bitwise
+    equal to itself over two more runs, and timed two ways beside the one
+    PyTorch call that computes its prefix alone: device time of calls
+    queued back to back (cuda_ms_queued) and time with the host's launch
+    work included (cuda_ms, one call between two events).  Then, for each
+    count in ``wide_shells``, the same lines over that many shells (shell
+    s takes the inputs of shell s % S): against the plain version, bitwise
+    run to run, and bitwise equal to the S-shell run in every repeated
+    shell, each shell being scanned on its own."""
     from tardis_torch.plasma.line_tables import line_tables, line_tables_plain
     from tardis_torch.plasma.solver import PlasmaSolver
 
@@ -319,24 +364,23 @@ def check_line_tables(state, atom, device):
     pop = torch.as_tensor(ps.level_number_density, device=device)
     args = (solver.line_static, pop, state.t_radiative,
             state.dilution_factor, state.time_explosion)
-    ms, k = cuda_ms(lambda: line_tables(*args), 10)
+    ms, k = cuda_ms_queued(lambda: line_tables(*args), 200)
+    host_ms, _ = cuda_ms(lambda: line_tables(*args), 20)
     plain_ms, p = cuda_ms(lambda: line_tables_plain(*args), 5)
-    max_abs = 0.0
-    for name in ("stim", "tau", "beta", "j_blues"):
-        a, b = getattr(k, name), getattr(p, name)
-        rel = ((a - b).abs() / b.abs().clamp_min(1e-300)).max().item()
-        if not (rel <= 1e-12):
-            raise AssertionError(f"line_tables {name}: max rel {rel}")
-        max_abs = max(max_abs, (a - b).abs().max().item())
-    rel = ((k.prefix - p.prefix).abs()
-           / p.prefix.abs().clamp_min(1e-300)).max().item()
-    if not (rel <= 1e-10):
-        raise AssertionError(f"line_tables prefix: max rel {rel}")
-    max_abs = max(max_abs, (k.prefix - p.prefix).abs().max().item())
+    bitwise = all(line_tables_bitwise(line_tables(*args), k)
+                  for _ in range(2))
+    if not bitwise:
+        raise AssertionError("line_tables: two runs differ")
+    max_abs = compare_line_tables(k, p, "")
+    del p
     # the prefix alone, as one PyTorch scan in the (S, L) layout K3 writes
     tau_sl = k.tau.T
-    library_ms, _ = cuda_ms(
-        lambda: torch.cumsum(tau_sl, dim=1, dtype=torch.float64), 10)
+
+    def scan():
+        return torch.cumsum(tau_sl, dim=1, dtype=torch.float64)
+
+    library_ms, _ = cuda_ms_queued(scan, 200)
+    library_host_ms, _ = cuda_ms(scan, 20)
     st = solver.line_static
     L, S = k.tau.shape
     in_bytes = nbytes(pop, st.lower_idx, st.upper_idx, st.g_lower,
@@ -345,14 +389,45 @@ def check_line_tables(state, atom, device):
     # ~55 f64 operations per element (ratio, stim, tau, two expm1 and the
     # beta / j_blues branches) plus one add of the scan
     b_ms, b_by = bound(in_bytes + out_bytes, L * S * 56)
-    say("check_line_tables", L=L, S=S, ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=b_ms, max_abs_err=max_abs)
+    say("check_line_tables", L=L, S=S, ms=ms, host_ms=host_ms,
+        plain_ms=plain_ms, library_ms=library_ms,
+        library_host_ms=library_host_ms, bound_ms=b_ms,
+        bitwise_run_to_run=bitwise, max_abs_err=max_abs)
+    wide = {}
+    for n_shells in wide_shells:
+        idx = torch.arange(n_shells, device=device) % S
+        host_idx = idx.cpu().numpy()
+        wide_args = (st, pop[:, idx].contiguous(),
+                     np.asarray(state.t_radiative)[host_idx],
+                     np.asarray(state.dilution_factor)[host_idx],
+                     state.time_explosion)
+        w_ms, kwide = cuda_ms_queued(lambda: line_tables(*wide_args), 20)
+        w_bitwise = line_tables_bitwise(line_tables(*wide_args), kwide)
+        repeated = all(torch.equal(getattr(kwide, name),
+                                   getattr(k, name)[:, idx])
+                       if name != "prefix" else
+                       torch.equal(kwide.prefix, k.prefix[idx])
+                       for name in K3_NAMES)
+        w_abs = compare_line_tables(kwide, line_tables_plain(*wide_args),
+                                    f"at {n_shells} shells")
+        if not (w_bitwise and repeated):
+            raise AssertionError(
+                f"line_tables at {n_shells} shells: run to run bitwise "
+                f"{w_bitwise}, repeated shells bitwise {repeated}")
+        max_abs = max(max_abs, w_abs)
+        wide[n_shells] = dict(ms=w_ms, max_abs_err=w_abs)
+        say("check_line_tables_wide", L=L, S=n_shells, ms=w_ms,
+            bitwise_run_to_run=w_bitwise, repeated_shells_bitwise=repeated,
+            max_abs_err=w_abs)
+        del kwide
     return ps, dict(
         name="line_tables", route="cuda",
         source="tardis_torch/csrc/line_tables.cu",
         replaces="tardis_tpu/plasma/device_line.py:163",
-        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=library_ms,
+        max_abs_err=max_abs, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+        library_host_ms=library_host_ms,
+        **({"wide_shells": wide} if wide else {}),
     )
 
 
@@ -1019,45 +1094,20 @@ def event_distribution(events, stopped):
                 max=int(events.max().item()), stopped=int(stopped))
 
 
-def check_continuum_loop(tables, pool, run_key, replaces):
-    """A continuum K1 instantiation at the IIP path's width.  Timed as the
-    path runs it (uncapped: ``ms``, its events and event distribution), then
-    both versions run under IIP_EVENT_CAP events a packet (the plain
-    lockstep loop runs as many steps as its longest packet): every packet
-    must end bitwise equal (a stopped packet's row is zero in both), with
-    equal per-packet event counts, equal event and stopped totals, bitwise
-    last-interaction rows, and est_j, est_nubar, the free-free heating and
-    the moments within 1e-12 relative (f64 atomics in racing order; the
-    line difference array and luminosity sums, with cancelling terms,
-    within 1e-9 as for the classic K1).  The free-free heating sums
-    ~1.5e8 terms spanning decades per shell (chi_ff ~ nu^-3) in two racing
-    orders: 1.25e-12 apart at 1,048,576 packets on an H100 80GB HBM3 at
-    700 W, so it is held to 1e-11.  Returns the kernels-line entry."""
-    from tardis_torch.transport.kernel import (
-        transport_loop,
-        transport_loop_plain,
-        variant,
-        variant_name,
-    )
+CONTINUUM_LIMITS = dict(est_j=1e-12, est_nubar=1e-12, cont_moments=1e-12,
+                        est_ff_heat=1e-11, line_diff=1e-9, L_window=1e-9,
+                        L_reabsorbed=1e-9)
 
-    mu, nu, w = pool
-    n = mu.shape[0]
-    kw = dict(pool_w=w, last_interaction=True)
-    ms, full = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key, **kw),
-                       2)
-    dist = event_distribution(full.events, full.summary[3].item())
-    events_full = full.summary[2].item()
-    li = full.last_interaction[:, 0]
-    kinds = {"line": int((li == 2).sum()), "continuum": int((li == 3).sum()),
-             "escat": int((li == 1).sum()),
-             "adiabatic": int(((full.out[:, 0] < 0)
-                               & (full.out[:, 1] == 0)).sum())}
-    del full
-    capped_ms, k = cuda_ms(lambda: transport_loop(
-        tables, mu, nu, run_key, max_events=IIP_EVENT_CAP, **kw), 3)
-    plain_ms, p = cuda_ms(lambda: transport_loop_plain(
-        tables, mu, nu, run_key, batch_size=n, max_events=IIP_EVENT_CAP,
-        **kw), 1, warmup=False)
+
+def compare_continuum(k, p):
+    """Two continuum K1 outputs that must agree: every packet's row, event
+    count and last-interaction row bitwise, the event and stopped totals
+    equal, the sums within CONTINUUM_LIMITS (f64 atomics in racing order).
+    The free-free heating sums ~1.5e8 terms spanning decades per shell
+    (chi_ff ~ nu^-3) in two racing orders: 1.25e-12 apart at 1,048,576
+    packets on an H100 80GB HBM3 at 700 W, so it is held to 1e-11; the line
+    difference array and luminosity sums, with cancelling terms, to 1e-9
+    as for the classic K1.  Returns (ok, numbers)."""
     bitwise = (k.out == p.out).all(dim=1).double().mean().item()
     events_equal = bool(torch.equal(k.events, p.events))
     rows_equal = bool(torch.equal(k.last_interaction, p.last_interaction))
@@ -1068,34 +1118,133 @@ def check_continuum_loop(tables, pool, run_key, replaces):
     rels["L_reabsorbed"] = rel_err(k.summary[1:2], p.summary[1:2])
     totals = (k.summary[2].item(), p.summary[2].item(),
               int(k.summary[3].item()), int(p.summary[3].item()))
-    limits = dict(est_j=1e-12, est_nubar=1e-12, cont_moments=1e-12,
-                  est_ff_heat=1e-11, line_diff=1e-9, L_window=1e-9,
-                  L_reabsorbed=1e-9)
-    if not (bitwise == 1.0 and events_equal and rows_equal
-            and totals[0] == totals[1] and totals[2] == totals[3]
-            and all(r <= limits[name] for name, r in rels.items())):
-        raise AssertionError(
-            f"continuum transport_loop at {n} packets: bitwise packets "
-            f"{bitwise}, per-packet events equal {events_equal}, "
-            f"last-interaction rows equal {rows_equal}, (events, stopped) "
-            f"{totals}, max rel {rels}")
+    ok = (bitwise == 1.0 and events_equal and rows_equal
+          and totals[0] == totals[1] and totals[2] == totals[3]
+          and all(r <= CONTINUUM_LIMITS[name] for name, r in rels.items()))
     max_abs = max((getattr(k, name) - getattr(p, name)).abs().max().item()
                   for name in ("out", "est_j", "est_nubar", "est_ff_heat",
                                "cont_moments", "line_diff", "summary"))
+    return ok, dict(bitwise_packets=bitwise, events_bitwise=events_equal,
+                    last_interaction_bitwise=rows_equal, events=totals[0],
+                    stopped=totals[2], max_rel=rels, max_abs_err=max_abs)
+
+
+def check_continuum_loop(tables, pool, run_key, replaces):
+    """A continuum K1 instantiation at the IIP path's width, in both of its
+    table placements (shared memory, the one its size picks at the IIP
+    problem, and device memory).  Each is timed uncapped as the path runs
+    it (``ms``, one launch of the persistent grid), held against the
+    path's own run (the size's pick, its first timed run) uncapped, every
+    packet bitwise, and runs the longest packet alone (a one-packet slice
+    of the pool at pid_offset = its id draws the same bits), the floor of
+    any schedule; then both placements against the plain version, all
+    stopped at IIP_EVENT_CAP events a packet (the plain lockstep loop runs
+    as many steps as its longest packet).  Every comparison: each packet's
+    row, event count and last-interaction row bitwise (a stopped packet's
+    row is zero in both), the sums within CONTINUUM_LIMITS.  Returns the
+    kernels-line entry."""
+    from tardis_torch.transport.kernel import (
+        library_defines,
+        smem_tables_fit,
+        transport_loop,
+        transport_loop_plain,
+        variant,
+        variant_name,
+    )
+
+    mu, nu, w = pool
+    n = mu.shape[0]
+    kw = dict(pool_w=w, last_interaction=True)
+    flags = variant(tables, w, last_interaction=True)
+    picked = smem_tables_fit(tables, library_defines(flags))
+    placements = (picked, not picked) if picked else (False,)
+    runs = {}
+    full = None
+    for smem in placements:
+        def run_full():
+            return transport_loop(tables, mu, nu, run_key, smem_tables=smem,
+                                  **kw)
+
+        if full is None:
+            ms, full = cuda_ms(run_full, 2)
+            res, numbers = full, {}
+        else:
+            ms, res = cuda_ms(run_full, 1, warmup=False)
+            ok, numbers = compare_continuum(res, full)
+            if not ok:
+                raise AssertionError(
+                    f"continuum transport_loop, tables in "
+                    f"{'shared' if smem else 'device'} memory, against the "
+                    f"path's placement: {numbers}")
+        # the floor: the longest packet alone
+        i = int(torch.argmax(full.events))
+        one = slice(i, i + 1)
+        floor_ms, alone = cuda_ms(lambda: transport_loop(
+            tables, mu[one], nu[one], run_key, pool_w=w[one],
+            last_interaction=True, pid_offset=i, smem_tables=smem), 3)
+        if not (torch.equal(alone.out, full.out[one])
+                and torch.equal(alone.events, full.events[one])
+                and torch.equal(alone.last_interaction,
+                                full.last_interaction[one])):
+            raise AssertionError(f"continuum transport_loop: packet {i} "
+                                 f"alone differs from its run in the pool")
+        events = res.summary[2].item()
+        runs[smem] = dict(ms=ms, events_per_s=events / (ms * 1e-3),
+                          against_path=numbers,
+                          floor=dict(packet=i, events=int(full.events[i]),
+                                     ms=floor_ms,
+                                     us_per_event=floor_ms * 1e3
+                                     / int(full.events[i])))
+        del res, alone
+    dist = event_distribution(full.events, full.summary[3].item())
+    events_full = full.summary[2].item()
+    li = full.last_interaction[:, 0]
+    kinds = {"line": int((li == 2).sum()), "continuum": int((li == 3).sum()),
+             "escat": int((li == 1).sum()),
+             "adiabatic": int(((full.out[:, 0] < 0)
+                               & (full.out[:, 1] == 0)).sum())}
+    del full
+
+    plain_ms, p = cuda_ms(lambda: transport_loop_plain(
+        tables, mu, nu, run_key, batch_size=n, max_events=IIP_EVENT_CAP,
+        **kw), 1, warmup=False)
+    capped = {}
+    for smem in placements:
+        capped_ms, k = cuda_ms(lambda: transport_loop(
+            tables, mu, nu, run_key, max_events=IIP_EVENT_CAP,
+            smem_tables=smem, **kw), 3)
+        ok, numbers = compare_continuum(k, p)
+        if not ok:
+            raise AssertionError(
+                f"continuum transport_loop at {n} packets against its plain "
+                f"version, capped at {IIP_EVENT_CAP}, smem_tables={smem}: "
+                f"{numbers}")
+        capped[smem] = dict(numbers, ms=capped_ms)
+        last_interaction = k.last_interaction
+        del k
     b_ms, b_by = k1_bound(tables, n, events_full,
-                          extra_bytes=nbytes(w, k.last_interaction))
-    name = line_name("transport_loop", variant_name(variant(
-        tables, w, last_interaction=True)))
-    numbers = dict(line=name, n=n, ms=ms, events=events_full,
-                   events_per_packet=dist, interactions=kinds,
-                   capped_ms=capped_ms, plain_ms=plain_ms,
-                   event_cap=IIP_EVENT_CAP, capped_events=totals[0],
-                   capped_stopped=totals[2], bound_ms=b_ms, bound_by=b_by,
-                   bitwise_packets=bitwise, events_bitwise=events_equal,
-                   last_interaction_bitwise=rows_equal, max_rel=rels,
-                   max_abs_err=max_abs)
+                          extra_bytes=nbytes(w, last_interaction))
+    name = line_name("transport_loop", variant_name(flags))
+    path = runs[picked]
+    numbers = dict(line=name, n=n, smem_tables=picked, ms=path["ms"],
+                   events=events_full, events_per_packet=dist,
+                   interactions=kinds, placements={
+                       ("shared" if smem else "device"): runs[smem]
+                       for smem in placements},
+                   plain_ms=plain_ms, event_cap=IIP_EVENT_CAP, capped={
+                       ("shared" if smem else "device"): capped[smem]
+                       for smem in placements},
+                   bound_ms=b_ms, bound_by=b_by)
     say("check_continuum_loop", **numbers)
-    return k1_entry(name, replaces, numbers)
+    entry = k1_entry(name, replaces, dict(
+        numbers, max_abs_err=max(
+            [c["max_abs_err"] for c in capped.values()]
+            + [r["against_path"].get("max_abs_err", 0.0)
+               for r in runs.values()])))
+    entry.update(smem_tables=picked, floor_ms=path["floor"]["ms"],
+                 **({"device_tables_ms": runs[False]["ms"]}
+                    if picked else {}))
+    return entry
 
 
 @contextlib.contextmanager
@@ -1293,6 +1442,9 @@ def check_iip_kernels(device, state, atom, tables, k2, k3):
 
     _, k3_iip = check_line_tables(state, atom, device)
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_iip["max_abs_err"])
+    k3["iip_shape"] = {key: k3_iip[key] for key in (
+        "ms", "host_ms", "plain_ms", "bound_ms", "library_ms",
+        "library_host_ms")}
     pool, k2_iip = check_blackbody_source(state, device, IIP_PACKETS, 0,
                                           "relativistic")
     k2["relativistic"]["max_abs_err"] = max(
@@ -2138,7 +2290,7 @@ def main() -> int:
     with torch.no_grad():
         t = time.perf_counter()
         k_probe = check_probe2(device)
-        ps, k3 = check_line_tables(state, atom, device)
+        ps, k3 = check_line_tables(state, atom, device, K3_WIDE_SHELLS)
         pools, k2 = check_pools(state, device)
         chain = check_chain_build(atom, ps)
         tables = path_tables(state, atom, ps, chain)

@@ -11,55 +11,68 @@
 //
 // Bound on the H100: bytes.  It reads the level populations and five
 // per-line arrays and writes four (L, S) f64 tables plus the (S, L+1)
-// prefix, ~150 MB at bench scale, with a few dozen flops per element.
-// Design: kernel 1 is elementwise, one thread per (line, shell), in the
-// (L, S) layout its consumers read (adjacent threads are adjacent shells,
-// so stores coalesce).  Kernel 2 scans: one block per shell walks L in
-// tiles of blockDim lines, each tile a warp-shuffle inclusive scan plus a
-// running carry; the prefix rows are written contiguously.  The scan
-// reads tau with stride S, which costs sector efficiency; it is off the
-// transport hot loop.  Built with --fmad=false (see tardis_torch/cuda.py).
+// prefix, ~150 MB at bench scale (L = 183,060, S = 20), with a few dozen
+// flops per element.  Design: reduce, then scan, over tiles of kTile lines
+// that fill the card (2,861 tiles at bench scale), in three passes:
+//   A. one block per tile of kTile lines x a chunk of shells (all S shells
+//      while they fit the block's shared memory; the tile is then one
+//      contiguous span of the (L, S) layout).  Each thread computes stim,
+//      tau, beta and j_blues of its elements in f64 in registers and stores
+//      them coalesced; tau is staged in shared memory transposed to
+//      (shells, kTile), where each shell's tile is scanned (below) and its
+//      sum written to a small (S, n_tiles) array;
+//   B. one block per shell scans that shell's tile sums (an (S, n_tiles)
+//      array) into the tiles' carries (exclusive), in a fixed order;
+//   C. one block per tile re-reads its tau tile (coalesced), stages and
+//      scans it as pass A did, and writes carry + scan into the (S, L+1)
+//      prefix rows (leading 0 included), each shell's span contiguous.
+// The scan of a shell's tile is the same in A and C: a Kogge-Stone warp
+// scan of each 32-line segment, then the segment sums added left to right.
+// Every association is fixed, so the prefix is bitwise the same from run to
+// run (no decoupled look-back, whose association depends on timing).  The
+// per-shell inputs h / (k T_rad) and W arrive by value in the kernel's
+// parameters while 2 S doubles fit (S <= kShellsByValue), else from a
+// device buffer.  Built with --fmad=false (see tardis_torch/cuda.py).
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
 
-__global__ void line_elements_kernel(
-    const double* __restrict__ level_pop,  // (n_levels, S)
-    const int32_t* __restrict__ lower_idx, const int32_t* __restrict__ upper_idx,
-    const double* __restrict__ g_lower, const double* __restrict__ g_upper,
-    const double* __restrict__ wl_flu,     // wavelength * f_lu, (L,)
-    const double* __restrict__ line_nu,    // Hz, (L,)
-    const double* __restrict__ nu3_coef,   // 2 h nu^3 / c^2, (L,)
-    const double* __restrict__ h_over_kt,  // (S,)
-    const double* __restrict__ jb_w,       // (S,)
-    double sobolev_coefficient, double time_explosion, int64_t L, int S,
-    double* __restrict__ stim, double* __restrict__ tau,
-    double* __restrict__ beta, double* __restrict__ jb) {
-  int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= L * S) return;
-  int64_t l = e / S;
-  int s = (int)(e - l * S);
-  double n_lower = level_pop[(int64_t)lower_idx[l] * S + s];
-  double n_upper = level_pop[(int64_t)upper_idx[l] * S + s];
-  // lte.stimulated_emission_factor: non-finite ratios count as 1
-  double ratio = (g_lower[l] * n_upper) / (g_upper[l] * n_lower);
-  if (!isfinite(ratio)) ratio = 1.0;
-  double st = fmax(1.0 - ratio, 0.0);
-  // lte.tau_sobolev, evaluated in the same order
-  double t = sobolev_coefficient * wl_flu[l] * time_explosion * st * n_lower;
-  // lte.beta_sobolev
-  double b;
-  if (t > 1e3) b = 1.0 / t;
-  else if (t < 1e-4) b = 1.0 - 0.5 * t;
-  else b = -expm1(-t) / t;
-  // jb_w * lte.intensity_black_body
-  double x = fmin(line_nu[l] * h_over_kt[s], 700.0);
-  stim[e] = st;
-  tau[e] = t;
-  beta[e] = b;
-  jb[e] = jb_w[s] * (nu3_coef[l] / expm1(x));
-}
+constexpr int kTile = 64;             // lines per tile
+constexpr int kSegments = kTile / 32;  // warp segments per shell's tile
+constexpr int kThreads = 256;
+constexpr int kShellsByValue = 128;    // 2 KB of per-shell inputs by value
+constexpr int kMaxChunk = 87;          // shells per block: 87 x (kTile + 6) x 8 B < 48 KB
+constexpr int kCarryThreads = 1024;    // pass B: one block a shell,
+constexpr int kCarryItems = 4;         // 4 tiles a thread
+
+struct ShellInputs {
+  double h_over_kt[kShellsByValue];
+  double jb_w[kShellsByValue];
+};
+
+struct LineArgs {
+  const double* level_pop;  // (n_levels, S)
+  const int32_t* lower_idx;
+  const int32_t* upper_idx;
+  const double* g_lower;
+  const double* g_upper;
+  const double* wl_flu;     // wavelength * f_lu, (L,)
+  const double* line_nu;    // Hz, (L,)
+  const double* nu3_coef;   // 2 h nu^3 / c^2, (L,)
+  const double* shell_dev;  // (2 S,) [h / (k T_rad), W] when S > kShellsByValue
+  double sobolev_coefficient, time_explosion;
+  int64_t L;
+  int S, chunk;             // shells per block (blockIdx.y picks the chunk)
+  double* stim;
+  double* tau;
+  double* beta;
+  double* jb;
+  double* tile_sums;        // (S, n_tiles)
+  double* carries;          // (S, n_tiles) exclusive
+  int64_t n_tiles;
+  double* prefix;           // (S, L+1)
+};
 
 __device__ __forceinline__ double warp_inclusive_scan(double v) {
   const int lane = threadIdx.x & 31;
@@ -71,60 +84,286 @@ __device__ __forceinline__ double warp_inclusive_scan(double v) {
   return v;
 }
 
-constexpr int kScanThreads = 1024;
+// the tile's lines, and the chunk's first shell and width
+struct Tile {
+  int64_t b, l0;
+  int n_lines, s0, sc;
+};
 
-__global__ void __launch_bounds__(kScanThreads) prefix_scan_kernel(
-    const double* __restrict__ tau, int64_t L, int S,
-    double* __restrict__ prefix) {  // (S, L+1)
-  __shared__ double warp_sums[kScanThreads / 32];
-  const int s = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  double* row = prefix + (int64_t)s * (L + 1);
-  if (threadIdx.x == 0) row[0] = 0.0;
+__device__ __forceinline__ Tile make_tile(const LineArgs& a, int64_t b, int chunk) {
+  Tile t;
+  t.b = b;
+  t.l0 = b * kTile;
+  t.n_lines = (int)min((int64_t)kTile, a.L - t.l0);
+  t.s0 = chunk * a.chunk;
+  t.sc = min(a.chunk, a.S - t.s0);
+  return t;
+}
+
+// scan each staged shell row of ``sh`` ((sc, kTile + 1), zero past the
+// tile's lines) in place within its 32-line segments, and write each
+// segment's exclusive offset to ``seg`` ((sc, kSegments)); returns after a
+// barrier, with ``seg_total[s]`` the tile's sum for each shell s < sc
+__device__ __forceinline__ void scan_tile(double* sh, double* seg, double* seg_total,
+                                          int sc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int task = warp; task < sc * kSegments; task += kThreads / 32) {
+    const int s = task / kSegments, k = task - s * kSegments;
+    double* x = sh + s * (kTile + 1) + k * 32;
+    const double v = warp_inclusive_scan(x[lane]);
+    x[lane] = v;
+    if (lane == 31) seg[s * kSegments + k] = v;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < sc; s += kThreads) {
+    double run = 0.0;
+#pragma unroll
+    for (int k = 0; k < kSegments; ++k) {
+      const double v = seg[s * kSegments + k];
+      seg[s * kSegments + k] = run;
+      run += v;
+    }
+    seg_total[s] = run;
+  }
+  __syncthreads();
+}
+
+// shared memory of one tile: sh (sc, kTile + 1), seg (sc, kSegments),
+// seg_total, h / (k T_rad) and W (sc each)
+struct TileSmem {
+  double *sh, *seg, *seg_total, *hkt, *jbw;
+};
+
+__device__ __forceinline__ TileSmem tile_smem(double* smem, int sc) {
+  TileSmem m;
+  m.sh = smem;
+  m.seg = m.sh + sc * (kTile + 1);
+  m.seg_total = m.seg + sc * kSegments;
+  m.hkt = m.seg_total + sc;
+  m.jbw = m.hkt + sc;
+  return m;
+}
+
+// stim, tau, beta and j_blues of line l in shell s (plasma/lte.py's
+// formulas in their order)
+struct LineValues {
+  double stim, tau, beta, jb;
+};
+
+__device__ __forceinline__ LineValues line_values(const LineArgs& a, int64_t l, int s,
+                                                  double h_over_kt, double jb_w) {
+  const int S = a.S;
+  const double n_lower = a.level_pop[(int64_t)a.lower_idx[l] * S + s];
+  const double n_upper = a.level_pop[(int64_t)a.upper_idx[l] * S + s];
+  LineValues v;
+  // lte.stimulated_emission_factor: non-finite ratios count as 1
+  double ratio = (a.g_lower[l] * n_upper) / (a.g_upper[l] * n_lower);
+  if (!isfinite(ratio)) ratio = 1.0;
+  v.stim = fmax(1.0 - ratio, 0.0);
+  // lte.tau_sobolev, evaluated in the same order
+  v.tau = a.sobolev_coefficient * a.wl_flu[l] * a.time_explosion * v.stim * n_lower;
+  // lte.beta_sobolev
+  if (v.tau > 1e3) v.beta = 1.0 / v.tau;
+  else if (v.tau < 1e-4) v.beta = 1.0 - 0.5 * v.tau;
+  else v.beta = -expm1(-v.tau) / v.tau;
+  // jb_w * lte.intensity_black_body
+  const double x = fmin(a.line_nu[l] * h_over_kt, 700.0);
+  v.jb = jb_w * (a.nu3_coef[l] / expm1(x));
+  return v;
+}
+
+__device__ __forceinline__ void store_values(const LineArgs& a, int64_t i,
+                                             const LineValues& v) {
+  a.stim[i] = v.stim;
+  a.tau[i] = v.tau;
+  a.beta[i] = v.beta;
+  a.jb[i] = v.jb;
+}
+
+// pass A on one tile: its four tables and its per-shell tau sums
+__device__ __forceinline__ void tile_elements(const LineArgs& a, const ShellInputs& shin,
+                                              const Tile& t, double* smem) {
+  const int S = a.S;
+  const TileSmem m = tile_smem(smem, t.sc);
+  // the chunk's per-shell inputs, once per tile (a warp's lanes span ~S
+  // shells, so reading the parameters per element would serialize)
+  for (int s = threadIdx.x; s < t.sc; s += kThreads) {
+    const bool by_value = S <= kShellsByValue;
+    m.hkt[s] = by_value ? shin.h_over_kt[t.s0 + s] : a.shell_dev[t.s0 + s];
+    m.jbw[s] = by_value ? shin.jb_w[t.s0 + s] : a.shell_dev[S + t.s0 + s];
+  }
+  __syncthreads();
+  const int n = t.n_lines * t.sc;
+  for (int e = threadIdx.x; e < kTile * t.sc; e += kThreads) {
+    const int ll = e / t.sc;
+    const int sl = e - ll * t.sc;
+    double tv = 0.0;
+    if (e < n) {
+      const LineValues v = line_values(a, t.l0 + ll, t.s0 + sl, m.hkt[sl], m.jbw[sl]);
+      store_values(a, (t.l0 + ll) * S + t.s0 + sl, v);
+      tv = v.tau;
+    }
+    m.sh[sl * (kTile + 1) + ll] = tv;
+  }
+  __syncthreads();
+  scan_tile(m.sh, m.seg, m.seg_total, t.sc);
+  for (int s = threadIdx.x; s < t.sc; s += kThreads)
+    a.tile_sums[(t.s0 + s) * a.n_tiles + t.b] = m.seg_total[s];
+}
+
+// pass C on one tile: its prefix, carry + the tile's scan
+__device__ __forceinline__ void tile_prefix(const LineArgs& a, const Tile& t,
+                                            double* smem) {
+  const int S = a.S;
+  const TileSmem m = tile_smem(smem, t.sc);
+  const int n = t.n_lines * t.sc;
+  for (int e = threadIdx.x; e < kTile * t.sc; e += kThreads) {
+    const int ll = e / t.sc;
+    const int sl = e - ll * t.sc;
+    m.sh[sl * (kTile + 1) + ll] = e < n ? a.tau[(t.l0 + ll) * S + t.s0 + sl] : 0.0;
+  }
+  __syncthreads();
+  scan_tile(m.sh, m.seg, m.seg_total, t.sc);
+  const int64_t L = a.L;
+  for (int e = threadIdx.x; e < t.sc * kTile; e += kThreads) {
+    const int sl = e / kTile;
+    const int ll = e - sl * kTile;
+    if (ll >= t.n_lines) continue;
+    const int s = t.s0 + sl;
+    const double carry = a.carries[s * a.n_tiles + t.b];
+    double* row = a.prefix + (int64_t)s * (L + 1);
+    row[t.l0 + ll + 1] = carry + (m.seg[sl * kSegments + (ll >> 5)] + m.sh[sl * (kTile + 1) + ll]);
+    if (t.b == 0 && ll == 0) row[0] = 0.0;
+  }
+}
+
+// at most 40 registers, so that 6 blocks share an SM: its f64 arithmetic
+// (two expm1 and two divisions an element) then overlaps its stores
+// (0.080 -> 0.069 ms at the bench shape on an H100 80GB HBM3 at 700 W)
+__global__ void __launch_bounds__(kThreads, 6) line_elements_kernel(LineArgs a,
+                                                                 ShellInputs shin) {
+  extern __shared__ double smem[];
+  tile_elements(a, shin, make_tile(a, blockIdx.x, blockIdx.y), smem);
+}
+
+// pass B: shell blockIdx.x's carries, the exclusive scan of its tile sums,
+// kCarryItems consecutive tiles a thread: the chunk's sums are loaded
+// coalesced into shared memory, each thread adds its run, the runs' sums
+// are scanned across the block (warp scans, then the warps' sums), and
+// each thread writes its run's carries
+__global__ void __launch_bounds__(kCarryThreads) carry_kernel(LineArgs a) {
+  __shared__ double vals[kCarryThreads * kCarryItems];
+  __shared__ double warp_sums[kCarryThreads / 32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t n_tiles = a.n_tiles;
+  const double* sums = a.tile_sums + blockIdx.x * n_tiles;
+  double* carries = a.carries + blockIdx.x * n_tiles;
+  constexpr int kChunk = kCarryThreads * kCarryItems;
   double carry = 0.0;
-  for (int64_t base = 0; base < L; base += kScanThreads) {
-    int64_t i = base + threadIdx.x;
-    double v = i < L ? tau[i * S + s] : 0.0;
-    v = warp_inclusive_scan(v);
-    if (lane == 31) warp_sums[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-      double w = warp_sums[lane];
-      warp_sums[lane] = warp_inclusive_scan(w);
+  for (int64_t base = 0; base < n_tiles; base += kChunk) {
+#pragma unroll
+    for (int k = 0; k < kCarryItems; ++k) {
+      const int64_t b = base + k * kCarryThreads + threadIdx.x;
+      vals[k * kCarryThreads + threadIdx.x] = b < n_tiles ? sums[b] : 0.0;
     }
     __syncthreads();
-    double before = warp > 0 ? warp_sums[warp - 1] : 0.0;
-    if (i < L) row[i + 1] = carry + (before + v);
-    carry += warp_sums[kScanThreads / 32 - 1];
+    double v[kCarryItems];
+    double run = 0.0;
+#pragma unroll
+    for (int k = 0; k < kCarryItems; ++k) {
+      v[k] = vals[threadIdx.x * kCarryItems + k];
+      run += v[k];
+    }
+    const double incl = warp_inclusive_scan(run);
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    if (warp == 0) warp_sums[lane] = warp_inclusive_scan(warp_sums[lane]);
+    __syncthreads();
+    // this thread's exclusive offset: its warp's offset plus the inclusive
+    // value of the lane before it
+    const double left = __shfl_up_sync(0xffffffffu, incl, 1);
+    double c = carry + ((warp > 0 ? warp_sums[warp - 1] : 0.0) + (lane > 0 ? left : 0.0));
+#pragma unroll
+    for (int k = 0; k < kCarryItems; ++k) {
+      vals[threadIdx.x * kCarryItems + k] = c;
+      c += v[k];
+    }
+    carry += warp_sums[kCarryThreads / 32 - 1];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kCarryItems; ++k) {
+      const int64_t b = base + k * kCarryThreads + threadIdx.x;
+      if (b < n_tiles) carries[b] = vals[k * kCarryThreads + threadIdx.x];
+    }
     __syncthreads();
   }
 }
 
+__global__ void __launch_bounds__(kThreads) prefix_kernel(LineArgs a) {
+  extern __shared__ double smem[];
+  tile_prefix(a, make_tile(a, blockIdx.x, blockIdx.y), smem);
+}
+
 }  // namespace
 
+// The per-shell inputs come as a host array shell_host = [h / (k T_rad)
+// (S), W (S)], read during this call, when S <= kShellsByValue; otherwise
+// as the device array shell_dev of the same layout.  scratch holds 2
+// n_tiles S doubles (tile sums and carries), n_tiles = ceil(L / kTile).
 extern "C" int line_tables(
     const void* level_pop, const void* lower_idx, const void* upper_idx,
     const void* g_lower, const void* g_upper, const void* wl_flu,
-    const void* line_nu, const void* nu3_coef, const void* h_over_kt,
-    const void* jb_w, double sobolev_coefficient, double time_explosion,
+    const void* line_nu, const void* nu3_coef, const double* shell_host,
+    const void* shell_dev, double sobolev_coefficient, double time_explosion,
     int64_t L, int S, void* stim, void* tau, void* beta, void* jb,
-    void* prefix, void* stream) {
+    void* prefix, void* scratch, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int threads = 256;
-  int64_t n = L * S;
-  if (n > 0) {
-    line_elements_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, st>>>(
-        (const double*)level_pop, (const int32_t*)lower_idx,
-        (const int32_t*)upper_idx, (const double*)g_lower,
-        (const double*)g_upper, (const double*)wl_flu, (const double*)line_nu,
-        (const double*)nu3_coef, (const double*)h_over_kt, (const double*)jb_w,
-        sobolev_coefficient, time_explosion, L, S, (double*)stim,
-        (double*)tau, (double*)beta, (double*)jb);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+  if (S <= 0) return 0;
+  if (S > kShellsByValue && shell_dev == nullptr) return (int)cudaErrorInvalidValue;
+  ShellInputs shin{};
+  if (S <= kShellsByValue) {
+    for (int s = 0; s < S; ++s) {
+      shin.h_over_kt[s] = shell_host[s];
+      shin.jb_w[s] = shell_host[S + s];
+    }
   }
-  prefix_scan_kernel<<<S, kScanThreads, 0, st>>>((const double*)tau, L, S,
-                                                (double*)prefix);
+  const int64_t n_tiles = L > 0 ? (L + kTile - 1) / kTile : 0;
+  const int n_chunks = (S + kMaxChunk - 1) / kMaxChunk;
+  LineArgs a;
+  a.level_pop = (const double*)level_pop;
+  a.lower_idx = (const int32_t*)lower_idx;
+  a.upper_idx = (const int32_t*)upper_idx;
+  a.g_lower = (const double*)g_lower;
+  a.g_upper = (const double*)g_upper;
+  a.wl_flu = (const double*)wl_flu;
+  a.line_nu = (const double*)line_nu;
+  a.nu3_coef = (const double*)nu3_coef;
+  a.shell_dev = (const double*)shell_dev;
+  a.sobolev_coefficient = sobolev_coefficient;
+  a.time_explosion = time_explosion;
+  a.L = L;
+  a.S = S;
+  a.chunk = (S + n_chunks - 1) / n_chunks;
+  a.stim = (double*)stim;
+  a.tau = (double*)tau;
+  a.beta = (double*)beta;
+  a.jb = (double*)jb;
+  a.n_tiles = n_tiles;
+  a.tile_sums = (double*)scratch;
+  a.carries = (double*)scratch + n_tiles * S;
+  a.prefix = (double*)prefix;
+  if (n_tiles == 0) {
+    // no lines: each prefix row is its leading 0
+    return (int)cudaMemsetAsync(prefix, 0, (size_t)S * sizeof(double), st);
+  }
+  const size_t shm = (size_t)a.chunk * (kTile + 1 + kSegments + 3) * sizeof(double);
+  const dim3 grid((unsigned)n_tiles, (unsigned)n_chunks);
+  line_elements_kernel<<<grid, kThreads, shm, st>>>(a, shin);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  carry_kernel<<<S, kCarryThreads, 0, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  prefix_kernel<<<grid, kThreads, shm, st>>>(a);
   return (int)cudaGetLastError();
 }

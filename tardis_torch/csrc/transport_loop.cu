@@ -72,11 +72,10 @@
 //     recomputed, with the same operations, to pick the continuum (the
 //     JAX package takes it from the pre-move sum).  Each event adds
 //     seven moments [w, w/nu, w nu, wb, wb/nu, wb nu, 1] to row gcell *
-//     S + shell of a ((Ng-1) * S, 8) f64 array with global atomics
-//     (29,280 addresses at the IIP problem's 184-point grid and 20
-//     shells; column 7 stays 0), and w chi_ff to the per-shell
-//     free-free heating in shared memory, flushed once per block as
-//     est_j is.  A continuous event is a Thomson scatter if u2 < chi_e
+//     S + shell of a ((Ng-1) * S, 8) f64 array (29,280 addresses at the
+//     IIP problem's 184-point grid and 20 shells; column 7 stays 0), and
+//     w chi_ff to the per-shell free-free heating, through the lane's
+//     run accumulator (Run, below).  A continuous event is a Thomson scatter if u2 < chi_e
 //     / chi, else a continuum process; lines and continuum processes
 //     activate the Markov macro atom: the absorbing state by a search
 //     of its cumulative row (u6), then the channel in that state's
@@ -90,13 +89,21 @@
 //   - adiabatic cooling (TL_ADIABATIC, :917-928,1016-1021): the channel
 //     ends the packet with output (-nu before the interaction, energy 0).
 //   Bound of the continuum instantiation: still latency, not bandwidth.
-//   An event adds ~C x 12 operations and C x 4 table reads (L2-resident:
-//   the IIP tables are under 1 MB) to the classic event and seven f64
-//   atomics spread over 29,280 addresses.  The Markov walk is heavy-tailed
-//   (packets in continuum-thick shells random-walk 1e4-3e5 events), and a
-//   block stays resident until its longest packet dies; one thread per
-//   packet keeps that simple, and the tail's cost is measured, not
-//   designed around, in this instantiation.
+//   An event adds ~C x 12 operations and C x 4 table reads (the IIP
+//   tables are 142 KB) to the classic event.  The Markov walk is
+//   heavy-tailed (packets in continuum-thick shells random-walk 1e4-3e5
+//   events, mean ~2,400), so one thread per packet in fixed blocks kept
+//   whole blocks resident behind one long walk (7.7 s for 2.49e9 events
+//   on an H100 80GB HBM3 at 700 W).  The continuum instantiations therefore run
+//   their own loop (continuum_kernel, below), the counterpart of the JAX
+//   package's lane refill and `_repack_jit` (kernel.py:1249-1266,1338,1360):
+//   one launch of a persistent grid whose lanes take packets from a queue
+//   and refill as soon as a packet ends, so no lane or block slot waits on
+//   a long walk while the queue has work.  Every draw is keyed by
+//   (pid_offset + pid, event index), so a packet's trajectory, row and
+//   event count do not depend on the lane that runs it; only the order of
+//   the f64 atomics does.  The classic instantiations keep walk_packet and
+//   their one-thread-per-packet launch.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -152,7 +159,40 @@ struct ContinuumArgs {
   double* ff_heat;                 // (S,)
   int32_t* events;                 // (N,) events of each packet
   int n_grid, n_continua, n_states, k_state, n_two_photon;
+  int n_deact, n_fb;               // D, P
 };
+
+// bytes of shared memory that stage_tables takes (each table's bytes
+// rounded up to 16) for L lines and S shells
+__host__ __device__ inline int64_t round16(int64_t b) { return (b + 15) & ~(int64_t)15; }
+
+__host__ __device__ inline int64_t continuum_table_bytes(const ContinuumArgs& c, int64_t L,
+                                                         int64_t S) {
+  const int64_t Ng = c.n_grid, C = c.n_continua, M = c.n_states;
+  const int64_t D = c.n_deact, P = c.n_fb;
+  return round16(8 * S * (L + 1)) + 3 * round16(4 * S) + round16(4 * L)
+         + round16(4 * Ng) + round16(4 * Ng * C) + 2 * round16(4 * C * S)
+         + 2 * round16(4 * S) + round16(4 * S * M * M) + round16(4 * (M + 1))
+         + round16(4 * D * S) + round16(D) + round16(4 * D) + round16(4 * L)
+         + round16(4 * C) + round16(4 * P * S) + round16(4 * P) + round16(4 * (C + 1))
+         + round16(4 * (int64_t)c.n_two_photon);
+}
+
+// the continuum loop's blocks: 128 lanes reading the tables from device
+// memory, or 512 with the tables staged in shared memory
+constexpr int kContThreads = 128;
+constexpr int kSmemThreads = 512;
+// terms of a lane's run accumulator (Run, below)
+constexpr int kAccTerms = 8;
+
+// dynamic shared memory of one continuum block: the per-shell sums, the
+// lanes' run accumulators and, with smem_tables, the staged tables
+inline size_t continuum_shared_bytes(const ContinuumArgs& c, int64_t L, int S,
+                                     bool smem_tables) {
+  const int threads = smem_tables ? kSmemThreads : kContThreads;
+  return (size_t)(3 * S + 4 + kAccTerms * threads) * sizeof(double)
+         + (size_t)(smem_tables ? continuum_table_bytes(c, L, S) : 0);
+}
 
 namespace {
 
@@ -317,14 +357,12 @@ struct LastInteraction {
         r = 0.0f;
 };
 
-template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights,
-          bool kCont, bool kTwoPhoton, bool kAdiabatic>
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights>
 __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
-                            double* sh_nubar, double* sh_sum, double* sh_ff) {
+                            double* sh_nubar, double* sh_sum) {
   const int S = p.S;
   const int64_t L = p.L;
   const float beta_inner = p.r_inner[0];
-  const ContinuumArgs& cont = p.cont;
 
   // birth: next_line = number of lines with nu_line >= nu_cmf
   float mu = p.pool_mu[pid];
@@ -350,10 +388,8 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
   float r = beta_inner;
   int shell = 0;
   const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + pid));
-  if constexpr (!kCont) {
-    if (p.vp_capacity > 0)
-      spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
-  }
+  if (p.vp_capacity > 0)
+    spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
   LastInteraction li;
 
   int64_t ev = 0;
@@ -372,30 +408,6 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     else dop = 1.0f - z;
     const float nu_cmf = nu * dop;
     float chi = chi_e;
-
-    // continuum opacity in the comoving frame: the grid cell (last knot
-    // <= nu_cmf, clipped), its weight, b = exp(-h nu / k T_e), chi_bf and
-    // chi_ff
-    int gcell = 0;
-    float tfrac = 0.0f, boltz = 0.0f, chi_bf = 0.0f, chi_ff = 0.0f;
-    if constexpr (kCont) {
-      int glo = 0, ghi = cont.n_grid;
-      while (glo < ghi) {
-        const int mid = (glo + ghi) >> 1;
-        if (cont.grid_nu[mid] <= nu_cmf) glo = mid + 1;
-        else ghi = mid;
-      }
-      gcell = min(max(glo - 1, 0), cont.n_grid - 2);
-      const float g0 = cont.grid_nu[gcell];
-      const float dg = cont.grid_nu[gcell + 1] - g0;
-      tfrac = fminf(fmaxf((nu_cmf - g0) / fmaxf(dg, 1e-30f), 0.0f), 1.0f);
-      boltz = (float)exp(-(double)(nu_cmf * cont.boltz_coef[shell]));
-      chi_bf = bound_free_sum(cont, S, shell, gcell, tfrac, boltz, 0.0f, nullptr);
-      const float nuc = fmaxf(nu_cmf, 1e-30f);
-      chi_ff = cont.ff_coef[shell] / ((nuc * nuc) * nuc) * (1.0f - boltz);
-      chi = chi_e + chi_bf + chi_ff;
-    }
-    const float chi_cmf = chi;
     if constexpr (kRel) chi = chi * dop;
 
     // distance to the shell boundary; a tangential ray (mu == 0) grazes
@@ -457,19 +469,6 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     else w_j = (energy * dop) * distance;
     atomicAdd(&sh_j[shell], (double)w_j);
     atomicAdd(&sh_nubar[shell], (double)(w_j * nu_cmf));
-    if constexpr (kCont) {
-      const float inv_nu = 1.0f / fmaxf(nu_cmf, 1e-30f);
-      const float wb = w_j * boltz;
-      double* m = cont.moments + ((int64_t)gcell * S + shell) * 8;
-      atomicAdd(m, (double)w_j);
-      atomicAdd(m + 1, (double)(w_j * inv_nu));
-      atomicAdd(m + 2, (double)(w_j * nu_cmf));
-      atomicAdd(m + 3, (double)wb);
-      atomicAdd(m + 4, (double)(wb * inv_nu));
-      atomicAdd(m + 5, (double)(wb * nu_cmf));
-      atomicAdd(m + 6, 1.0);
-      atomicAdd(&sh_ff[shell], (double)(w_j * chi_ff));
-    }
     if (end_line != next_line) {
       float w1, w2;
       if constexpr (kRel) {
@@ -533,14 +532,6 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
       continue;
     }
 
-    // a continuous event is a Thomson scatter or, with continuum, a
-    // continuum process (chi_e / chi is the Thomson share)
-    bool contproc = false;
-    if constexpr (kCont) {
-      if (event == kEvEscat)
-        contproc = draw(ke, kColEscat) >= chi_e / fmaxf(chi_cmf, 1e-30f);
-    }
-
     // Thomson scatter or absorption: new direction drawn in the CMF
     const float mu_draw = 2.0f * draw(ke, 1) - 1.0f;
     float dop_old_pos, inv_dop_new, mu_emit;
@@ -555,73 +546,13 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
       mu_emit = mu_draw;
     }
     const float nu_in = nu;
-    bool adiabatic = false;
-    if (event == kEvEscat && !contproc) {
+    if (event == kEvEscat) {
       nu = nu * dop_old_pos * inv_dop_new;
       next_line = end_line;
       if constexpr (kLast) {
         li.type = 1.0f;
         li.in_line = -1.0f;
         li.out_line = -1.0f;
-      }
-    } else if constexpr (kCont) {
-      // the Markov macro atom, activated by the line's state, the chosen
-      // continuum's i-packet state or the k-packet state
-      int state0;
-      if (event == kEvLine) {
-        state0 = cont.line2state[i_ev];
-      } else if (draw(ke, kColBfFf) < chi_bf / fmaxf(chi_bf + chi_ff, 1e-30f)) {
-        int c_sel;
-        bound_free_sum(cont, S, shell, gcell, tfrac, boltz,
-                       draw(ke, kColContSel) * chi_bf, &c_sel);
-        state0 = cont.photo_ion_state[min(c_sel, cont.n_continua - 1)];
-      } else {
-        state0 = cont.k_state;
-      }
-      const int M = cont.n_states;
-      const float* brow = cont.mk_cum_b + ((int64_t)shell * M + state0) * M;
-      const int a = min(cdf_lower_bound(brow, M, draw(ke, kColMkRow)), M - 1);
-      const int b0 = cont.deact_block_start[a];
-      const int b1 = cont.deact_block_start[a + 1];
-      int t = strided_lower_bound(cont.deact_cum_prob, b0, b1, S, shell,
-                                  draw(ke, kColMkDeact));
-      t = min(max(t, b0), max(b1 - 1, b0));
-      const int kind = cont.deact_kind[t];
-      const int chan = cont.deact_id[t];
-      const int64_t em_line = chan < 0 ? 0 : (chan >= L ? L - 1 : (int64_t)chan);
-      float nu_cmf_em;
-      if (kind == kEmitLine) {
-        nu_cmf_em = p.line_nu[em_line];
-      } else if (kind == kEmitBf) {
-        nu_cmf_em = free_bound_nu(cont, S, shell, chan, draw(ke, kColFb));
-      } else if (kTwoPhoton && kind == kEmitTwoPhoton) {
-        const int tpn = cont.n_two_photon;
-        const float pos = draw(ke, kColFb) * (float)(tpn - 1);
-        const int i_tp = min(max((int)pos, 0), tpn - 2);
-        const float frac = pos - (float)i_tp;
-        nu_cmf_em = cont.two_photon_nu[i_tp] * (1.0f - frac)
-                    + cont.two_photon_nu[i_tp + 1] * frac;
-      } else {
-        nu_cmf_em = (float)(-log((double)draw(ke, kColFf))) / cont.boltz_coef[shell];
-      }
-      nu = nu_cmf_em * inv_dop_new;
-      if (kind == kEmitLine) {
-        next_line = em_line + 1;
-      } else {
-        int64_t nlo = 0, nhi = L;
-        while (nlo < nhi) {
-          const int64_t mid = (nlo + nhi) >> 1;
-          if (p.line_nu[mid] >= nu_cmf_em) nlo = mid + 1;
-          else nhi = mid;
-        }
-        next_line = nlo;
-      }
-      if constexpr (kAdiabatic) adiabatic = kind == kEmitAdiabatic;
-      if constexpr (kLast) {
-        const bool line = event == kEvLine;
-        li.type = line ? 2.0f : 3.0f;
-        li.in_line = line ? (float)i_ev : -1.0f;
-        li.out_line = line ? (float)em_line : -1.0f;
       }
     } else {
       int64_t em_line = i_ev;
@@ -661,24 +592,13 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
             p.tracker + (pid * p.tracker_length + ev) * 6);
         row[0] = make_float2(r, nu);
         row[1] = make_float2(energy, (float)shell);
-        row[2] = make_float2(
-            event == kEvLine ? 2.0f : (contproc ? 4.0f : 1.0f), mu);
+        row[2] = make_float2(event == kEvLine ? 2.0f : 1.0f, mu);
       }
     }
-    if constexpr (kAdiabatic) {
-      if (adiabatic) {
-        // the energy went into expansion work: no luminosity either way
-        p.out[2 * pid] = -nu_in;
-        p.out[2 * pid + 1] = 0.0f;
-        break;
-      }
-    }
-    if constexpr (!kCont) {
-      if (p.vp_capacity > 0) {
-        const bool line = event == kEvLine;
-        spawn_record(p, r, mu, nu, energy, shell, next_line, line ? 2.0f : 1.0f,
-                     line ? (float)(next_line - 1) : -1.0f);
-      }
+    if (p.vp_capacity > 0) {
+      const bool line = event == kEvLine;
+      spawn_record(p, r, mu, nu, energy, shell, next_line, line ? 2.0f : 1.0f,
+                   line ? (float)(next_line - 1) : -1.0f);
     }
   }
   if constexpr (kLast) {
@@ -688,36 +608,573 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     row[2] = make_float2(li.in_nu, li.r);
   }
   const int64_t n_ev = ev + 1 > p.max_events ? p.max_events : ev + 1;
-  if constexpr (kCont) cont.events[pid] = (int32_t)n_ev;
   atomicAdd(&sh_sum[2], (double)n_ev);
 }
 
-template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights,
-          bool kCont, bool kTwoPhoton, bool kAdiabatic>
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights>
 __global__ void transport_loop_kernel(Params p) {
   extern __shared__ double shm[];
   double* sh_j = shm;
   double* sh_nubar = shm + p.S;
   double* sh_sum = shm + 2 * p.S;
-  double* sh_ff = shm + 2 * p.S + 4;  // continuum only
-  const int n_shared = 2 * p.S + 4 + (kCont ? p.S : 0);
+  const int n_shared = 2 * p.S + 4;
   for (int i = threadIdx.x; i < n_shared; i += blockDim.x) shm[i] = 0.0;
   __syncthreads();
   const int64_t pid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (pid < p.n_packets)
-    walk_packet<kRel, kLast, kTrack, kReflect, kWeights, kCont, kTwoPhoton,
-                kAdiabatic>(p, pid, sh_j, sh_nubar, sh_sum, sh_ff);
+    walk_packet<kRel, kLast, kTrack, kReflect, kWeights>(p, pid, sh_j, sh_nubar,
+                                                         sh_sum);
   __syncthreads();
   for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
     atomicAdd(&p.est_j[i], sh_j[i]);
     atomicAdd(&p.est_nubar[i], sh_nubar[i]);
-    if constexpr (kCont) atomicAdd(&p.cont.ff_heat[i], sh_ff[i]);
   }
   if (threadIdx.x < 4) atomicAdd(&p.summary[threadIdx.x], sh_sum[threadIdx.x]);
 }
 
+// ---- the continuum instantiations (TL_CONTINUUM): a persistent grid
+// whose lanes walk a packet queue
+
+// a continuum packet between two events
+struct ContPacket {
+  float r, mu, nu, energy;
+  int shell;
+  int64_t next_line;
+  int64_t ev;   // index of the packet's next event
+  int64_t pid;  // local: rows are written by it, bits hashed by pid_offset + pid
+  LastInteraction li;
+};
+
+// a lane's run accumulator: the estimator terms of consecutive events in
+// one moment row (grid cell x shell), summed per thread in shared memory
+// (acc[k * blockDim.x], k < kAccTerms: the seven moments [w, w/nu, w nu,
+// wb, wb/nu, wb nu, 1] and the free-free heating w chi_ff; est_j and
+// est_nubar are the moments w and w nu) and added to the moments, est_j,
+// est_nubar and the free-free heating when the row changes or the packet
+// leaves the lane.  A packet random-walking through a continuum-thick
+// shell keeps its row for many events, so the hot rows take far fewer
+// atomics; the sums change only in their order.
+
+struct Run {
+  int row = -1;  // gcell * S + shell of the terms in acc; -1: empty
+  int shell = 0;
+};
+
+__device__ __forceinline__ void cont_flush(const Params& p, Run& run, double* acc,
+                                           double* sh_j, double* sh_nubar,
+                                           double* sh_ff) {
+  if (run.row < 0) return;
+  const int B = blockDim.x;
+  double* m = p.cont.moments + (int64_t)run.row * 8;
+#pragma unroll
+  for (int k = 0; k < 7; ++k) atomicAdd(m + k, acc[k * B]);
+  atomicAdd(&sh_j[run.shell], acc[0]);
+  atomicAdd(&sh_nubar[run.shell], acc[2 * B]);
+  atomicAdd(&sh_ff[run.shell], acc[7 * B]);
+#pragma unroll
+  for (int k = 0; k < kAccTerms; ++k) acc[k * B] = 0.0;
+  run.row = -1;
+}
+
+// copy n entries of src into the shared memory at dst (advanced past them,
+// rounded up to 16 bytes); returns the copy
+template <typename T>
+__device__ __forceinline__ T* stage(char*& dst, const T* src, int64_t n) {
+  T* out = reinterpret_cast<T*>(dst);
+  for (int64_t i = threadIdx.x; i < n; i += blockDim.x) out[i] = src[i];
+  dst += round16(n * (int64_t)sizeof(T));
+  return out;
+}
+
+// the tables a continuum event reads, copied into shared memory at dst
+// (continuum_table_bytes of them) once per block: p with its table
+// pointers moved there (the caller synchronizes the block)
+__device__ __forceinline__ void stage_tables(Params& p, char* dst) {
+  const int64_t S = p.S, L = p.L;
+  ContinuumArgs& c = p.cont;
+  const int64_t Ng = c.n_grid, C = c.n_continua, M = c.n_states;
+  const int64_t D = c.n_deact, P = c.n_fb;
+  p.prefix = stage(dst, p.prefix, S * (L + 1));
+  p.r_inner = stage(dst, p.r_inner, S);
+  p.r_outer = stage(dst, p.r_outer, S);
+  p.chi_e = stage(dst, p.chi_e, S);
+  p.line_nu = stage(dst, p.line_nu, L);
+  c.grid_nu = stage(dst, c.grid_nu, Ng);
+  c.xsect = stage(dst, c.xsect, Ng * C);
+  c.coef_a = stage(dst, c.coef_a, C * S);
+  c.coef_b = stage(dst, c.coef_b, C * S);
+  c.boltz_coef = stage(dst, c.boltz_coef, S);
+  c.ff_coef = stage(dst, c.ff_coef, S);
+  c.mk_cum_b = stage(dst, c.mk_cum_b, S * M * M);
+  c.deact_block_start = stage(dst, c.deact_block_start, M + 1);
+  c.deact_cum_prob = stage(dst, c.deact_cum_prob, D * S);
+  c.deact_kind = stage(dst, c.deact_kind, D);
+  c.deact_id = stage(dst, c.deact_id, D);
+  c.line2state = stage(dst, c.line2state, L);
+  c.photo_ion_state = stage(dst, c.photo_ion_state, C);
+  c.fb_cdf = stage(dst, c.fb_cdf, P * S);
+  c.fb_nu = stage(dst, c.fb_nu, P);
+  c.pion_block_start = stage(dst, c.pion_block_start, C + 1);
+  c.two_photon_nu = stage(dst, c.two_photon_nu, (int64_t)c.n_two_photon);
+}
+
+template <bool kRel, bool kWeights>
+__device__ __forceinline__ void cont_birth(const Params& p, int64_t pid, ContPacket& q) {
+  const float beta_inner = p.r_inner[0];
+  float mu = p.pool_mu[pid];
+  const float nu_cmf0 = p.pool_nu[pid];
+  int64_t lo = 0, hi = p.L;
+  while (lo < hi) {
+    int64_t mid = (lo + hi) >> 1;
+    if (p.line_nu[mid] >= nu_cmf0) lo = mid + 1;
+    else hi = mid;
+  }
+  float inv_dop0;
+  if constexpr (kRel) {
+    const float gamma_in = 1.0f / sqrtf(1.0f - beta_inner * beta_inner);
+    inv_dop0 = (1.0f + mu * beta_inner) * gamma_in;
+    mu = (mu + beta_inner) / (1.0f + beta_inner * mu);
+  } else {
+    inv_dop0 = 1.0f / (1.0f - mu * beta_inner);
+  }
+  q.r = beta_inner;
+  q.mu = mu;
+  q.nu = nu_cmf0 * inv_dop0;
+  q.energy = inv_dop0;
+  if constexpr (kWeights) q.energy = q.energy * p.pool_w[pid];
+  q.shell = 0;
+  q.next_line = lo;
+  q.ev = 0;
+  q.pid = pid;
+  q.li = LastInteraction{};
+}
+
+// a slot of ``counter`` for each calling lane, taken once per group of
+// converged lanes (a warp-aggregated atomicAdd)
+__device__ __forceinline__ unsigned long long take_slot(unsigned long long* counter) {
+  namespace cg = cooperative_groups;
+  cg::coalesced_group g = cg::coalesced_threads();
+  unsigned long long base = 0;
+  if (g.thread_rank() == 0) base = atomicAdd(counter, (unsigned long long)g.size());
+  return g.shfl(base, 0) + g.thread_rank();
+}
+
+// one event of a continuum packet (walk_packet's event with the continuum
+// opacity, estimators and Markov macro atom, and no spawn records);
+// returns false when the packet dies, its output row and sums written
+template <bool kRel, bool kTrack, bool kReflect, bool kTwoPhoton, bool kAdiabatic>
+__device__ __forceinline__ bool cont_event(const Params& p, ContPacket& q, tardis::Key kp,
+                                           Run& run, double* acc, double* sh_j,
+                                           double* sh_nubar, double* sh_sum,
+                                           double* sh_ff) {
+  const int S = p.S;
+  const int64_t L = p.L;
+  const ContinuumArgs& cont = p.cont;
+  const int64_t ev = q.ev;
+  const int64_t pid = q.pid;
+  float& r = q.r;
+  float& mu = q.mu;
+  float& nu = q.nu;
+  float& energy = q.energy;
+  int& shell = q.shell;
+  int64_t& next_line = q.next_line;
+  LastInteraction& li = q.li;
+
+  const tardis::Key ke = tardis::fold_in(kp, (uint32_t)ev);
+  const float chi_e = p.chi_e[shell];
+  const float r_in = p.r_inner[shell];
+  const float r_out = p.r_outer[shell];
+  const float z = mu * r;
+  float dop;
+  if constexpr (kRel) dop = (1.0f - z) * lorentz_gamma(r);
+  else dop = 1.0f - z;
+  const float nu_cmf = nu * dop;
+
+  // continuum opacity in the comoving frame: the grid cell (last knot <=
+  // nu_cmf, clipped), its weight, b = exp(-h nu / k T_e), chi_bf and chi_ff
+  int glo = 0, ghi = cont.n_grid;
+  while (glo < ghi) {
+    const int mid = (glo + ghi) >> 1;
+    if (cont.grid_nu[mid] <= nu_cmf) glo = mid + 1;
+    else ghi = mid;
+  }
+  const int gcell = min(max(glo - 1, 0), cont.n_grid - 2);
+  const float g0 = cont.grid_nu[gcell];
+  const float dg = cont.grid_nu[gcell + 1] - g0;
+  const float tfrac = fminf(fmaxf((nu_cmf - g0) / fmaxf(dg, 1e-30f), 0.0f), 1.0f);
+  const float boltz = (float)exp(-(double)(nu_cmf * cont.boltz_coef[shell]));
+  const float chi_bf = bound_free_sum(cont, S, shell, gcell, tfrac, boltz, 0.0f, nullptr);
+  const float nuc = fmaxf(nu_cmf, 1e-30f);
+  const float chi_ff = cont.ff_coef[shell] / ((nuc * nuc) * nuc) * (1.0f - boltz);
+  const float chi_cmf = chi_e + chi_bf + chi_ff;
+  float chi = chi_cmf;
+  if constexpr (kRel) chi = chi * dop;
+
+  // distance to the shell boundary; a tangential ray (mu == 0) grazes and
+  // exits outward
+  const float out_d =
+      sqrtf(fmaxf(r_out * r_out + (mu * mu - 1.0f) * r * r, 0.0f)) - r * mu;
+  const float check = r_in * r_in + r * r * (mu * mu - 1.0f);
+  const bool hits_inner = (mu < 0.0f) && (check >= 0.0f);
+  const float in_d = -r * mu - sqrtf(fmaxf(check, 0.0f));
+  const float d_b = fmaxf(hits_inner ? in_d : out_d, 0.0f);
+  const int delta = hits_inner ? -1 : 1;
+
+  const float tau_event = (float)(-log((double)draw(ke, 0)));
+
+  // event search: first i in [next_line, L] with i == L, or nu_i beyond the
+  // boundary, or optical depth to line i above tau_event
+  const double* prow = p.prefix + (int64_t)shell * (L + 1);
+  const double c0 = prow[next_line];
+  float nu_thresh, p2 = 0.0f;
+  if constexpr (kRel) {
+    p2 = fmaxf((r * r) * (1.0f - mu * mu), 0.0f);
+    const float rb2 = (r * r + d_b * d_b) + ((2.0f * r) * d_b) * mu;
+    nu_thresh = (nu * (1.0f - (z + d_b))) / sqrtf(fmaxf(1.0f - rb2, kGammaFloor));
+  } else {
+    nu_thresh = nu * (1.0f - (z + d_b));
+  }
+  int64_t lo = next_line, hi = L;
+  while (lo < hi) {
+    int64_t mid = (lo + hi) >> 1;
+    const float nl = p.line_nu[mid];
+    const float s = resonance_distance<kRel>(nl, nu, z, p2);
+    const float g = (float)(prow[mid + 1] - c0) + chi * s;
+    if ((nl <= nu_thresh) || (g > tau_event)) hi = mid;
+    else lo = mid + 1;
+  }
+  const int64_t i_ev = lo;
+  const float nu_ev = i_ev < L ? p.line_nu[i_ev] : __int_as_float(0xff800000);
+  const bool found = (i_ev < L) && (nu_ev > nu_thresh);
+  const float s_ev = resonance_distance<kRel>(nu_ev, nu, z, p2);
+  const float tau_at = (float)(prow[i_ev] - c0);
+  const float d_cont = fmaxf((tau_event - tau_at) / chi, 0.0f);
+  const bool escat_f = p.disable_line_scattering || (d_cont < s_ev);
+  const bool escat_nf = d_cont < d_b;
+  int event;
+  float distance;
+  if (found) {
+    event = escat_f ? kEvEscat : kEvLine;
+    distance = escat_f ? d_cont : s_ev;
+  } else {
+    event = escat_nf ? kEvEscat : kEvBoundary;
+    distance = escat_nf ? d_cont : d_b;
+  }
+  const int64_t end_line = (event == kEvLine) ? i_ev + 1 : i_ev;
+
+  // estimators: the seven moments of row gcell * S + shell and the
+  // free-free heating, into the lane's run accumulator (est_j and
+  // est_nubar are moments 0 and 2)
+  float w_j;
+  if constexpr (kRel) w_j = (energy * dop) * (distance * dop);
+  else w_j = (energy * dop) * distance;
+  {
+    const int row = gcell * S + shell;
+    if (row != run.row) {
+      cont_flush(p, run, acc, sh_j, sh_nubar, sh_ff);
+      run.row = row;
+      run.shell = shell;
+    }
+    const int B = blockDim.x;
+    const float inv_nu = 1.0f / fmaxf(nu_cmf, 1e-30f);
+    const float wb = w_j * boltz;
+    acc[0] += (double)w_j;
+    acc[B] += (double)(w_j * inv_nu);
+    acc[2 * B] += (double)(w_j * nu_cmf);
+    acc[3 * B] += (double)wb;
+    acc[4 * B] += (double)(wb * inv_nu);
+    acc[5 * B] += (double)(wb * nu_cmf);
+    acc[6 * B] += 1.0;
+    acc[7 * B] += (double)(w_j * chi_ff);
+  }
+  if (end_line != next_line) {
+    float w1, w2;
+    if constexpr (kRel) {
+      w1 = energy / nu;
+      w2 = energy;
+    } else {
+      w1 = energy / (nu * nu);
+      w2 = energy / nu;
+    }
+    double* a = p.line_diff + (next_line * S + shell) * 2;
+    double* b = p.line_diff + (end_line * S + shell) * 2;
+    atomicAdd(a, (double)w1);
+    atomicAdd(a + 1, (double)w2);
+    atomicAdd(b, -(double)w1);
+    atomicAdd(b + 1, -(double)w2);
+  }
+
+  // move
+  const float r_new = sqrtf(fmaxf(
+      r * r + distance * distance + 2.0f * r * distance * mu, 1e-20f));
+  const float mu_new = (mu * r + distance) / r_new;
+
+  if (event == kEvBoundary) {
+    const int new_shell = shell + delta;
+    bool reflected = false;
+    if constexpr (kReflect)
+      reflected = new_shell < 0 && draw(ke, kColAlbedo) < p.albedo;
+    if (!reflected && (new_shell >= S || new_shell < 0)) {
+      const bool emitted = new_shell >= S;
+      if constexpr (kTrack) {
+        if (ev < p.tracker_length) {
+          float2* row = reinterpret_cast<float2*>(
+              p.tracker + (pid * p.tracker_length + ev) * 6);
+          row[0] = make_float2(r_new, nu);
+          row[1] = make_float2(energy, (float)shell);
+          row[2] = make_float2(3.0f, mu_new);
+        }
+      }
+      p.out[2 * pid] = emitted ? nu : -nu;
+      p.out[2 * pid + 1] = energy;
+      if (emitted) {
+        if (nu > p.nu_lo && nu < p.nu_hi) atomicAdd(&sh_sum[0], (double)energy);
+      } else {
+        atomicAdd(&sh_sum[1], (double)energy);
+      }
+      return false;
+    }
+    if (!reflected) shell = new_shell;
+    r = r_new;
+    mu = reflected ? -mu_new : mu_new;
+    next_line = end_line;
+    if constexpr (kTrack) {
+      if (ev < p.tracker_length) {
+        float2* row = reinterpret_cast<float2*>(
+            p.tracker + (pid * p.tracker_length + ev) * 6);
+        row[0] = make_float2(r, nu);
+        row[1] = make_float2(energy, (float)shell);
+        row[2] = make_float2(3.0f, mu);
+      }
+    }
+    return true;
+  }
+
+  // a continuous event is a Thomson scatter or a continuum process (chi_e /
+  // chi is the Thomson share)
+  const bool contproc =
+      event == kEvEscat && draw(ke, kColEscat) >= chi_e / fmaxf(chi_cmf, 1e-30f);
+
+  // Thomson scatter or absorption: new direction drawn in the CMF
+  const float mu_draw = 2.0f * draw(ke, 1) - 1.0f;
+  float dop_old_pos, inv_dop_new, mu_emit;
+  if constexpr (kRel) {
+    const float gamma_new = lorentz_gamma(r_new);
+    dop_old_pos = (1.0f - mu_new * r_new) * gamma_new;
+    inv_dop_new = (1.0f + mu_draw * r_new) * gamma_new;
+    mu_emit = (mu_draw + r_new) / (1.0f + r_new * mu_draw);
+  } else {
+    dop_old_pos = 1.0f - mu_new * r_new;
+    inv_dop_new = 1.0f / (1.0f - mu_draw * r_new);
+    mu_emit = mu_draw;
+  }
+  const float nu_in = nu;
+  bool adiabatic = false;
+  if (event == kEvEscat && !contproc) {
+    nu = nu * dop_old_pos * inv_dop_new;
+    next_line = end_line;
+    li.type = 1.0f;
+    li.in_line = -1.0f;
+    li.out_line = -1.0f;
+  } else {
+    // the Markov macro atom, activated by the line's state, the chosen
+    // continuum's i-packet state or the k-packet state
+    int state0;
+    if (event == kEvLine) {
+      state0 = cont.line2state[i_ev];
+    } else if (draw(ke, kColBfFf) < chi_bf / fmaxf(chi_bf + chi_ff, 1e-30f)) {
+      int c_sel;
+      bound_free_sum(cont, S, shell, gcell, tfrac, boltz,
+                     draw(ke, kColContSel) * chi_bf, &c_sel);
+      state0 = cont.photo_ion_state[min(c_sel, cont.n_continua - 1)];
+    } else {
+      state0 = cont.k_state;
+    }
+    const int M = cont.n_states;
+    const float* brow = cont.mk_cum_b + ((int64_t)shell * M + state0) * M;
+    const int a = min(cdf_lower_bound(brow, M, draw(ke, kColMkRow)), M - 1);
+    const int b0 = cont.deact_block_start[a];
+    const int b1 = cont.deact_block_start[a + 1];
+    int t = strided_lower_bound(cont.deact_cum_prob, b0, b1, S, shell,
+                                draw(ke, kColMkDeact));
+    t = min(max(t, b0), max(b1 - 1, b0));
+    const int kind = cont.deact_kind[t];
+    const int chan = cont.deact_id[t];
+    const int64_t em_line = chan < 0 ? 0 : (chan >= L ? L - 1 : (int64_t)chan);
+    float nu_cmf_em;
+    if (kind == kEmitLine) {
+      nu_cmf_em = p.line_nu[em_line];
+    } else if (kind == kEmitBf) {
+      nu_cmf_em = free_bound_nu(cont, S, shell, chan, draw(ke, kColFb));
+    } else if (kTwoPhoton && kind == kEmitTwoPhoton) {
+      const int tpn = cont.n_two_photon;
+      const float pos = draw(ke, kColFb) * (float)(tpn - 1);
+      const int i_tp = min(max((int)pos, 0), tpn - 2);
+      const float frac = pos - (float)i_tp;
+      nu_cmf_em = cont.two_photon_nu[i_tp] * (1.0f - frac)
+                  + cont.two_photon_nu[i_tp + 1] * frac;
+    } else {
+      nu_cmf_em = (float)(-log((double)draw(ke, kColFf))) / cont.boltz_coef[shell];
+    }
+    nu = nu_cmf_em * inv_dop_new;
+    if (kind == kEmitLine) {
+      next_line = em_line + 1;
+    } else {
+      int64_t nlo = 0, nhi = L;
+      while (nlo < nhi) {
+        const int64_t mid = (nlo + nhi) >> 1;
+        if (p.line_nu[mid] >= nu_cmf_em) nlo = mid + 1;
+        else nhi = mid;
+      }
+      next_line = nlo;
+    }
+    if constexpr (kAdiabatic) adiabatic = kind == kEmitAdiabatic;
+    const bool line = event == kEvLine;
+    li.type = line ? 2.0f : 3.0f;
+    li.in_line = line ? (float)i_ev : -1.0f;
+    li.out_line = line ? (float)em_line : -1.0f;
+  }
+  li.shell = (float)shell;
+  li.in_nu = nu_in;
+  li.r = r_new;
+  energy = energy * dop_old_pos * inv_dop_new;
+  r = r_new;
+  mu = mu_emit;
+  if constexpr (kTrack) {
+    if (ev < p.tracker_length) {
+      float2* row = reinterpret_cast<float2*>(
+          p.tracker + (pid * p.tracker_length + ev) * 6);
+      row[0] = make_float2(r, nu);
+      row[1] = make_float2(energy, (float)shell);
+      row[2] = make_float2(event == kEvLine ? 2.0f : (contproc ? 4.0f : 1.0f), mu);
+    }
+  }
+  if constexpr (kAdiabatic) {
+    if (adiabatic) {
+      // the energy went into expansion work: no luminosity either way
+      p.out[2 * pid] = -nu_in;
+      p.out[2 * pid + 1] = 0.0f;
+      return false;
+    }
+  }
+  return true;
+}
+
+// a packet leaves the loop after n_ev events (dead, or stopped by the cap)
+template <bool kLast>
+__device__ __forceinline__ void cont_finish(const Params& p, const ContPacket& q,
+                                            int64_t n_ev, double* sh_sum) {
+  if constexpr (kLast) {
+    float2* row = reinterpret_cast<float2*>(p.last_interaction + q.pid * 6);
+    row[0] = make_float2(q.li.type, q.li.in_line);
+    row[1] = make_float2(q.li.out_line, q.li.shell);
+    row[2] = make_float2(q.li.in_nu, q.li.r);
+  }
+  p.cont.events[q.pid] = (int32_t)n_ev;
+  atomicAdd(&sh_sum[2], (double)n_ev);
+}
+
+// The continuum loop: a persistent grid (as many blocks as are resident)
+// whose lanes take packet ids from a counter, a warp-aggregated atomicAdd
+// at a time.  Each lane runs one event per loop iteration, so a lane whose
+// packet ends takes the next packet at once, and no lane or block slot
+// waits on a long packet while the queue has work.  A packet alive at
+// max_events is stopped and counted.  Nothing waits on another block.
+// Each lane sums its packet's estimator terms in its run accumulator (Run,
+// above); the block's shared accumulators flush once, at exit.
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights,
+          bool kTwoPhoton, bool kAdiabatic, bool kSmemTables>
+__global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
+    continuum_kernel(Params p, unsigned long long* taken) {
+  extern __shared__ double shm[];
+  double* sh_j = shm;
+  double* sh_nubar = shm + p.S;
+  double* sh_sum = shm + 2 * p.S;
+  double* sh_ff = shm + 2 * p.S + 4;
+  double* acc = shm + 3 * p.S + 4 + threadIdx.x;  // (kAccTerms, blockDim.x)
+  const int n_shared = 3 * p.S + 4 + kAccTerms * blockDim.x;
+  for (int i = threadIdx.x; i < n_shared; i += blockDim.x) shm[i] = 0.0;
+  if constexpr (kSmemTables) stage_tables(p, reinterpret_cast<char*>(shm + n_shared));
+  __syncthreads();
+  ContPacket q;
+  Run run;
+  tardis::Key kp{0u, 0u};
+  bool have = false;
+  for (;;) {
+    if (!have) {
+      const unsigned long long pid = take_slot(taken);
+      if (pid >= (unsigned long long)p.n_packets) break;
+      cont_birth<kRel, kWeights>(p, (int64_t)pid, q);
+      kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + q.pid));
+      have = true;
+    }
+    if (q.ev >= p.max_events) {
+      atomicAdd(&sh_sum[3], 1.0);
+      cont_finish<kLast>(p, q, p.max_events, sh_sum);
+    } else {
+      const bool alive = cont_event<kRel, kTrack, kReflect, kTwoPhoton, kAdiabatic>(
+          p, q, kp, run, acc, sh_j, sh_nubar, sh_sum, sh_ff);
+      q.ev += 1;
+      if (alive) continue;
+      cont_finish<kLast>(p, q, q.ev, sh_sum);
+    }
+    cont_flush(p, run, acc, sh_j, sh_nubar, sh_ff);
+    have = false;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
+    atomicAdd(&p.est_j[i], sh_j[i]);
+    atomicAdd(&p.est_nubar[i], sh_nubar[i]);
+    atomicAdd(&p.cont.ff_heat[i], sh_ff[i]);
+  }
+  if (threadIdx.x < 4) atomicAdd(&p.summary[threadIdx.x], sh_sum[threadIdx.x]);
+}
+
+#if TL_CONTINUUM
+// the continuum instantiation: as many blocks as are resident, with the
+// accumulators' and (kSmemTables) the tables' shared memory
+template <bool kSmemTables>
+cudaError_t launch_continuum(const Params& p, unsigned long long* taken,
+                             cudaStream_t stream) {
+  auto kernel = continuum_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
+                                 TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0,
+                                 TL_TWO_PHOTON != 0, TL_ADIABATIC != 0, kSmemTables>;
+  const int threads = kSmemTables ? kSmemThreads : kContThreads;
+  const size_t shm = continuum_shared_bytes(p.cont, p.L, p.S, kSmemTables);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && shm > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)(per_sm * sms), threads, shm, stream>>>(p, taken);
+  return cudaGetLastError();
+}
+#endif
+
 }  // namespace
 
+// Whether the continuum tables of ``cont`` (L lines, S shells), staged in
+// shared memory with the lanes' accumulators, fit one block's opt-in
+// shared memory on the current device: *fits = 1 or 0 (the wrapper's
+// choice of the continuum instantiation, by the launch's own size).
+extern "C" int continuum_smem_fits(const ContinuumArgs* cont, int64_t L, int S, int* fits) {
+  int device = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  *fits = err == cudaSuccess && continuum_shared_bytes(*cont, L, S, true) <= (size_t)limit;
+  return (int)err;
+}
+
+// One launch of K1.  A classic instantiation runs every packet of the
+// pool with one thread each (cont, taken null, smem_tables 0); a continuum
+// instantiation runs them on its persistent grid, taking packet ids from
+// the zeroed device counter ``taken``.
 extern "C" int transport_loop(
     const void* pool_mu, const void* pool_nu, const void* pool_w,
     int64_t n_packets, const void* r_inner, const void* r_outer,
@@ -729,9 +1186,11 @@ extern "C" int transport_loop(
     void* out, void* est_j, void* est_nubar, void* line_diff, void* summary,
     void* vp_records, void* vp_count, int64_t vp_capacity,
     void* last_interaction, void* tracker, int tracker_length,
-    const ContinuumArgs* cont, void* stream) {
+    const ContinuumArgs* cont, void* taken, int smem_tables, void* stream) {
   constexpr bool kCont = TL_CONTINUUM != 0;
-  if (kCont != (cont != nullptr)) return (int)cudaErrorInvalidValue;
+  if (kCont != (cont != nullptr) || kCont != (taken != nullptr)
+      || (!kCont && smem_tables))
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.pool_mu = (const float*)pool_mu;
   p.pool_nu = (const float*)pool_nu;
@@ -770,14 +1229,24 @@ extern "C" int transport_loop(
   p.albedo = albedo;
   p.key = tardis::Key{k0, k1};
   p.cont = kCont ? *cont : ContinuumArgs{};
-  if (n_packets > 0) {
+  if (n_packets <= 0) return (int)cudaGetLastError();
+#if TL_CONTINUUM
+  {
+    unsigned long long* counter = (unsigned long long*)taken;
+    const cudaError_t err =
+        smem_tables ? launch_continuum<true>(p, counter, (cudaStream_t)stream)
+                    : launch_continuum<false>(p, counter, (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+#else
+  {
     const int threads = 128;
-    const size_t shm = (size_t)(2 * S + 4 + (kCont ? S : 0)) * sizeof(double);
+    const size_t shm = (size_t)(2 * S + 4) * sizeof(double);
     transport_loop_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
-                          TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0,
-                          kCont, TL_TWO_PHOTON != 0, TL_ADIABATIC != 0>
+                          TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0>
         <<<(unsigned)((n_packets + threads - 1) / threads), threads, shm,
            (cudaStream_t)stream>>>(p);
   }
+#endif
   return (int)cudaGetLastError();
 }

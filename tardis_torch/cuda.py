@@ -36,6 +36,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: dict[tuple, ctypes.CDLL] = {}
+_functions: dict[tuple, object] = {}
 
 
 def _nvcc() -> str:
@@ -67,7 +68,7 @@ def build(libraries) -> float:
     t0 = time.perf_counter()
     BUILD.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name, defines in libraries:
+    for name, defines in dict.fromkeys((n, tuple(d)) for n, d in libraries):
         out = library_path(name, defines)
         if out.exists():
             continue
@@ -102,12 +103,30 @@ def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, symbol: str, argtypes, defines: tuple = ()):
+    """The C function ``symbol`` of library ``name`` built with ``defines``,
+    its argument types set once, when it is first asked for (a wrapper
+    that sets them on every call spends host time on each launch)."""
+    key = (name, tuple(defines), symbol)
+    fn = _functions.get(key)
+    if fn is None:
+        fn = getattr(library(name, defines), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _functions[key] = fn
+    return fn
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def stream() -> int:
+    """The current CUDA stream of the current device, as an address (the
+    raw query: ``torch.cuda.current_stream()`` builds a Python stream
+    object, which costs a short kernel's wrapper more host time than its
+    launch)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def check_launch(name: str, err: int) -> None:

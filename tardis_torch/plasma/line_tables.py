@@ -9,13 +9,16 @@ log-space populations and a two-float prefix; the H100 has f64, so both
 versions here compute in f64 and need neither.
 
 ``line_tables`` launches the CUDA kernel for tensors on the card and runs
-the plain PyTorch version ``line_tables_plain`` only for CPU tensors.
+the plain PyTorch version ``line_tables_plain`` only for CPU tensors.  On
+the card the tables are built in three passes over tiles of 64 lines:
+the elementwise tables and each tile's tau sums, the tiles' carries, and
+the prefix (``csrc/line_tables.cu``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -37,6 +40,9 @@ class LineStatic:
     wl_flu: torch.Tensor  # (L,) f64 wavelength [cm] * f_lu
     line_nu: torch.Tensor  # (L,) f64 Hz
     nu3_coef: torch.Tensor  # (L,) f64 2 h nu^3 / c^2
+    # the device K3's wrapper last checked these tensors on
+    checked_on: torch.device | None = field(default=None, repr=False,
+                                            compare=False)
 
     @classmethod
     def from_atom_data(cls, atom, device) -> "LineStatic":
@@ -110,9 +116,47 @@ def line_tables_plain(static: LineStatic, level_pop: torch.Tensor, t_rad,
                       prefix=prefix)
 
 
+# csrc/line_tables.cu: lines per tile, and the shell count whose per-shell
+# inputs still go by value in the launch's parameters
+TILE = 64
+SHELLS_BY_VALUE = 128
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_double, ctypes.c_double,
+                                       ctypes.c_int64, ctypes.c_int]
+             + [ctypes.c_void_p] * 7)
+
+
+def shell_inputs_packed(t_rad, jb_w) -> np.ndarray:
+    """K3's per-shell inputs as one f64 host array [h / (k T_rad), W]: the
+    values of ``_shell_inputs``, for the launch's parameters."""
+    return np.concatenate((H / (K_B * np.asarray(t_rad, np.float64)),
+                           np.asarray(jb_w, np.float64)))
+
+
+def _check_static(static: LineStatic, device) -> None:
+    """The per-line inputs' dtypes, layout and device, checked once per
+    ``LineStatic`` and device (they do not change between iterations)."""
+    if static.checked_on == device:
+        return
+    i32 = torch.int32
+    cuda.check_cuda(
+        "line_tables", device, lower_idx=(static.lower_idx, i32),
+        upper_idx=(static.upper_idx, i32), g_lower=(static.g_lower, F64),
+        g_upper=(static.g_upper, F64), wl_flu=(static.wl_flu, F64),
+        line_nu=(static.line_nu, F64), nu3_coef=(static.nu3_coef, F64),
+    )
+    static.checked_on = device
+
+
 def line_tables(static: LineStatic, level_pop: torch.Tensor, t_rad, jb_w,
                 time_explosion: float) -> LineTables:
-    """K3 on the card; the plain version for CPU tensors."""
+    """K3 on the card; the plain version for CPU tensors.
+
+    One call launches K3's three passes, one kernel each (``launches``
+    counts the kernels).  The five outputs and the passes' scratch are one
+    allocation; h / (k T_rad) and W go by value in the launch's parameters
+    up to SHELLS_BY_VALUE shells, beyond that through one pinned buffer
+    and one asynchronous copy.
+    """
     device = level_pop.device
     if device.type == "cpu":
         return line_tables_plain(static, level_pop, t_rad, jb_w,
@@ -120,40 +164,37 @@ def line_tables(static: LineStatic, level_pop: torch.Tensor, t_rad, jb_w,
     if device.type != "cuda":
         raise ValueError(f"line_tables: unsupported device {device}")
     level_pop = level_pop.to(F64).contiguous()
-    h_over_kt, w = _shell_inputs(t_rad, jb_w, device)
-    i32 = torch.int32
-    cuda.check_cuda(
-        "line_tables", device, level_pop=(level_pop, F64),
-        lower_idx=(static.lower_idx, i32), upper_idx=(static.upper_idx, i32),
-        g_lower=(static.g_lower, F64), g_upper=(static.g_upper, F64),
-        wl_flu=(static.wl_flu, F64), line_nu=(static.line_nu, F64),
-        nu3_coef=(static.nu3_coef, F64),
-    )
+    _check_static(static, device)
+    cuda.check_cuda("line_tables", device, level_pop=(level_pop, F64))
     L = static.line_nu.shape[0]
     S = level_pop.shape[1]
-    out = [torch.empty((L, S), dtype=F64, device=device) for _ in range(4)]
-    prefix = torch.empty((S, L + 1), dtype=F64, device=device)
-    lib = cuda.library("line_tables")
-    fn = lib.line_tables
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 10 + [ctypes.c_double, ctypes.c_double,
-                                  ctypes.c_int64, ctypes.c_int]
-        + [ctypes.c_void_p] * 6
-    )
-    p = cuda.ptr
+    shell = shell_inputs_packed(t_rad, jb_w)
+    shell_dev = None
+    if S > SHELLS_BY_VALUE:
+        shell_dev = torch.from_numpy(shell).pin_memory().to(
+            device, non_blocking=True)
+    LS = L * S
+    n_scratch = 2 * S * -(-L // TILE)
+    buf = torch.empty(4 * LS + S * (L + 1) + n_scratch, dtype=F64,
+                      device=device)
+    base = buf.data_ptr()
+    fn = cuda.function("line_tables", "line_tables", _ARGTYPES)
     err = fn(
-        p(level_pop), p(static.lower_idx), p(static.upper_idx),
-        p(static.g_lower), p(static.g_upper), p(static.wl_flu),
-        p(static.line_nu), p(static.nu3_coef), p(h_over_kt), p(w),
+        level_pop.data_ptr(), static.lower_idx.data_ptr(),
+        static.upper_idx.data_ptr(), static.g_lower.data_ptr(),
+        static.g_upper.data_ptr(), static.wl_flu.data_ptr(),
+        static.line_nu.data_ptr(), static.nu3_coef.data_ptr(),
+        shell.ctypes.data,
+        None if shell_dev is None else shell_dev.data_ptr(),
         float(SOBOLEV_COEFFICIENT), float(time_explosion), L, S,
-        *(p(t) for t in out), p(prefix), cuda.stream(),
+        base, base + 8 * LS, base + 16 * LS, base + 24 * LS, base + 32 * LS,
+        base + 8 * (4 * LS + S * (L + 1)), cuda.stream(),
     )
     cuda.check_launch("line_tables", err)
-    line_tables.launches += 1
-    stim, tau, beta, jb = out
+    line_tables.launches += 3 if L else 0  # passes A, B and C
+    stim, tau, beta, jb = buf[:4 * LS].view(4, L, S).unbind(0)
     return LineTables(stim=stim, tau=tau, beta=beta, j_blues=jb,
-                      prefix=prefix)
+                      prefix=buf[4 * LS:4 * LS + S * (L + 1)].view(S, L + 1))
 
 
-line_tables.launches = 0
+line_tables.launches = 0  # kernel launches, three a call

@@ -687,20 +687,39 @@ class ContinuumArgs(ctypes.Structure):
         "deact_id", "line2state", "photo_ion_state", "fb_cdf", "fb_nu",
         "pion_block_start", "two_photon_nu", "moments", "ff_heat",
         "events")] + [(name, ctypes.c_int) for name in (
-            "n_grid", "n_continua", "n_states", "k_state", "n_two_photon")]
+            "n_grid", "n_continua", "n_states", "k_state", "n_two_photon",
+            "n_deact", "n_fb")]
 
 
-def _continuum_args(c: ContinuumTables, res: TransportOutput):
-    """K1's continuum tables and outputs as a ``ContinuumArgs``."""
+def _continuum_args(c: ContinuumTables, res: TransportOutput | None):
+    """K1's continuum tables and outputs as a ``ContinuumArgs`` (with no
+    ``res``, null output pointers: the sizes alone)."""
     p = cuda.ptr
+    outs = ((None, None, None) if res is None else
+            (p(res.cont_moments), p(res.est_ff_heat), p(res.events)))
     return ContinuumArgs(
         p(c.grid_nu), p(c.xsect), p(c.coef_a), p(c.coef_b), p(c.boltz_coef),
         p(c.ff_coef), p(c.mk_cum_b), p(c.deact_block_start),
         p(c.deact_cum_prob), p(c.deact_kind), p(c.deact_id), p(c.line2state),
         p(c.photo_ion_state), p(c.fb_cdf), p(c.fb_nu), p(c.pion_block_start),
-        p(c.two_photon_nu), p(res.cont_moments), p(res.est_ff_heat),
-        p(res.events), c.n_grid, c.n_continua, c.n_states, c.k_state,
-        c.two_photon_nu.shape[0])
+        p(c.two_photon_nu), *outs, c.n_grid, c.n_continua, c.n_states,
+        c.k_state, c.two_photon_nu.shape[0], c.deact_kind.shape[0],
+        c.fb_nu.shape[0])
+
+
+def smem_tables_fit(t: TransportTables, defines: tuple) -> bool:
+    """Whether K1's continuum tables, staged in shared memory with the
+    lanes' accumulators, fit one block's shared memory on the current
+    device: asked of K1 library ``defines``, which sizes its launch by the
+    same function (``continuum_smem_fits`` in csrc/transport_loop.cu)."""
+    fits = ctypes.c_int(0)
+    fn = cuda.function("transport_loop", "continuum_smem_fits", [
+        ctypes.POINTER(ContinuumArgs), ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)], defines)
+    cuda.check_launch("continuum_smem_fits", fn(
+        ctypes.byref(_continuum_args(t.continuum, None)), t.n_lines,
+        t.n_shells, ctypes.byref(fits)))
+    return bool(fits.value)
 
 
 def _check_continuum(c: ContinuumTables, t: TransportTables, device):
@@ -739,7 +758,8 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
                    vpacket_capacity: int = 0, pool_w=None,
                    last_interaction: bool = False,
                    tracker_length: int = 0,
-                   pid_offset: int = 0) -> TransportOutput:
+                   pid_offset: int = 0,
+                   smem_tables: bool | None = None) -> TransportOutput:
     """K1 on the card; the plain version for CPU tensors.
 
     ``key`` is the iteration's run key; ``nu_window`` the (lo, hi)
@@ -750,6 +770,21 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     global id of the pool's first packet (a shard of a larger pool hashes
     the global ids and writes its rows by the local ones).  On the card the
     options select K1's compiled instantiation (``variant``).
+
+    With continuum the card runs one launch of a persistent grid (as many
+    blocks as are resident) whose lanes take packet ids from a queue and
+    refill as soon as a packet ends: the counterpart of the JAX package's
+    lane refill and ``_repack_jit``.  No lane waits on a long random walk
+    while the queue has work.
+
+    The continuum loop has two instantiations, picked by size: when the
+    tables an event reads (the prefix, the line, grid, cross-section,
+    Markov, deactivation and free-bound tables; 142,080 bytes at the IIP
+    problem's 135 lines) fit one block's shared memory with its lanes'
+    accumulators (``smem_tables_fit``), each persistent block of 512 lanes
+    copies them there once and its events read them there; otherwise (real
+    atom data, L ~ 1e5) blocks of 128 lanes read them from device memory.  ``smem_tables`` forces one
+    instantiation (True must fit).
     """
     device = pool_mu.device
     if device.type == "cpu":
@@ -763,6 +798,9 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     cont = t.continuum
     if cont is not None and vpacket_capacity:
         raise NotImplementedError("virtual packets with continuum transport")
+    if cont is None and smem_tables is not None:
+        raise ValueError("transport_loop: smem_tables applies to the "
+                         "continuum loop")
     f32 = torch.float32
     N = pool_mu.shape[0]
     cuda.check_cuda(
@@ -789,22 +827,13 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     if cont is not None:
         _check_continuum(cont, t, device)
     flags = variant(t, pool_w, last_interaction, tracker_length)
-    lib = cuda.library("transport_loop", library_defines(flags))
     res = _allocate(N, S, L, vpacket_capacity, last_interaction,
                     tracker_length, device, cont)
     nu_lo, nu_hi = _window(nu_window)
-    fn = lib.transport_loop
-    fn.restype = ctypes.c_int
-    vp, i64, ci, cf = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_float)
-    fn.argtypes = (
-        [vp, vp, vp, i64] + [vp] * 8 + [i64] + [ci] * 6
-        + [ctypes.c_uint32, ctypes.c_uint32, cf, cf, cf, i64, i64] + [vp] * 7
-        + [i64, vp, vp, ci, ctypes.POINTER(ContinuumArgs), vp]
-    )
+    fn = cuda.function("transport_loop", "transport_loop", _ARGTYPES,
+                       library_defines(flags))
     p = cuda.ptr
-    cargs = None if cont is None else ctypes.byref(_continuum_args(cont, res))
-    err = fn(
+    args = [
         p(pool_mu), p(pool_nu), None if pool_w is None else p(pool_w), N,
         p(t.r_inner), p(t.r_outer), p(t.chi_e), p(t.line_nu), p(t.prefix),
         p(t.line2macro), p(t.chain_cdf), p(t.emit_cdf), L, S, t.n_states,
@@ -813,8 +842,19 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         max_events, pid_offset, p(res.out), p(res.est_j), p(res.est_nubar),
         p(res.line_diff), p(res.summary), p(res.vp_records),
         p(res.vp_count), vpacket_capacity, p(res.last_interaction),
-        p(res.tracker), tracker_length, cargs, cuda.stream(),
-    )
+        p(res.tracker), tracker_length]
+    if cont is None:
+        err = fn(*args, None, None, 0, cuda.stream())
+    else:
+        fits = smem_tables_fit(t, library_defines(flags))
+        if smem_tables is None:
+            smem_tables = fits
+        elif smem_tables and not fits:
+            raise ValueError("transport_loop: the continuum tables do not "
+                             "fit shared memory")
+        taken = torch.zeros(1, dtype=torch.int64, device=device)
+        err = fn(*args, ctypes.byref(_continuum_args(cont, res)), p(taken),
+                 int(smem_tables), cuda.stream())
     cuda.check_launch("transport_loop", err)
     name = variant_name(flags)
     by = transport_loop.launches_by_variant
@@ -823,6 +863,16 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
 
 
 transport_loop.launches_by_variant = {}  # launches by variant_name
+
+
+_VP, _I64, _CI, _CF = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_float)
+_ARGTYPES = (
+    [_VP, _VP, _VP, _I64] + [_VP] * 8 + [_I64] + [_CI] * 6
+    + [ctypes.c_uint32, ctypes.c_uint32, _CF, _CF, _CF, _I64, _I64]
+    + [_VP] * 7 + [_I64, _VP, _VP, _CI, ctypes.POINTER(ContinuumArgs)]
+    + [_VP, _CI, _VP]
+)
 
 
 def library_defines(flags) -> tuple:
