@@ -51,8 +51,11 @@ Phases, one printed line each (plus one line per iteration):
      macroatom mode (the RNG-walk macro atom) with last-interaction rows at
      2,097,152 packets, bitwise against its plain version, and in scatter
      mode under the homologous law against K1 (status agreement >= 0.999);
-     and K6 (gamma-ray step) at 4,194,304 packets in flight for one step
-     in each of its four instantiations, bitwise against its plain version;
+     and K6 (gamma-ray step) on a pool of 4,194,304 packets for one step
+     in each of its four instantiations, bitwise against its plain version,
+     with every packet in flight and with the gamma path's first- and
+     last-step shares in flight (0.8% and 4.5%, scattered), and with none
+     (the step's fixed cost);
   4. the main path: run_tardis on the card, 4 convergence iterations of
      2,097,152 packets and the production final iteration (4,194,304
      packets, 2 virtual packets per spawn record, the formal integral at
@@ -86,11 +89,14 @@ Phases, one printed line each (plus one line per iteration):
   8. K5 (formal-integral rays) against its plain version on the main
      path's own source-function tables;
   9. where the time goes: torch.profiler over a two-iteration run of the
-     main path and of the IIP path (device time by kernel, host time by
-     tardis.* span, the device's busy share);
+     main path and of the IIP path, and over the gamma path (device time
+     by kernel, host time by tardis.* span, the device's busy share; K6's
+     device time summed over the gamma path's steps);
  10. a JSON line of every kernel (each K1, K2 and K4 variant on its own
      line, K6 and K7 by the instantiation their paths run, with the
-     launches of the path that runs it; the weighted pool's
+     launches of the path that runs it; K6's entry also carries its
+     gamma-path totals: ms around each call, device ms, bound ms; the
+     weighted pool's
      line also counts its normalising launches), the card's name and power
      limit, and the result line {"ok": true, "device": {...}}.
 
@@ -147,6 +153,10 @@ GAMMA_BINS = 100
 GAMMA_DAYS = (2.0, 100.0)
 GAMMA_CHECK_DAY = 10.0  # K6's check: every packet in flight at this epoch
 GAMMA_CHECK_STEP_DAYS = 1.0
+# K6's check cases: the share of the pool in flight, scattered over it (the
+# gamma path moves 0.8% in its first step and 4.5% in its last); "idle"
+# moves none, the step's fixed cost
+GAMMA_CASES = {"dense": 1.0, "step0": 0.008, "step49": 0.045, "idle": 0.0}
 
 BENCH_CONFIG = {
     "supernova": {"luminosity_requested": "9.44 log_lsun",
@@ -274,18 +284,27 @@ def cuda_ms_queued(fn, reps, hold_cycles=40_000_000):
     millisecond, where a single call's events would time the host's launch
     overhead: the card first spins ``hold_cycles`` clock cycles (~20 ms)
     while the host queues every call, so the events around the calls see
-    the card's work alone.  Returns (ms, last result)."""
+    the card's work alone.  When the card has left the hold before the
+    host queued the last call (a host stall), it may have waited for the
+    host: the run is made again with twice the hold, up to three runs,
+    and the smallest time is kept.  Returns (ms, last result)."""
     out = fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(hold_cycles)
-    a.record()
-    for _ in range(reps):
-        out = fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps, out
+    ms = math.inf
+    for attempt in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles << attempt)
+        a.record()
+        for _ in range(reps):
+            out = fn()
+        held = not a.query()
+        b.record()
+        torch.cuda.synchronize()
+        ms = min(ms, a.elapsed_time(b) / reps)
+        if held:
+            break
+    return ms, out
 
 
 def bound(n_bytes, n_ops):
@@ -1394,7 +1413,7 @@ def profile_main_path(atom, device):
         run_tardis(config, atom_data=atom, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    say_profile("profile", prof, wall)
+    say_profile("profile", prof, wall, iterations=PROFILE_ITERATIONS)
 
 
 def ptxas_lines(libs):
@@ -1476,12 +1495,44 @@ def profile_iip_path(atom, device):
         TypeIIPWorkflow(config, atom_data=atom, device=device).run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    say_profile("profile_iip", prof, wall)
+    say_profile("profile_iip", prof, wall, iterations=PROFILE_ITERATIONS)
 
 
-def say_profile(phase, prof, wall):
+def profile_gamma_path(state, device):
+    """Where the time goes on the gamma path (GAMMA_RUN): device time by
+    kernel, the decay pool's host span and the device's busy share; K6's
+    device time over the steps is the sum of its kernels' records
+    (gamma_compact, gamma_walk), with no host time in it.  Returns that
+    sum in milliseconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tardis_torch.constants import DAY
+    from tardis_torch.workflows.high_energy import TARDISHEWorkflow
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        TARDISHEWorkflow(state, isotope_mass_fractions=gamma_fractions(state),
+                         seed=SEED, device=device).run(
+            t_start=GAMMA_DAYS[0] * DAY, t_end=GAMMA_DAYS[1] * DAY,
+            **GAMMA_RUN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = say_profile("profile_gamma", prof, wall,
+                          time_steps=GAMMA_STEPS)
+    k6 = [(ms, n) for k, ms, n in kernels
+          if "gamma_compact" in k or "gamma_walk" in k]
+    say("profile_gamma_k6", device_ms=sum(ms for ms, _ in k6),
+        launches=sum(n for _, n in k6))
+    return sum(ms for ms, _ in k6)
+
+
+def say_profile(phase, prof, wall, **kw):
     """Device time by kernel, host time by tardis.* span and the device's
-    busy share of ``wall`` seconds, from a torch.profiler run."""
+    busy share of ``wall`` seconds, from a torch.profiler run (``kw``: the
+    run's size, printed with it); returns the device rows (name, ms,
+    count)."""
     # device rows: kernels and copies (the spans' device-side twins and
     # host operators that launched kernels are left out, so nothing counts
     # twice); host rows: the tardis.* spans
@@ -1496,10 +1547,11 @@ def say_profile(phase, prof, wall):
          if e.device_type != on_device and e.key.startswith("tardis.")),
         key=lambda r: -r[1])
     device_ms = sum(ms for _, ms, _ in kernels)
-    say(phase, iterations=PROFILE_ITERATIONS, wall_ms=wall * 1e3,
+    say(phase, **kw, wall_ms=wall * 1e3,
         device_busy_ms=device_ms, device_busy_share=device_ms / (wall * 1e3),
         device_ms_by_kernel=[[k[:80], ms, n] for k, ms, n in kernels[:24]],
         host_ms_by_span=[[k, ms, n] for k, ms, n in spans])
+    return kernels
 
 
 def perturbed_geometry(geometry):
@@ -1737,14 +1789,37 @@ def gamma_fractions(state):
     return {"Ni56": np.where(np.arange(S) < 10, 0.6, 0.05)}
 
 
+def gamma_case(args, fraction):
+    """K6's inputs with ``fraction`` of the pool in flight: the packets
+    chosen by a seeded generator over the whole pool, the others of status
+    1, 2 or 3 (escaped, absorbed, waiting) drawn the same way."""
+    if fraction == 1.0:
+        return args
+    status = args[5]
+    n = status.shape[0]
+    g = np.random.default_rng(SEED)
+    st = g.integers(1, 4, n).astype(np.int32)
+    st[g.choice(n, int(round(fraction * n)), replace=False)] = 0
+    return args[:5] + (torch.as_tensor(st, device=status.device),) + args[6:]
+
+
 def check_gamma_step(state, device):
-    """K6 at GAMMA_PACKETS packets for one step with every packet in flight
-    (gamma_step_inputs), in each instantiation of GAMMA_OPTIONS, against
-    its plain version: every packet's r, mu, energy, weight, shell, status
-    and event count bitwise equal; deposition, escape histogram and
-    estimators within 1e-12 relative (f64 atomics in racing order).
-    Returns the kernels-line entry of the estimators instantiation (the
-    gamma path's) with the largest error of all."""
+    """K6 at GAMMA_PACKETS packets for one step (gamma_step_inputs), in each
+    instantiation of GAMMA_OPTIONS and each case of GAMMA_CASES (every
+    packet in flight, the gamma path's first- and last-step shares in
+    flight, none), against its plain version: every packet's r, mu,
+    energy, weight, shell, status and event count bitwise equal;
+    deposition, escape histogram and estimators within 1e-12 relative (f64
+    atomics in racing order).  Each case is timed by CUDA events around
+    each call (``ms``, ``cuda_ms``, as before the queue of moving packets)
+    and as device time of queued calls (``device_ms``,
+    ``cuda_ms_queued``: a sparse call takes a few tenths of a millisecond,
+    and the events around one call also time the host's wrapper work while
+    the card waits for it); the two sparse cases also give their floor
+    (``gamma_floor``).  The bound counts the energy changes that the plain
+    version tallies.  Returns the kernels-line entry of the estimators
+    instantiation (the gamma path's), dense, with its other cases' times
+    under ``cases`` and the largest error of all."""
     from tardis_torch.energy_input.gamma_kernel import (
         gamma_step_transport,
         gamma_step_transport_plain,
@@ -1752,66 +1827,116 @@ def check_gamma_step(state, device):
         variant_name,
     )
 
-    args, kasen_z4 = gamma_step_inputs(state, device, GAMMA_PACKETS)
+    dense, kasen_z4 = gamma_step_inputs(state, device, GAMMA_PACKETS)
     n = GAMMA_PACKETS
+    table_bytes = k6_table_bytes(state.no_of_shells, GAMMA_BINS, dense[14])
     entry, max_abs = None, 0.0
     for label, opts in GAMMA_OPTIONS.items():
         kw = dict(kasen_z4=kasen_z4, **opts)
-        ms, k = cuda_ms(lambda: gamma_step_transport(*args, **kw), 3)
-        plain_ms, p = cuda_ms(lambda: gamma_step_transport_plain(*args, **kw),
-                              1, warmup=False)
-        fields = ("r", "mu", "energy_kev", "weight", "shell", "status",
-                  "events")
-        bitwise = {f: bool(torch.equal(getattr(k, f), getattr(p, f)))
-                   for f in fields}
-        rels = {f: rel_err(getattr(k, f), getattr(p, f))
-                for f in ("deposition", "escape_hist", "estimators")
-                if getattr(k, f).numel()}
-        if not (all(bitwise.values())
-                and all(r <= 1e-12 for r in rels.values())):
-            raise AssertionError(f"gamma_step[{label}]: bitwise {bitwise}, "
-                                 f"max rel {rels}")
-        abs_err = max((getattr(k, f) - getattr(p, f)).abs().max().item()
-                      for f in rels)
-        max_abs = max(max_abs, abs_err)
-        ev = k.events.double()
-        n_events = ev.sum().item()
-        status = torch.bincount(k.status, minlength=4).tolist()
-        b_ms, b_by = k6_bound(args, n, n_events, opts)
         name = line_name("gamma_step", variant_name(variant(**opts)))
-        say("check_gamma_step", line=name, n=n, ms=ms, plain_ms=plain_ms,
-            bound_ms=b_ms, bound_by=b_by, events=n_events,
-            events_per_packet=dict(mean=ev.mean().item(),
-                                   p99=torch.quantile(ev, 0.99).item(),
-                                   max=int(k.events.max().item())),
-            status_counts=status, bitwise=bitwise, max_rel=rels,
-            max_abs_err=abs_err)
+        cases = {}
+        for case, fraction in GAMMA_CASES.items():
+            args = gamma_case(dense, fraction)
+
+            def call():
+                return gamma_step_transport(*args, **kw)
+
+            ms, k = cuda_ms(call, 3)
+            device_ms, k = cuda_ms_queued(call, 20)
+            tally = {}
+            plain_ms, p = cuda_ms(
+                lambda: gamma_step_transport_plain(*args, tally=tally, **kw),
+                1, warmup=False)
+            fields = ("r", "mu", "energy_kev", "weight", "shell", "status",
+                      "events")
+            bitwise = {f: bool(torch.equal(getattr(k, f), getattr(p, f)))
+                       for f in fields}
+            rels = {f: rel_err(getattr(k, f), getattr(p, f))
+                    for f in ("deposition", "escape_hist", "estimators")
+                    if getattr(k, f).numel()}
+            if not (all(bitwise.values())
+                    and all(r <= 1e-12 for r in rels.values())):
+                raise AssertionError(f"gamma_step[{label}, {case}]: bitwise "
+                                     f"{bitwise}, max rel {rels}")
+            abs_err = max((getattr(k, f) - getattr(p, f)).abs().max().item()
+                          for f in rels)
+            max_abs = max(max_abs, abs_err)
+            n_events = k.events.double().sum().item()
+            moved = int((k.events > 0).sum().item())
+            changes = int(tally["energy_changes"].item())
+            b_ms, b_by = k6_bound(
+                n, moved, n_events, table_bytes,
+                moved + changes if opts.get("collect_estimators") else 0)
+            floor = gamma_floor(args, k.events, kw) if case in (
+                "step0", "step49") else {}
+            say("check_gamma_step", line=name, case=case, n=n,
+                in_flight=int((args[5] == 0).sum().item()), moved=moved,
+                ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, events=n_events, energy_changes=changes,
+                events_per_s=(n_events / device_ms * 1e3 if n_events
+                              else 0.0),
+                events_per_moved_packet=dict(
+                    mean=n_events / moved if moved else 0.0,
+                    max=int(k.events.max().item())),
+                status_counts=torch.bincount(k.status, minlength=4).tolist(),
+                bitwise=bitwise, max_rel=rels, max_abs_err=abs_err, **floor)
+            cases[case] = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                               bound_ms=b_ms, bound_by=b_by, events=n_events)
+            del k, p
         if label == "estimators":
+            d = cases.pop("dense")
             entry = dict(name=name, route="cuda",
                          source="tardis_torch/csrc/gamma_step.cu",
                          replaces=("tardis_tpu/energy_input/"
                                    "gamma_kernel.py:249"),
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None)
-        del k, p
+                         ms=d["ms"], device_ms=d["device_ms"],
+                         plain_ms=d["plain_ms"],
+                         bound_ms=d["bound_ms"], bound_by=d["bound_by"],
+                         library_ms=None, cases=cases)
         torch.cuda.empty_cache()
     entry["max_abs_err"] = max_abs
     return entry
 
 
-def k6_bound(args, n_packets, n_events, opts):
-    """Least time for K6: the packet state read and written once (7 and 7
-    words a packet), the tables read once, against each event's two hashes
-    (its key and the optical-depth draw) and ~80 operations of opacities,
-    distances and the move; the estimators' 100-point quadrature adds ~1,000
-    operations an event.  Interactions hash more and some events take the
-    KN lookup: not counted, so the bound stays a lower bound."""
-    tables = [a for a in args[8:] if isinstance(a, torch.Tensor)]
-    in_bytes = 28 * n_packets + nbytes(*tables)
-    per_event = 2 * THREEFRY_OPS + 80
-    if opts.get("collect_estimators"):
-        per_event += 1000
-    return bound(in_bytes + 28 * n_packets, n_events * per_event)
+def gamma_floor(args, events, kw):
+    """The floor of a sparse K6 case: the device time (``cuda_ms_queued``)
+    of the same call with only its longest packet in flight, and with only
+    its 32 longest, which one warp then walks together (a warp's lanes
+    take consecutive list entries)."""
+    from tardis_torch.energy_input.gamma_kernel import gamma_step_transport
+
+    top = torch.topk(events, 32).indices
+    out = dict(longest_events=int(events[top[0]].item()))
+    for n, key in ((1, "longest_device_ms"), (32, "longest32_device_ms")):
+        status = torch.full_like(args[5], 1)
+        status[top[:n]] = 0
+        alone = args[:5] + (status,) + args[6:]
+        out[key] = cuda_ms_queued(
+            lambda: gamma_step_transport(*alone, **kw), 20)[0]
+    return out
+
+
+def k6_table_bytes(n_shells, n_bins, kn_table):
+    """Bytes of the tables one K6 call reads: six per-shell tables, the
+    energy edges, the Klein-Nishina table with its energy grid and the 100
+    quadrature points."""
+    n_e, n_q = kn_table.shape
+    return 4 * (6 * n_shells + n_bins + 1 + n_e * n_q + n_e + 100)
+
+
+def k6_bound(n_packets, n_moved, n_events, table_bytes, n_quadratures):
+    """Least time for one K6 call: every packet's state passed through (six
+    words read, six and the event count written), the budget read of each
+    packet that moves and the tables read once, against each event's two
+    hashes (its key and the optical-depth draw) and ~80 operations of
+    opacities, distances and the move, plus ~1,000 operations for each of
+    the estimators' 100-point quadratures of the mean Compton fraction,
+    which depends on the energy alone: ``n_quadratures``, one for each
+    packet that moves and each event that changed an energy (0 without
+    estimators).  Interactions hash more and some events take the KN
+    lookup: not counted, so the bound stays a lower bound."""
+    return bound(52 * n_packets + 4 * n_moved + table_bytes,
+                 n_events * (2 * THREEFRY_OPS + 80) + 1000 * n_quadratures)
 
 
 def run_nonhom_path(atom, device, expected):
@@ -1879,14 +2004,44 @@ def run_gamma_path(state, device, expected):
     """TARDISHEWorkflow at GAMMA_RUN on the bench model (gamma_fractions),
     launch counts reset to 0 just before and read just after.  Per step:
     wall seconds (``launch_periods``: no host synchronization between the
-    steps), K6's CUDA-event milliseconds and the per-packet event
-    distribution; total_escaped + total_deposited must lie in [0.3, 1.02]
-    x total_emitted (tests/test_gamma.py:71-72)."""
+    steps), K6's CUDA-event milliseconds, its bound (``k6_bound`` at the
+    step's events; with estimators each packet that moves and each packet
+    whose energy changed is charged one quadrature, a lower count of the
+    energy changes, which K6 does not report) and the per-packet event
+    distribution; total_escaped +
+    total_deposited must lie in [0.3, 1.02] x total_emitted
+    (tests/test_gamma.py:71-72).  Returns the launches and K6's totals
+    over the steps (ms, bound ms) and median ms."""
     from tardis_torch.constants import DAY
+    from tardis_torch.energy_input.gamma_kernel import build_kn_table
     from tardis_torch.workflows import high_energy
 
+    events = torch.zeros(GAMMA_PACKETS, dtype=torch.int32, device=device)
+    statuses = torch.arange(4, dtype=torch.int32, device=device)
+
+    def keep(out):
+        """A step's events, movers, longest packet and status counts,
+        reduced on the card (keeping its (B,) outputs would make the
+        allocator reserve new blocks inside the next step's K6 call)."""
+        events.add_(out.events)
+        return (torch.stack([out.events.sum(dtype=torch.int64),
+                             (out.events > 0).sum(),
+                             out.events.max().long()]),
+                (out.status.unsqueeze(1) == statuses).sum(0))
+
+    changed = []
     with timed_launches(high_energy, "gamma_step_transport",
-                        lambda out: (out.events, out.status)) as k6_calls:
+                        keep) as k6_calls:
+        timed = high_energy.gamma_step_transport
+
+        def counted(r, mu, energy_kev, *args, **kw):
+            """The timed call, then its packets whose energy changed,
+            counted on the card outside the call's events."""
+            out = timed(r, mu, energy_kev, *args, **kw)
+            changed.append((out.energy_kev != energy_kev).sum())
+            return out
+
+        high_energy.gamma_step_transport = counted
         reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1897,29 +2052,41 @@ def run_gamma_path(state, device, expected):
                      **GAMMA_RUN)
         end = path_end()
     launches = read_launches()
-    k6_ms, steps = [], []
-    for i, ((ms, period_ms), (_, _, (ev, status))) in enumerate(
-            zip(launch_periods(k6_calls, end[1]), k6_calls)):
+    table_bytes = k6_table_bytes(state.no_of_shells, GAMMA_BINS,
+                                 build_kn_table()[1])
+    periods = launch_periods(k6_calls, end[1])
+    k6_ms, bounds, steps = [], [], []
+    for i, ((ms, period_ms), (_, _, (stats, status_counts)), n_changed) in (
+            enumerate(zip(periods, k6_calls, changed))):
         k6_ms.append(ms)
-        moved = ev[ev > 0].double()
+        n_events, moved, longest = stats.tolist()
+        n_changed = int(n_changed.item())
+        b_ms, b_by = k6_bound(
+            GAMMA_PACKETS, moved, n_events, table_bytes,
+            moved + n_changed if GAMMA_RUN["collect_estimators"] else 0)
+        bounds.append(b_ms)
         steps.append(dict(
-            index=i, wall_s=period_ms / 1e3, k6_ms=ms,
-            events=moved.sum().item(), packets_moved=int(moved.numel()),
+            index=i, wall_s=period_ms / 1e3, k6_ms=ms, bound_ms=b_ms,
+            bound_by=b_by, events=float(n_events), packets_moved=moved,
+            packets_energy_changed=n_changed,
             events_per_moved_packet=dict(
-                mean=moved.mean().item() if moved.numel() else 0.0,
-                max=int(ev.max().item())),
-            status_counts=torch.bincount(status, minlength=4).tolist()))
-    all_events = torch.stack([ev for _, _, (ev, _) in k6_calls]
-                             ).double().sum(0)
+                mean=n_events / moved if moved else 0.0, max=longest),
+            status_counts=status_counts.tolist()))
+    all_events = events.double()
     accounted = (res.total_escaped + res.total_deposited) / res.total_emitted
     finite = bool(np.isfinite(res.deposition).all()
                   and np.isfinite(res.escape_spectrum).all()
                   and all(np.isfinite(v).all()
                           for v in res.estimators.values()))
+    totals = dict(path_ms_total=sum(k6_ms), path_bound_ms_total=sum(bounds),
+                  path_ms_median=statistics.median(k6_ms))
     say("gamma_steps", steps=steps)
     say("gamma_path", wall_s=end[0] - t0, packets=GAMMA_PACKETS,
         time_steps=GAMMA_STEPS, energy_bins=GAMMA_BINS, launches=launches,
-        k6_ms_total=sum(k6_ms), k6_ms_median=statistics.median(k6_ms),
+        k6_ms_total=totals["path_ms_total"],
+        k6_bound_ms_total=totals["path_bound_ms_total"],
+        k6_ms_median=totals["path_ms_median"],
+        steps_wall_s=sum(period for _, period in periods) / 1e3,
         events_per_packet=dict(mean=all_events.mean().item(),
                                p99=torch.quantile(all_events, 0.99).item(),
                                max=int(all_events.max().item())),
@@ -1931,7 +2098,7 @@ def run_gamma_path(state, device, expected):
         raise AssertionError(f"gamma path: finite {finite}, accounted / "
                              f"emitted {accounted}")
     check_launches("gamma_path", launches, expected)
-    return launches, statistics.median(k6_ms)
+    return launches, totals
 
 
 # K1's sharded path (parallel/transport.py): shard counts held against one
@@ -2346,7 +2513,8 @@ def main() -> int:
         expected["nonhom"] = {"line_tables": None,
                               k2["simple"]["name"]: NONHOM_ITERATIONS,
                               k7["name"]: NONHOM_ITERATIONS}
-        expected["gamma"] = {k6["name"]: GAMMA_STEPS}
+        # K6: two kernel launches a step (the list, the walk)
+        expected["gamma"] = {k6["name"]: 2 * GAMMA_STEPS}
         # the main path with two shards: K1 twice an iteration
         expected["sharded"] = dict(expected["main"])
         expected["sharded"][k1["main"]["name"]] = 2 * ITERATIONS
@@ -2377,13 +2545,15 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["nonhom"] = run_nonhom_path(atom, device, expected["nonhom"])
         torch.cuda.empty_cache()
-        launches["gamma"], k6["path_ms_median"] = run_gamma_path(
-            state, device, expected["gamma"])
+        launches["gamma"], k6_path = run_gamma_path(state, device,
+                                                    expected["gamma"])
+        k6.update(k6_path)
         torch.cuda.empty_cache()
         launches["probe"] = run_probe_path(device, expected["probe"])
         torch.cuda.empty_cache()
         profile_main_path(atom, device)
         profile_iip_path(iip_atom, device)
+        k6["path_device_ms_total"] = profile_gamma_path(state, device)
     # each line's launches come from the path that runs it
     lines = [(k1["main"], "main"), (k2["simple"], "main"), (k3, "main"),
              (k4["main"], "main"), (k5, "main"),

@@ -10,32 +10,53 @@
 // deposition_estimator_kasen) and utils/search.py:16
 // `searchsorted_unrolled`.
 //
-// Bound on the H100: latency of dependent arithmetic.  Per event a packet
-// hashes two to five uniforms (a fold_in of the step key by its event
-// count, then one per column: ~600 integer operations at most), evaluates
-// its opacities (two to four f64 transcendental calls rounded to f32), and
-// on a Compton event a bilinear lookup of the Klein-Nishina table and an
-// f64 cos; the tables (KN 64 x 128, the energy edges, the 100 quadrature
-// points) sit in shared memory (33 KB a block), the per-shell tables are a
-// few hundred bytes.  Design:
-//   - one thread per packet advances it to the end of the step, its death
-//     or max_steps events.  The JAX package steps every packet of status 0
-//     on each lockstep iteration, so its global iteration is the packet's
-//     own event count and packet i's draws are random_bits(fold_in(
-//     fold_in(key, event), j), counter i): one thread reproduces its bits;
-//     the columns are hashed only where an event reads them (the bits are
-//     counter-based, so a lazy draw is the same draw);
-//   - the deposition, escape histogram and estimators accumulate in f64 in
-//     shared memory and each block flushes once with global f64 atomics
-//     (the JAX package sums f32 per lockstep iteration);
-//   - log, cos and the fractional powers (-3.13, -3.0, -3.5) are taken in
-//     f64 and rounded to f32, divisions are true divisions, and the build
-//     uses --fmad=false, so the plain PyTorch version
-//     (tardis_torch/energy_input/gamma_kernel.py) reproduces every packet
-//     bit for bit; the f32 constants come from the wrapper (GammaConstants);
-//   - the Kasen deposition estimator's mean Compton fraction is the
-//     100-point quadrature per event, its terms in f32 and its two sums in
-//     f64 in the order of the points, as the plain version sums them.
+// Bound on the H100.  On the gamma-ray workflow's path a step moves
+// 0.8-4.5% of the pool (the packets born in the step and those still in
+// flight), scattered over it, since the pool is drawn at random: the least
+// time of a step is the pass-through of every packet's state (~56 bytes a
+// packet, 0.07 ms at 4,194,304) plus the movers' events.  Each event is
+// dependent arithmetic: two to five hashed uniforms (a fold_in of the step
+// key by the event count, then one per column: ~600 integer operations at
+// most), two to four f64 transcendental calls rounded to f32, and on a
+// Compton event a bilinear lookup of the Klein-Nishina table and an f64
+// cos.  Design, two launches a step:
+//   1. gamma_compact, one thread a slot: copies the state of every packet
+//      that does not move to the outputs with 0 events, and appends the
+//      index of every packet of status 0 to a list on the card (one
+//      atomicAdd a warp).  The count stays on the card: the host never
+//      waits for it;
+//   2. gamma_walk, a persistent grid (as many blocks as are resident),
+//      each block staging the tables (KN 64 x 128, the energy edges, the
+//      100 quadrature points: 33 KB) in shared memory once.  Each lane
+//      takes the next list entry from a counter (a warp-aggregated
+//      atomicAdd) up to the count, runs one event per loop iteration, and
+//      when its packet ends (the end of the step, its death or max_steps
+//      events) writes it at its own index and takes the next.  No lane
+//      waits on another lane's packet while the list has work, and no
+//      block is spent on slots that do not move.
+//   The JAX package steps every packet of status 0 on each lockstep
+//   iteration, so its global iteration is the packet's own event count and
+//   packet i's draws are random_bits(fold_in(fold_in(key, event), j),
+//   counter i): a lane reproduces them from the index alone, so a packet
+//   ends bit for bit the same whichever lane walks it.  The columns are
+//   hashed only where an event reads them (the bits are counter-based, so
+//   a lazy draw is the same draw).
+//   Sums: each lane adds its deposition and its three estimator terms in
+//   f64 registers while its packets stay in one shell, and adds them to
+//   the block's shared f64 sums when the shell changes and when the lane
+//   leaves; each escaping packet adds its weight to the shared escape
+//   histogram; each block adds its sums to the outputs with global f64
+//   atomics once (the JAX package sums f32 per lockstep iteration).
+//   The Kasen deposition estimator's mean Compton fraction (the 100-point
+//   quadrature, its terms in f32 and its two sums in f64 in the order of
+//   the points, as the plain version sums them) depends on the energy
+//   alone, which changes only at a Compton scatter or a pair creation:
+//   each lane keeps the last value with the energy it was computed for.
+//   log, cos and the fractional powers (-3.13, -3.0, -3.5) are taken in
+//   f64 and rounded to f32, divisions are true divisions, and the build
+//   uses --fmad=false, so the plain PyTorch version
+//   (tardis_torch/energy_input/gamma_kernel.py) reproduces every packet
+//   bit for bit; the f32 constants come from the wrapper (GammaConstants).
 //
 // Options, each a compile-time template parameter chosen by -D flags
 // (GS_GREY, GS_KASEN, GS_ARTIS, GS_ESTIMATORS): the grey absorption
@@ -44,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "queue.cuh"
 #include "threefry.cuh"
 
 #ifndef GS_GREY
@@ -72,6 +94,8 @@ constexpr float kUMin = 1e-9f;
 constexpr int kQuadrature = 100;
 constexpr int kStatusActive = 0, kStatusEscaped = 1, kStatusAbsorbed = 2,
               kStatusTime = 3;
+constexpr int kCompactThreads = 256;
+constexpr int kWalkThreads = 256;
 
 struct Params {
   const float* r;
@@ -216,165 +240,262 @@ __device__ __forceinline__ float sample_kn_cos(const Params& p, const float* log
          wi * ((1.0f - wq) * row1[0] + wq * row1[1]);
 }
 
-template <bool kGrey, bool kKasen, bool kArtis, bool kEst>
-__device__ void step_packet(const Params& p, int64_t i, const float* sh_log_e,
-                            const float* sh_table, const float* sh_edges,
-                            const float* sh_mus, double* sh_dep, double* sh_esc,
-                            double* sh_est) {
-  const GammaConstants& c = p.c;
-  const int S = p.S;
-  float r = p.r[i], mu = p.mu[i], e = p.energy[i], w = p.weight[i];
-  float budget = p.budget[i];
-  int shell = p.shell[i];
-  int status = p.status[i];
-  int ev = 0;
-  for (; status == kStatusActive && ev < p.max_steps; ++ev) {
-    const tardis::Key k = tardis::fold_in(p.key, (uint32_t)ev);
-    const uint32_t ctr = (uint32_t)i;
-    const int sh = min(max(shell, 0), S - 1);
-    const float rho = p.density[sh];
-    const float ne = p.electron_density[sh];
-    const float fe = p.iron[sh];
-    float chi_c, chi_pa, chi_pp;
-    if constexpr (kGrey) {
-      chi_c = 0.0f;
-      chi_pp = 0.0f;
-      chi_pa = p.grey * rho;
-    } else {
-      chi_c = compton_opacity(c, e, ne);
-      if constexpr (kKasen) chi_pa = photoabsorption_opacity_kasen(c, e, p.kasen_z4[sh]);
-      else chi_pa = photoabsorption_opacity(c, e, rho, fe);
-      if constexpr (kArtis) chi_pp = pair_creation_opacity_artis(c, e, rho, fe);
-      else chi_pp = pair_creation_opacity(c, e, rho, fe);
-    }
-    const float chi_tot = chi_c + chi_pa + chi_pp;
-    const float chi_floor = fmaxf(chi_tot, 1e-30f);
-    const float u1 = uniform(tardis::fold_in(k, 0u), ctr, kUMin);
-    const float tau = (float)(-log((double)u1));
-    const float d_int = tau / chi_floor;
+// a packet in a lane: its state and its index in the pool
+struct Packet {
+  float r, mu, e, w, budget;
+  int shell, status, ev;
+  uint32_t i;
+};
 
-    const float r_in = p.r_inner[sh];
-    const float r_o = p.r_outer[sh];
-    const float out_d =
-        sqrtf(fmaxf(r_o * r_o + (mu * mu - 1.0f) * (r * r), 0.0f)) - r * mu;
-    const float check = r_in * r_in + (r * r) * (mu * mu - 1.0f);
-    const bool hits_inner = (mu < 0.0f) && (check >= 0.0f);
-    const float d_b =
-        fmaxf(hits_inner ? -r * mu - sqrtf(fmaxf(check, 0.0f)) : out_d, 0.0f);
-    const int delta = hits_inner ? -1 : 1;
-    const float d_first = fminf(d_int, d_b);
-    const float d = fminf(d_first, budget);
-    const bool ev_time = budget <= d_first;
-    const bool ev_bound = !ev_time && (d_b < d_int);
-    const bool ev_int = !ev_time && !ev_bound;
+// a lane's sums while its packets stay in shell ``sh`` (-1: none yet)
+struct Run {
+  int sh = -1;
+  double dep = 0.0;
+  double est[3] = {0.0, 0.0, 0.0};
+};
 
-    const float r_new = sqrtf(fmaxf(r * r + d * d + 2.0f * r * d * mu, 1e-10f));
-    const float mu_new = (mu * r + d) / r_new;
-    budget = budget - d;
+// the mean Compton fraction ``frac`` of energy ``e`` (no energy is negative)
+struct FracCache {
+  float e = -1.0f;
+  float frac = 0.0f;
+};
 
-    if constexpr (kEst) {
-      const float kap_dep = average_compton_fraction(c, sh_mus, e) *
-                                compton_opacity(c, e, ne) +
-                            photoabsorption_opacity(c, e, rho, fe);
-      const float ff = 1.0f + kappa_e(c, e) * (1.0f - mu);
-      const float pcs = c.pcs_coef / (ff * ff) * (ff + 1.0f / ff + mu * mu - 1.0f);
-      atomicAdd(&sh_est[sh], (double)(w * kap_dep * d));
-      atomicAdd(&sh_est[S + sh], (double)(w * pcs * d / ff));
-      atomicAdd(&sh_est[2 * S + sh],
-                (double)(chi_pp * (1022.0f / fmaxf(e, 1.0f)) * w * d));
-    }
+// the tables a block stages in shared memory
+struct Tables {
+  const float* log_e;
+  const float* kn;
+  const float* edges;
+  const float* mus;
+};
 
-    float e_out = e, w_out = w, mu_out = mu_new;
-    int new_status = ev_time ? kStatusTime : kStatusActive;
-    if (ev_int) {
-      const float u2 = uniform(tardis::fold_in(k, 1u), ctr, 0.0f);
-      const float p_c = chi_c / chi_floor;
-      const float p_pa = chi_pa / chi_floor;
-      float dep;
-      if (u2 < p_c) {  // Compton scatter
-        const float u3 = uniform(tardis::fold_in(k, 2u), ctr, 0.0f);
-        const float phi_u = uniform(tardis::fold_in(k, 3u), ctr, 0.0f);
-        const float cos_t = sample_kn_cos(p, sh_log_e, sh_table, e, u3);
-        const float e_new = e / (1.0f + kappa_e(c, e) * (1.0f - cos_t));
-        const float frac = e_new / e;
-        const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-        const float sin_old = sqrtf(fmaxf(1.0f - mu_new * mu_new, 0.0f));
-        const float cos_phi = (float)cos((double)(c.two_pi * phi_u));
-        mu_out = fminf(fmaxf(mu_new * cos_t + sin_old * sin_t * cos_phi, -1.0f), 1.0f);
-        dep = w * (1.0f - frac);
-        e_out = e_new;
-        w_out = w * frac;
-      } else if (u2 < p_c + p_pa) {  // photoabsorption
-        dep = w;
-        new_status = kStatusAbsorbed;
-      } else {  // pair creation: one 511 keV packet, isotropic
-        const float phi_u = uniform(tardis::fold_in(k, 3u), ctr, 0.0f);
-        const float pair_frac = fminf(fmaxf(1022.0f / fmaxf(e, 511.0f), 0.0f), 1.0f);
-        dep = w * (1.0f - pair_frac);
-        e_out = 511.0f;
-        w_out = w * pair_frac;
-        mu_out = 2.0f * phi_u - 1.0f;
-      }
-      atomicAdd(&sh_dep[sh], (double)dep);
+template <bool kEst>
+__device__ __forceinline__ void flush(Run& run, int S, double* sh_dep, double* sh_est) {
+  if (run.sh < 0) return;
+  if (run.dep != 0.0) atomicAdd(&sh_dep[run.sh], run.dep);
+  run.dep = 0.0;
+  if constexpr (kEst) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (run.est[k] != 0.0) atomicAdd(&sh_est[k * S + run.sh], run.est[k]);
+      run.est[k] = 0.0;
     }
-    if (ev_bound) {
-      const int new_shell = shell + delta;
-      if (new_shell >= S) {
-        // the escape spectrum: last edge <= E (side right), clipped
-        int lo = 0, hi = p.E + 1;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (sh_edges[mid] <= e_out) lo = mid + 1;
-          else hi = mid;
-        }
-        atomicAdd(&sh_esc[min(max(lo - 1, 0), p.E - 1)], (double)w_out);
-        new_status = kStatusEscaped;
-      } else if (new_shell < 0) {
-        new_status = kStatusAbsorbed;
-      } else {
-        shell = new_shell;
-      }
-    }
-    r = r_new;
-    mu = mu_out;
-    e = e_out;
-    w = w_out;
-    status = new_status;
   }
-  p.r_out[i] = r;
-  p.mu_out[i] = mu;
-  p.energy_out[i] = e;
-  p.weight_out[i] = w;
-  p.shell_out[i] = shell;
-  p.status_out[i] = status;
-  p.events[i] = ev;
-  // a packet that entered inactive keeps its budget; the step's budget is
-  // not an output (the workflow sets it anew every step)
 }
 
+// one event of packet q (status 0): the move to the interaction, the shell
+// boundary or the end of the step, and what happens there
 template <bool kGrey, bool kKasen, bool kArtis, bool kEst>
-__global__ void gamma_step_kernel(Params p) {
+__device__ __forceinline__ void event(const Params& p, const Tables& t, Packet& q,
+                                      Run& run, FracCache& fc, double* sh_dep,
+                                      double* sh_esc, double* sh_est) {
+  const GammaConstants& c = p.c;
+  const int S = p.S;
+  const float r = q.r, mu = q.mu, e = q.e, w = q.w;
+  const tardis::Key k = tardis::fold_in(p.key, (uint32_t)q.ev);
+  const uint32_t ctr = q.i;
+  const int sh = min(max(q.shell, 0), S - 1);
+  if (sh != run.sh) {
+    flush<kEst>(run, S, sh_dep, sh_est);
+    run.sh = sh;
+  }
+  const float rho = p.density[sh];
+  const float ne = p.electron_density[sh];
+  const float fe = p.iron[sh];
+  float chi_c, chi_pa, chi_pp;
+  if constexpr (kGrey) {
+    chi_c = 0.0f;
+    chi_pp = 0.0f;
+    chi_pa = p.grey * rho;
+  } else {
+    chi_c = compton_opacity(c, e, ne);
+    if constexpr (kKasen) chi_pa = photoabsorption_opacity_kasen(c, e, p.kasen_z4[sh]);
+    else chi_pa = photoabsorption_opacity(c, e, rho, fe);
+    if constexpr (kArtis) chi_pp = pair_creation_opacity_artis(c, e, rho, fe);
+    else chi_pp = pair_creation_opacity(c, e, rho, fe);
+  }
+  const float chi_tot = chi_c + chi_pa + chi_pp;
+  const float chi_floor = fmaxf(chi_tot, 1e-30f);
+  const float u1 = uniform(tardis::fold_in(k, 0u), ctr, kUMin);
+  const float tau = (float)(-log((double)u1));
+  const float d_int = tau / chi_floor;
+
+  const float r_in = p.r_inner[sh];
+  const float r_o = p.r_outer[sh];
+  const float out_d =
+      sqrtf(fmaxf(r_o * r_o + (mu * mu - 1.0f) * (r * r), 0.0f)) - r * mu;
+  const float check = r_in * r_in + (r * r) * (mu * mu - 1.0f);
+  const bool hits_inner = (mu < 0.0f) && (check >= 0.0f);
+  const float d_b =
+      fmaxf(hits_inner ? -r * mu - sqrtf(fmaxf(check, 0.0f)) : out_d, 0.0f);
+  const int delta = hits_inner ? -1 : 1;
+  const float d_first = fminf(d_int, d_b);
+  const float d = fminf(d_first, q.budget);
+  const bool ev_time = q.budget <= d_first;
+  const bool ev_bound = !ev_time && (d_b < d_int);
+  const bool ev_int = !ev_time && !ev_bound;
+
+  const float r_new = sqrtf(fmaxf(r * r + d * d + 2.0f * r * d * mu, 1e-10f));
+  const float mu_new = (mu * r + d) / r_new;
+  q.budget = q.budget - d;
+
+  if constexpr (kEst) {
+    if (e != fc.e) {
+      fc.frac = average_compton_fraction(c, t.mus, e);
+      fc.e = e;
+    }
+    // the deposition opacity reads the Compton and the tardis
+    // photoabsorption opacities, which chi_c and chi_pa already are
+    // outside the grey and Kasen modes
+    const float chi_compton = kGrey ? compton_opacity(c, e, ne) : chi_c;
+    const float chi_photo =
+        (kGrey || kKasen) ? photoabsorption_opacity(c, e, rho, fe) : chi_pa;
+    const float kap_dep = fc.frac * chi_compton + chi_photo;
+    const float ff = 1.0f + kappa_e(c, e) * (1.0f - mu);
+    const float pcs = c.pcs_coef / (ff * ff) * (ff + 1.0f / ff + mu * mu - 1.0f);
+    run.est[0] += (double)(w * kap_dep * d);
+    run.est[1] += (double)(w * pcs * d / ff);
+    run.est[2] += (double)(chi_pp * (1022.0f / fmaxf(e, 1.0f)) * w * d);
+  }
+
+  float e_out = e, w_out = w, mu_out = mu_new;
+  int new_status = ev_time ? kStatusTime : kStatusActive;
+  if (ev_int) {
+    const float u2 = uniform(tardis::fold_in(k, 1u), ctr, 0.0f);
+    const float p_c = chi_c / chi_floor;
+    const float p_pa = chi_pa / chi_floor;
+    float dep;
+    if (u2 < p_c) {  // Compton scatter
+      const float u3 = uniform(tardis::fold_in(k, 2u), ctr, 0.0f);
+      const float phi_u = uniform(tardis::fold_in(k, 3u), ctr, 0.0f);
+      const float cos_t = sample_kn_cos(p, t.log_e, t.kn, e, u3);
+      const float e_new = e / (1.0f + kappa_e(c, e) * (1.0f - cos_t));
+      const float frac = e_new / e;
+      const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+      const float sin_old = sqrtf(fmaxf(1.0f - mu_new * mu_new, 0.0f));
+      const float cos_phi = (float)cos((double)(c.two_pi * phi_u));
+      mu_out = fminf(fmaxf(mu_new * cos_t + sin_old * sin_t * cos_phi, -1.0f), 1.0f);
+      dep = w * (1.0f - frac);
+      e_out = e_new;
+      w_out = w * frac;
+    } else if (u2 < p_c + p_pa) {  // photoabsorption
+      dep = w;
+      new_status = kStatusAbsorbed;
+    } else {  // pair creation: one 511 keV packet, isotropic
+      const float phi_u = uniform(tardis::fold_in(k, 3u), ctr, 0.0f);
+      const float pair_frac = fminf(fmaxf(1022.0f / fmaxf(e, 511.0f), 0.0f), 1.0f);
+      dep = w * (1.0f - pair_frac);
+      e_out = 511.0f;
+      w_out = w * pair_frac;
+      mu_out = 2.0f * phi_u - 1.0f;
+    }
+    run.dep += (double)dep;
+  }
+  if (ev_bound) {
+    const int new_shell = q.shell + delta;
+    if (new_shell >= S) {
+      // the escape spectrum: last edge <= E (side right), clipped
+      int lo = 0, hi = p.E + 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (t.edges[mid] <= e_out) lo = mid + 1;
+        else hi = mid;
+      }
+      atomicAdd(&sh_esc[min(max(lo - 1, 0), p.E - 1)], (double)w_out);
+      new_status = kStatusEscaped;
+    } else if (new_shell < 0) {
+      new_status = kStatusAbsorbed;
+    } else {
+      q.shell = new_shell;
+    }
+  }
+  q.r = r_new;
+  q.mu = mu_out;
+  q.e = e_out;
+  q.w = w_out;
+  q.status = new_status;
+}
+
+// Launch 1: the pass-through of every packet that does not move (state and
+// 0 events; a packet that entered inactive keeps its budget, which is not
+// an output: the workflow sets it anew every step), and the list of the
+// packets of status 0, appended a warp at a time; counters[0] ends as
+// their number
+__global__ void __launch_bounds__(kCompactThreads)
+    gamma_compact(Params p, uint32_t* counters, uint32_t* list) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = i < p.n_packets;
+  const bool moves = in && p.status[i] == kStatusActive;
+  if (in && !moves) {
+    p.r_out[i] = p.r[i];
+    p.mu_out[i] = p.mu[i];
+    p.energy_out[i] = p.energy[i];
+    p.weight_out[i] = p.weight[i];
+    p.shell_out[i] = p.shell[i];
+    p.status_out[i] = p.status[i];
+    p.events[i] = 0;
+  }
+  const unsigned movers = __ballot_sync(0xffffffffu, moves);
+  if (movers == 0u) return;
+  const unsigned lane = threadIdx.x & 31u;
+  unsigned base = 0u;
+  if (lane == 0u) base = atomicAdd(&counters[0], (unsigned)__popc(movers));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (moves) list[base + __popc(movers & ((1u << lane) - 1u))] = (uint32_t)i;
+}
+
+// Launch 2: the persistent grid over the list (counters[0] entries, taken
+// through counters[1])
+template <bool kGrey, bool kKasen, bool kArtis, bool kEst>
+__global__ void __launch_bounds__(kWalkThreads)
+    gamma_walk(Params p, uint32_t* counters, const uint32_t* list) {
   extern __shared__ double shm[];
   const int S = p.S, E = p.E;
   const int n_acc = S + E + (kEst ? 3 * S : 0);
   double* sh_dep = shm;
   double* sh_esc = shm + S;
   double* sh_est = shm + S + E;
-  float* sh_f = reinterpret_cast<float*>(shm + n_acc);
-  float* sh_table = sh_f;
-  float* sh_log_e = sh_table + p.n_e * p.n_q;
+  float* sh_kn = reinterpret_cast<float*>(shm + n_acc);
+  float* sh_log_e = sh_kn + p.n_e * p.n_q;
   float* sh_edges = sh_log_e + p.n_e;
   float* sh_mus = sh_edges + E + 1;
   for (int j = threadIdx.x; j < n_acc; j += blockDim.x) shm[j] = 0.0;
-  for (int j = threadIdx.x; j < p.n_e * p.n_q; j += blockDim.x) sh_table[j] = p.kn_table[j];
+  for (int j = threadIdx.x; j < p.n_e * p.n_q; j += blockDim.x) sh_kn[j] = p.kn_table[j];
   for (int j = threadIdx.x; j < p.n_e; j += blockDim.x) sh_log_e[j] = p.kn_log_e[j];
   for (int j = threadIdx.x; j < E + 1; j += blockDim.x) sh_edges[j] = p.ebin_edges[j];
   for (int j = threadIdx.x; j < kQuadrature; j += blockDim.x) sh_mus[j] = p.mus[j];
   __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < p.n_packets)
-    step_packet<kGrey, kKasen, kArtis, kEst>(p, i, sh_log_e, sh_table, sh_edges, sh_mus,
-                                             sh_dep, sh_esc, sh_est);
+  const Tables t{sh_log_e, sh_kn, sh_edges, sh_mus};
+  const uint32_t n_moving = counters[0];
+  Packet q;
+  Run run;
+  FracCache fc;
+  bool have = false;
+  for (;;) {
+    if (!have) {
+      const uint32_t slot = tardis::take_slot(&counters[1]);
+      if (slot >= n_moving) break;
+      const uint32_t i = list[slot];
+      q = Packet{p.r[i], p.mu[i], p.energy[i], p.weight[i], p.budget[i],
+                 p.shell[i], kStatusActive, 0, i};
+      have = true;
+    }
+    if (q.ev < p.max_steps) {
+      event<kGrey, kKasen, kArtis, kEst>(p, t, q, run, fc, sh_dep, sh_esc, sh_est);
+      ++q.ev;
+    }
+    if (q.status != kStatusActive || q.ev >= p.max_steps) {
+      const uint32_t i = q.i;
+      p.r_out[i] = q.r;
+      p.mu_out[i] = q.mu;
+      p.energy_out[i] = q.e;
+      p.weight_out[i] = q.w;
+      p.shell_out[i] = q.shell;
+      p.status_out[i] = q.status;
+      p.events[i] = q.ev;
+      have = false;
+    }
+  }
+  flush<kEst>(run, S, sh_dep, sh_est);
   __syncthreads();
   for (int j = threadIdx.x; j < S; j += blockDim.x)
     if (sh_dep[j] != 0.0) atomicAdd(&p.deposition[j], sh_dep[j]);
@@ -388,6 +509,8 @@ __global__ void gamma_step_kernel(Params p) {
 
 }  // namespace
 
+// ``queue``: (2 + n_packets) uint32 of scratch, the two counters (zeroed
+// here on the stream) and the list of moving packets
 extern "C" int gamma_step(
     const void* r, const void* mu, const void* energy, const void* weight,
     const void* shell, const void* status, const void* budget,
@@ -399,7 +522,7 @@ extern "C" int gamma_step(
     const GammaConstants* constants, void* r_out, void* mu_out,
     void* energy_out, void* weight_out, void* shell_out, void* status_out,
     void* deposition, void* escape_hist, void* estimators, void* events,
-    void* stream) {
+    void* queue, void* stream) {
   constexpr bool kEst = GS_ESTIMATORS != 0;
   Params p;
   p.r = (const float*)r;
@@ -438,16 +561,30 @@ extern "C" int gamma_step(
   p.grey = grey;
   p.key = tardis::Key{k0, k1};
   p.c = *constants;
-  if (n_packets > 0) {
-    const int threads = 128;
-    const size_t shm = (size_t)(S + E + (kEst ? 3 * S : 0)) * sizeof(double) +
-                       (size_t)(n_e * n_q + n_e + E + 1 + kQuadrature) * sizeof(float);
-    auto kernel = gamma_step_kernel<GS_GREY != 0, GS_KASEN != 0, GS_ARTIS != 0, kEst>;
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<(unsigned)((n_packets + threads - 1) / threads), threads, shm,
-             (cudaStream_t)stream>>>(p);
-  }
+  if (n_packets <= 0) return (int)cudaSuccess;
+  if (n_packets > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  uint32_t* counters = (uint32_t*)queue;
+  uint32_t* list = counters + 2;
+  cudaError_t err = cudaMemsetAsync(counters, 0, 2 * sizeof(uint32_t), s);
+  if (err != cudaSuccess) return (int)err;
+  gamma_compact<<<(unsigned)((n_packets + kCompactThreads - 1) / kCompactThreads),
+                  kCompactThreads, 0, s>>>(p, counters, list);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  auto walk = gamma_walk<GS_GREY != 0, GS_KASEN != 0, GS_ARTIS != 0, kEst>;
+  const size_t shm = (size_t)(S + E + (kEst ? 3 * S : 0)) * sizeof(double) +
+                     (size_t)(n_e * n_q + n_e + E + 1 + kQuadrature) * sizeof(float);
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk, kWalkThreads, shm);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  walk<<<(unsigned)(per_sm * sms), kWalkThreads, shm, s>>>(p, counters, list);
   return (int)cudaGetLastError();
 }

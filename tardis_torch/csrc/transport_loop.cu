@@ -108,6 +108,7 @@
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "queue.cuh"
 #include "threefry.cuh"
 
 #ifndef TL_FULL_RELATIVITY
@@ -749,16 +750,6 @@ __device__ __forceinline__ void cont_birth(const Params& p, int64_t pid, ContPac
   q.li = LastInteraction{};
 }
 
-// a slot of ``counter`` for each calling lane, taken once per group of
-// converged lanes (a warp-aggregated atomicAdd)
-__device__ __forceinline__ unsigned long long take_slot(unsigned long long* counter) {
-  namespace cg = cooperative_groups;
-  cg::coalesced_group g = cg::coalesced_threads();
-  unsigned long long base = 0;
-  if (g.thread_rank() == 0) base = atomicAdd(counter, (unsigned long long)g.size());
-  return g.shfl(base, 0) + g.thread_rank();
-}
-
 // one event of a continuum packet (walk_packet's event with the continuum
 // opacity, estimators and Markov macro atom, and no spawn records);
 // returns false when the packet dies, its output row and sums written
@@ -1102,7 +1093,7 @@ __global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
   bool have = false;
   for (;;) {
     if (!have) {
-      const unsigned long long pid = take_slot(taken);
+      const unsigned long long pid = tardis::take_slot(taken);
       if (pid >= (unsigned long long)p.n_packets) break;
       cont_birth<kRel, kWeights>(p, (int64_t)pid, q);
       kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + q.pid));

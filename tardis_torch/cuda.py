@@ -52,7 +52,7 @@ def _nvcc() -> str:
 
 def library_path(name: str, defines: tuple = ()) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "threefry.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -33,9 +33,11 @@ reciprocal), so that the plain version and K6 agree bit for bit on the
 card; the JAX package's XLA f32 functions agree within an ulp or two.
 Deposition, escape histogram and estimators are f64 sums.
 
-``gamma_step_transport`` launches K6 for tensors on the card and runs
-``gamma_step_transport_plain`` (lockstep over the packets still active)
-only for CPU tensors.
+``gamma_step_transport`` launches K6 for tensors on the card (two kernel
+launches a call: the list of moving packets, then the persistent walk
+over it) and runs ``gamma_step_transport_plain`` (lockstep over the
+packets still active) only for CPU tensors.  A packet's result depends
+only on its own index and state, whichever packets move beside it.
 """
 
 from __future__ import annotations
@@ -190,12 +192,21 @@ def pair_creation_opacity_artis(energy_kev, density, iron_group_fraction):
     return torch.where(e > 1022.0, op, 0.0)
 
 
+_mus: dict = {}
+
+
 def quadrature_mus(device=None) -> torch.Tensor:
     """The 100 direction cosines of the mean Compton fraction's midpoint
     rule, np.linspace(-1, 1, 100) rounded to f32 (the JAX package's f32
-    linspace differs from it in the last bit at some points)."""
-    return torch.as_tensor(np.linspace(-1.0, 1.0, N_QUADRATURE), dtype=F32,
-                           device=device)
+    linspace differs from it in the last bit at some points); one copy per
+    device, made on first use (a copy from host memory waits for the
+    device's queue)."""
+    key = str(torch.device("cpu" if device is None else device))
+    t = _mus.get(key)
+    if t is None:
+        t = _mus[key] = torch.as_tensor(
+            np.linspace(-1.0, 1.0, N_QUADRATURE), dtype=F32, device=device)
+    return t
 
 
 def average_compton_fraction(energy_kev):
@@ -314,13 +325,18 @@ def library_defines(flags) -> tuple:
                  for name, f in zip(OPTIONS, flags))
 
 
-def _allocate(B, S, E, estimators, device):
+def _allocate(B, S, E, estimators, device, new_events=torch.zeros):
+    """The step's sums, zeroed views of one f64 buffer, and the event
+    counts made by ``new_events``: zeroed for the plain version, which adds
+    to them; ``torch.empty`` for K6, which writes every packet's count."""
+    n_est = 3 if estimators else 0
+    sums = torch.zeros(S + E + n_est * S, dtype=F64, device=device)
+    events = new_events(B, dtype=torch.int32, device=device)
     return dict(
-        deposition=torch.zeros(S, dtype=F64, device=device),
-        escape_hist=torch.zeros(E, dtype=F64, device=device),
-        estimators=torch.zeros((3 if estimators else 0, S), dtype=F64,
-                               device=device),
-        events=torch.zeros(B, dtype=torch.int32, device=device),
+        deposition=sums[:S],
+        escape_hist=sums[S:S + E],
+        estimators=sums[S + E:].view(n_est, S),
+        events=events,
     )
 
 
@@ -332,10 +348,14 @@ def gamma_step_transport_plain(r, mu, energy_kev, weight, shell, status,
                                grey_opacity: float = -1.0,
                                photoabsorption_type: str = "tardis",
                                pair_creation_type: str = "tardis",
-                               collect_estimators: bool = False
+                               collect_estimators: bool = False,
+                               tally: dict | None = None
                                ) -> GammaStepOutput:
     """Plain PyTorch version of K6: lockstep over the packets still active
-    (each steps once per iteration, so the iteration is its event count)."""
+    (each steps once per iteration, so the iteration is its event count).
+    A ``tally`` dict, when given, receives ``energy_changes``, the number of
+    events that changed a packet's energy (Compton scatters and pair
+    creations), as a 0-d int64 tensor."""
     grey, kasen, artis, est_on = variant(grey_opacity, photoabsorption_type,
                                          pair_creation_type,
                                          collect_estimators)
@@ -345,6 +365,7 @@ def gamma_step_transport_plain(r, mu, energy_kev, weight, shell, status,
     r, mu, e_kev, w = (x.clone() for x in (r, mu, energy_kev, weight))
     shell, status, budget = shell.clone(), status.clone(), dist_budget.clone()
     grey_f = _t(grey_opacity, r)
+    energy_changes = torch.zeros((), dtype=torch.int64, device=device)
     for it in range(max_steps):
         idx = (status == STATUS_ACTIVE).nonzero()[:, 0]
         if idx.numel() == 0:
@@ -397,6 +418,8 @@ def gamma_step_transport_plain(r, mu, energy_kev, weight, shell, status,
         is_compton = ev_int & (u2 < p_c)
         is_photo = ev_int & ~is_compton & (u2 < p_c + p_pa)
         is_pair = ev_int & ~is_compton & ~is_photo
+        if tally is not None:
+            energy_changes += (is_compton | is_pair).sum()
 
         cos_t = sample_kn_cos(kn_log_e, kn_table, ei, u3)
         e_new = ei / (1.0 + kappa_e(ei) * (1.0 - cos_t))
@@ -452,8 +475,19 @@ def gamma_step_transport_plain(r, mu, energy_kev, weight, shell, status,
         shell[idx] = torch.where(ev_bound & ~escaped & ~absorbed_in,
                                  new_shell, shell[idx])
         acc["events"][idx] += 1
+    if tally is not None:
+        tally["energy_changes"] = energy_changes
     return GammaStepOutput(r=r, mu=mu, energy_kev=e_kev, weight=w,
                            shell=shell, status=status, **acc)
+
+
+# K6's C entry point: 17 inputs, the sizes, the key, the grey opacity and
+# the constants, then 12 outputs and scratch and the stream
+_ARGTYPES = ([ctypes.c_void_p] * 17
+             + [ctypes.c_int64] + [ctypes.c_int] * 5
+             + [ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                ctypes.POINTER(GammaConstants)]
+             + [ctypes.c_void_p] * 12)
 
 
 def gamma_step_transport(r, mu, energy_kev, weight, shell, status,
@@ -504,34 +538,34 @@ def gamma_step_transport(r, mu, energy_kev, weight, shell, status,
                                              kasen_z4))
             or kn_log_e.shape != (n_e,) or E < 1 or n_e < 2 or n_q < 2):
         raise ValueError("gamma_step_transport: shapes do not agree")
-    lib = cuda.library("gamma_step", library_defines(flags))
-    acc = _allocate(B, S, E, flags[3], device)
+    if B > 2**31 - 1:
+        raise ValueError("gamma_step_transport: more than 2**31 - 1 packets")
+    fn = cuda.function("gamma_step", "gamma_step", _ARGTYPES,
+                       library_defines(flags))
+    acc = _allocate(B, S, E, flags[3], device, torch.empty)
     outs = [torch.empty_like(x) for x in (r, mu, energy_kev, weight, shell,
                                           status)]
-    mus = quadrature_mus(device)
-    fn = lib.gamma_step
-    fn.restype = ctypes.c_int
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([vp] * 17 + [ctypes.c_int64, ci, ci, ci, ci, ci,
-                                ctypes.c_uint32, ctypes.c_uint32,
-                                ctypes.c_float,
-                                ctypes.POINTER(GammaConstants)]
-                   + [vp] * 11)
+    if B == 0:
+        return GammaStepOutput(*outs, **acc)
+    # two counters, then the list of moving packets
+    queue = torch.empty(B + 2, dtype=i32, device=device)
     p = cuda.ptr
     err = fn(
         p(r), p(mu), p(energy_kev), p(weight), p(shell), p(status),
         p(dist_budget), p(r_inner), p(r_outer), p(electron_density),
         p(density), p(iron_fraction), p(kasen_z4), p(kn_log_e), p(kn_table),
-        p(ebin_edges), p(mus), B, S, E, n_e, n_q, max_steps, key[0], key[1],
-        float(grey_opacity), ctypes.byref(CONSTANTS), *(p(x) for x in outs),
+        p(ebin_edges), p(quadrature_mus(device)), B, S, E, n_e, n_q,
+        max_steps, key[0], key[1], float(grey_opacity),
+        ctypes.byref(CONSTANTS), *(p(x) for x in outs),
         p(acc["deposition"]), p(acc["escape_hist"]), p(acc["estimators"]),
-        p(acc["events"]), cuda.stream(),
+        p(acc["events"]), p(queue), cuda.stream(),
     )
     cuda.check_launch("gamma_step_transport", err)
     name = variant_name(flags)
     by = gamma_step_transport.launches_by_variant
-    by[name] = by.get(name, 0) + 1
+    by[name] = by.get(name, 0) + 2
     return GammaStepOutput(*outs, **acc)
 
 
-gamma_step_transport.launches_by_variant = {}  # launches by variant_name
+# kernel launches by variant_name, two a call (none without packets)
+gamma_step_transport.launches_by_variant = {}

@@ -9,7 +9,9 @@ spectrum.  The packet state stays on the device across the time steps;
 waiting packets are re-shelled there with an f64 search of the next
 step's inner radii (the JAX package reads the state back every step).
 The positron kinetic energy is deposited locally on the host, as in the
-JAX package.  Runs on the card unless ``device="cpu"`` is passed.
+JAX package.  Runs on the card unless ``device="cpu"`` is passed.  The
+decay pool is drawn inside the ``torch.profiler.record_function`` span
+``tardis.gamma_pool``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from tardis_torch.atomic.atom_data import ATOMIC_MASSES
 from tardis_torch.constants import C, DAY, M_U
@@ -58,6 +61,25 @@ class GammaRayResult:
     # path-length estimators per (T, S) (None unless collect_estimators):
     # kasen_deposition [erg], compton_emissivity, pair_creation_emissivity
     estimators: dict | None = None
+
+
+def step_shell_tables(time_edges, time_explosion, v_inner, v_outer,
+                      electron_density, density, kasen_z4, device):
+    """Every time step's shell tables at its mid-epoch t = sqrt(t0 t1):
+    radii v t and the densities (electron, mass and the Kasen composition
+    sum, each at ``time_explosion``) scaled by (t / time_explosion)^-3, in
+    f64 on the host and rounded to f32 on ``device``; (T, S) each, one
+    copy per table, so no time step copies from the host (a copy from host
+    memory waits for the device's queue)."""
+    t_mid = np.sqrt(time_edges[:-1] * time_edges[1:])
+    scale = np.array([(t / time_explosion) ** -3 for t in t_mid])[:, None]
+    t_mid = t_mid[:, None]
+    rows = dict(r_inner=v_inner * t_mid, r_outer=v_outer * t_mid,
+                electron_density=electron_density * scale,
+                density=density * scale, kasen_z4=kasen_z4 * scale)
+    return {name: torch.as_tensor(np.asarray(a, np.float64),
+                                  device=device).to(F32)
+            for name, a in rows.items()}
 
 
 class TARDISHEWorkflow:
@@ -133,11 +155,12 @@ class TARDISHEWorkflow:
         state = self.state
         dev = self.device
         S = state.no_of_shells
-        pool = sample_gamma_packets(
-            n_packets, self.isotope_numbers, t_start, t_end,
-            seed=self.seed, radiation=self.radiation,
-            positronium_fraction=positronium_fraction,
-        )
+        with record_function("tardis.gamma_pool"):
+            pool = sample_gamma_packets(
+                n_packets, self.isotope_numbers, t_start, t_end,
+                seed=self.seed, radiation=self.radiation,
+                positronium_fraction=positronium_fraction,
+            )
         time_edges = np.logspace(np.log10(t_start), np.log10(t_end),
                                  n_time_steps + 1)
         ebins = np.logspace(np.log10(10.0), np.log10(4000.0),
@@ -181,15 +204,16 @@ class TARDISHEWorkflow:
 
         key = rng.key(np.uint32(self.seed))
         base_density = state.composition.density
-        base_ne = base_density * z_over_a / M_U
-        base_kasen_z4 = base_density * z4_over_a / M_U
+        tables = step_shell_tables(
+            time_edges, state.time_explosion, v_inner, v_outer,
+            base_density * z_over_a / M_U, base_density,
+            base_density * z4_over_a / M_U, dev)
         rin_dev = f64(v_inner)
         ebins_t = f32(ebins)
         iron_t = f32(iron)
         for ts in range(n_time_steps):
             t0, t1 = time_edges[ts], time_edges[ts + 1]
             t_mid = np.sqrt(t0 * t1)
-            scale = (t_mid / state.time_explosion) ** -3
             # packets born in this step enter at their scaled position;
             # packets that reached the last step's end continue
             birth = ~born & (birth_time >= t0) & (birth_time < t1)
@@ -202,10 +226,10 @@ class TARDISHEWorkflow:
                 (C * (t1 - torch.clamp(birth_time, min=t0))).to(F32), 0.0)
             out = gamma_step_transport(
                 r, mu, e_kev, w, shell, status, budget, rng.fold_in(key, ts),
-                f32(v_inner * t_mid), f32(v_outer * t_mid),
-                f32(base_ne * scale), f32(base_density * scale), iron_t,
+                tables["r_inner"][ts], tables["r_outer"][ts],
+                tables["electron_density"][ts], tables["density"][ts], iron_t,
                 kn_log_e, kn_table, ebins_t,
-                kasen_z4=f32(base_kasen_z4 * scale),
+                kasen_z4=tables["kasen_z4"][ts],
                 grey_opacity=float(grey_opacity),
                 photoabsorption_type=photoabsorption_opacity,
                 pair_creation_type=pair_creation_opacity,
