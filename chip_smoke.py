@@ -27,13 +27,18 @@ Phases, one printed line each (plus one line per iteration):
      vpacket.variant_name on the tables and pools built here, the two
      continuum K1 instantiations of the IIP paths included), built in
      parallel, and K1 at each path's shapes: the convergence iterations'
-     2,097,152 packets without spawn records and, on the main and
-     relativity paths, the final iteration's 4,194,304 with 8 records a
-     packet; K4 in one launch on each path's final-iteration records;
+     2,097,152 packets without spawn records or line estimators and the
+     final iteration's with line estimators (on the main and relativity
+     paths 4,194,304 packets with 8 records a packet), each timed as CUDA
+     events around each call (ms) and as device time of queued calls
+     (device_ms), with its per-packet event distribution and the lane
+     efficiency a layout of one thread a packet would have (from the plain
+     version's counts); K4 in one launch on each path's final-iteration
+     records;
      then the sharding of parallel/transport.py on this one card
-     (check_sharded_transport): the main path's K1 over 1, 2 and 4 shards
-     (cuda:0 repeated) against one device, the final iteration's records
-     over 2 shards, and _final_reduce timed alone;
+     (check_sharded_transport): the main path's convergence K1 over 1, 2
+     and 4 shards (cuda:0 repeated) against one device, the final
+     iteration's records over 2 shards, and _final_reduce timed alone;
   3. the IIP paths' kernels (the JAX package's IIP problem: H / He, H I
      continua, 20 shells, 1,048,576 packets): K3 at its line tables, K2's
      relativistic pool at 1,048,576, and each continuum K1 instantiation
@@ -41,15 +46,19 @@ Phases, one printed line each (plus one line per iteration):
      boosted so both fire) timed uncapped as the path runs it (one
      launch of the persistent grid), with its per-packet event
      distribution, in both table placements (shared and device memory),
-     bitwise per packet against each other; against its plain version
+     bitwise per packet against each other, the racing moment and
+     free-free sums within a bound derived from their term counts
+     (summation_bound); against its plain version
      with both stopped at IIP_EVENT_CAP events a packet; and the longest
      packet alone, the floor of any schedule; and the IIP path's over 2
      shards against one device
      (check_sharded_continuum, the same cap); then K7
      (nonhomologous event loop) on the bench problem under the perturbed
      velocity law of the JAX package's end-to-end test, in scatter and in
-     macroatom mode (the RNG-walk macro atom) with last-interaction rows at
-     2,097,152 packets, bitwise against its plain version, and in scatter
+     macroatom mode (the RNG-walk macro atom) with last-interaction rows
+     and without line estimators at 2,097,152 packets and, macroatom, with
+     them at 4,194,304, bitwise against its plain version (ms, device_ms,
+     the event distribution and lane efficiency as for K1), and in scatter
      mode under the homologous law against K1 (status agreement >= 0.999);
      and K6 (gamma-ray step) on a pool of 4,194,304 packets for one step
      in each of its four instantiations, bitwise against its plain version,
@@ -85,7 +94,9 @@ Phases, one printed line each (plus one line per iteration):
      days, 100 energy bins and the path-length estimators; the probe path,
      tardis_torch.benchmarks.probe2.main() (its JSON lines);
      on each path the launch counts are reset to 0 just before the run and
-     read just after, every variant a wrapper launched under its own line;
+     read just after, every variant a wrapper launched under its own line
+     (K1 and K7 without line estimators in the convergence iterations,
+     with them in the final one);
   8. K5 (formal-integral rays) against its plain version on the main
      path's own source-function tables;
   9. where the time goes: torch.profiler over a two-iteration run of the
@@ -93,7 +104,7 @@ Phases, one printed line each (plus one line per iteration):
      by kernel, host time by tardis.* span, the device's busy share; K6's
      device time summed over the gamma path's steps);
  10. a JSON line of every kernel (each K1, K2 and K4 variant on its own
-     line, K6 and K7 by the instantiation their paths run, with the
+     line, K6 and K7 by the instantiations their paths run, with the
      launches of the path that runs it; K6's entry also carries its
      gamma-path totals: ms around each call, device ms, bound ms; the
      weighted pool's
@@ -562,9 +573,11 @@ def check_chain_build(atom, ps):
     return chain
 
 
-def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0):
+def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0,
+             line_estimators=True):
     """Least time for K1: every table read once, outputs (spawn records and
-    tracker rows included) written once, against the events' hashing,
+    tracker rows included; the line difference array only with
+    ``line_estimators``) written once, against the events' hashing,
     search and arithmetic.  Every event hashes at least twice (its key and
     the tau draw); interactions hash more, so counting two keeps the bound
     a lower bound.  With continuum, an event also searches the bound-free
@@ -576,8 +589,9 @@ def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0):
     in_bytes = 8 * n_packets + nbytes(
         t.r_inner, t.r_outer, t.chi_e, t.line_nu, t.prefix, t.line2macro,
         t.chain_cdf, t.emit_cdf)
-    out_bytes = 8 * n_packets + 8 * (2 * (t.n_lines + 1) * t.n_shells
-                                     + 2 * t.n_shells + 4) + 32 * n_records
+    line_diff = 2 * (t.n_lines + 1) * t.n_shells if line_estimators else 0
+    out_bytes = (8 * n_packets + 8 * (line_diff + 2 * t.n_shells + 4)
+                 + 32 * n_records)
     per_event = (2 * THREEFRY_OPS + 8 * math.ceil(math.log2(t.n_lines + 1))
                  + 60)
     c = t.continuum
@@ -591,16 +605,36 @@ def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0):
     return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event)
 
 
+def lane_efficiency(events, width=32):
+    """Events over the lane-events a layout of one thread a packet spends:
+    sum of the packets' event counts over sum, over groups of ``width``
+    consecutive packets (a warp), of ``width`` times the group's longest."""
+    e = events.double()
+    pad = (-e.numel()) % width
+    groups = torch.cat([e, e.new_zeros(pad)]).view(-1, width)
+    return (e.sum() / (width * groups.max(dim=1).values.sum())).item()
+
+
+def events_numbers(events, stopped):
+    """events_per_packet (mean, p99, max, stopped) and the lane efficiency
+    of a warp of 32 consecutive packets."""
+    return dict(events_per_packet=event_distribution(events, stopped),
+                lane_efficiency=lane_efficiency(events))
+
+
 def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
-                           tracker_length=0):
+                           tracker_length=0, line_estimators=True):
     """K1 against its plain version on one pool (mu, nu, w; w None for the
-    simple pool), with spawn-record capacity ``cap`` (0: none) and the
-    trackers asked for.  Both versions draw the same bits and take the same
-    f32 steps (no FMA contraction), so every packet must end bitwise equal,
-    with bitwise equal last-interaction and tracker rows, and write the
-    same spawn records (in another order: compared as sorted multisets);
-    the f64 sums differ only in the order of their atomic adds, hence rtol
-    1e-9.  Returns the phase's numbers and both outputs."""
+    simple pool), with spawn-record capacity ``cap`` (0: none), the
+    trackers and the line estimators as asked.  Both versions draw the
+    same bits and take the same f32 steps (no FMA contraction), so every
+    packet must end bitwise equal, with bitwise equal last-interaction and
+    tracker rows, and write the same spawn records (in another order:
+    compared as sorted multisets); the f64 sums differ only in the order of
+    their atomic adds, hence rtol 1e-9; without line estimators neither
+    side has a line difference array.  Timed as CUDA events around each
+    call (``ms``) and as device time of queued calls (``device_ms``).
+    Returns the phase's numbers and both outputs."""
     from tardis_torch.transport.kernel import (
         transport_loop,
         transport_loop_plain,
@@ -610,8 +644,11 @@ def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
     n = mu.shape[0]
     kw = dict(vpacket_capacity=cap, pool_w=w,
               last_interaction=last_interaction,
-              tracker_length=tracker_length)
+              tracker_length=tracker_length, line_estimators=line_estimators)
     ms, k = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key, **kw), 5)
+    del k
+    device_ms, k = cuda_ms_queued(
+        lambda: transport_loop(tables, mu, nu, run_key, **kw), 5)
     # the plain version's lockstep loop refills PLAIN_LANES lanes from the
     # pool; per-packet results do not depend on the lane count
     plain_ms, p = cuda_ms(
@@ -624,13 +661,17 @@ def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
     bitwise = (k.out == p.out).all(dim=1).double().mean().item()
     rows_equal = bool(torch.equal(k.last_interaction, p.last_interaction)
                       and torch.equal(k.tracker, p.tracker))
+    sums = ("est_j", "est_nubar") + (("line_diff",) if line_estimators
+                                     else ())
     rels = {name: rel_err(getattr(k, name), getattr(p, name))
-            for name in ("est_j", "est_nubar", "line_diff")}
+            for name in sums}
     rels["L_window"] = rel_err(k.summary[0:1], p.summary[0:1])
     rels["L_reabsorbed"] = rel_err(k.summary[1:2], p.summary[1:2])
     events = k.summary[2].item(), p.summary[2].item()
     immortal = int(k.summary[3].item()), int(p.summary[3].item())
     records = int(k.vp_count[0]), int(p.vp_count[0])
+    line_diff_sizes = k.line_diff.numel(), p.line_diff.numel()
+    want_size = 2 * (tables.n_lines + 1) * tables.n_shells * line_estimators
     n_rec = k.n_vp_records
     rows_k = sorted_rows(k.vp_records[:n_rec])
     rows_p = sorted_rows(p.vp_records[:n_rec])
@@ -641,22 +682,29 @@ def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
             and all(r <= 1e-9 for r in rels.values())
             and events[0] == events[1] and immortal == (0, 0)
             and records_equal and records[0] <= cap
-            and (cap == 0 or records[0] > n)):
+            and (cap == 0 or records[0] > n)
+            and line_diff_sizes == (want_size, want_size)
+            and int(p.events.sum()) == events[1]):
         raise AssertionError(
             f"transport_loop at {n} packets: bitwise packets {bitwise}, "
             f"status agreement {agree}, tracker rows equal {rows_equal}, "
             f"max rel {rels}, events {events}, immortal {immortal}, "
             f"records {records} of capacity {cap}, "
-            f"records equal {records_equal}")
+            f"records equal {records_equal}, line_diff sizes "
+            f"{line_diff_sizes} (want {want_size})")
     max_abs = max([(getattr(k, name) - getattr(p, name)).abs().max().item()
-                   for name in ("out", "est_j", "est_nubar", "line_diff",
-                                "summary")]
+                   for name in ("out", "summary") + sums]
                   + ([(rows_k - rows_p).abs().max().item()] if n_rec else []))
     extra = (0 if w is None else nbytes(w)) + nbytes(k.last_interaction,
                                                      k.tracker)
-    b_ms, b_by = k1_bound(tables, n, events[0], n_rec, extra)
-    numbers = dict(n=n, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, events=events[0], records=records[0],
+    b_ms, b_by = k1_bound(tables, n, events[0], n_rec, extra,
+                          line_estimators)
+    numbers = dict(n=n, line_estimators=line_estimators, ms=ms,
+                   device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, events=events[0],
+                   events_per_s=events[0] / (device_ms * 1e-3),
+                   **events_numbers(p.events, immortal[1]),
+                   records=records[0],
                    record_capacity=cap, status_agreement=agree,
                    bitwise_packets=bitwise, tracker_rows_bitwise=rows_equal,
                    records_bitwise_as_multiset=records_equal, max_rel=rels,
@@ -665,12 +713,15 @@ def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
 
 
 def k1_entry(name, replaces, numbers):
-    return dict(name=name, route="cuda",
-                source="tardis_torch/csrc/transport_loop.cu",
-                replaces=replaces, max_abs_err=numbers["max_abs_err"],
-                ms=numbers["ms"], plain_ms=numbers["plain_ms"],
-                bound_ms=numbers["bound_ms"], bound_by=numbers["bound_by"],
-                library_ms=None)
+    entry = dict(name=name, route="cuda",
+                 source="tardis_torch/csrc/transport_loop.cu",
+                 replaces=replaces, max_abs_err=numbers["max_abs_err"],
+                 ms=numbers["ms"], plain_ms=numbers["plain_ms"],
+                 bound_ms=numbers["bound_ms"], bound_by=numbers["bound_by"],
+                 library_ms=None)
+    if "device_ms" in numbers:
+        entry["device_ms"] = numbers["device_ms"]
+    return entry
 
 
 def main_tables(state, atom, ps, chain, **options):
@@ -693,20 +744,22 @@ def path_tables(state, atom, ps, chain):
             for path, opts in PATHS.items()}
 
 
-def k1_variant(path, tables, pool):
-    """The K1 instantiation ``path`` selects on these tables and pool."""
+def k1_variant(path, tables, pool, line_estimators=True):
+    """The K1 instantiation ``path`` selects on these tables and pool, with
+    or without line estimators (its convergence iterations run without,
+    its final iteration with)."""
     from tardis_torch.transport.kernel import variant
 
     opts = PATHS[path]
     return variant(tables, pool[2], opts["last_interaction"],
-                   opts["tracker_length"])
+                   opts["tracker_length"], line_estimators)
 
 
 def build_variants(tables, pools, iip_tables=()):
     """Build, in parallel, the K1 and K4 instantiations the paths select
     on their own tables and pools, K1's continuum instantiations of
     ``iip_tables`` (with the weighted pool and last-interaction rows, as
-    the IIP paths run them), K7's NONHOM_VARIANTS and K6's GAMMA_OPTIONS;
+    the IIP paths run them), K7's NONHOM_CASES and K6's GAMMA_OPTIONS;
     returns the wall seconds and the ptxas register lines."""
     from tardis_torch import cuda
     from tardis_torch.energy_input import gamma_kernel
@@ -716,13 +769,15 @@ def build_variants(tables, pools, iip_tables=()):
         t, pools["relativistic"][N_PACKETS][2], last_interaction=True)))
         for t in iip_tables]
     libs += [("nonhom_loop", nonhomologous.library_defines(flags))
-             for flags in NONHOM_VARIANTS.values()]
+             for flags in dict.fromkeys(f for _, f, _, _ in NONHOM_CASES)]
     libs += [("gamma_step", gamma_kernel.library_defines(
         gamma_kernel.variant(**opts))) for opts in GAMMA_OPTIONS.values()]
     for path, opts in PATHS.items():
         t = tables[path]
-        flags = k1_variant(path, t, pools[opts["pool"]][N_PACKETS])
-        libs.append(("transport_loop", kernel.library_defines(flags)))
+        for line_estimators in (False, True):
+            flags = k1_variant(path, t, pools[opts["pool"]][N_PACKETS],
+                               line_estimators)
+            libs.append(("transport_loop", kernel.library_defines(flags)))
         if opts["records"]:
             libs.append(("vpacket_volley", vpacket.library_defines(t)))
     return cuda.build(libs), ptxas_lines(libs)
@@ -753,14 +808,15 @@ def tracker_counts(tables, k):
 
 
 def check_transport_loop(path, tables, pools):
-    """K1 as ``path`` runs it, at each of its shapes, on the pool drawn
-    with that iteration's key: the convergence iterations' (N_PACKETS, no
-    records) and, where the final iteration writes spawn records, the
-    final iteration's (FINAL_PACKETS, VPACKET_RECORDS_PER_PACKET records a
-    packet).  The kernels line takes the convergence shape (four of the
-    five launches of the main and relativity paths, all of the options
-    path's).  Returns the line and the final iteration's records (None
-    without records)."""
+    """K1 as ``path`` runs it, each instantiation at its shape, on the pool
+    drawn with that iteration's key: the convergence iterations' without
+    line estimators (N_PACKETS, no records; four of the five launches of
+    the main and relativity paths, two of the options path's three) and
+    the final iteration's with them (FINAL_PACKETS and
+    VPACKET_RECORDS_PER_PACKET records a packet where the path writes
+    spawn records, else N_PACKETS with the last iteration's key).  Returns
+    the two kernels-line entries by ``convergence`` and ``final``, and the
+    final iteration's records (None without records)."""
     from tardis_torch.transport.kernel import variant_name
     from tardis_torch.transport.solver import (
         VPACKET_RECORDS_PER_PACKET,
@@ -770,25 +826,28 @@ def check_transport_loop(path, tables, pools):
     opts = PATHS[path]
     kw = dict(last_interaction=opts["last_interaction"],
               tracker_length=opts["tracker_length"])
-    name = line_name("transport_loop", variant_name(
-        k1_variant(path, tables, pools[N_PACKETS])))
-    _, run_key = iteration_keys(SEED, 0)
-    conv, k, _ = compare_transport_loop(tables, pools[N_PACKETS], run_key, 0,
-                                        **kw)
-    conv.update(tracker_counts(tables, k))
-    say("check_transport_loop", line=name, **conv)
-    del k
-    entry = k1_entry(name, REPLACES_K1[path], conv)
-    if not opts["records"]:
-        return entry, None
-    _, run_key = iteration_keys(SEED, ITERATIONS - 1)
-    final, k, _ = compare_transport_loop(
-        tables, pools[FINAL_PACKETS], run_key,
-        VPACKET_RECORDS_PER_PACKET * FINAL_PACKETS, **kw)
-    final.update(tracker_counts(tables, k))
-    say("check_transport_loop_records", line=name, **final)
-    entry["max_abs_err"] = max(conv["max_abs_err"], final["max_abs_err"])
-    return entry, k.vp_records[:k.n_vp_records]
+    final_n = FINAL_PACKETS if opts["records"] else N_PACKETS
+    final_key = ITERATIONS - 1 if opts["records"] else OPTIONS_ITERATIONS - 1
+    cases = (("convergence", N_PACKETS, 0, 0, False),
+             ("final", final_n, final_key,
+              VPACKET_RECORDS_PER_PACKET * final_n if opts["records"] else 0,
+              True))
+    entries, records = {}, None
+    for role, n, iteration, cap, line_estimators in cases:
+        name = line_name("transport_loop", variant_name(k1_variant(
+            path, tables, pools[n], line_estimators)))
+        _, run_key = iteration_keys(SEED, iteration)
+        numbers, k, _ = compare_transport_loop(
+            tables, pools[n], run_key, cap, line_estimators=line_estimators,
+            **kw)
+        numbers.update(tracker_counts(tables, k))
+        say("check_transport_loop_records" if cap else
+            "check_transport_loop", line=name, role=role, **numbers)
+        entries[role] = k1_entry(name, REPLACES_K1[path], numbers)
+        if cap:
+            records = k.vp_records[:k.n_vp_records]
+        del k
+    return entries, records
 
 
 def check_vpacket_volley(tables, records, device):
@@ -1113,39 +1172,95 @@ def event_distribution(events, stopped):
                 max=int(events.max().item()), stopped=int(stopped))
 
 
-CONTINUUM_LIMITS = dict(est_j=1e-12, est_nubar=1e-12, cont_moments=1e-12,
-                        est_ff_heat=1e-11, line_diff=1e-9, L_window=1e-9,
-                        L_reabsorbed=1e-9)
+CONTINUUM_LIMITS = dict(est_j=1e-12, est_nubar=1e-12, line_diff=1e-9,
+                        L_window=1e-9, L_reabsorbed=1e-9)
+UNIT_ROUNDOFF = 2.0 ** -53  # f64
+
+
+def summation_bound(n, a, b):
+    """The largest difference that two orders of summing the same ``n``
+    non-negative f64 terms can leave between their sums ``a`` and ``b``
+    (elementwise).  Any order of the n - 1 additions keeps a sum within
+    gamma = (n-1) u / (1 - (n-1) u) of the exact sum S, relative (u =
+    2^-53, round to nearest; Higham, Accuracy and Stability of Numerical
+    Algorithms, 2nd ed., eq. (4.4) for any order), and S <= a / (1 -
+    gamma); so |a - b| <= 2 gamma / (1 - gamma) max(a, b), which is
+    2 (n-1) u |sum| to first order.  It depends on the terms' count and
+    sign alone, not on any measured spread."""
+    m = torch.clamp(n.double() - 1.0, min=0.0) * UNIT_ROUNDOFF
+    gamma = m / (1.0 - m)
+    return 2.0 * gamma / (1.0 - gamma) * torch.maximum(a.abs(), b.abs())
+
+
+def over_bound(a, b, bound):
+    """max |a - b| / bound, where a difference over a zero bound counts as
+    infinitely over it (and no difference as 0)."""
+    diff = (a - b).abs()
+    ratio = torch.where(bound > 0, diff / bound.clamp_min(1e-300),
+                        torch.where(diff > 0, math.inf, 0.0))
+    return ratio.max().item() if ratio.numel() else 0.0
+
+
+def continuum_sum_bounds(k, p):
+    """The racing continuum sums against summation_bound, row by row.
+    Every term is non-negative: a moment [w, w/nu, w nu, wb, wb/nu, wb nu]
+    of an event's path weight w >= 0 at nu > 0 and b = exp(-h nu / k T)
+    in (0, 1], and w chi_ff with chi_ff = ff_coef (1 - b) / nu^3 >= 0 (the
+    caller checks ff_coef >= 0).  A moment row counts its terms in column
+    6 (each event adds 1, an exact f64 integer below 2^53; both sides must
+    count the same), a shell's free-free heating the terms of its rows.
+    Returns (counts equal, numbers: the largest difference over its bound
+    of each sum, the largest bound relative to its sum, and the plain
+    max_rel reading beside them)."""
+    S = k.est_ff_heat.shape[0]
+    n_row = k.cont_moments[:, 6]
+    counts_equal = bool(torch.equal(n_row, p.cont_moments[:, 6]))
+    out = {}
+    n_shell = n_row.view(-1, S).sum(dim=0)
+    for name, a, b, n in (
+            ("cont_moments", k.cont_moments, p.cont_moments, n_row[:, None]),
+            ("est_ff_heat", k.est_ff_heat, p.est_ff_heat, n_shell)):
+        bnd = summation_bound(n.expand_as(a), a, b)
+        scale = torch.maximum(a.abs(), b.abs())
+        out[name] = dict(
+            max_rel=rel_err(a, b), over_bound=over_bound(a, b, bnd),
+            bound_rel_max=(bnd / scale.clamp_min(1e-300)).max().item(),
+            terms_max=int(n.max().item()))
+    return counts_equal, out
 
 
 def compare_continuum(k, p):
     """Two continuum K1 outputs that must agree: every packet's row, event
     count and last-interaction row bitwise, the event and stopped totals
-    equal, the sums within CONTINUUM_LIMITS (f64 atomics in racing order).
-    The free-free heating sums ~1.5e8 terms spanning decades per shell
-    (chi_ff ~ nu^-3) in two racing orders: 1.25e-12 apart at 1,048,576
-    packets on an H100 80GB HBM3 at 700 W, so it is held to 1e-11; the line
-    difference array and luminosity sums, with cancelling terms, to 1e-9
-    as for the classic K1.  Returns (ok, numbers)."""
+    equal, est_j / est_nubar within CONTINUUM_LIMITS (f64 atomics in racing
+    order, ~1e4-1e5 terms a shell), the line difference array and
+    luminosity sums, with cancelling terms, within 1e-9 as for the classic
+    K1; the moments and the free-free heating, ~1e5 terms a row on average
+    summed in racing order, within summation_bound of their own term
+    counts, row by row (continuum_sum_bounds: no bar from a reading).
+    Returns (ok, numbers)."""
     bitwise = (k.out == p.out).all(dim=1).double().mean().item()
     events_equal = bool(torch.equal(k.events, p.events))
     rows_equal = bool(torch.equal(k.last_interaction, p.last_interaction))
     rels = {name: rel_err(getattr(k, name), getattr(p, name))
-            for name in ("est_j", "est_nubar", "est_ff_heat",
-                         "cont_moments", "line_diff")}
+            for name in ("est_j", "est_nubar", "line_diff")}
     rels["L_window"] = rel_err(k.summary[0:1], p.summary[0:1])
     rels["L_reabsorbed"] = rel_err(k.summary[1:2], p.summary[1:2])
+    counts_equal, sums = continuum_sum_bounds(k, p)
     totals = (k.summary[2].item(), p.summary[2].item(),
               int(k.summary[3].item()), int(p.summary[3].item()))
     ok = (bitwise == 1.0 and events_equal and rows_equal
           and totals[0] == totals[1] and totals[2] == totals[3]
-          and all(r <= CONTINUUM_LIMITS[name] for name, r in rels.items()))
+          and all(r <= CONTINUUM_LIMITS[name] for name, r in rels.items())
+          and counts_equal and all(v["over_bound"] <= 1.0
+                                   for v in sums.values()))
     max_abs = max((getattr(k, name) - getattr(p, name)).abs().max().item()
                   for name in ("out", "est_j", "est_nubar", "est_ff_heat",
                                "cont_moments", "line_diff", "summary"))
     return ok, dict(bitwise_packets=bitwise, events_bitwise=events_equal,
                     last_interaction_bitwise=rows_equal, events=totals[0],
-                    stopped=totals[2], max_rel=rels, max_abs_err=max_abs)
+                    stopped=totals[2], max_rel=rels, term_counts_equal=
+                    counts_equal, summation_bound=sums, max_abs_err=max_abs)
 
 
 def check_continuum_loop(tables, pool, run_key, replaces):
@@ -1173,6 +1288,9 @@ def check_continuum_loop(tables, pool, run_key, replaces):
 
     mu, nu, w = pool
     n = mu.shape[0]
+    if not bool((tables.continuum.ff_coef >= 0).all()):
+        raise AssertionError("continuum tables: a negative free-free "
+                             "coefficient (summation_bound needs terms >= 0)")
     kw = dict(pool_w=w, last_interaction=True)
     flags = variant(tables, w, last_interaction=True)
     picked = smem_tables_fit(tables, library_defines(flags))
@@ -1567,10 +1685,14 @@ def perturbed_geometry(geometry):
     return geom
 
 
-# K7's instantiations (flags in nonhomologous.OPTIONS order): both checked
-# modes with last-interaction rows, the nonhomologous path's tracking
-NONHOM_VARIANTS = {"scatter": (False, True, False, False),
-                   "macroatom": (True, True, False, False)}
+# K7's checks: (mode, instantiation flags in nonhomologous.OPTIONS order,
+# packets, iteration); last-interaction rows as the nonhomologous path
+# tracks, which runs macroatom without line estimators in its convergence
+# iterations and with them in its final one
+NONHOM_CASES = (("scatter", (False, True, False, False, False), N_PACKETS, 0),
+                ("macroatom", (True, True, False, False, False), N_PACKETS, 0),
+                ("macroatom", (True, True, False, False, True), FINAL_PACKETS,
+                 NONHOM_ITERATIONS - 1))
 
 
 def nonhom_tables(state, atom, ps, geometry, mode):
@@ -1591,9 +1713,10 @@ def nonhom_tables(state, atom, ps, geometry, mode):
     return build_nonhom_tables(geometry, ps_nh, atom, mode, walk=walk)
 
 
-def k7_bound(t, n_packets, n_events, extra_bytes=0):
+def k7_bound(t, n_packets, n_events, extra_bytes=0, line_estimators=True):
     """Least time for K7: the tables read once (both prefixes, the walk
-    tables), the outputs written once, against the events' two hashes and
+    tables), the outputs written once (the line difference array only with
+    ``line_estimators``), against the events' two hashes and
     their line search (~8 operations a probe) and ~60 operations of the
     event; the bisection, the walk and the window searches, which only
     some events run, are not counted, so the bound stays a lower bound."""
@@ -1602,8 +1725,8 @@ def k7_bound(t, n_packets, n_events, extra_bytes=0):
                                       t.rev_prefix)
     if t.walk is not None:
         in_bytes += nbytes(*t.walk)
-    out_bytes = 8 * n_packets + 8 * (2 * (t.n_lines + 1) * t.n_shells
-                                     + 2 * t.n_shells + 4)
+    line_diff = 2 * (t.n_lines + 1) * t.n_shells if line_estimators else 0
+    out_bytes = 8 * n_packets + 8 * (line_diff + 2 * t.n_shells + 4)
     per_event = (2 * THREEFRY_OPS + 8 * math.ceil(math.log2(t.n_lines + 1))
                  + 60)
     return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event)
@@ -1611,27 +1734,30 @@ def k7_bound(t, n_packets, n_events, extra_bytes=0):
 
 def check_nonhom_loop(state, atom, ps, pools):
     """K7 on the bench problem under the perturbed law against its plain
-    version at NONHOM_PLAIN_LANES lanes, at each shape the nonhomologous
-    path gives it: in scatter and in macroatom mode with last-interaction
-    rows at N_PACKETS on the simple pool of the first iteration, and in
-    macroatom mode at FINAL_PACKETS on the final iteration's pool with its
-    key (``pools`` by packet count).  The walk tables' sizes (the rows of
-    ``solve_macro_state``'s dense layout among them) and the macroatom
-    tables' build time go on a line of their own.  Every packet,
-    every last-interaction
-    row and the event totals
+    version at NONHOM_PLAIN_LANES lanes, in each of NONHOM_CASES: scatter
+    and macroatom mode without line estimators at N_PACKETS on the simple
+    pool of the first iteration (the nonhomologous path's convergence
+    instantiation), and macroatom mode with them at FINAL_PACKETS on the
+    final iteration's pool with its key (``pools`` by packet count).  The
+    walk tables' sizes (the rows of ``solve_macro_state``'s dense layout
+    among them) and the macroatom tables' build time go on a line of their
+    own.  Every packet, every last-interaction row and the event totals
     bitwise equal; est_j and est_nubar within 1e-12 relative (f64 atomics
-    in racing order), the line difference array and the luminosity sums
-    within 1e-9 (their terms cancel, as for K1).  Then K7 in scatter mode
-    under the homologous law against K1's classic instantiation on the same pool:
+    in racing order), the line difference array (where asked for; empty on
+    both sides otherwise) and the luminosity sums within 1e-9 (their terms
+    cancel, as for K1).  Timed as CUDA events around each call (``ms``) and
+    as device time of queued calls (``device_ms``); the per-packet event
+    distribution and the lane efficiency of one thread a packet come from
+    the plain version's counts.  Then K7 in scatter mode under the
+    homologous law against K1's classic instantiation on the same pool:
     status agreement at least 0.999 (the JAX package's own bar,
-    tests/test_nonhomologous.py:85).  Returns the kernels-line entry of the
-    macroatom instantiation (the nonhomologous path's), timed at N_PACKETS
-    (four of the path's five launches), with the largest error of its
-    shapes."""
+    tests/test_nonhomologous.py:85).  Returns the kernels-line entries of
+    the macroatom instantiations (the nonhomologous path's) by
+    ``convergence`` and ``final``."""
     from tardis_torch.model.geometry import NonhomologousRadial1DGeometry
     from tardis_torch.transport.kernel import transport_loop
     from tardis_torch.transport.nonhomologous import (
+        OPTIONS,
         nonhom_transport_loop,
         nonhom_transport_loop_plain,
         variant,
@@ -1641,10 +1767,7 @@ def check_nonhom_loop(state, atom, ps, pools):
     from tardis_torch.transport.tables import build_transport_tables
 
     geom = perturbed_geometry(state.geometry)
-    entry = None
-    max_abs = 0.0
-    cases = (("scatter", N_PACKETS, 0), ("macroatom", N_PACKETS, 0),
-             ("macroatom", FINAL_PACKETS, NONHOM_ITERATIONS - 1))
+    entries = {}
     tables = {mode: nonhom_tables(state, atom, ps, geom, mode)
               for mode in ("scatter", "macroatom")}
     sizes = torch.diff(tables["macroatom"].walk.block_start).cpu().numpy()
@@ -1656,47 +1779,61 @@ def check_nonhom_loop(state, atom, ps, pools):
         dense_rows=sum(int((group == g).sum() * sizes[group == g].max())
                        for g in np.unique(group)),
         tables_ms=build_ms)
-    for mode, n, iteration in cases:
+    for mode, flags, n, iteration in NONHOM_CASES:
         t = tables[mode]
         mu, nu, _ = pools[n]
         _, run_key = iteration_keys(SEED, iteration)
-        kw = dict(last_interaction=True)
+        line_estimators = flags[OPTIONS.index("line_estimators")]
+        if flags != variant(t, True, 0, line_estimators):
+            raise AssertionError(f"nonhom_loop: case flags {flags}")
+        kw = dict(last_interaction=True, line_estimators=line_estimators)
         ms, k = cuda_ms(lambda: nonhom_transport_loop(t, mu, nu, run_key,
                                                       **kw), 3)
+        del k
+        device_ms, k = cuda_ms_queued(lambda: nonhom_transport_loop(
+            t, mu, nu, run_key, **kw), 3)
         plain_ms, p = cuda_ms(lambda: nonhom_transport_loop_plain(
             t, mu, nu, run_key, batch_size=NONHOM_PLAIN_LANES, **kw), 1,
             warmup=False)
         bitwise = (k.out == p.out).all(dim=1).double().mean().item()
         rows_equal = bool(torch.equal(k.last_interaction,
                                       p.last_interaction))
+        sums = ("est_j", "est_nubar") + (("line_diff",) if line_estimators
+                                         else ())
         rels = {name: rel_err(getattr(k, name), getattr(p, name))
-                for name in ("est_j", "est_nubar", "line_diff")}
+                for name in sums}
         rels["L_window"] = rel_err(k.summary[0:1], p.summary[0:1])
         rels["L_reabsorbed"] = rel_err(k.summary[1:2], p.summary[1:2])
         limits = dict(est_j=1e-12, est_nubar=1e-12, line_diff=1e-9,
                       L_window=1e-9, L_reabsorbed=1e-9)
         events = k.summary[2].item(), p.summary[2].item()
         stopped = int(k.summary[3].item()), int(p.summary[3].item())
+        want_size = 2 * (t.n_lines + 1) * t.n_shells * line_estimators
+        sizes = k.line_diff.numel(), p.line_diff.numel()
         if not (bitwise == 1.0 and rows_equal and events[0] == events[1]
                 and stopped == (0, 0) and bool((k.out[:, 0] != 0).all())
-                and all(r <= limits[name] for name, r in rels.items())):
+                and all(r <= limits[name] for name, r in rels.items())
+                and sizes == (want_size, want_size)
+                and int(p.events.sum()) == events[1]):
             raise AssertionError(
                 f"nonhom_loop[{mode}] at {n} packets: bitwise packets "
                 f"{bitwise}, last-interaction rows equal {rows_equal}, "
-                f"events {events}, stopped {stopped}, max rel {rels}")
+                f"events {events}, stopped {stopped}, max rel {rels}, "
+                f"line_diff sizes {sizes} (want {want_size})")
         abs_err = max((getattr(k, name) - getattr(p, name)).abs().max().item()
-                      for name in ("out", "est_j", "est_nubar", "line_diff",
-                                   "summary"))
-        max_abs = max(max_abs, abs_err)
+                      for name in ("out", "summary") + sums)
         li = k.last_interaction[:, 0]
         b_ms, b_by = k7_bound(t, n, events[0],
-                              extra_bytes=nbytes(k.last_interaction))
-        flags = variant(t, last_interaction=True)
+                              extra_bytes=nbytes(k.last_interaction),
+                              line_estimators=line_estimators)
         name = line_name("nonhom_loop", variant_name(flags))
-        numbers = dict(line=name, mode=mode, n=n, ms=ms, plain_ms=plain_ms,
+        numbers = dict(line=name, mode=mode, n=n,
+                       line_estimators=line_estimators, ms=ms,
+                       device_ms=device_ms, plain_ms=plain_ms,
                        plain_lanes=NONHOM_PLAIN_LANES, bound_ms=b_ms,
-                       bound_by=b_by,
-                       events=events[0], events_per_packet=events[0] / n,
+                       bound_by=b_by, events=events[0],
+                       events_per_s=events[0] / (device_ms * 1e-3),
+                       **events_numbers(p.events, stopped[1]),
                        line_interactions=int((li == 2).sum()),
                        escat_interactions=int((li == 1).sum()),
                        emitted=int((k.out[:, 0] > 0).sum()),
@@ -1704,15 +1841,16 @@ def check_nonhom_loop(state, atom, ps, pools):
                        last_interaction_bitwise=rows_equal, max_rel=rels,
                        max_abs_err=abs_err)
         say("check_nonhom_loop", **numbers)
-        if mode == "macroatom" and n == N_PACKETS:
-            entry = dict(name=name, route="cuda",
-                         source="tardis_torch/csrc/nonhom_loop.cu",
-                         replaces="tardis_tpu/transport/nonhomologous.py:198",
-                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=None)
+        if mode == "macroatom":
+            entries["final" if line_estimators else "convergence"] = dict(
+                name=name, route="cuda",
+                source="tardis_torch/csrc/nonhom_loop.cu",
+                replaces="tardis_tpu/transport/nonhomologous.py:198",
+                max_abs_err=abs_err, ms=ms, device_ms=device_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
         del k, p
         torch.cuda.empty_cache()
-    entry["max_abs_err"] = max_abs
     del tables
 
     # the homologous law: K7 against K1 on the same pool and key
@@ -1738,7 +1876,7 @@ def check_nonhom_loop(state, atom, ps, pools):
     if not agree >= 0.999:
         raise AssertionError(f"nonhom_loop under the homologous law: status "
                              f"agreement with K1 {agree}")
-    return entry
+    return entries
 
 
 def gamma_step_inputs(state, device, n_packets):
@@ -2122,6 +2260,9 @@ def compare_sharded(tables, pool, run_key, devices, one, cap=0, **kw):
     ms, s = cuda_ms(lambda: run_transport_sharded(
         tables, mu, nu, run_key, devices, vpacket_capacity=cap, pool_w=w,
         **kw), 3)
+    if s.line_diff.numel() != one.line_diff.numel():
+        raise AssertionError("sharded transport_loop: line_diff sizes "
+                             f"{s.line_diff.numel()}, {one.line_diff.numel()}")
     rows = {name: bool(torch.equal(getattr(s, name), getattr(one, name)))
             for name in ("out", "last_interaction", "tracker", "events")}
     rels = {name: rel_err(getattr(s, name), getattr(one, name))
@@ -2156,12 +2297,14 @@ def reduce_bound(parts, out):
 
 
 def check_sharded_transport(tables, pools, device):
-    """K1's classic macroatom instantiation (the main path's) on the bench
-    problem at N_PACKETS over 1, 2 and 4 shards on this one card, against
-    one device (the sharding: the packet-id offsets, the pool's slices,
-    the gather and the fixed-order sums); the final iteration's records
-    instantiation at FINAL_PACKETS over 2 shards; _final_reduce timed alone
-    on the 2-shard partials."""
+    """K1's classic macroatom instantiations (the main path's) on the bench
+    problem: the convergence one, without line estimators, at N_PACKETS
+    over 1, 2 and 4 shards on this one card, against one device (the
+    sharding: the packet-id offsets, the pool's slices, the gather and the
+    fixed-order sums); the final iteration's, with line estimators and
+    records, at FINAL_PACKETS over 2 shards; _final_reduce timed alone on
+    the 2-shard partials of the convergence instantiation (no line
+    difference array to add)."""
     from tardis_torch.parallel.transport import _final_reduce
     from tardis_torch.transport.kernel import transport_loop
     from tardis_torch.transport.solver import (
@@ -2171,15 +2314,18 @@ def check_sharded_transport(tables, pools, device):
 
     _, run_key = iteration_keys(SEED, 0)
     mu, nu, _ = pools[N_PACKETS]
-    one_ms, one = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key), 3)
+    conv = dict(line_estimators=False)
+    one_ms, one = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key,
+                                                 **conv), 3)
     for n_dev in SHARDS:
         say("check_sharded_transport", one_device_ms=one_ms,
             events=one.summary[2].item(), **compare_sharded(
-                tables, pools[N_PACKETS], run_key, [device] * n_dev, one))
+                tables, pools[N_PACKETS], run_key, [device] * n_dev, one,
+                **conv))
     half = N_PACKETS // 2
     parts = [transport_loop(tables, mu[d * half:(d + 1) * half],
                             nu[d * half:(d + 1) * half], run_key,
-                            pid_offset=d * half) for d in range(2)]
+                            pid_offset=d * half, **conv) for d in range(2)]
     reduce_ms, out = cuda_ms(lambda: _final_reduce(parts, device), 10)
     r_ms, r_by = reduce_bound(parts, out)
     del one, parts, out
@@ -2471,6 +2617,8 @@ def main() -> int:
         for path, opts in PATHS.items():
             k1[path], records = check_transport_loop(
                 path, tables[path], pools[opts["pool"]])
+            k1[f"{path}_final"] = k1[path]["final"]
+            k1[path] = k1[path]["convergence"]
             if records is not None:
                 k4[path] = check_vpacket_volley(tables[path], records,
                                                 device)
@@ -2486,17 +2634,21 @@ def main() -> int:
         check_sharded_continuum(tables_iip["iip"], iip_state, device)
         del tables_iip
         torch.cuda.empty_cache()
-        k7 = check_nonhom_loop(state, atom, ps_main, pools_main)
+        k7s = check_nonhom_loop(state, atom, ps_main, pools_main)
+        k7, k7_final = k7s["convergence"], k7s["final"]
         del ps_main, pools_main
         torch.cuda.empty_cache()
         k6 = check_gamma_step(state, device)
         torch.cuda.empty_cache()
         say("kernel_checks", wall_s=time.perf_counter() - t)
         # each path's launches: K3 every iteration, its own K2, K1 and K4
-        # lines as often as it runs them, and no other variant
+        # lines as often as it runs them (K1 without line estimators in
+        # every convergence iteration, with them in the final one), and no
+        # other variant
         expected = {path: {"line_tables": None,
                            k2[opts["pool"]]["name"]: ITERATIONS,
-                           k1[path]["name"]: ITERATIONS}
+                           k1[path]["name"]: ITERATIONS - 1,
+                           k1[f"{path}_final"]["name"]: 1}
                     for path, opts in PATHS.items()}
         for path in ("main", "relativity"):
             expected[path].update({k4[path]["name"]: 1, "formal_integral": 1})
@@ -2504,7 +2656,7 @@ def main() -> int:
             k2["weighted"]["name"]: OPTIONS_ITERATIONS,
             line_name("blackbody_source", "weighted_normalize"):
                 OPTIONS_ITERATIONS,
-            k1["options"]["name"]: OPTIONS_ITERATIONS})
+            k1["options"]["name"]: OPTIONS_ITERATIONS - 1})
         for path, n in (("iip", IIP_ITERATIONS),
                         ("iip_options", IIP_OPTIONS_ITERATIONS)):
             expected[path] = {"line_tables": None,
@@ -2512,12 +2664,14 @@ def main() -> int:
                               k1[path]["name"]: n}
         expected["nonhom"] = {"line_tables": None,
                               k2["simple"]["name"]: NONHOM_ITERATIONS,
-                              k7["name"]: NONHOM_ITERATIONS}
+                              k7["name"]: NONHOM_ITERATIONS - 1,
+                              k7_final["name"]: 1}
         # K6: two kernel launches a step (the list, the walk)
         expected["gamma"] = {k6["name"]: 2 * GAMMA_STEPS}
         # the main path with two shards: K1 twice an iteration
         expected["sharded"] = dict(expected["main"])
-        expected["sharded"][k1["main"]["name"]] = 2 * ITERATIONS
+        expected["sharded"][k1["main"]["name"]] = 2 * (ITERATIONS - 1)
+        expected["sharded"][k1["main_final"]["name"]] = 2
         expected["probe"] = {name: None for name in k_probe}
         launches = {}
         sim, launches["main"], wall = run_path("main_path", BENCH_CONFIG,
@@ -2555,14 +2709,17 @@ def main() -> int:
         profile_iip_path(iip_atom, device)
         k6["path_device_ms_total"] = profile_gamma_path(state, device)
     # each line's launches come from the path that runs it
-    lines = [(k1["main"], "main"), (k2["simple"], "main"), (k3, "main"),
+    lines = [(k1["main"], "main"), (k1["main_final"], "main"),
+             (k2["simple"], "main"), (k3, "main"),
              (k4["main"], "main"), (k5, "main"),
              (k1["relativity"], "relativity"),
+             (k1["relativity_final"], "relativity"),
              (k2["relativistic"], "relativity"),
              (k4["relativity"], "relativity"),
-             (k1["options"], "options"), (k2["weighted"], "options"),
+             (k1["options"], "options"), (k1["options_final"], "options"),
+             (k2["weighted"], "options"),
              (k1["iip"], "iip"), (k1["iip_options"], "iip_options"),
-             (k7, "nonhom"), (k6, "gamma")] + [
+             (k7, "nonhom"), (k7_final, "nonhom"), (k6, "gamma")] + [
                  (k, "probe") for k in k_probe.values()]
     for k, path in lines:
         k["launches"] = launches[path][k["name"]]
@@ -2572,9 +2729,11 @@ def main() -> int:
     # by its mean
     k2["weighted"]["normalize_launches"] = launches["options"][
         line_name("blackbody_source", "weighted_normalize")]
-    # the same K1 instantiation, two shards an iteration on the sharded path
-    k1["main"]["sharded_path_launches"] = launches["sharded"][
-        k1["main"]["name"]]
+    # the same K1 instantiations, two shards an iteration on the sharded
+    # path
+    for key in ("main", "main_final"):
+        k1[key]["sharded_path_launches"] = launches["sharded"][
+            k1[key]["name"]]
     print(json.dumps({"kernels": [k for k, _ in lines]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

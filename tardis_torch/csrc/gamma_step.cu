@@ -575,16 +575,9 @@ extern "C" int gamma_step(
   auto walk = gamma_walk<GS_GREY != 0, GS_KASEN != 0, GS_ARTIS != 0, kEst>;
   const size_t shm = (size_t)(S + E + (kEst ? 3 * S : 0)) * sizeof(double) +
                      (size_t)(n_e * n_q + n_e + E + 1 + kQuadrature) * sizeof(float);
-  int device = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(walk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, walk, kWalkThreads, shm);
+  unsigned blocks = 0;
+  err = tardis::persistent_blocks(walk, kWalkThreads, shm, n_packets, &blocks);
   if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  walk<<<(unsigned)(per_sm * sms), kWalkThreads, shm, s>>>(p, counters, list);
+  walk<<<blocks, kWalkThreads, shm, s>>>(p, counters, list);
   return (int)cudaGetLastError();
 }

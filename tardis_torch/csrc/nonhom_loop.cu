@@ -11,16 +11,30 @@
 // `macro_walk` below; `_step_uniforms` (:209) and `_distance_boundary`
 // (:256) as in K1.
 //
-// Bound on the H100: memory latency, as K1.  An event hashes two or three
-// uniforms, runs one dependent binary search of ~18 probes into the f64 tau
-// prefix of its shell (forward, or the reversed-order prefix for a
-// blueshifting walk; 2 x 29 MB at bench scale against the 50 MB L2), a
-// fixed 30-step f32 bisection for the event line's distance (arithmetic,
-// ~20 operations a step), and scatters four f64 atomics into the line
-// difference array; a line interaction in the macro modes walks up to 40
-// jumps, each a hash and a search of one transition block.  Design:
-//   - one thread per packet walks the packet's whole life (the JAX
-//     package's lockstep refill has no counterpart);
+// Bound on the H100: what an event waits on, as K1.  An event hashes two or
+// three uniforms, finds its walked window's bounds (one or two counts of
+// the lines above a frequency), searches the window of the f64 tau prefix
+// of its shell (forward, or the reversed-order prefix for a blueshifting
+// walk; 2 x 29 MB at bench scale against the 50 MB L2), runs a fixed
+// 30-step f32 bisection for the event line's distance (arithmetic, ~20
+// operations a step) and, where its caller reads them, scatters four f64
+// atomics into the line difference array; a line interaction in the macro
+// modes walks up to 40 jumps, each a hash and a search of one transition
+// block.  Timing variants on an H100 80GB HBM3 at 700 W (2,097,152
+// packets) showed idle lanes first: one thread a packet left a warp 46%
+// busy in macroatom mode and 35% in scatter mode, whose tail of events a
+// packet is longer; then the registers (71-85 a lane, 24 warps an SM) and
+// the counts' full-list searches.  Design:
+//   - one launch of a persistent grid whose lanes take packets from a
+//     queue (tardis::lane_loop, event_loop.cuh), so a lane whose packet
+//     ends takes the next at once;
+//   - __launch_bounds__(128, 10): at most 48 registers a lane (a few
+//     spilled to the L1), 40 resident warps an SM;
+//   - the window's counts gallop outward from the packet's next line
+//     (count_above_near); a count is a function of the frequency alone on
+//     the sorted list, so any search order finds it;
+//   - the line difference array only in the instantiations whose caller
+//     reads it (NH_LINE_ESTIMATORS; the final iteration);
 //   - the per-row predicate is the JAX package's inverted one (the line lies
 //     beyond the line-of-sight velocity at the distance the remaining
 //     optical depth allows), evaluated on f64 prefix differences rounded to
@@ -34,22 +48,26 @@
 //   - the walk's jump draws are uniform(fold_in(event key, 8 + jump), ()),
 //     hashed only when a line interaction walks, so a scatter-mode event
 //     hashes no more than K1's;
-//   - bulk estimators and the luminosity sums go to shared memory and are
-//     flushed once per block; the line difference array takes global f64
-//     atomics;
+//   - the bulk estimators go to each lane's run (tardis::ShellRun),
+//     flushed to the block's shared sums at a shell change, the luminosity
+//     sums to shared memory, each block's flushed once; the line difference
+//     array takes global f64 atomics;
 //   - a packet still alive after max_events events is stopped without
 //     output and counted (summary[3]).
 //
 // Options, each a compile-time template parameter chosen by -D flags
-// (NH_MACRO, NH_LAST_INTERACTION, NH_TRACKER, NH_REFLECTIVE; the wrapper
-// builds one library per combination): the macro-atom walk (downbranch
-// and macroatom; max_jumps 1 and 40), last-interaction rows [type,
-// in_line, out_line, shell, in_nu, r] kept in registers, the r-packet
-// tracker rows [r, nu, energy, shell, code, 0] after each of the first K
-// events, the reflective inner boundary (column 5 hashed only at the core).
+// (NH_MACRO, NH_LAST_INTERACTION, NH_TRACKER, NH_REFLECTIVE,
+// NH_LINE_ESTIMATORS; the wrapper builds one library per combination): the
+// macro-atom walk (downbranch and macroatom; max_jumps 1 and 40),
+// last-interaction rows [type, in_line, out_line, shell, in_nu, r] kept in
+// registers, the r-packet tracker rows [r, nu, energy, shell, code, 0]
+// after each of the first K events, the reflective inner boundary (column
+// 5 hashed only at the core), and the line difference array (on by
+// default).
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "event_loop.cuh"
 #include "threefry.cuh"
 
 #ifndef NH_MACRO
@@ -63,6 +81,9 @@
 #endif
 #ifndef NH_REFLECTIVE
 #define NH_REFLECTIVE 0
+#endif
+#ifndef NH_LINE_ESTIMATORS
+#define NH_LINE_ESTIMATORS 1
 #endif
 
 namespace {
@@ -132,6 +153,50 @@ __device__ __forceinline__ int64_t count_above(const float* line_nu, int64_t L,
   return lo;
 }
 
+// count_above searched outward from ``hint``: a gallop (offsets 1, 2, 4,
+// ...) towards the answer, then a bisection of the bracket.  The count is
+// a function of nu alone (the list is sorted), so any search order gives
+// it; the walked window's bounds lie near the packet's next line.
+template <bool kIncl>
+__device__ __forceinline__ int64_t count_above_near(const float* line_nu, int64_t L,
+                                                    float nu, int64_t hint) {
+  hint = hint < 0 ? 0 : (hint > L ? L : hint);
+  int64_t lo, hi;
+  if (hint < L && (kIncl ? (line_nu[hint] >= nu) : (line_nu[hint] > nu))) {
+    lo = hint + 1;
+    hi = L;
+    for (int64_t span = 1;; span <<= 1) {
+      const int64_t probe = hint + span;
+      if (probe >= L) break;
+      if (kIncl ? (line_nu[probe] >= nu) : (line_nu[probe] > nu)) {
+        lo = probe + 1;
+      } else {
+        hi = probe;
+        break;
+      }
+    }
+  } else {
+    lo = 0;
+    hi = hint;
+    for (int64_t span = 1;; span <<= 1) {
+      const int64_t probe = hint - span;
+      if (probe < 0) break;
+      if (kIncl ? (line_nu[probe] >= nu) : (line_nu[probe] > nu)) {
+        lo = probe + 1;
+        break;
+      }
+      hi = probe;
+    }
+  }
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    const bool above = kIncl ? (line_nu[mid] >= nu) : (line_nu[mid] > nu);
+    if (above) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
 // the macro-atom walk from the level line i_ev activates
 // (kernel.py:281-326): each jump draws u from its own key, takes the first
 // transition of the level's block whose cumulative probability reaches u
@@ -176,32 +241,50 @@ struct LastInteraction {
         r = 0.0f;
 };
 
-template <bool kMacro, bool kLast, bool kTrack, bool kReflect>
-__device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
-                            double* sh_nubar, double* sh_sum) {
-  const int S = p.S;
-  const int64_t L = p.L;
-  const float r_birth = p.r_inner[0];
-  const float beta_birth = p.beta_in[0];
+// lanes of a K7 block, and the blocks an SM must hold (at most 48
+// registers a lane)
+constexpr int kNonhomThreads = 128;
+constexpr int kNonhomMinBlocks = 10;
 
-  // birth: next_line = number of lines with nu_line >= nu_cmf
-  float mu = p.pool_mu[pid];
-  const float nu_cmf0 = p.pool_nu[pid];
-  int64_t next_line = count_above<true>(p.line_nu, L, nu_cmf0);
-  const float inv_dop0 = 1.0f / (1.0f - mu * beta_birth);
-  float nu = nu_cmf0 * inv_dop0;
-  float energy = inv_dop0;
-  float r = r_birth;
+// One K7 packet on its lane (tardis::lane_loop's Walker): the state between
+// two events, the lane's estimator run, and one event of the loop
+// (nonhomologous.py:198).
+template <bool kMacro, bool kLast, bool kTrack, bool kReflect, bool kLineEst>
+struct NonhomWalker {
+  const Params& p;
+  double* sh_j;
+  double* sh_nubar;
+  double* sh_sum;
+  tardis::ShellRun run;
+  float r = 0.0f, mu = 0.0f, nu = 0.0f, energy = 0.0f;
   int shell = 0;
-  const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)pid);
+  int64_t next_line = 0, ev = 0, pid = 0;
+  tardis::Key kp{0u, 0u};
   LastInteraction li;
 
-  int64_t ev = 0;
-  for (;; ++ev) {
-    if (ev >= p.max_events) {
-      atomicAdd(&sh_sum[3], 1.0);
-      break;
-    }
+  __device__ NonhomWalker(const Params& params, double* j, double* nubar, double* sum)
+      : p(params), sh_j(j), sh_nubar(nubar), sh_sum(sum) {}
+
+  // birth: next_line = number of lines with nu_line >= nu_cmf
+  __device__ __forceinline__ void birth(int64_t id) {
+    pid = id;
+    const float beta_birth = p.beta_in[0];
+    mu = p.pool_mu[pid];
+    const float nu_cmf0 = p.pool_nu[pid];
+    next_line = count_above<true>(p.line_nu, p.L, nu_cmf0);
+    const float inv_dop0 = 1.0f / (1.0f - mu * beta_birth);
+    nu = nu_cmf0 * inv_dop0;
+    energy = inv_dop0;
+    r = p.r_inner[0];
+    shell = 0;
+    ev = 0;
+    kp = tardis::fold_in(p.key, (uint32_t)pid);
+    if constexpr (kLast) li = LastInteraction{};
+  }
+
+  __device__ __forceinline__ bool event() {
+    const int S = p.S;
+    const int64_t L = p.L;
     const tardis::Key ke = tardis::fold_in(kp, (uint32_t)ev);
     const float r_in = p.r_inner[shell];
     const float r_out = p.r_outer[shell];
@@ -236,13 +319,13 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     const double* prow;
     if (fwd) {
       lo_f = next_line < 0 ? 0 : (next_line > L ? L : next_line);
-      const int64_t c = count_above<false>(p.line_nu, L, nu_cmf_b);
+      const int64_t c = count_above_near<false>(p.line_nu, L, nu_cmf_b, lo_f);
       lo = lo_f;
       hi = c < lo_f ? lo_f : (c > L ? L : c);
       prow = p.prefix + (int64_t)shell * (L + 1);
     } else {
-      cnt_m = count_above<false>(p.line_nu, L, nu_cmf * kCloseLine);
-      const int64_t c = count_above<true>(p.line_nu, L, nu_cmf_b);
+      cnt_m = count_above_near<false>(p.line_nu, L, nu_cmf * kCloseLine, next_line);
+      const int64_t c = count_above_near<true>(p.line_nu, L, nu_cmf_b, cnt_m);
       lo = L - cnt_m;
       hi = L - (c < cnt_m ? c : cnt_m);
       prow = p.rev_prefix + (int64_t)shell * (L + 1);
@@ -287,34 +370,36 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     const bool escat_f = p.disable_line_scattering || (d_cont_f < s_ev);
     const float d_cont_nf = fmaxf((tau_event - tau_total) * inv_chi, 0.0f);
     const bool escat_nf = d_cont_nf < d_b;
-    int event;
+    int kind;
     float distance;
     int64_t k_crossed;
     if (found) {
-      event = escat_f ? kEvEscat : kEvLine;
+      kind = escat_f ? kEvEscat : kEvLine;
       distance = escat_f ? d_cont_f : s_ev;
       k_crossed = escat_f ? k_before : k_before + 1;
     } else {
-      event = escat_nf ? kEvEscat : kEvBoundary;
+      kind = escat_nf ? kEvEscat : kEvBoundary;
       distance = escat_nf ? d_cont_nf : d_b;
       k_crossed = hi - lo;
     }
 
-    // estimators
+    // estimators: the bulk terms into the lane's run; the line difference
+    // array only in the instantiation whose caller reads it
     const float w_j = (energy * dop) * distance;
-    atomicAdd(&sh_j[shell], (double)w_j);
-    atomicAdd(&sh_nubar[shell], (double)(w_j * nu_cmf));
+    tardis::shell_run_add(run, shell, w_j, w_j * nu_cmf, sh_j, sh_nubar);
     const int64_t rng_lo = fwd ? lo_f : cnt_m - k_crossed;
     const int64_t rng_hi = fwd ? lo_f + k_crossed : cnt_m;
-    if (rng_lo != rng_hi) {
-      const float w1 = energy / (nu * nu);
-      const float w2 = energy / nu;
-      double* da = p.line_diff + (rng_lo * S + shell) * 2;
-      double* db = p.line_diff + (rng_hi * S + shell) * 2;
-      atomicAdd(da, (double)w1);
-      atomicAdd(da + 1, (double)w2);
-      atomicAdd(db, -(double)w1);
-      atomicAdd(db + 1, -(double)w2);
+    if constexpr (kLineEst) {
+      if (rng_lo != rng_hi) {
+        const float w1 = energy / (nu * nu);
+        const float w2 = energy / nu;
+        double* da = p.line_diff + (rng_lo * S + shell) * 2;
+        double* db = p.line_diff + (rng_hi * S + shell) * 2;
+        atomicAdd(da, (double)w1);
+        atomicAdd(da + 1, (double)w2);
+        atomicAdd(db, -(double)w1);
+        atomicAdd(db + 1, -(double)w2);
+      }
     }
 
     // move
@@ -322,7 +407,7 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
         r * r + distance * distance + 2.0f * r * distance * mu, 1e-20f));
     const float mu_new = (mu * r + distance) / r_new;
 
-    if (event == kEvBoundary) {
+    if (kind == kEvBoundary) {
       const int new_shell = shell + delta;
       bool reflected = false;
       if constexpr (kReflect)
@@ -337,14 +422,14 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
         } else {
           atomicAdd(&sh_sum[1], (double)energy);
         }
-        break;
+        return false;
       }
       if (!reflected) shell = new_shell;
       r = r_new;
       mu = reflected ? -mu_new : mu_new;
       next_line = fwd ? rng_hi : rng_lo;
       if constexpr (kTrack) track(p, pid, ev, r, nu, energy, shell, 3.0f);
-      continue;
+      return true;
     }
 
     // Thomson scatter or line interaction: new direction drawn in the CMF
@@ -354,7 +439,7 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     const float dop_old_pos = 1.0f - mu_new * beta_new;
     const float inv_dop_new = 1.0f / (1.0f - mu_draw * beta_new);
     const float nu_in = nu;
-    if (event == kEvEscat) {
+    if (kind == kEvEscat) {
       nu = nu * dop_old_pos * inv_dop_new;
       next_line = fwd ? rng_hi : rng_lo;
       if constexpr (kLast) {
@@ -382,29 +467,39 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     r = r_new;
     mu = mu_draw;
     if constexpr (kTrack)
-      track(p, pid, ev, r, nu, energy, shell, event == kEvLine ? 2.0f : 1.0f);
+      track(p, pid, ev, r, nu, energy, shell, kind == kEvLine ? 2.0f : 1.0f);
+    return true;
   }
-  if constexpr (kLast) {
-    float2* row = reinterpret_cast<float2*>(p.last_interaction + pid * 6);
-    row[0] = make_float2(li.type, li.in_line);
-    row[1] = make_float2(li.out_line, li.shell);
-    row[2] = make_float2(li.in_nu, li.r);
-  }
-  const int64_t n_ev = ev + 1 > p.max_events ? p.max_events : ev + 1;
-  atomicAdd(&sh_sum[2], (double)n_ev);
-}
 
-template <bool kMacro, bool kLast, bool kTrack, bool kReflect>
-__global__ void nonhom_loop_kernel(Params p) {
+  // a packet leaves the lane after n_ev events (dead, or stopped by the cap
+  // with no output)
+  __device__ __forceinline__ void finish(int64_t n_ev, bool stopped) {
+    if (stopped) atomicAdd(&sh_sum[3], 1.0);
+    if constexpr (kLast) {
+      float2* row = reinterpret_cast<float2*>(p.last_interaction + pid * 6);
+      row[0] = make_float2(li.type, li.in_line);
+      row[1] = make_float2(li.out_line, li.shell);
+      row[2] = make_float2(li.in_nu, li.r);
+    }
+    atomicAdd(&sh_sum[2], (double)n_ev);
+  }
+
+  __device__ __forceinline__ void flush() { tardis::shell_run_flush(run, sh_j, sh_nubar); }
+};
+
+// K7's loop: a persistent grid whose lanes walk the packet queue
+// (tardis::lane_loop); the block's shared sums flush once, at exit.
+template <bool kMacro, bool kLast, bool kTrack, bool kReflect, bool kLineEst>
+__global__ void __launch_bounds__(kNonhomThreads, kNonhomMinBlocks)
+    nonhom_loop_kernel(Params p, unsigned long long* taken) {
   extern __shared__ double shm[];
   double* sh_j = shm;
   double* sh_nubar = shm + p.S;
   double* sh_sum = shm + 2 * p.S;
   for (int i = threadIdx.x; i < 2 * p.S + 4; i += blockDim.x) shm[i] = 0.0;
   __syncthreads();
-  const int64_t pid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pid < p.n_packets)
-    walk_packet<kMacro, kLast, kTrack, kReflect>(p, pid, sh_j, sh_nubar, sh_sum);
+  NonhomWalker<kMacro, kLast, kTrack, kReflect, kLineEst> w(p, sh_j, sh_nubar, sh_sum);
+  tardis::lane_loop(w, taken, p.n_packets, p.max_events);
   __syncthreads();
   for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
     atomicAdd(&p.est_j[i], sh_j[i]);
@@ -425,9 +520,11 @@ extern "C" int nonhom_loop(
     int disable_line_scattering, uint32_t k0, uint32_t k1, float nu_lo,
     float nu_hi, float albedo, int64_t max_events, void* out, void* est_j,
     void* est_nubar, void* line_diff, void* summary, void* last_interaction,
-    void* tracker, int tracker_length, void* stream) {
+    void* tracker, int tracker_length, void* taken, void* stream) {
   constexpr bool kMacro = NH_MACRO != 0;
-  if (kMacro && (cum_prob == nullptr || line2macro == nullptr))
+  constexpr bool kLineEst = NH_LINE_ESTIMATORS != 0;
+  if ((kMacro && (cum_prob == nullptr || line2macro == nullptr)) || taken == nullptr
+      || (kLineEst != (line_diff != nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.pool_mu = (const float*)pool_mu;
@@ -465,12 +562,15 @@ extern "C" int nonhom_loop(
   p.albedo = albedo;
   p.key = tardis::Key{k0, k1};
   if (n_packets > 0) {
-    const int threads = 128;
+    auto kernel = nonhom_loop_kernel<kMacro, NH_LAST_INTERACTION != 0, NH_TRACKER != 0,
+                                     NH_REFLECTIVE != 0, kLineEst>;
     const size_t shm = (size_t)(2 * S + 4) * sizeof(double);
-    nonhom_loop_kernel<kMacro, NH_LAST_INTERACTION != 0, NH_TRACKER != 0,
-                       NH_REFLECTIVE != 0>
-        <<<(unsigned)((n_packets + threads - 1) / threads), threads, shm,
-           (cudaStream_t)stream>>>(p);
+    unsigned blocks = 0;
+    const cudaError_t err =
+        tardis::persistent_blocks(kernel, kNonhomThreads, shm, n_packets, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kNonhomThreads, shm, (cudaStream_t)stream>>>(
+        p, (unsigned long long*)taken);
   }
   return (int)cudaGetLastError();
 }

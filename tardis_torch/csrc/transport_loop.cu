@@ -9,20 +9,46 @@
 // `tiled_searchsorted`, driven by `transport_loop` (:1121) / `run_transport`
 // (:1177), plus transport/solver.py:142 `_device_summary`.
 //
-// Bound on the H100: memory latency, not bandwidth or arithmetic.  An event
-// hashes four uniforms (threefry, ~700 integer operations), runs a
-// dependent binary search of ~18 probes into the f64 tau prefix of its
-// shell (29 MB at bench scale, resident in the 50 MB L2), and scatters four
-// f64 atomics into the line difference array.  Design:
-//   - one thread per packet walks the packet's whole life, so there are no
-//     lockstep lanes, no refill and no repacking; threads that finish early
-//     free their warp slot to the scheduler;
-//   - the event search reads the flat f64 prefix directly (no two-float
-//     pairs and no 128-ary packed rows, which only the TPU needed);
-//   - the bulk j / nu-bar estimators and the luminosity sums go to S + a few
-//     addresses, so they accumulate in shared memory and each block
-//     flushes once with global f64 atomics; the line difference array is
-//     spread over (L+1)*S*2 addresses, so it takes global f64 atomics;
+// Bound on the H100: what an event waits on.  An event hashes two to four
+// uniforms (threefry), searches the f64 tau prefix of its shell (29 MB at
+// bench scale, beside the 0.7 MB line list) for its event line, and, where
+// its caller reads them, scatters four f64 atomics into the line
+// difference array (58.6 MB at bench scale: with the prefix, more than the
+// 50 MB L2).  Timing variants that each removed one mechanism (on an H100
+// 80GB HBM3 at 700 W, 2,097,152 packets, 40.3M events) showed that the
+// search's scattered probes and the line difference atomics held the
+// classic loop, not the hashes, the shared-memory estimator atomics or the
+// block size.  Design:
+//   - the event search gallops from the packet's next line (probes at
+//     offsets 0, 1, 3, 7, ...) to the first probe past the event, then
+//     bisects the bracket: the event line lies a few to a few hundred
+//     lines on, so every probe reads rows near next_line (a bisection of
+//     [next_line, L] reads rows up to L away, a cache line each).  Where
+//     the predicate is monotone in the line index the gallop finds the
+//     index of the plain version's bisection of [next_line, L].  Without
+//     full relativity it is, even in f32, on a non-decreasing prefix row
+//     (each term is a correctly rounded, monotone function of sorted
+//     inputs).  The full-relativity predicate (the resonance quadratic's
+//     root in f32) is not proven so; tests/test_torch_event_loops.py finds
+//     it monotone on every sampled state, and chip_smoke.py holds both
+//     instantiations bit for bit against the bisection on the card.
+//     Bisecting there instead made the relativity path's final launch
+//     slower than one thread a packet (PERF.md);
+//   - the line difference array only in the instantiations whose caller
+//     reads it (TL_LINE_ESTIMATORS; the final iteration): the convergence
+//     iterations write none;
+//   - one launch of a persistent grid whose lanes take packets from a
+//     queue (tardis::lane_loop, event_loop.cuh): a lane whose packet ends
+//     takes the next at once, where one thread a packet held its warp's
+//     slots until the warp's longest packet ended (at the bench shape a
+//     warp of 32 consecutive packets kept its lanes 68% busy);
+//   - __launch_bounds__(128, 9): at most 56 registers a lane, 36 resident
+//     warps an SM, each a chain of dependent loads;
+//   - the bulk j / nu-bar estimators go to each lane's run (tardis::
+//     ShellRun), flushed to the block's shared sums at a shell change; the
+//     luminosity sums to shared memory; each block flushes once with global
+//     f64 atomics; the line difference array is spread over (L+1)*S*2
+//     addresses, so it takes global f64 atomics;
 //   - per-packet state stays f32, as in the JAX package; prefix
 //     differences are taken in f64 and rounded to f32;
 //   - tau_event = -log(u) is computed in f64 and rounded to f32, so the
@@ -102,12 +128,14 @@
 //   a long walk while the queue has work.  Every draw is keyed by
 //   (pid_offset + pid, event index), so a packet's trajectory, row and
 //   event count do not depend on the lane that runs it; only the order of
-//   the f64 atomics does.  The classic instantiations keep walk_packet and
-//   their one-thread-per-packet launch.
+//   the f64 atomics does.  The classic instantiations run the same kind of
+//   grid through tardis::lane_loop (ClassicWalker, below); the continuum
+//   loop keeps its own, with its moment runs and staged tables.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "event_loop.cuh"
 #include "queue.cuh"
 #include "threefry.cuh"
 
@@ -134,6 +162,9 @@
 #endif
 #ifndef TL_ADIABATIC
 #define TL_ADIABATIC 0
+#endif
+#ifndef TL_LINE_ESTIMATORS
+#define TL_LINE_ESTIMATORS 1
 #endif
 
 // the continuum tables and outputs (TL_CONTINUUM); laid out as
@@ -358,47 +389,76 @@ struct LastInteraction {
         r = 0.0f;
 };
 
-template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights>
-__device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
-                            double* sh_nubar, double* sh_sum) {
-  const int S = p.S;
-  const int64_t L = p.L;
-  const float beta_inner = p.r_inner[0];
+// lanes of a classic block, and the blocks an SM must hold (at most 56
+// registers a lane)
+constexpr int kClassicThreads = 128;
+constexpr int kClassicMinBlocks = 9;
 
-  // birth: next_line = number of lines with nu_line >= nu_cmf
-  float mu = p.pool_mu[pid];
-  const float nu_cmf0 = p.pool_nu[pid];
-  int64_t lo = 0, hi = L;
-  while (lo < hi) {
-    int64_t mid = (lo + hi) >> 1;
-    if (p.line_nu[mid] >= nu_cmf0) lo = mid + 1;
-    else hi = mid;
-  }
-  int64_t next_line = lo;
-  float inv_dop0;
-  if constexpr (kRel) {
-    const float gamma_in = 1.0f / sqrtf(1.0f - beta_inner * beta_inner);
-    inv_dop0 = (1.0f + mu * beta_inner) * gamma_in;
-    mu = (mu + beta_inner) / (1.0f + beta_inner * mu);
-  } else {
-    inv_dop0 = 1.0f / (1.0f - mu * beta_inner);
-  }
-  float nu = nu_cmf0 * inv_dop0;
-  float energy = inv_dop0;
-  if constexpr (kWeights) energy = energy * p.pool_w[pid];
-  float r = beta_inner;
+// One classic packet on its lane (tardis::lane_loop's Walker): the state
+// between two events, the lane's estimator run, and one event of the
+// event loop (kernel.py:425).
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights, bool kLineEst>
+struct ClassicWalker {
+  const Params& p;
+  double* sh_j;
+  double* sh_nubar;
+  double* sh_sum;
+  tardis::ShellRun run;
+  float r = 0.0f, mu = 0.0f, nu = 0.0f, energy = 0.0f;
   int shell = 0;
-  const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + pid));
-  if (p.vp_capacity > 0)
-    spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
+  int64_t next_line = 0, ev = 0, pid = 0;
+  tardis::Key kp{0u, 0u};
   LastInteraction li;
 
-  int64_t ev = 0;
-  for (;; ++ev) {
-    if (ev >= p.max_events) {
-      atomicAdd(&sh_sum[3], 1.0);
-      break;
+  __device__ ClassicWalker(const Params& params, double* j, double* nubar, double* sum)
+      : p(params), sh_j(j), sh_nubar(nubar), sh_sum(sum) {}
+
+  // birth: next_line = number of lines with nu_line >= nu_cmf
+  __device__ __forceinline__ void birth(int64_t id) {
+    const float beta_inner = p.r_inner[0];
+    pid = id;
+    mu = p.pool_mu[pid];
+    const float nu_cmf0 = p.pool_nu[pid];
+    int64_t lo = 0, hi = p.L;
+    while (lo < hi) {
+      const int64_t mid = (lo + hi) >> 1;
+      if (p.line_nu[mid] >= nu_cmf0) lo = mid + 1;
+      else hi = mid;
     }
+    next_line = lo;
+    float inv_dop0;
+    if constexpr (kRel) {
+      const float gamma_in = 1.0f / sqrtf(1.0f - beta_inner * beta_inner);
+      inv_dop0 = (1.0f + mu * beta_inner) * gamma_in;
+      mu = (mu + beta_inner) / (1.0f + beta_inner * mu);
+    } else {
+      inv_dop0 = 1.0f / (1.0f - mu * beta_inner);
+    }
+    nu = nu_cmf0 * inv_dop0;
+    energy = inv_dop0;
+    if constexpr (kWeights) energy = energy * p.pool_w[pid];
+    r = beta_inner;
+    shell = 0;
+    ev = 0;
+    kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + pid));
+    if (p.vp_capacity > 0) spawn_record(p, r, mu, nu, energy, 0, next_line, -1.0f, -1.0f);
+    if constexpr (kLast) li = LastInteraction{};
+  }
+
+  __device__ __forceinline__ void track(float tr, float tnu, float ten, float code, float tmu) {
+    if constexpr (kTrack) {
+      if (ev < p.tracker_length) {
+        float2* row = reinterpret_cast<float2*>(p.tracker + (pid * p.tracker_length + ev) * 6);
+        row[0] = make_float2(tr, tnu);
+        row[1] = make_float2(ten, (float)shell);
+        row[2] = make_float2(code, tmu);
+      }
+    }
+  }
+
+  __device__ __forceinline__ bool event() {
+    const int S = p.S;
+    const int64_t L = p.L;
     const tardis::Key ke = tardis::fold_in(kp, (uint32_t)ev);
     const float chi_e = p.chi_e[shell];
     const float r_in = p.r_inner[shell];
@@ -435,10 +495,24 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     } else {
       nu_thresh = nu * (1.0f - (z + d_b));
     }
-    lo = next_line;
-    hi = L;
+    int64_t lo = next_line, hi = L;
+    {
+      int64_t probe = next_line, span = 1;
+      while (probe < L) {
+        const float nl = p.line_nu[probe];
+        const float s = resonance_distance<kRel>(nl, nu, z, p2);
+        const float g = (float)(prow[probe + 1] - c0) + chi * s;
+        if ((nl <= nu_thresh) || (g > tau_event)) {
+          hi = probe;
+          break;
+        }
+        lo = probe + 1;
+        span *= 2;
+        probe = next_line + span - 1;
+      }
+    }
     while (lo < hi) {
-      int64_t mid = (lo + hi) >> 1;
+      const int64_t mid = (lo + hi) >> 1;
       const float nl = p.line_nu[mid];
       const float s = resonance_distance<kRel>(nl, nu, z, p2);
       const float g = (float)(prow[mid + 1] - c0) + chi * s;
@@ -453,38 +527,40 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     const float d_cont = fmaxf((tau_event - tau_at) / chi, 0.0f);
     const bool escat_f = p.disable_line_scattering || (d_cont < s_ev);
     const bool escat_nf = d_cont < d_b;
-    int event;
+    int kind;
     float distance;
     if (found) {
-      event = escat_f ? kEvEscat : kEvLine;
+      kind = escat_f ? kEvEscat : kEvLine;
       distance = escat_f ? d_cont : s_ev;
     } else {
-      event = escat_nf ? kEvEscat : kEvBoundary;
+      kind = escat_nf ? kEvEscat : kEvBoundary;
       distance = escat_nf ? d_cont : d_b;
     }
-    const int64_t end_line = (event == kEvLine) ? i_ev + 1 : i_ev;
+    const int64_t end_line = (kind == kEvLine) ? i_ev + 1 : i_ev;
 
-    // estimators
+    // estimators: the bulk terms into the lane's run; the line difference
+    // array only in the instantiation whose caller reads it
     float w_j;
     if constexpr (kRel) w_j = (energy * dop) * (distance * dop);
     else w_j = (energy * dop) * distance;
-    atomicAdd(&sh_j[shell], (double)w_j);
-    atomicAdd(&sh_nubar[shell], (double)(w_j * nu_cmf));
-    if (end_line != next_line) {
-      float w1, w2;
-      if constexpr (kRel) {
-        w1 = energy / nu;
-        w2 = energy;
-      } else {
-        w1 = energy / (nu * nu);
-        w2 = energy / nu;
+    tardis::shell_run_add(run, shell, w_j, w_j * nu_cmf, sh_j, sh_nubar);
+    if constexpr (kLineEst) {
+      if (end_line != next_line) {
+        float w1, w2;
+        if constexpr (kRel) {
+          w1 = energy / nu;
+          w2 = energy;
+        } else {
+          w1 = energy / (nu * nu);
+          w2 = energy / nu;
+        }
+        double* a = p.line_diff + (next_line * S + shell) * 2;
+        double* b = p.line_diff + (end_line * S + shell) * 2;
+        atomicAdd(a, (double)w1);
+        atomicAdd(a + 1, (double)w2);
+        atomicAdd(b, -(double)w1);
+        atomicAdd(b + 1, -(double)w2);
       }
-      double* a = p.line_diff + (next_line * S + shell) * 2;
-      double* b = p.line_diff + (end_line * S + shell) * 2;
-      atomicAdd(a, (double)w1);
-      atomicAdd(a + 1, (double)w2);
-      atomicAdd(b, -(double)w1);
-      atomicAdd(b + 1, -(double)w2);
     }
 
     // move
@@ -492,22 +568,14 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
         r * r + distance * distance + 2.0f * r * distance * mu, 1e-20f));
     const float mu_new = (mu * r + distance) / r_new;
 
-    if (event == kEvBoundary) {
+    if (kind == kEvBoundary) {
       const int new_shell = shell + delta;
       bool reflected = false;
       if constexpr (kReflect)
         reflected = new_shell < 0 && draw(ke, kColAlbedo) < p.albedo;
       if (!reflected && (new_shell >= S || new_shell < 0)) {
         const bool emitted = new_shell >= S;
-        if constexpr (kTrack) {
-          if (ev < p.tracker_length) {
-            float2* row = reinterpret_cast<float2*>(
-                p.tracker + (pid * p.tracker_length + ev) * 6);
-            row[0] = make_float2(r_new, nu);
-            row[1] = make_float2(energy, (float)shell);
-            row[2] = make_float2(3.0f, mu_new);
-          }
-        }
+        track(r_new, nu, energy, 3.0f, mu_new);
         p.out[2 * pid] = emitted ? nu : -nu;
         p.out[2 * pid + 1] = energy;
         if (emitted) {
@@ -515,22 +583,14 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
         } else {
           atomicAdd(&sh_sum[1], (double)energy);
         }
-        break;
+        return false;
       }
       if (!reflected) shell = new_shell;
       r = r_new;
       mu = reflected ? -mu_new : mu_new;
       next_line = end_line;
-      if constexpr (kTrack) {
-        if (ev < p.tracker_length) {
-          float2* row = reinterpret_cast<float2*>(
-              p.tracker + (pid * p.tracker_length + ev) * 6);
-          row[0] = make_float2(r, nu);
-          row[1] = make_float2(energy, (float)shell);
-          row[2] = make_float2(3.0f, mu);
-        }
-      }
-      continue;
+      track(r, nu, energy, 3.0f, mu);
+      return true;
     }
 
     // Thomson scatter or absorption: new direction drawn in the CMF
@@ -547,7 +607,7 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
       mu_emit = mu_draw;
     }
     const float nu_in = nu;
-    if (event == kEvEscat) {
+    if (kind == kEvEscat) {
       nu = nu * dop_old_pos * inv_dop_new;
       next_line = end_line;
       if constexpr (kLast) {
@@ -587,33 +647,36 @@ __device__ void walk_packet(const Params& p, int64_t pid, double* sh_j,
     energy = energy * dop_old_pos * inv_dop_new;
     r = r_new;
     mu = mu_emit;
-    if constexpr (kTrack) {
-      if (ev < p.tracker_length) {
-        float2* row = reinterpret_cast<float2*>(
-            p.tracker + (pid * p.tracker_length + ev) * 6);
-        row[0] = make_float2(r, nu);
-        row[1] = make_float2(energy, (float)shell);
-        row[2] = make_float2(event == kEvLine ? 2.0f : 1.0f, mu);
-      }
-    }
+    track(r, nu, energy, kind == kEvLine ? 2.0f : 1.0f, mu);
     if (p.vp_capacity > 0) {
-      const bool line = event == kEvLine;
+      const bool line = kind == kEvLine;
       spawn_record(p, r, mu, nu, energy, shell, next_line, line ? 2.0f : 1.0f,
                    line ? (float)(next_line - 1) : -1.0f);
     }
+    return true;
   }
-  if constexpr (kLast) {
-    float2* row = reinterpret_cast<float2*>(p.last_interaction + pid * 6);
-    row[0] = make_float2(li.type, li.in_line);
-    row[1] = make_float2(li.out_line, li.shell);
-    row[2] = make_float2(li.in_nu, li.r);
-  }
-  const int64_t n_ev = ev + 1 > p.max_events ? p.max_events : ev + 1;
-  atomicAdd(&sh_sum[2], (double)n_ev);
-}
 
-template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights>
-__global__ void transport_loop_kernel(Params p) {
+  // a packet leaves the lane after n_ev events (dead, or stopped by the cap
+  // with no output)
+  __device__ __forceinline__ void finish(int64_t n_ev, bool stopped) {
+    if (stopped) atomicAdd(&sh_sum[3], 1.0);
+    if constexpr (kLast) {
+      float2* row = reinterpret_cast<float2*>(p.last_interaction + pid * 6);
+      row[0] = make_float2(li.type, li.in_line);
+      row[1] = make_float2(li.out_line, li.shell);
+      row[2] = make_float2(li.in_nu, li.r);
+    }
+    atomicAdd(&sh_sum[2], (double)n_ev);
+  }
+
+  __device__ __forceinline__ void flush() { tardis::shell_run_flush(run, sh_j, sh_nubar); }
+};
+
+// The classic loop: a persistent grid whose lanes walk the packet queue
+// (tardis::lane_loop); the block's shared sums flush once, at exit.
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights, bool kLineEst>
+__global__ void __launch_bounds__(kClassicThreads, kClassicMinBlocks)
+    transport_loop_kernel(Params p, unsigned long long* taken) {
   extern __shared__ double shm[];
   double* sh_j = shm;
   double* sh_nubar = shm + p.S;
@@ -621,10 +684,9 @@ __global__ void transport_loop_kernel(Params p) {
   const int n_shared = 2 * p.S + 4;
   for (int i = threadIdx.x; i < n_shared; i += blockDim.x) shm[i] = 0.0;
   __syncthreads();
-  const int64_t pid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pid < p.n_packets)
-    walk_packet<kRel, kLast, kTrack, kReflect, kWeights>(p, pid, sh_j, sh_nubar,
-                                                         sh_sum);
+  ClassicWalker<kRel, kLast, kTrack, kReflect, kWeights, kLineEst> w(p, sh_j, sh_nubar,
+                                                                     sh_sum);
+  tardis::lane_loop(w, taken, p.n_packets, p.max_events);
   __syncthreads();
   for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
     atomicAdd(&p.est_j[i], sh_j[i]);
@@ -750,8 +812,9 @@ __device__ __forceinline__ void cont_birth(const Params& p, int64_t pid, ContPac
   q.li = LastInteraction{};
 }
 
-// one event of a continuum packet (walk_packet's event with the continuum
-// opacity, estimators and Markov macro atom, and no spawn records);
+// one event of a continuum packet (ClassicWalker::event with the continuum
+// opacity, estimators and Markov macro atom, no spawn records, and the
+// event search a bisection of [next_line, L], as the plain version's);
 // returns false when the packet dies, its output row and sums written
 template <bool kRel, bool kTrack, bool kReflect, bool kTwoPhoton, bool kAdiabatic>
 __device__ __forceinline__ bool cont_event(const Params& p, ContPacket& q, tardis::Key kp,
@@ -1132,17 +1195,10 @@ cudaError_t launch_continuum(const Params& p, unsigned long long* taken,
                                  TL_TWO_PHOTON != 0, TL_ADIABATIC != 0, kSmemTables>;
   const int threads = kSmemTables ? kSmemThreads : kContThreads;
   const size_t shm = continuum_shared_bytes(p.cont, p.L, p.S, kSmemTables);
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && shm > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shm);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, shm);
+  unsigned blocks = 0;
+  const cudaError_t err = tardis::persistent_blocks(kernel, threads, shm, p.n_packets, &blocks);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)(per_sm * sms), threads, shm, stream>>>(p, taken);
+  kernel<<<blocks, threads, shm, stream>>>(p, taken);
   return cudaGetLastError();
 }
 #endif
@@ -1162,10 +1218,8 @@ extern "C" int continuum_smem_fits(const ContinuumArgs* cont, int64_t L, int S, 
   return (int)err;
 }
 
-// One launch of K1.  A classic instantiation runs every packet of the
-// pool with one thread each (cont, taken null, smem_tables 0); a continuum
-// instantiation runs them on its persistent grid, taking packet ids from
-// the zeroed device counter ``taken``.
+// One launch of K1: a persistent grid whose lanes take packet ids from the
+// zeroed device counter ``taken`` (classic: cont null, smem_tables 0).
 extern "C" int transport_loop(
     const void* pool_mu, const void* pool_nu, const void* pool_w,
     int64_t n_packets, const void* r_inner, const void* r_outer,
@@ -1179,8 +1233,9 @@ extern "C" int transport_loop(
     void* last_interaction, void* tracker, int tracker_length,
     const ContinuumArgs* cont, void* taken, int smem_tables, void* stream) {
   constexpr bool kCont = TL_CONTINUUM != 0;
-  if (kCont != (cont != nullptr) || kCont != (taken != nullptr)
-      || (!kCont && smem_tables))
+  constexpr bool kLineEst = TL_LINE_ESTIMATORS != 0;
+  if (kCont != (cont != nullptr) || taken == nullptr || (!kCont && smem_tables)
+      || (kCont && !kLineEst) || (kLineEst != (line_diff != nullptr)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.pool_mu = (const float*)pool_mu;
@@ -1231,12 +1286,16 @@ extern "C" int transport_loop(
   }
 #else
   {
-    const int threads = 128;
+    auto kernel = transport_loop_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
+                                        TL_TRACKER != 0, TL_REFLECTIVE != 0,
+                                        TL_WEIGHTS != 0, kLineEst>;
     const size_t shm = (size_t)(2 * S + 4) * sizeof(double);
-    transport_loop_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
-                          TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0>
-        <<<(unsigned)((n_packets + threads - 1) / threads), threads, shm,
-           (cudaStream_t)stream>>>(p);
+    unsigned blocks = 0;
+    const cudaError_t err =
+        tardis::persistent_blocks(kernel, kClassicThreads, shm, n_packets, &blocks);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kClassicThreads, shm, (cudaStream_t)stream>>>(
+        p, (unsigned long long*)taken);
   }
 #endif
   return (int)cudaGetLastError();

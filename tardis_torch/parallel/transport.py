@@ -23,8 +23,9 @@ device may repeat) and:
   source's current stream and makes the destination's current stream
   wait on it;
 - ``_device_repack`` (``:123``), the compaction of a lane pool's survivors
-  for the drain tail, is subsumed: K1 runs one thread per packet and has
-  no lane pool, as ``_repack_jit`` (``kernel.py:1360``) is subsumed;
+  for the drain tail, is subsumed: each K1 launch is a persistent grid
+  whose lanes refill from a packet queue until it is spent, as
+  ``_repack_jit`` (``kernel.py:1360``) is subsumed;
 - the watchdog chunking (``:306-345``) is a TPU workaround and is not
   carried over: every shard is one launch.
 
@@ -85,7 +86,8 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
                           vpacket_capacity: int = 0, pool_w=None,
                           last_interaction: bool = False,
                           tracker_length: int = 0,
-                          max_events: int = MAX_EVENTS) -> TransportOutput:
+                          max_events: int = MAX_EVENTS,
+                          line_estimators: bool = True) -> TransportOutput:
     """K1 on a pool of N packets split into D = len(devices) shards.
 
     Shard d runs packets [d N/D, (d+1) N/D) on ``devices[d]`` with the
@@ -95,8 +97,10 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
     the record counts summed over the shards, the per-packet rows in pool
     order, and the kept spawn records of each shard in shard order (so
     ``n_vp_records`` counts only kept rows and the attempts past each
-    shard's capacity show as ``vp_count`` above it).  Raises when N is not
-    a multiple of D, as the JAX package does.
+    shard's capacity show as ``vp_count`` above it).  With
+    ``line_estimators`` False no shard allocates or writes a line difference
+    array, and the result's is empty.  Raises when N is not a multiple of
+    D, as the JAX package does.
     """
     devices = packet_devices(devices)
     n_dev = len(devices)
@@ -121,15 +125,17 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
                 nu_window=nu_window, max_events=max_events,
                 vpacket_capacity=capacity, pool_w=shard(pool_w),
                 last_interaction=last_interaction,
-                tracker_length=tracker_length, pid_offset=d * n_local))
+                tracker_length=tracker_length, pid_offset=d * n_local,
+                line_estimators=line_estimators))
     return _final_reduce(parts, devices[0])
 
 
 def _final_reduce(parts: list[TransportOutput],
                   device: torch.device) -> TransportOutput:
     """The shards' outputs as one, on ``device``: SUM_FIELDS summed in
-    shard order, CAT_FIELDS and the kept spawn records concatenated in
-    shard order."""
+    shard order (an empty field, such as the line difference array of a
+    run without line estimators, stays empty), CAT_FIELDS and the kept
+    spawn records concatenated in shard order."""
     def here(x):
         return x.to(device, non_blocking=True)
 

@@ -209,7 +209,8 @@ class Simulation:
             logger.info(
                 "montecarlo.nthreads is a no-op: packet parallelism runs "
                 "on the devices (every visible card, or the list passed as "
-                "device), one thread per packet")
+                "device), each packet walked by a lane of the event "
+                "loop's grid")
         tracking = mc.get("tracking", {}) or {}
         solver_cls = (NonhomologousTransportSolver
                       if mc.get("enable_nonhomologous_expansion", False)

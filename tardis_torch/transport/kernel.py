@@ -62,6 +62,15 @@ combination is its own compiled instantiation of K1):
 - ``adiabatic`` (``:917-928,1016-1021``): the adiabatic-cooling channel
   ends the packet with output (-nu before the interaction, energy 0).
 
+``line_estimators`` (``TL_LINE_ESTIMATORS``, on by default) is the line
+difference array, the j_blue / e_dot estimators' increments, which only the
+callers that read them ask for (the final iteration; the convergence
+iterations and the IIP workflow read the bulk estimators alone, as the JAX
+package's ``need_line_estimators`` reads back, ``tardis_tpu/transport/
+solver.py:535``).  With it off no line difference array is allocated or
+written: ``line_diff`` is an empty tensor.  The continuum instantiations
+always accumulate it.
+
 With ``vpacket_capacity`` > 0 (the final iteration with virtual packets)
 every birth and every interaction appends a spawn record for the vpacket
 volley (``transport/vpacket.py``), as ``kernel.py:520-545,987-1008`` of the
@@ -72,7 +81,8 @@ e-scatter and 2 for a line and ``out_line = next_line - 1`` for a line.
 ``vp_count`` counts every attempt; rows past the capacity are dropped.
 Records with continuum transport are refused.
 
-``transport_loop`` launches the CUDA kernel (one thread per packet) for
+``transport_loop`` launches the CUDA kernel (a persistent grid of lanes
+that take packets from a queue and refill as soon as a packet ends) for
 tensors on the card and runs the plain PyTorch version
 ``transport_loop_plain`` (a lockstep loop over lanes refilled from the
 pool, as the JAX package steps) only for CPU tensors.
@@ -116,9 +126,11 @@ LI_ESCAT, LI_LINE, LI_CONTPROC, EV_BOUNDARY_CODE, EV_CONTPROC_CODE = (
 # EMIT_*; free-free, 2, is the default branch)
 EMIT_LINE, EMIT_BF, EMIT_TWO_PHOTON, EMIT_ADIABATIC = 0, 1, 3, 4
 
-# K1's compile-time options, in the order of their -D flags
+# K1's compile-time options, in the order of their -D flags; every option
+# is off by default but the line estimators, which are on
 OPTIONS = ("full_relativity", "last_interaction", "tracker", "reflective",
-           "weights", "continuum", "two_photon", "adiabatic")
+           "weights", "continuum", "two_photon", "adiabatic",
+           "line_estimators")
 
 logger = logging.getLogger(__name__)
 
@@ -128,7 +140,7 @@ class TransportOutput:
     out: torch.Tensor  # (N, 2) f32: signed nu (+ emitted, - reabsorbed), energy
     est_j: torch.Tensor  # (S,) f64
     est_nubar: torch.Tensor  # (S,) f64
-    line_diff: torch.Tensor  # (2 * (L+1) * S,) f64
+    line_diff: torch.Tensor  # (2 * (L+1) * S,) f64 ((0,): not asked for)
     # [energy emitted inside the nu window, energy reabsorbed, events,
     #  packets stopped by the event cap]
     summary: torch.Tensor  # (4,) f64
@@ -138,9 +150,10 @@ class TransportOutput:
     last_interaction: torch.Tensor
     # (N, K, 6) f32 [r, nu, energy, shell, code, mu] ((0, 0, 6): off)
     tracker: torch.Tensor
-    # continuum only ((0, 8), (0,), (0,) otherwise): the estimator moments
-    # ((Ng - 1) * S, 8) f64 by row gcell * S + shell, the free-free heating
-    # (S,) f64, and each packet's event count (N,) i32
+    # continuum only ((0, 8), (0,) otherwise): the estimator moments
+    # ((Ng - 1) * S, 8) f64 by row gcell * S + shell and the free-free
+    # heating (S,) f64; each packet's event count (N,) i32, kept with
+    # continuum and by every plain version ((0,) otherwise)
     cont_moments: torch.Tensor
     est_ff_heat: torch.Tensor
     events: torch.Tensor
@@ -152,23 +165,31 @@ class TransportOutput:
 
 
 def variant(t: TransportTables, pool_w=None, last_interaction=False,
-            tracker_length=0) -> tuple:
+            tracker_length=0, line_estimators=True) -> tuple:
     """The option flags (in ``OPTIONS`` order) of one K1 configuration."""
     c = t.continuum
     return (bool(t.full_relativity), bool(last_interaction),
             tracker_length > 0, t.inner_boundary_albedo > 0.0,
             pool_w is not None, c is not None,
-            c is not None and c.two_photon, c is not None and c.adiabatic)
+            c is not None and c.two_photon, c is not None and c.adiabatic,
+            bool(line_estimators))
 
 
-def variant_name(flags) -> str:
-    """``classic`` or the options that are on, joined by ``+``."""
-    on = [name for name, f in zip(OPTIONS, flags) if f]
-    return "+".join(on) if on else "classic"
+def variant_name(flags, options=OPTIONS, plain="classic") -> str:
+    """``plain`` or the options that are on, joined by ``+``; an
+    instantiation without line estimators ends in ``no_line_estimators``
+    (K7's names come from the same rule with its own ``options``)."""
+    on = [name for name, f in zip(options, flags)
+          if f and name != "line_estimators"]
+    if not flags[options.index("line_estimators")]:
+        on.append("no_line_estimators")
+    return "+".join(on) if on else plain
 
 
 def _allocate(n_packets, S, L, capacity, last_interaction, tracker_length,
-              device, cont: ContinuumTables | None = None) -> TransportOutput:
+              device, cont: ContinuumTables | None = None,
+              line_estimators: bool = True,
+              events: bool = False) -> TransportOutput:
     z = torch.zeros
     f32, f64 = torch.float32, torch.float64
     n_moment_rows = 0 if cont is None else (cont.n_grid - 1) * S
@@ -176,7 +197,8 @@ def _allocate(n_packets, S, L, capacity, last_interaction, tracker_length,
         out=z((n_packets, 2), dtype=f32, device=device),
         est_j=z(S, dtype=f64, device=device),
         est_nubar=z(S, dtype=f64, device=device),
-        line_diff=z(2 * (L + 1) * S, dtype=f64, device=device),
+        line_diff=z(2 * (L + 1) * S if line_estimators else 0, dtype=f64,
+                    device=device),
         summary=z(4, dtype=f64, device=device),
         vp_records=z((capacity, 8), dtype=f32, device=device),
         vp_count=z(1, dtype=torch.int64, device=device),
@@ -186,7 +208,8 @@ def _allocate(n_packets, S, L, capacity, last_interaction, tracker_length,
                   dtype=f32, device=device),
         cont_moments=z((n_moment_rows, 8), dtype=f64, device=device),
         est_ff_heat=z(0 if cont is None else S, dtype=f64, device=device),
-        events=z(0 if cont is None else n_packets, dtype=torch.int32,
+        events=z(n_packets if events or cont is not None else 0,
+                 dtype=torch.int32,
                  device=device),
     )
 
@@ -227,21 +250,28 @@ def _resonance_distance(nu_line, nu, z, p2, full_relativity):
     return torch.clamp((1.0 - nu_line / nu) - z, min=0.0)
 
 
+def _fires(t: TransportTables, shell, i, chi, z, nu, tau_event, nu_thresh,
+           c0, p2):
+    """K1's event predicate at line ``i`` (< L): nu_i at or below the
+    boundary's frequency, or the optical depth to line i above tau."""
+    nl = t.line_nu[i]
+    s = _resonance_distance(nl, nu, z, p2, t.full_relativity)
+    g = (t.prefix.reshape(-1)[shell * (t.n_lines + 1) + i + 1] - c0).float() \
+        + chi * s
+    return (nl <= nu_thresh) | (g > tau_event)
+
+
 def _search(t: TransportTables, shell, lo, chi, z, nu, tau_event,
             nu_thresh, c0, p2):
-    """First i in [lo, L] with i == L, nu_i <= nu_thresh or g(i) > tau."""
+    """First i in [lo, L] with i == L or ``_fires``, by a bisection of
+    [lo, L]."""
     L = t.n_lines
     hi = torch.full_like(lo, L)
-    row = shell * (L + 1)
-    pflat = t.prefix.reshape(-1)
     for _ in range(int(np.ceil(np.log2(L + 1))) + 1):
         active = lo < hi
         mid = (lo + hi) >> 1
-        midc = torch.clamp(mid, max=L - 1)
-        nl = t.line_nu[midc]
-        s = _resonance_distance(nl, nu, z, p2, t.full_relativity)
-        g = (pflat[row + midc + 1] - c0).float() + chi * s
-        fire = (nl <= nu_thresh) | (g > tau_event)
+        fire = _fires(t, shell, torch.clamp(mid, max=L - 1), chi, z, nu,
+                      tau_event, nu_thresh, c0, p2)
         lo = torch.where(active & ~fire, mid + 1, lo)
         hi = torch.where(active & fire, mid, hi)
     return lo
@@ -382,7 +412,8 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                          vpacket_capacity: int = 0, pool_w=None,
                          last_interaction: bool = False,
                          tracker_length: int = 0,
-                         pid_offset: int = 0) -> TransportOutput:
+                         pid_offset: int = 0,
+                         line_estimators: bool = True) -> TransportOutput:
     """Plain PyTorch version of K1: a lockstep loop over ``batch_size`` lanes.
 
     Dead lanes refill from the pool in packet-id order; once the pool is
@@ -391,7 +422,8 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     width.  Every packet's arithmetic is elementwise and keyed by its id,
     so per-packet outputs do not depend on ``batch_size``.  Spawn records
     are appended in lane order within a step, as the JAX package's cumsum
-    slots are.
+    slots are.  ``line_estimators`` False skips the line difference array.
+    Each packet's event count is kept in ``events``.
     """
     device = pool_mu.device
     N = pool_mu.shape[0]
@@ -401,8 +433,10 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     cont = t.continuum
     if cont is not None and vpacket_capacity:
         raise NotImplementedError("virtual packets with continuum transport")
+    _check_line_estimators(cont, line_estimators)
     res = _allocate(N, S, L, vpacket_capacity, last_interaction,
-                    tracker_length, device, cont)
+                    tracker_length, device, cont, line_estimators,
+                    events=True)
     moments = res.cont_moments.view(-1)
     n_vp = 0
     nu_lo, nu_hi = _window(nu_window)
@@ -470,8 +504,7 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         capped = alive & (eidx >= max_events)
         if bool(capped.any()):
             n_immortal += int(capped.sum())
-            if cont is not None:
-                res.events[pid[capped]] = max_events
+            res.events[pid[capped]] = max_events
         alive = alive & ~capped
         n_alive = int(alive.sum())
         if n_alive == 0:
@@ -564,16 +597,17 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
                 m.reshape(-1).double())
             res.est_ff_heat.index_add_(0, shell[alive],
                                        (w_j * chi_ff)[alive].double())
-        crossed = alive & (end_line != next_line)
-        if full_rel:
-            w1, w2 = energy / nu, energy
-        else:
-            w1, w2 = energy / (nu * nu), energy / nu
-        w1, w2 = w1[crossed].double(), w2[crossed].double()
-        a = (next_line[crossed] * S + shell[crossed]) * 2
-        b = (end_line[crossed] * S + shell[crossed]) * 2
-        res.line_diff.index_add_(0, torch.cat([a, a + 1, b, b + 1]),
-                                 torch.cat([w1, w2, -w1, -w2]))
+        if line_estimators:
+            crossed = alive & (end_line != next_line)
+            if full_rel:
+                w1, w2 = energy / nu, energy
+            else:
+                w1, w2 = energy / (nu * nu), energy / nu
+            w1, w2 = w1[crossed].double(), w2[crossed].double()
+            a = (next_line[crossed] * S + shell[crossed]) * 2
+            b = (end_line[crossed] * S + shell[crossed]) * 2
+            res.line_diff.index_add_(0, torch.cat([a, a + 1, b, b + 1]),
+                                     torch.cat([w1, w2, -w1, -w2]))
 
         # ---- move
         r_new = torch.sqrt(torch.clamp(
@@ -664,8 +698,7 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
             dpid = pid[dying]
             res.out[dpid, 0] = torch.where(emitted, nu, -nu)[dying]
             res.out[dpid, 1] = torch.where(adiabatic, 0.0, energy)[dying]
-            if cont is not None:
-                res.events[dpid] = (eidx[dying] + 1).int()
+            res.events[dpid] = (eidx[dying] + 1).int()
             in_window = emitted & (nu > nu_lo) & (nu < nu_hi)
             res.summary[0] += energy[in_window].double().sum()
             res.summary[1] += energy[reabsorbed].double().sum()
@@ -676,6 +709,13 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     res.summary[3] = n_immortal
     res.vp_count[0] = n_vp
     return res
+
+
+def _check_line_estimators(cont: ContinuumTables | None,
+                           line_estimators: bool) -> None:
+    if cont is not None and not line_estimators:
+        raise ValueError("transport_loop: the continuum instantiations always "
+                         "accumulate the line estimators")
 
 
 class ContinuumArgs(ctypes.Structure):
@@ -759,7 +799,8 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
                    last_interaction: bool = False,
                    tracker_length: int = 0,
                    pid_offset: int = 0,
-                   smem_tables: bool | None = None) -> TransportOutput:
+                   smem_tables: bool | None = None,
+                   line_estimators: bool = True) -> TransportOutput:
     """K1 on the card; the plain version for CPU tensors.
 
     ``key`` is the iteration's run key; ``nu_window`` the (lo, hi)
@@ -768,8 +809,12 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     per-packet weights (None: all 1); ``last_interaction`` and
     ``tracker_length`` turn on the two trackers; ``pid_offset`` is the
     global id of the pool's first packet (a shard of a larger pool hashes
-    the global ids and writes its rows by the local ones).  On the card the
-    options select K1's compiled instantiation (``variant``).
+    the global ids and writes its rows by the local ones);
+    ``line_estimators`` False skips the line difference array (``line_diff``
+    empty).  On the card the options select K1's compiled instantiation
+    (``variant``), which runs as one launch of a persistent grid: its lanes
+    take packet ids from a queue and refill as soon as a packet ends, so no
+    lane waits on a warp's longest packet.
 
     With continuum the card runs one launch of a persistent grid (as many
     blocks as are resident) whose lanes take packet ids from a queue and
@@ -792,7 +837,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
             t, pool_mu, pool_nu, key, nu_window, max_events=max_events,
             vpacket_capacity=vpacket_capacity, pool_w=pool_w,
             last_interaction=last_interaction, tracker_length=tracker_length,
-            pid_offset=pid_offset)
+            pid_offset=pid_offset, line_estimators=line_estimators)
     if device.type != "cuda":
         raise ValueError(f"transport_loop: unsupported device {device}")
     cont = t.continuum
@@ -801,6 +846,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     if cont is None and smem_tables is not None:
         raise ValueError("transport_loop: smem_tables applies to the "
                          "continuum loop")
+    _check_line_estimators(cont, line_estimators)
     f32 = torch.float32
     N = pool_mu.shape[0]
     cuda.check_cuda(
@@ -826,9 +872,10 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         raise ValueError("transport_loop: table shapes do not agree")
     if cont is not None:
         _check_continuum(cont, t, device)
-    flags = variant(t, pool_w, last_interaction, tracker_length)
+    flags = variant(t, pool_w, last_interaction, tracker_length,
+                    line_estimators)
     res = _allocate(N, S, L, vpacket_capacity, last_interaction,
-                    tracker_length, device, cont)
+                    tracker_length, device, cont, line_estimators)
     nu_lo, nu_hi = _window(nu_window)
     fn = cuda.function("transport_loop", "transport_loop", _ARGTYPES,
                        library_defines(flags))
@@ -840,11 +887,14 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         t.chain_width, t.emit_width, t.mode, int(t.disable_line_scattering),
         key[0], key[1], nu_lo, nu_hi, float(t.inner_boundary_albedo),
         max_events, pid_offset, p(res.out), p(res.est_j), p(res.est_nubar),
-        p(res.line_diff), p(res.summary), p(res.vp_records),
+        p(res.line_diff) if line_estimators else None, p(res.summary),
+        p(res.vp_records),
         p(res.vp_count), vpacket_capacity, p(res.last_interaction),
         p(res.tracker), tracker_length]
+    # the lanes' packet queue: the next packet id to take
+    taken = torch.zeros(1, dtype=torch.int64, device=device)
     if cont is None:
-        err = fn(*args, None, None, 0, cuda.stream())
+        err = fn(*args, None, p(taken), 0, cuda.stream())
     else:
         fits = smem_tables_fit(t, library_defines(flags))
         if smem_tables is None:
@@ -852,7 +902,6 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         elif smem_tables and not fits:
             raise ValueError("transport_loop: the continuum tables do not "
                              "fit shared memory")
-        taken = torch.zeros(1, dtype=torch.int64, device=device)
         err = fn(*args, ctypes.byref(_continuum_args(cont, res)), p(taken),
                  int(smem_tables), cuda.stream())
     cuda.check_launch("transport_loop", err)

@@ -47,9 +47,11 @@ Options (each a compile-time instantiation on the card): the macro-atom
 walk (downbranch and macroatom modes), last-interaction rows, the r-packet
 tracker (rows [r, nu, energy, shell, code, 0]: the JAX package's
 nonhomologous tracker leaves column 5 at 0) and the reflective inner
-boundary.  ``nonhom_transport_loop`` launches K7 for tensors on the card
-and runs ``nonhom_transport_loop_plain`` (lockstep lanes refilled from the
-pool) only for CPU tensors.
+boundary, and the line estimators (on by default; off, the line difference
+array is neither allocated nor written, as in K1).  ``nonhom_transport_loop``
+launches K7 (a persistent grid of lanes that refill from a packet queue)
+for tensors on the card and runs ``nonhom_transport_loop_plain`` (lockstep
+lanes refilled from the pool) only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -81,6 +83,7 @@ from tardis_torch.transport.kernel import (
     _lower_bound,
     _window,
 )
+from tardis_torch.transport.kernel import variant_name as _variant_name
 from tardis_torch.transport.tables import (
     LINE_DOWNBRANCH,
     LINE_MODES,
@@ -99,8 +102,10 @@ X_REQ_CAP = 1e15
 # the walk's draw of jump j is keyed by fold_in(event key, WALK_TAG + j)
 WALK_TAG = 8
 
-# K7's compile-time options, in the order of their -D flags
-OPTIONS = ("macro", "last_interaction", "tracker", "reflective")
+# K7's compile-time options, in the order of their -D flags; every option
+# is off by default but the line estimators, which are on
+OPTIONS = ("macro", "last_interaction", "tracker", "reflective",
+           "line_estimators")
 
 
 @dataclass
@@ -211,16 +216,18 @@ def build_nonhom_tables(geometry, plasma_state, atom_data,
     )
 
 
-def variant(t: NonhomTables, last_interaction=False, tracker_length=0):
+def variant(t: NonhomTables, last_interaction=False, tracker_length=0,
+            line_estimators=True):
     """The option flags (in ``OPTIONS`` order) of one K7 configuration."""
     return (t.mode != LINE_SCATTER, bool(last_interaction),
-            tracker_length > 0, t.inner_boundary_albedo > 0.0)
+            tracker_length > 0, t.inner_boundary_albedo > 0.0,
+            bool(line_estimators))
 
 
 def variant_name(flags) -> str:
-    """``scatter`` or the options that are on, joined by ``+``."""
-    on = [name for name, f in zip(OPTIONS, flags) if f]
-    return "+".join(on) if on else "scatter"
+    """``scatter`` or the options that are on, joined by ``+`` (ending in
+    ``no_line_estimators`` without the line estimators)."""
+    return _variant_name(flags, OPTIONS, "scatter")
 
 
 def library_defines(flags) -> tuple:
@@ -275,15 +282,18 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
                                 batch_size: int = 65536,
                                 max_events: int = MAX_EVENTS,
                                 last_interaction: bool = False,
-                                tracker_length: int = 0) -> TransportOutput:
+                                tracker_length: int = 0,
+                                line_estimators: bool = True
+                                ) -> TransportOutput:
     """Plain PyTorch version of K7: lockstep lanes refilled from the pool in
     packet-id order, the live lanes packed once the pool is spent and fewer
     than half are alive.  Per-packet outputs do not depend on
-    ``batch_size``."""
+    ``batch_size``.  Each packet's event count is kept in ``events``."""
     device = pool_mu.device
     N = pool_mu.shape[0]
     S, L = t.n_shells, t.n_lines
-    res = _allocate(N, S, L, 0, last_interaction, tracker_length, device)
+    res = _allocate(N, S, L, 0, last_interaction, tracker_length, device,
+                    line_estimators=line_estimators, events=True)
     nu_lo, nu_hi = _window(nu_window)
     reflective = t.inner_boundary_albedo > 0.0
     albedo = torch.tensor(t.inner_boundary_albedo, dtype=torch.float32,
@@ -337,6 +347,7 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
         capped = alive & (eidx >= max_events)
         if bool(capped.any()):
             n_immortal += int(capped.sum())
+            res.events[pid[capped]] = max_events
         alive = alive & ~capped
         n_alive = int(alive.sum())
         if n_alive == 0:
@@ -449,13 +460,14 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
                                  (w_j * nu_cmf)[alive].double())
         rng_lo = torch.where(fwd, lo_f, cnt_m - k_crossed)
         rng_hi = torch.where(fwd, lo_f + k_crossed, cnt_m)
-        crossed = alive & (rng_lo != rng_hi)
-        w1 = (energy / (nu * nu))[crossed].double()
-        w2 = (energy / nu)[crossed].double()
-        ia = (rng_lo[crossed] * S + shell[crossed]) * 2
-        ib = (rng_hi[crossed] * S + shell[crossed]) * 2
-        res.line_diff.index_add_(0, torch.cat([ia, ia + 1, ib, ib + 1]),
-                                 torch.cat([w1, w2, -w1, -w2]))
+        if line_estimators:
+            crossed = alive & (rng_lo != rng_hi)
+            w1 = (energy / (nu * nu))[crossed].double()
+            w2 = (energy / nu)[crossed].double()
+            ia = (rng_lo[crossed] * S + shell[crossed]) * 2
+            ib = (rng_hi[crossed] * S + shell[crossed]) * 2
+            res.line_diff.index_add_(0, torch.cat([ia, ia + 1, ib, ib + 1]),
+                                     torch.cat([w1, w2, -w1, -w2]))
 
         # ---- move
         r_new = torch.sqrt(torch.clamp(
@@ -517,6 +529,7 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
             dpid = pid[dying]
             res.out[dpid, 0] = torch.where(emitted, nu, -nu)[dying]
             res.out[dpid, 1] = energy[dying]
+            res.events[dpid] = (eidx[dying] + 1).int()
             in_window = emitted & (nu > nu_lo) & (nu < nu_hi)
             res.summary[0] += energy[in_window].double().sum()
             res.summary[1] += energy[reabsorbed].double().sum()
@@ -532,14 +545,19 @@ def nonhom_transport_loop(t: NonhomTables, pool_mu, pool_nu, key,
                           nu_window=(0.0, np.inf),
                           max_events: int = MAX_EVENTS,
                           last_interaction: bool = False,
-                          tracker_length: int = 0) -> TransportOutput:
+                          tracker_length: int = 0,
+                          line_estimators: bool = True) -> TransportOutput:
     """K7 on the card; the plain version for CPU tensors.  The options
-    select K7's compiled instantiation (``variant``)."""
+    select K7's compiled instantiation (``variant``); ``line_estimators``
+    False skips the line difference array (``line_diff`` empty).  On the
+    card K7 is one launch of a persistent grid whose lanes take packet ids
+    from a queue and refill as soon as a packet ends."""
     device = pool_mu.device
     if device.type == "cpu":
         return nonhom_transport_loop_plain(
             t, pool_mu, pool_nu, key, nu_window, max_events=max_events,
-            last_interaction=last_interaction, tracker_length=tracker_length)
+            last_interaction=last_interaction, tracker_length=tracker_length,
+            line_estimators=line_estimators)
     if device.type != "cuda":
         raise ValueError(f"nonhom_transport_loop: unsupported device {device}")
     f32, i32 = torch.float32, torch.int32
@@ -566,18 +584,15 @@ def nonhom_transport_loop(t: NonhomTables, pool_mu, pool_nu, key,
                 w.cum_prob.shape[1] != S or w.line2macro.shape != (L,)
                 or w.dest.shape[0] != w.cum_prob.shape[0]))):
         raise ValueError("nonhom_transport_loop: table shapes do not agree")
-    flags = variant(t, last_interaction, tracker_length)
-    lib = cuda.library("nonhom_loop", library_defines(flags))
-    res = _allocate(N, S, L, 0, last_interaction, tracker_length, device)
+    flags = variant(t, last_interaction, tracker_length, line_estimators)
+    res = _allocate(N, S, L, 0, last_interaction, tracker_length, device,
+                    line_estimators=line_estimators)
     nu_lo, nu_hi = _window(nu_window)
-    fn = lib.nonhom_loop
-    fn.restype = ctypes.c_int
-    vp, i64, ci, cf = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_float)
-    fn.argtypes = ([vp, vp, i64] + [vp] * 14 + [i64] + [ci] * 3
-                   + [ctypes.c_uint32, ctypes.c_uint32, cf, cf, cf, i64]
-                   + [vp] * 7 + [ci, vp])
+    fn = cuda.function("nonhom_loop", "nonhom_loop", _ARGTYPES,
+                       library_defines(flags))
     p = cuda.ptr
+    # the lanes' packet queue: the next packet id to take
+    taken = torch.zeros(1, dtype=torch.int64, device=device)
 
     def walk_ptr(name):
         return None if w is None else p(getattr(w, name))
@@ -590,8 +605,9 @@ def nonhom_transport_loop(t: NonhomTables, pool_mu, pool_nu, key,
         walk_ptr("line"), L, S, t.max_jumps,
         int(t.disable_line_scattering), key[0], key[1], nu_lo, nu_hi,
         float(t.inner_boundary_albedo), max_events, p(res.out),
-        p(res.est_j), p(res.est_nubar), p(res.line_diff), p(res.summary),
-        p(res.last_interaction), p(res.tracker), tracker_length,
+        p(res.est_j), p(res.est_nubar),
+        p(res.line_diff) if line_estimators else None, p(res.summary),
+        p(res.last_interaction), p(res.tracker), tracker_length, p(taken),
         cuda.stream(),
     )
     cuda.check_launch("nonhom_transport_loop", err)
@@ -602,3 +618,9 @@ def nonhom_transport_loop(t: NonhomTables, pool_mu, pool_nu, key,
 
 
 nonhom_transport_loop.launches_by_variant = {}  # launches by variant_name
+
+_VP, _I64, _CI, _CF = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_float)
+_ARGTYPES = ([_VP, _VP, _I64] + [_VP] * 14 + [_I64] + [_CI] * 3
+             + [ctypes.c_uint32, ctypes.c_uint32, _CF, _CF, _CF, _I64]
+             + [_VP] * 7 + [_CI, _VP, _VP])

@@ -338,10 +338,13 @@ class TransportSolver:
         lo, hi = lum_nu_window
         capacity = n_packets * VPACKET_RECORDS_PER_PACKET \
             if n_vpackets > 0 else 0
+        # the line difference array only where _finalize reads it (the
+        # continuum instantiations always accumulate it)
         kw = dict(nu_window=(lo / NU_UNIT, hi / NU_UNIT),
                   vpacket_capacity=capacity, pool_w=pool_w,
                   last_interaction=self.track_last_interaction,
-                  tracker_length=self.track_rpacket_length)
+                  tracker_length=self.track_rpacket_length,
+                  line_estimators=need_line_estimators or with_continuum)
         devices = self.devices_for(device)
         sharded = len(devices) > 1 and n_packets % len(devices) == 0
         if len(devices) > 1 and not sharded and not self._logged_one_device:
@@ -462,7 +465,7 @@ class TransportSolver:
             _tracker=res.tracker if self.track_rpacket_length else None,
             length_unit=ct,
             continuum=continuum,
-            events=res.events if res.events.numel() else None,
+            events=res.events if continuum is not None else None,
             **virtual,
         )
 
@@ -540,6 +543,7 @@ class NonhomologousTransportSolver(TransportSolver):
                 nu_window=(lo / NU_UNIT, hi / NU_UNIT),
                 last_interaction=self.track_last_interaction,
                 tracker_length=self.track_rpacket_length,
+                line_estimators=need_line_estimators,
             )
         with record_function("tardis.finalize"):
             return self._finalize(res, sim_state, atom_data, n_packets,
