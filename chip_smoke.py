@@ -22,7 +22,8 @@ Phases, one printed line each (plus one line per iteration):
      against the plain version, bitwise run to run and bitwise equal to
      the 20-shell run in each repeated shell); K2's simple and
      relativistic pools
-     at both packet counts, the weighted pool at 2,097,152; then the K1 and
+     at both packet counts, the weighted pool at 2,097,152 (each also as
+     device time of queued calls, device_ms); then the K1 and
      K4 instantiations the paths select (kernel.variant and
      vpacket.variant_name on the tables and pools built here, the two
      continuum K1 instantiations of the IIP paths included), built in
@@ -34,7 +35,9 @@ Phases, one printed line each (plus one line per iteration):
      (device_ms), with its per-packet event distribution and the lane
      efficiency a layout of one thread a packet would have (from the plain
      version's counts); K4 in one launch on each path's final-iteration
-     records;
+     records (ms, device_ms, segments a ray, the record of the ray with
+     the most segments alone as floor_ms, and the line list's bucket
+     table: entries, bytes, lines a bucket);
      then the sharding of parallel/transport.py on this one card
      (check_sharded_transport): the main path's convergence K1 over 1, 2
      and 4 shards (cuda:0 repeated) against one device, the final
@@ -58,7 +61,8 @@ Phases, one printed line each (plus one line per iteration):
      macroatom mode (the RNG-walk macro atom) with last-interaction rows
      and without line estimators at 2,097,152 packets and, macroatom, with
      them at 4,194,304, bitwise against its plain version (ms, device_ms,
-     the event distribution and lane efficiency as for K1), and in scatter
+     the event distribution and lane efficiency as for K1, and the events
+     whose line the JAX package's count search took), and in scatter
      mode under the homologous law against K1 (status agreement >= 0.999);
      and K6 (gamma-ray step) on a pool of 4,194,304 packets for one step
      in each of its four instantiations, bitwise against its plain version,
@@ -98,7 +102,8 @@ Phases, one printed line each (plus one line per iteration):
      (K1 and K7 without line estimators in the convergence iterations,
      with them in the final one);
   8. K5 (formal-integral rays) against its plain version on the main
-     path's own source-function tables;
+     path's own source-function tables (ms, device_ms, the per-ray event
+     distribution, and the ray with the most events alone as floor_ms);
   9. where the time goes: torch.profiler over a two-iteration run of the
      main path and of the IIP path, and over the gamma path (device time
      by kernel, host time by tardis.* span, the device's busy share; K6's
@@ -145,7 +150,7 @@ N_PACKETS = 2_097_152
 FINAL_PACKETS = 4_194_304
 N_VPACKETS = 2
 INTEGRATED_POINTS = 1000
-PLAIN_LANES = 65_536
+PLAIN_LANES = 1_048_576
 OPTIONS_ITERATIONS = 3
 ALBEDO = 0.5
 TRACKER_LENGTH = 10
@@ -157,7 +162,7 @@ IIP_ITERATIONS = 4  # 3 convergence iterations (each with its thermal balance)
 IIP_OPTIONS_ITERATIONS = 2  # and the final one
 IIP_EVENT_CAP = 2_000  # both sides of a continuum K1 check stop here
 NONHOM_ITERATIONS = 5  # 4 convergence iterations and the final one
-NONHOM_PLAIN_LANES = 262_144  # K7's plain version: launch-bound steps
+NONHOM_PLAIN_LANES = 4_194_304  # K7's plain version: every packet a lane
 GAMMA_PACKETS = 4_194_304
 GAMMA_STEPS = 50
 GAMMA_BINS = 100
@@ -475,8 +480,10 @@ def beta_inner(state):
 
 def check_blackbody_source(state, device, n_packets, iteration,
                            pool="simple"):
-    """K2 at ``n_packets`` with the source key of ``iteration``.  mu and nu
-    must agree bit for bit; w too for the relativistic pool (a constant),
+    """K2 at ``n_packets`` with the source key of ``iteration``, timed by
+    CUDA events around each call (``ms``, the wrapper's host work and its
+    launches included) and as device time of queued calls
+    (``device_ms``).  mu and nu must agree bit for bit; w too for the relativistic pool (a constant),
     and within rtol 1e-6 for the weighted one (its mean is an f64 sum whose
     order differs: one ulp of the mean at most)."""
     from tardis_torch.transport.solver import iteration_keys
@@ -488,6 +495,7 @@ def check_blackbody_source(state, device, n_packets, iteration,
     key, _ = iteration_keys(SEED, iteration)
     args = (key, n_packets, state.t_inner, device, pool, beta_inner(state))
     ms, (mu, nu, w) = cuda_ms(lambda: blackbody_source(*args), 10)
+    device_ms, _ = cuda_ms_queued(lambda: blackbody_source(*args), 10)
     plain_ms, (mu_p, nu_p, w_p) = cuda_ms(
         lambda: blackbody_source_plain(*args), 3)
     pairs = [(mu, mu_p), (nu, nu_p)] + ([] if w is None else [(w, w_p)])
@@ -510,13 +518,14 @@ def check_blackbody_source(state, device, n_packets, iteration,
     b_ms, b_by = bound(n_out + 999 * 4,
                        n_packets * (hashes * THREEFRY_OPS + 30 + 15))
     say("check_blackbody_source", pool=pool, n=n_packets, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, max_rel=rel, bitwise=bitwise)
+        device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms, max_rel=rel,
+        bitwise=bitwise)
     return (mu, nu, w), dict(
         name=line_name("blackbody_source", pool), route="cuda",
         source="tardis_torch/csrc/blackbody_source.cu",
         replaces=REPLACES_K2[pool],
-        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=max_abs, ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
 
@@ -858,11 +867,16 @@ def check_vpacket_volley(tables, records, device):
     on the paths; the plain version takes them in chunks.  Per-ray
     frequencies and energies must be bitwise equal (same f32 steps, f64
     exp); the f64 histogram differs only in the order of its adds, hence
-    rtol 1e-9."""
+    rtol 1e-9.  Timed by CUDA events around each call (``ms``) and as
+    device time of queued calls (``device_ms``); the floor is the record
+    of the ray with the most segments alone (``floor_ms``, device time).
+    The line list's bucket table (``vpacket.line_buckets``) is printed
+    with its entries, bytes and lines a bucket."""
     from tardis_torch.config.reader import config_from_dict
     from tardis_torch.spectrum.base import frequency_grid
     from tardis_torch.transport.tables import NU_UNIT
     from tardis_torch.transport.vpacket import (
+        line_buckets,
         trace_vpacket_records,
         trace_vpacket_records_plain,
         variant_name,
@@ -874,6 +888,7 @@ def check_vpacket_volley(tables, records, device):
         .astype(np.float32), device=device)
     args = (tables, records, N_VPACKETS, edges)
     ms, k = cuda_ms(lambda: trace_vpacket_records(*args), 5)
+    device_ms, k = cuda_ms_queued(lambda: trace_vpacket_records(*args), 5)
     plain_ms, p = cuda_ms(lambda: trace_vpacket_records_plain(*args), 1,
                           warmup=False)
     by = trace_vpacket_records.launches_by_variant
@@ -895,37 +910,59 @@ def check_vpacket_volley(tables, records, device):
     R = records.shape[0]
     n_rays = R * N_VPACKETS
     M = edges.shape[0] - 1
-    # per segment: a ~log2(L)-probe search (~4 operations a probe) and ~30
-    # operations of geometry and tau; per ray: ~40 operations of direction,
-    # weight and Doppler factors, the f64 exp, and a log2(M)-probe bin search
-    n_ops = (segments[0] * (4 * math.ceil(math.log2(tables.n_lines + 1))
-                            + 30)
-             + n_rays * (4 * math.ceil(math.log2(M + 1)) + 40))
+    # the longest ray's record alone: the floor of any schedule
+    longest = int(torch.argmax(pr.segments))
+    rec = longest // N_VPACKETS
+    floor_ms, _ = cuda_ms_queued(lambda: trace_vpacket_records(
+        tables, records[rec:rec + 1], N_VPACKETS, edges), 20)
+    buckets = line_buckets(tables)
+    per_bucket = torch.diff(buckets.counts).float()
+    bracket = float(per_bucket[per_bucket > 0].mean())
+    # per segment: the bucket (two table reads, ~8 operations), a
+    # bisection of its bracket (~4 operations a probe over the mean
+    # occupied bucket) and ~30 operations of geometry and tau; per ray:
+    # ~40 operations of direction, weight and Doppler factors, the f64 exp
+    # and ~10 for the bin
+    n_ops = (segments[0] * (8 + 4 * math.ceil(math.log2(bracket + 1)) + 30)
+             + n_rays * (40 + 10))
     in_bytes = nbytes(records, tables.r_inner, tables.r_outer, tables.chi_e,
-                      tables.line_nu, tables.prefix, edges)
+                      tables.line_nu, tables.prefix, buckets.counts, edges)
     b_ms, b_by = bound(in_bytes + nbytes(k.hist), n_ops)
     rel_branch = tables.full_relativity
     name = line_name("vpacket_volley", variant_name(tables))
     say("check_vpacket_volley", line=name, records=R,
         rays=n_rays, bins=M,
-        segments=segments[0], ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, kernel_launches=launches,
+        segments=segments[0], segments_per_ray=segments[0] / n_rays,
+        longest_ray_segments=int(pr.segments[longest]), ms=ms,
+        device_ms=device_ms, floor_ms=floor_ms,
+        segments_per_s=segments[0] / (device_ms * 1e-3),
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        kernel_launches=launches,
         plain_chunks=math.ceil(n_rays / 8_388_608),
+        bucket_table=dict(entries=buckets.n_buckets,
+                          bytes=nbytes(buckets.counts), shift=buckets.shift,
+                          lines_per_bucket_mean=float(per_bucket.mean()),
+                          lines_per_occupied_bucket_mean=bracket,
+                          lines_per_bucket_max=int(per_bucket.max())),
         rays_bitwise=rays_bitwise, hist_max_rel=rel, max_abs_err=max_abs)
     return dict(
         name=name, route="cuda",
         source="tardis_torch/csrc/vpacket_volley.cu",
         replaces=("tardis_tpu/transport/vpacket.py:"
                   + ("260" if rel_branch else "224")),
-        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=max_abs, ms=ms, device_ms=device_ms, floor_ms=floor_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
 
 def check_formal_integral(sim, device):
     """K5 on the main path's own source-function tables (1,000 frequencies
     x 80 impact parameters).  Same f32 steps in both versions, so I p must
-    be bitwise equal, with equal event counts and no capped ray."""
+    be bitwise equal, with equal event counts and no capped ray.  Timed by
+    CUDA events around each call (``ms``) and as device time of queued
+    calls (``device_ms``); the per-ray event distribution comes from the
+    plain version, and the floor is the ray with the most events alone
+    (``floor_ms``, device time; its I p must be the full call's)."""
     from tardis_torch.spectrum.formal_integral import (
         COUNT_CAPPED,
         FormalIntegralSolver,
@@ -938,6 +975,7 @@ def check_formal_integral(sim, device):
         sim.last_transport_result, sim.atom_data, "macroatom", device)
     a = inputs.tensors
     ms, k = cuda_ms(lambda: integrate_rays(**a), 5)
+    device_ms, k = cuda_ms_queued(lambda: integrate_rays(**a), 5)
     plain_ms, p = cuda_ms(lambda: integrate_rays_plain(**a), 1, warmup=False)
     bitwise = bool(torch.equal(k.i_p, p.i_p))
     counts = k.counts.tolist(), p.counts.tolist()
@@ -951,6 +989,13 @@ def check_formal_integral(sim, device):
     F, P = k.i_p.shape
     S, L = a["exp_tau"].shape
     n_line, n_boundary, _ = counts[0]
+    # the ray with the most events alone: the floor of any schedule
+    f, j = divmod(int(torch.argmax(p.events)), P)
+    one = dict(a, nu_grid=a["nu_grid"][f:f + 1], p_grid=a["p_grid"][j:j + 1],
+               i_inner=a["i_inner"][f:f + 1])
+    floor_ms, alone = cuda_ms_queued(lambda: integrate_rays(**one), 20)
+    if not torch.equal(alone.i_p[0, 0], k.i_p[f, j]):
+        raise AssertionError("formal_integral: the longest ray alone differs")
     # ~16 f32 operations per line event (zeta, J average, e-scatter source,
     # attenuation), ~20 per boundary event (two sqrt, the source), and the
     # start-line search
@@ -959,14 +1004,19 @@ def check_formal_integral(sim, device):
     b_ms, b_by = bound(nbytes(*a.values()) + nbytes(k.i_p), n_ops)
     say("check_formal_integral", frequencies=F, impact_parameters=P,
         lines=L, shells=S, line_events=n_line, boundary_events=n_boundary,
-        capped=counts[0][COUNT_CAPPED], ms=ms, plain_ms=plain_ms,
+        capped=counts[0][COUNT_CAPPED],
+        events_per_ray=event_distribution(p.events.reshape(-1), 0),
+        lane_efficiency_thread_a_ray=lane_efficiency(p.events.reshape(-1)),
+        longest_ray=dict(frequency=f, impact_parameter=j,
+                         events=int(p.events[f, j])),
+        ms=ms, device_ms=device_ms, floor_ms=floor_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, bitwise=bitwise, max_abs_err=max_abs)
     return dict(
         name="formal_integral", route="cuda",
         source="tardis_torch/csrc/formal_integral.cu",
         replaces="tardis_tpu/spectrum/formal_integral.py:137",
-        max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        max_abs_err=max_abs, ms=ms, device_ms=device_ms, floor_ms=floor_ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
 
 
@@ -1747,8 +1797,10 @@ def check_nonhom_loop(state, atom, ps, pools):
     both sides otherwise) and the luminosity sums within 1e-9 (their terms
     cancel, as for K1).  Timed as CUDA events around each call (``ms``) and
     as device time of queued calls (``device_ms``); the per-packet event
-    distribution and the lane efficiency of one thread a packet come from
-    the plain version's counts.  Then K7 in scatter mode under the
+    distribution, the lane efficiency of one thread a packet and the events
+    whose line the count search took (where the predicate is not proven
+    monotone over the window; both versions take the same branch) come
+    from the plain version's counts.  Then K7 in scatter mode under the
     homologous law against K1's classic instantiation on the same pool:
     status agreement at least 0.999 (the JAX package's own bar,
     tests/test_nonhomologous.py:85).  Returns the kernels-line entries of
@@ -1834,6 +1886,8 @@ def check_nonhom_loop(state, atom, ps, pools):
                        bound_by=b_by, events=events[0],
                        events_per_s=events[0] / (device_ms * 1e-3),
                        **events_numbers(p.events, stopped[1]),
+                       count_search_events=p.count_search_events,
+                       count_search_share=p.count_search_events / events[1],
                        line_interactions=int((li == 2).sum()),
                        escat_interactions=int((li == 1).sum()),
                        emitted=int((k.out[:, 0] > 0).sum()),

@@ -4,12 +4,14 @@
 Run on a card, from the root of this repository:
 
     python tardis_torch/benchmarks/event_loops.py --tree DIR [--build]
+        [--only PREFIX]
 
 ``DIR`` is the root of any checkout of this repository (this one, or a
 ``git archive`` of an earlier commit); its own ``chip_smoke.py`` and
 ``tardis_torch`` build the problem, the pools and the kernels, so each tree
 is timed as its paths run it.  ``--build`` compiles the instantiations
-(one ``nvcc`` each, all at once) and exits.  Each launch of the main,
+(one ``nvcc`` each, all at once) and exits; ``--only k7`` keeps the
+launches whose label starts so.  Each launch of the main,
 relativity and options paths (the convergence iterations' and the final
 one's) and of the nonhomologous path (macroatom's, and scatter's at the
 convergence shape) prints one JSON line: ``device_ms`` (calls queued back
@@ -53,7 +55,7 @@ def say(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def main(tree, build):
+def main(tree, build, only=""):
     """Time (or, with ``build``, compile) ``tree``'s launches."""
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -115,7 +117,8 @@ def main(tree, build):
         return (("transport_loop", kernel.library_defines(flags)),
                 lambda: kernel.transport_loop(t, mu, nu, run_key, **kw))
 
-    calls = [(c[0], *call(*c[1:])) for c in cases(cs)]
+    calls = [(c[0], *call(*c[1:])) for c in cases(cs)
+             if c[0].startswith(only)]
     if build:
         s = cuda.build([lib for _, lib, _ in calls])
         say(phase="build", seconds=s, libraries=len({lib for _, lib, _ in
@@ -138,5 +141,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--build", action="store_true")
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
-    main(os.path.abspath(args.tree), args.build)
+    main(os.path.abspath(args.tree), args.build, args.only)

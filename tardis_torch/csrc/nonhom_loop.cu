@@ -28,8 +28,9 @@
 //   - one launch of a persistent grid whose lanes take packets from a
 //     queue (tardis::lane_loop, event_loop.cuh), so a lane whose packet
 //     ends takes the next at once;
-//   - __launch_bounds__(128, 10): at most 48 registers a lane (a few
-//     spilled to the L1), 40 resident warps an SM;
+//   - __launch_bounds__(128, 8): at most 64 registers a lane (some spilled
+//     to the L1), 32 resident warps an SM; with the count search below,
+//     (128, 10) and its 48 registers measured 1-10% slower;
 //   - the window's counts gallop outward from the packet's next line
 //     (count_above_near); a count is a function of the frequency alone on
 //     the sorted list, so any search order finds it;
@@ -38,10 +39,20 @@
 //   - the per-row predicate is the JAX package's inverted one (the line lies
 //     beyond the line-of-sight velocity at the distance the remaining
 //     optical depth allows), evaluated on f64 prefix differences rounded to
-//     f32 instead of two-float pairs, with a plain binary search instead of
-//     the 128-ary tiles; the walked window's bounds are searches of the
-//     descending line list with the JAX package's sides (strictly above,
-//     at or above) and its 3e-7 margin;
+//     f32 instead of two-float pairs.  Where it is proven monotone over the
+//     window (monotone_window: beta_los monotone in the walk's direction
+//     over every x_req the window gives) a bisection finds its first true
+//     line; elsewhere (a shell whose velocity falls steeply outward,
+//     extrapolated past its boundary) the predicate can turn back, and
+//     count_search counts false samples at the JAX package's three levels
+//     of 128, so both packages take the same line.  The plain version
+//     takes the same branch.  On the nonhomologous path's perturbed law
+//     4-8% of the events take the count search, nearly every warp step has
+//     one, so a lane's count is made by the converged lanes together
+//     (counted_lines), 32 samples a round.  The walked window's bounds are
+//     searches of
+//     the descending line list with the JAX package's sides (strictly
+//     above, at or above) and its 3e-7 margin;
 //   - beta_los's rsqrt is written x * (1 / sqrt(.)), both correctly
 //     rounded, so the plain PyTorch version reproduces it; tau_event =
 //     -log(u) in f64 rounded to f32; built with --fmad=false;
@@ -136,6 +147,157 @@ __device__ __forceinline__ float draw(tardis::Key k, uint32_t column) {
 
 __device__ __forceinline__ float beta_los(float m, float q, float p2, float x) {
   return m * x + q * x * (1.0f / sqrtf(p2 + x * x));
+}
+
+// One event's walked window and what its predicate reads: the shell's
+// prefix row in walk order (forward, or the reversed line order), the
+// prefix at the window's start, the remaining optical depth and the chord.
+struct EventWindow {
+  const double* prow;
+  double c0;
+  const float* line_nu;
+  int64_t L;
+  float tau_event, inv_chi, x0, p2, m, q, nu;
+  bool fwd;
+};
+
+// the distance the optical depth left after walk-order line i allows
+// (d_req) and the chord coordinate it reaches (x_req).  ``coarse`` takes the
+// prefix difference from the two prefixes rounded to f32, as the JAX
+// package's coarse levels read their hi parts; else the f64 difference
+// rounded.
+__device__ __forceinline__ float2 reach(const EventWindow& w, int64_t i, bool coarse) {
+  const double c = w.prow[i + 1];
+  const float dC = coarse ? (float)c - (float)w.c0 : (float)(c - w.c0);
+  const float d_req = (w.tau_event - dC) * w.inv_chi;
+  return make_float2(d_req, fminf(w.x0 + fmaxf(d_req, 0.0f), kXReqCap));
+}
+
+// the inverted event predicate of walk-order line i: the line lies beyond
+// the line-of-sight velocity at x_req, or the optical depth is spent
+__device__ __forceinline__ bool window_pred(const EventWindow& w, int64_t i, bool coarse) {
+  const float2 r = reach(w, i, coarse);
+  const float b_req = beta_los(w.m, w.q, w.p2, r.y);
+  const float nl = w.fwd ? w.line_nu[i] : w.line_nu[w.L - 1 - i];
+  const float n_row = 1.0f - nl / w.nu;
+  const bool ahead = w.fwd ? (n_row > b_req) : (n_row < b_req);
+  return (r.x < 0.0f) || ahead;
+}
+
+// beta_los'(x) = m + q p^2 / (p^2 + x^2)^(3/2), in f64
+__device__ __forceinline__ double los_slope(double m, double q, double p2, double x) {
+  const double s = p2 + x * x;
+  return m + q * (p2 / (s * sqrt(s)));
+}
+
+// true where the predicate is proven monotone over the window [lo, hi), so
+// that the bisection finds the count search's line (proof at
+// tardis_torch/transport/nonhomologous.py `monotone_window`): every row's
+// x_req, exact or coarse, lies between those of the window's last and first
+// lines; there beta_los' is affine in g(|x|) = p^2 / (p^2 + x^2)^(3/2), which
+// falls with |x|, so its sign over the interval is its sign at the nearest
+// and farthest |x|.  Non-decreasing serves a forward walk, non-increasing a
+// backward one; NaN (p^2 = 0 at x = 0) proves nothing.
+__device__ __forceinline__ bool monotone_window(const EventWindow& w, int64_t lo, int64_t hi) {
+  const float x_lo = fminf(reach(w, hi - 1, false).y, reach(w, hi - 1, true).y);
+  const float x_hi = fmaxf(reach(w, lo, false).y, reach(w, lo, true).y);
+  const double a = (double)x_lo, b = (double)x_hi;
+  const double near = (a <= 0.0 && b >= 0.0) ? 0.0 : fmin(fabs(a), fabs(b));
+  const double far = fmax(fabs(a), fabs(b));
+  const double m = (double)w.m, q = (double)w.q, p2 = (double)w.p2;
+  const double s_near = los_slope(m, q, p2, near), s_far = los_slope(m, q, p2, far);
+  return w.fwd ? (s_near >= 0.0 && s_far >= 0.0) : (s_near <= 0.0 && s_far <= 0.0);
+}
+
+// the JAX package's sample stride factor (tiled_search.py's 128-ary tiles)
+constexpr int64_t kTile = 128;
+
+// of the kTile samples base + k stride, those whose predicate is false: a
+// sample below lo counts as false, one at hi or beyond as true, and only the
+// samples inside [lo, hi) are evaluated, spread over the ``mask`` lanes
+// (each evaluates every participants-th sample from its rank on; a ballot
+// counts the false ones)
+__device__ __forceinline__ int64_t false_samples(const EventWindow& w, int64_t lo, int64_t hi,
+                                                 int64_t base, int64_t stride, bool coarse,
+                                                 unsigned mask, int rank, int participants) {
+  auto below = [&](int64_t x) -> int64_t {
+    if (x <= base) return 0;
+    const int64_t n = (x - base + stride - 1) / stride;
+    return n < kTile ? n : kTile;
+  };
+  const int64_t k_lo = below(lo), k_hi = below(hi);
+  int64_t n = k_lo;
+  for (int64_t k0 = k_lo; k0 < k_hi; k0 += participants) {
+    const int64_t k = k0 + rank;
+    const bool is_false = k < k_hi && !window_pred(w, base + k * stride, coarse);
+    n += __popc(__ballot_sync(mask, is_false));
+  }
+  return n;
+}
+
+// the line tardis_tpu/transport/nonhomologous.py:133 `_nonhom_pred_search`
+// returns for one lane's window: the count of false samples at every
+// kTile^2-th line, then every kTile-th line from the last coarse sample
+// before that count, then every line of one tile (the coarse levels on
+// f32-rounded prefixes, the last exact), counted by the ``mask`` lanes
+// together
+__device__ __forceinline__ int64_t count_search(const EventWindow& w, int64_t lo, int64_t hi,
+                                                unsigned mask, int rank, int participants) {
+  const int64_t t0 = (w.L + kTile - 1) / kTile;
+  const int64_t t1 = (t0 + kTile - 1) / kTile;
+  const int64_t c2 =
+      false_samples(w, lo, hi, 0, kTile * kTile, true, mask, rank, participants);
+  const int64_t tile1 = c2 - 1 < 0 ? 0 : (c2 - 1 > t1 - 1 ? t1 - 1 : c2 - 1);
+  const int64_t c1 =
+      false_samples(w, lo, hi, tile1 * kTile * kTile, kTile, true, mask, rank, participants);
+  const int64_t u = tile1 * kTile + c1 - 1;
+  const int64_t tile0 = u < 0 ? 0 : (u > t0 - 1 ? t0 - 1 : u);
+  const int64_t c0 = false_samples(w, lo, hi, tile0 * kTile, 1, false, mask, rank, participants);
+  const int64_t i = tile0 * kTile + c0;
+  return i < lo ? lo : (i > hi ? hi : i);
+}
+
+// The count search of every lane of the converged set that needs one
+// (``counted``), one lane's window after another, each counted by all the
+// lanes together: a count search samples up to ~260 lines, a bisection
+// ~17, so one lane's search would hold its warp.  Returns the calling
+// lane's line (``a`` where it needs none).  Taken only where
+// monotone_window fails, so kept out of line, its window passed by value
+// (a window whose address is taken would live in local memory on every
+// event).
+__device__ __noinline__ int64_t counted_lines(const double* prow, double c0,
+                                              const float* line_nu, int64_t L, float tau_event,
+                                              float inv_chi, float x0, float p2, float m,
+                                              float q, float nu, bool fwd, int64_t lo,
+                                              int64_t hi, bool counted, int64_t a) {
+  const unsigned mask = __activemask();
+  unsigned todo = __ballot_sync(mask, counted);
+  const int lane = threadIdx.x & 31;
+  const int rank = __popc(mask & ((1u << lane) - 1u));
+  const int participants = __popc(mask);
+  while (todo != 0) {
+    const int src = __ffs(todo) - 1;
+    todo &= todo - 1u;
+    EventWindow v;
+    v.prow = reinterpret_cast<const double*>(
+        __shfl_sync(mask, reinterpret_cast<unsigned long long>(prow), src));
+    v.c0 = __shfl_sync(mask, c0, src);
+    v.line_nu = line_nu;
+    v.L = L;
+    v.tau_event = __shfl_sync(mask, tau_event, src);
+    v.inv_chi = __shfl_sync(mask, inv_chi, src);
+    v.x0 = __shfl_sync(mask, x0, src);
+    v.p2 = __shfl_sync(mask, p2, src);
+    v.m = __shfl_sync(mask, m, src);
+    v.q = __shfl_sync(mask, q, src);
+    v.nu = __shfl_sync(mask, nu, src);
+    v.fwd = __shfl_sync(mask, (int)fwd, src) != 0;
+    const int64_t v_lo = __shfl_sync(mask, (long long)lo, src);
+    const int64_t v_hi = __shfl_sync(mask, (long long)hi, src);
+    const int64_t found = count_search(v, v_lo, v_hi, mask, rank, participants);
+    if (lane == src) a = found;
+  }
+  return a;
 }
 
 // lines with nu_i > nu (kIncl false) or nu_i >= nu (true), on the
@@ -241,10 +403,10 @@ struct LastInteraction {
         r = 0.0f;
 };
 
-// lanes of a K7 block, and the blocks an SM must hold (at most 48
+// lanes of a K7 block, and the blocks an SM must hold (at most 64
 // registers a lane)
 constexpr int kNonhomThreads = 128;
-constexpr int kNonhomMinBlocks = 10;
+constexpr int kNonhomMinBlocks = 8;
 
 // One K7 packet on its lane (tardis::lane_loop's Walker): the state between
 // two events, the lane's estimator run, and one event of the loop
@@ -330,26 +492,26 @@ struct NonhomWalker {
       hi = L - (c < cnt_m ? c : cnt_m);
       prow = p.rev_prefix + (int64_t)shell * (L + 1);
     }
-    const double c0 = prow[lo];
-    int64_t a = lo, b = hi;
-    while (a < b) {
-      const int64_t mid = (a + b) >> 1;
-      const float dC = (float)(prow[mid + 1] - c0);
-      const float d_req = (tau_event - dC) * inv_chi;
-      const float x_req = fminf(x0 + fmaxf(d_req, 0.0f), kXReqCap);
-      const float b_req = beta_los(m, q, p2, x_req);
-      const float nl = fwd ? p.line_nu[mid] : p.line_nu[L - 1 - mid];
-      const float n_row = 1.0f - nl / nu;
-      const bool ahead = fwd ? (n_row > b_req) : (n_row < b_req);
-      if ((d_req < 0.0f) || ahead) b = mid;
-      else a = mid + 1;
+    const EventWindow win{prow, prow[lo], p.line_nu, L, tau_event, inv_chi, x0, p2, m, q, nu, fwd};
+    const bool counted = lo < hi && !monotone_window(win, lo, hi);
+    int64_t a = lo;
+    if (!counted) {
+      int64_t b = hi;
+      while (a < b) {
+        const int64_t mid = (a + b) >> 1;
+        if (window_pred(win, mid, false)) b = mid;
+        else a = mid + 1;
+      }
     }
+    if (__any_sync(__activemask(), counted))
+      a = counted_lines(prow, win.c0, p.line_nu, L, tau_event, inv_chi, x0, p2, m, q, nu, fwd,
+                        lo, hi, counted, a);
     const bool found = a < hi;
     const int64_t k_before = a - lo;
     int64_t i_ev = fwd ? a : L - 1 - a;
     i_ev = i_ev < 0 ? 0 : (i_ev > L - 1 ? L - 1 : i_ev);
-    const float tau_before = (float)(prow[a] - c0);
-    const float tau_total = (float)(prow[hi] - c0);
+    const float tau_before = (float)(prow[a] - win.c0);
+    const float tau_total = (float)(prow[hi] - win.c0);
 
     // the event line's distance: fixed-trip bisection of beta_los = n_ev
     // on [x0, xb]

@@ -22,6 +22,13 @@ collects electron scattering only (Lucy 1999, Eqs 26-28).
 The four line tables are stored (S, L), so a ray walking the lines of one
 shell reads consecutive addresses; the JAX package indexes them
 ``line * S + shell``.  The function is the same.
+
+On the card each ray is walked by a group of lanes that computes a shell's
+run of line events a few lines at a time (which lines, where, and every
+term that does not depend on the intensity) and then runs the serial
+recurrence over them in this module's order of f32 operations;
+``integrate_ray_chunked`` is that schedule in torch, held against
+``integrate_rays_plain`` by the CPU tests.
 """
 
 from __future__ import annotations
@@ -135,6 +142,8 @@ class RayOutput:
     i_p: torch.Tensor  # (F, P) f32 emergent intensity times p
     # [line events, boundary events, rays stopped by the event cap]
     counts: torch.Tensor  # (3,) i64
+    # (F, P) i32 each ray's events (the plain version only; None from K5)
+    events: torch.Tensor | None = None
 
 
 def max_ray_events(n_lines: int, n_shells: int) -> int:
@@ -172,6 +181,7 @@ def integrate_rays_plain(nu_grid, p_grid, r_inner, r_outer, chi_e, line_nu,
     intensity = torch.where(photosphere, i_inner.repeat_interleave(P), 0.0)
     line = torch.searchsorted(-line_nu, -(nu * (1.0 - z)), right=True)
     out = intensity.clone()
+    events = torch.zeros(F * P, dtype=torch.int32, device=device)
 
     ids = torch.nonzero(p < r_max).squeeze(1)
     nu, p2, z, shell, line, intensity = (
@@ -208,6 +218,7 @@ def integrate_rays_plain(nu_grid, p_grid, r_inner, r_outer, chi_e, line_nu,
         i_line = ((intensity + escat) + d_es_line) * exp_tau_f[row + line_c] \
             + att_f[row + line_c]
         d_es_bound = ((z_bound - z_seg) * chi) * (jbar_bound - intensity)
+        events[ids] += 1
         n_line = line_event.sum()
         counts[COUNT_LINE] += n_line
         counts[COUNT_BOUNDARY] += line_event.numel() - n_line
@@ -226,7 +237,86 @@ def integrate_rays_plain(nu_grid, p_grid, r_inner, r_outer, chi_e, line_nu,
             ids, nu, p2, z, z_seg, shell, line, intensity, escat, first = (
                 a[keep] for a in (ids, nu, p2, z, z_seg, shell, line,
                                   intensity, escat, first))
-    return RayOutput(i_p=(out * p).reshape(F, P), counts=counts)
+    return RayOutput(i_p=(out * p).reshape(F, P), counts=counts,
+                     events=events.reshape(F, P))
+
+
+def integrate_ray_chunked(nu_grid, p_grid, r_inner, r_outer, chi_e, line_nu,
+                          exp_tau, att_S, j_red, j_blue, i_inner, f, k,
+                          width: int = 4):
+    """K5's schedule for ray (``f``, ``k``) in torch: each shell's run of
+    line events ``width`` lines at a time (K5's group of lanes a ray: 4),
+    their intensity-free terms
+    computed for the whole chunk at once (z_line = max(zeta, z) from the
+    chunk's first z, z_seg from the previous line, the mean J, e^-tau and
+    the attenuated source), the run ended at the chunk's first line past
+    the boundary, then the serial recurrence over the chunk's events in
+    the plain version's order of f32 operations, then the boundary event.
+    Returns (I p, line events, boundary events, [(shell, line, w, J,
+    e^-tau, S) of every line event])."""
+    S, L = exp_tau.shape
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32)
+    nu, pp = nu_grid[f], p_grid[k]
+    p2 = pp * pp
+    photosphere = bool(pp < r_inner[0])
+    r_max = r_outer[S - 1]
+    z = _zb(r_inner[0], p2) if photosphere else -_zb(r_max, p2)
+    shell = 0 if photosphere else S - 1
+    intensity = i_inner[f].clone() if photosphere else zero.clone()
+    line = int(torch.searchsorted(-line_nu, -(nu * (1.0 - z)).reshape(1),
+                                  right=True))
+    z_seg, escat, first = z, zero.clone(), True
+    n_line = n_boundary = 0
+    terms = []
+    lanes = torch.arange(width)
+    active = bool(pp < r_max)
+    while active:
+        chi = chi_e[shell]
+        r_in = r_inner[shell]
+        reaches_inner = bool((z < 0.0) & (p2 < r_in * r_in))
+        z_bound = -_zb(r_in, p2) if reaches_inner else _zb(r_outer[shell],
+                                                           p2)
+        while True:
+            i = line + lanes
+            has_line = i < L
+            ic = torch.clamp(i, max=L - 1)
+            zeta = 1.0 - line_nu[ic] / nu
+            jb = j_blue[shell, ic]
+            jr_prev = j_red[shell, torch.clamp(ic - 1, min=0)]
+            z_line = torch.maximum(zeta, z)
+            ok = has_line & (z_line <= z_bound)
+            n = width if bool(ok.all()) else int((~ok).int().argmax())
+            zs = torch.cat([z_seg.reshape(1), z_line[:-1]])
+            w = (z_line - zs) * chi
+            jbar = 0.5 * (jr_prev + jb)
+            if first:
+                jbar[0] = jb[0]
+            e, src = exp_tau[shell, ic], att_S[shell, ic]
+            for t in range(n):
+                d_es = w[t] * (jbar[t] - intensity)
+                intensity = ((intensity + escat) + d_es) * e[t] + src[t]
+                escat = zero.clone()
+                terms.append((shell, int(i[t]), w[t], jbar[t], e[t],
+                              src[t]))
+            if n:
+                z = z_line[n - 1]
+                z_seg = z
+                line += n
+                n_line += n
+                first = False
+            if n < width:
+                break
+        line_c = min(line, L - 1)
+        jbar_bound = 0.5 * (j_red[shell, max(line_c - 1, 0)]
+                            + j_blue[shell, line_c])
+        escat = escat + ((z_bound - z_seg) * chi) * (jbar_bound - intensity)
+        z = z_bound
+        z_seg = z
+        shell += -1 if reaches_inner else 1
+        active = 0 <= shell < S
+        n_boundary += 1
+    return intensity * pp, n_line, n_boundary, terms
 
 
 def integrate_rays(nu_grid, p_grid, r_inner, r_outer, chi_e, line_nu,
@@ -258,15 +348,17 @@ def integrate_rays(nu_grid, p_grid, r_inner, r_outer, chi_e, line_nu,
         i_p=torch.empty((F, P), dtype=f32, device=device),
         counts=torch.zeros(3, dtype=torch.int64, device=device),
     )
-    fn = cuda.library("formal_integral").formal_integral
-    fn.restype = ctypes.c_int
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [vp] * 11 + [ci, ci, ci, i64, i64, vp, vp, vp]
+    fn = cuda.function("formal_integral", "formal_integral",
+                       [vp] * 11 + [ci, ci, ci, i64, i64] + [vp] * 4)
     p = cuda.ptr
+    # the ray queue's counter (zeroed in the launch)
+    taken = torch.empty(1, dtype=torch.int64, device=device)
     err = fn(
         p(nu_grid), p(p_grid), p(r_inner), p(r_outer), p(chi_e), p(line_nu),
         p(exp_tau), p(att_S), p(j_red), p(j_blue), p(i_inner), F, P, S, L,
-        max_ray_events(L, S), p(res.i_p), p(res.counts), cuda.stream(),
+        max_ray_events(L, S), p(res.i_p), p(res.counts), p(taken),
+        cuda.stream(),
     )
     cuda.check_launch("formal_integral", err)
     integrate_rays.launches += 1

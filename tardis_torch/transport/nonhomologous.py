@@ -24,12 +24,19 @@ event_idx), (10,), 1e-9, 1)``):
 2. the walked window of line indices: forward [next_line, lines above
    nu_cmf at the boundary); backward from the reddest line above
    nu_cmf (1 + 3e-7) to the last line at or above the boundary frequency;
-3. the first line of the window whose inverted predicate holds: the
-   remaining optical depth d_req = (tau_event - dC) / chi_e, and the line
-   lies beyond beta_los(x0 + d_req) (or d_req < 0).  The predicate is
-   monotone on the window, so a binary search over the flat f64 prefix
-   (forward, or of the reversed order) finds the JAX package's index; its
-   128-ary search over two-float rows existed only for the TPU;
+3. the event line, from the inverted predicate: the remaining optical
+   depth d_req = (tau_event - dC) / chi_e, and the line lies beyond
+   beta_los(x0 + d_req) (or d_req < 0).  The predicate is monotone over
+   the window where beta_los is monotone in the walk's direction over
+   every x_req the window gives (``monotone_window``, a closed form in m,
+   q, p^2 and the x_req of the window's first and last lines); there a
+   bisection of the flat f64 prefix (forward, or of the reversed order)
+   finds the first line that holds, the JAX package's line.  Elsewhere (a shell whose velocity falls steeply
+   outward, extrapolated past its boundary, where beta_los turns back) the
+   predicate can read true, false, true, and ``count_search`` counts false
+   samples as the JAX package's three-level search does
+   (``_nonhom_pred_search``), at the same sampled lines, so both packages
+   take the same line;
 4. the event line's distance by 30 f32 bisection steps of beta_los(x) =
    1 - nu_i / nu on [x0, x_boundary];
 5. a boundary crossing, a Thomson scatter or a line interaction; bulk
@@ -59,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -242,9 +250,218 @@ def _beta_los(m, q, p2, x):
     return m * x + q * x * (1.0 / torch.sqrt(p2 + x * x))
 
 
+@dataclass
+class _Window:
+    """One event's walked window [lo, hi) (walk-order line indices) and
+    what its predicate reads, one entry a lane; ``row`` is the shell's
+    offset in the flat prefix, ``c0`` the prefix at ``lo``."""
+
+    fwd: torch.Tensor
+    lo: torch.Tensor
+    hi: torch.Tensor
+    row: torch.Tensor
+    c0: torch.Tensor
+    tau_event: torch.Tensor
+    inv_chi: torch.Tensor
+    x0: torch.Tensor
+    p2: torch.Tensor
+    m: torch.Tensor
+    q: torch.Tensor
+    nu: torch.Tensor
+
+    def take(self, idx) -> "_Window":
+        return _Window(*(getattr(self, f.name)[idx]
+                         for f in dataclasses.fields(self)))
+
+    def column(self) -> "_Window":
+        """Each lane's entries as a column, against a row of samples."""
+        return _Window(*(getattr(self, f.name)[:, None]
+                         for f in dataclasses.fields(self)))
+
+
+def _x_req(t: NonhomTables, w: _Window, i, coarse=False):
+    """(d_req, x_req) of walk-order line ``i`` (clamped into the list): the
+    distance the optical depth left after the line allows, and the chord
+    coordinate it reaches.  ``coarse`` takes the prefix difference as the
+    JAX package's coarse levels do, from the two prefixes rounded to f32;
+    else the f64 difference rounded to f32."""
+    ic = torch.clamp(i, 0, t.n_lines - 1)
+    c = torch.where(w.fwd, t.prefix.reshape(-1)[w.row + ic + 1],
+                    t.rev_prefix.reshape(-1)[w.row + ic + 1])
+    dC = c.float() - w.c0.float() if coarse else (c - w.c0).float()
+    d_req = (w.tau_event - dC) * w.inv_chi
+    return d_req, torch.clamp(w.x0 + torch.clamp(d_req, min=0.0),
+                              max=X_REQ_CAP)
+
+
+def window_pred(t: NonhomTables, w: _Window, i, coarse=False):
+    """The inverted event predicate of walk-order line ``i`` (clamped into
+    the list): the line lies beyond the line-of-sight velocity at x_req, or
+    the optical depth is spent."""
+    L = t.n_lines
+    ic = torch.clamp(i, 0, L - 1)
+    d_req, x_req = _x_req(t, w, i, coarse)
+    b_req = _beta_los(w.m, w.q, w.p2, x_req)
+    nl = torch.where(w.fwd, t.line_nu[ic], t.line_nu[L - 1 - ic])
+    n_row = 1.0 - nl / w.nu
+    ahead = torch.where(w.fwd, n_row > b_req, n_row < b_req)
+    return (d_req < 0.0) | ahead
+
+
+def _bisect(t: NonhomTables, w: _Window, steps: int):
+    """The first line of [lo, hi) whose predicate holds (hi if none),
+    found by bisection: exact where the predicate is monotone."""
+    a, b = w.lo.clone(), w.hi.clone()
+    for _ in range(steps):
+        active = a < b
+        mid = (a + b) >> 1
+        pred = window_pred(t, w, mid)
+        a = torch.where(active & ~pred, mid + 1, a)
+        b = torch.where(active & pred, mid, b)
+    return a
+
+
+def monotone_window(t: NonhomTables, w: _Window):
+    """True where the predicate is proven monotone over the window [lo, hi)
+    (lo < hi), so that the bisection finds the line the count search does.
+
+    A row's x_req = x0 + max(d_req, 0), d_req = (tau_event - dC) / chi,
+    falls (weakly) as the row's index rises, since dC rises with it, in f32
+    too (rounding keeps order), and so does the coarse levels' dC.  So
+    every row the search evaluates has x_req in [a, b]: a the smaller of
+    the exact and the coarse x_req of the window's last line, b the larger
+    of those of its first.  n_row = 1 - nu_i / nu rises with the index
+    forward (line_nu descends) and falls backward.  If beta_los is
+    non-decreasing on [a, b] (forward) or non-increasing (backward),
+    b_req(i) = beta_los(x_req(i)) moves against n_row, the test n_row >
+    b_req (forward; < backward) once true stays true, d_req < 0 likewise,
+    and the predicate is false, ..., false, true, ..., true.
+
+    beta_los'(x) = m + q g(x), g(x) = p^2 / (p^2 + x^2)^(3/2) >= 0, which
+    depends on |x| alone and falls as |x| grows.  Over [a, b], g takes
+    every value between g(far) and g(near) (far = max(|a|, |b|), near = 0
+    if the interval holds 0, else min(|a|, |b|)), and beta_los' is affine
+    in g: its sign over the interval is its sign at those two ends.  Both
+    >= 0 makes beta_los non-decreasing, both <= 0 non-increasing.  Taken
+    in f64 (x^2 reaches 1e30); p^2 = 0 at near = 0 gives 0 / 0, NaN, which
+    proves nothing.  The f32 evaluation of beta_los may still swap two
+    rows' b_req by an ulp; the predicate can then part from monotone only
+    at a line whose n_row lies within those ulps of b_req.  Where neither
+    ordering is proven, the predicate may turn back (a shell whose
+    velocity falls steeply outward, extrapolated past its boundary) and
+    the count search takes the JAX package's line.  The interval is the
+    window's own: [x0, x0 + tau_event / chi], which holds every x_req an
+    event could give, would send most events of such a shell to the count
+    search, as electron scattering is thin across a shell."""
+    first, last = w.lo, w.hi - 1
+    ends = [_x_req(t, w, i, coarse)[1] for i in (first, last)
+            for coarse in (False, True)]
+    x_a = torch.minimum(ends[2], ends[3])
+    x_b = torch.maximum(ends[0], ends[1])
+    a, b = x_a.double(), x_b.double()
+    near = torch.where((a <= 0.0) & (b >= 0.0), torch.zeros_like(a),
+                       torch.minimum(a.abs(), b.abs()))
+    far = torch.maximum(a.abs(), b.abs())
+    p2, m, q = w.p2.double(), w.m.double(), w.q.double()
+
+    def slope(x):
+        s = p2 + x * x
+        return m + q * (p2 / (s * torch.sqrt(s)))
+
+    s_near, s_far = slope(near), slope(far)
+    return torch.where(w.fwd, (s_near >= 0.0) & (s_far >= 0.0),
+                       (s_near <= 0.0) & (s_far <= 0.0))
+
+
+# the JAX package's search samples every TILE^2-th, then every TILE-th, then
+# every line of the walk order (tardis_tpu/transport/tiled_search.py)
+TILE = 128
+
+
+def count_search(t: NonhomTables, w: _Window):
+    """The line the JAX package's ``_nonhom_pred_search`` returns: three
+    levels, each counting the samples whose predicate is false (a sample
+    below ``lo`` counts as false, one at ``hi`` or beyond as true), 128
+    samples every TILE^2 lines, then every TILE lines from the last coarse
+    sample before the count, then every line of one tile.  The two coarse
+    levels take the prefix difference from the f32-rounded prefixes (the
+    JAX package reads the two-float pairs' hi parts there), the last the
+    exact difference.  Equal to the first true index where the predicate
+    is monotone."""
+    L = t.n_lines
+    t0 = -(-L // TILE)
+    t1 = -(-t0 // TILE)
+    k = torch.arange(TILE, device=w.lo.device)
+    wc = w.column()
+
+    def false_samples(base, stride, coarse):
+        idx = base[:, None] + k[None, :] * stride
+        held = (idx >= wc.lo) & ((idx >= wc.hi)
+                                 | window_pred(t, wc, idx, coarse))
+        return (~held).sum(1)
+
+    c2 = false_samples(torch.zeros_like(w.lo), TILE * TILE, True)
+    tile1 = torch.clamp(c2 - 1, 0, t1 - 1)
+    c1 = false_samples(tile1 * TILE * TILE, TILE, True)
+    tile0 = torch.clamp(tile1 * TILE + c1 - 1, 0, t0 - 1)
+    c0 = false_samples(tile0 * TILE, 1, False)
+    return torch.minimum(torch.maximum(tile0 * TILE + c0, w.lo), w.hi)
+
+
 def _count_above(neg_nu, nu, right):
     """Lines with nu_i > nu (``right`` False) or nu_i >= nu (True)."""
     return torch.searchsorted(neg_nu, -nu, right=right)
+
+
+def event_window(t: NonhomTables, r, mu, nu, shell, next_line, tau_event):
+    """An event's trace (nonhomologous.py:268-320): the shell's velocity
+    law along the chord, the boundary distance, the walk's direction from
+    the comoving frequency at the boundary, and the walked window of line
+    indices: forward [next_line, lines above nu_cmf at the boundary);
+    backward, over the reversed order, from the reddest line above nu_cmf
+    (with the margin) to the last line at or above the boundary
+    frequency."""
+    L = t.n_lines
+    neg_nu = -t.line_nu
+    r_in = t.r_inner[shell]
+    r_out = t.r_outer[shell]
+    m = t.m_grad[shell]
+    b_in = t.beta_in[shell]
+    q = b_in - m * r_in
+    dop = 1.0 - mu * (b_in + m * (r - r_in))
+    nu_cmf = nu * dop
+    inv_chi = 1.0 / t.chi_e[shell]
+    out_d = torch.sqrt(torch.clamp(
+        r_out * r_out + (mu * mu - 1.0) * r * r, min=0.0)) - r * mu
+    check = r_in * r_in + r * r * (mu * mu - 1.0)
+    hits_inner = (mu < 0.0) & (check >= 0.0)
+    in_d = -r * mu - torch.sqrt(torch.clamp(check, min=0.0))
+    d_b = torch.clamp(torch.where(hits_inner, in_d, out_d), min=0.0)
+    x0 = mu * r
+    xb = x0 + d_b
+    p2 = torch.clamp(r * r * (1.0 - mu * mu), min=0.0)
+    nu_cmf_b = nu * (1.0 - _beta_los(m, q, p2, xb))
+    fwd = nu_cmf_b <= nu_cmf
+
+    lo_f = torch.clamp(next_line, 0, L)
+    hi_f = torch.minimum(torch.maximum(
+        _count_above(neg_nu, nu_cmf_b, right=False), lo_f),
+        torch.full_like(lo_f, L))
+    cnt_m = _count_above(neg_nu, nu_cmf * (1.0 + CLOSE_LINE_MARGIN),
+                         right=False)
+    j_end = torch.minimum(_count_above(neg_nu, nu_cmf_b, right=True), cnt_m)
+    lo = torch.where(fwd, lo_f, L - cnt_m)
+    hi = torch.where(fwd, hi_f, L - j_end)
+    row = shell * (L + 1)
+    c0 = torch.where(fwd, t.prefix.reshape(-1)[row + lo],
+                     t.rev_prefix.reshape(-1)[row + lo])
+    window = _Window(fwd=fwd, lo=lo, hi=hi, row=row, c0=c0,
+                     tau_event=tau_event, inv_chi=inv_chi, x0=x0, p2=p2, m=m,
+                     q=q, nu=nu)
+    return SimpleNamespace(window=window, r_in=r_in, b_in=b_in, dop=dop,
+                           nu_cmf=nu_cmf, d_b=d_b, xb=xb,
+                           delta=torch.where(hits_inner, -1, 1), lo_f=lo_f,
+                           cnt_m=cnt_m)
 
 
 def _walk(t: NonhomTables, shell, i_ev, ke0, ke1):
@@ -288,7 +505,9 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
     """Plain PyTorch version of K7: lockstep lanes refilled from the pool in
     packet-id order, the live lanes packed once the pool is spent and fewer
     than half are alive.  Per-packet outputs do not depend on
-    ``batch_size``.  Each packet's event count is kept in ``events``."""
+    ``batch_size``.  Each packet's event count is kept in ``events``, and
+    the number of events whose line the count search took in
+    ``count_search_events``."""
     device = pool_mu.device
     N = pool_mu.shape[0]
     S, L = t.n_shells, t.n_lines
@@ -301,7 +520,6 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
     cols = [COL_TAU, COL_MU] + ([COL_ALBEDO] if reflective else [])
     col = {c: i for i, c in enumerate(cols)}
     neg_nu = -t.line_nu
-    line_nu_rev = t.line_nu.flip(0)
     pf = t.prefix.reshape(-1)
     pr = t.rev_prefix.reshape(-1)
     steps = int(np.ceil(np.log2(L + 1))) + 1
@@ -323,7 +541,7 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
     kp0 = torch.zeros_like(shell)
     kp1 = torch.zeros_like(shell)
     alive = torch.zeros(B, dtype=torch.bool, device=device)
-    next_unborn = n_events = n_immortal = 0
+    next_unborn = n_events = n_immortal = n_counted = 0
     while True:
         if next_unborn < N:
             dead = ~alive
@@ -366,68 +584,31 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
         U = _draws(ke[0], ke[1], cols, device)
         tau_event = (-torch.log(U[:, col[COL_TAU]].double())).float()
 
-        # ---- trace
-        r_in = t.r_inner[shell]
-        r_out = t.r_outer[shell]
-        m = t.m_grad[shell]
-        b_in = t.beta_in[shell]
-        q = b_in - m * r_in
-        dop = 1.0 - mu * (b_in + m * (r - r_in))
-        nu_cmf = nu * dop
-        inv_chi = 1.0 / t.chi_e[shell]
-        out_d = torch.sqrt(torch.clamp(
-            r_out * r_out + (mu * mu - 1.0) * r * r, min=0.0)) - r * mu
-        check = r_in * r_in + r * r * (mu * mu - 1.0)
-        hits_inner = (mu < 0.0) & (check >= 0.0)
-        in_d = -r * mu - torch.sqrt(torch.clamp(check, min=0.0))
-        d_b = torch.clamp(torch.where(hits_inner, in_d, out_d), min=0.0)
-        delta = torch.where(hits_inner, -1, 1)
-        x0 = mu * r
-        xb = x0 + d_b
-        p2 = torch.clamp(r * r * (1.0 - mu * mu), min=0.0)
-        nu_cmf_b = nu * (1.0 - _beta_los(m, q, p2, xb))
-        fwd = nu_cmf_b <= nu_cmf
-
-        # ---- the walked window, in walk-order indices
-        lo_f = torch.clamp(next_line, 0, L)
-        hi_f = torch.minimum(torch.maximum(
-            _count_above(neg_nu, nu_cmf_b, right=False), lo_f),
-            torch.full_like(lo_f, L))
-        cnt_m = _count_above(neg_nu, nu_cmf * (1.0 + CLOSE_LINE_MARGIN),
-                             right=False)
-        j_end = torch.minimum(_count_above(neg_nu, nu_cmf_b, right=True),
-                              cnt_m)
-        lo = torch.where(fwd, lo_f, L - cnt_m)
-        hi = torch.where(fwd, hi_f, L - j_end)
-        row = shell * (L + 1)
+        # ---- trace and the walked window
+        tr = event_window(t, r, mu, nu, shell, next_line, tau_event)
+        w = tr.window
+        fwd, lo, hi, x0, xb, m = w.fwd, w.lo, w.hi, w.x0, tr.xb, w.m
+        q, p2, inv_chi, d_b = w.q, w.p2, w.inv_chi, tr.d_b
+        r_in, b_in, dop, nu_cmf = tr.r_in, tr.b_in, tr.dop, tr.nu_cmf
+        lo_f, cnt_m, delta = tr.lo_f, tr.cnt_m, tr.delta
 
         def prefix_at(i):
-            return torch.where(fwd, pf[row + i], pr[row + i])
+            return torch.where(fwd, pf[w.row + i], pr[w.row + i])
 
-        c0 = prefix_at(lo)
-        a, b = lo.clone(), hi.clone()
-        for _ in range(steps):
-            active = a < b
-            mid = (a + b) >> 1
-            midc = torch.clamp(mid, max=L - 1)
-            dC = (prefix_at(midc + 1) - c0).float()
-            d_req = (tau_event - dC) * inv_chi
-            x_req = torch.clamp(x0 + torch.clamp(d_req, min=0.0),
-                                max=X_REQ_CAP)
-            b_req = _beta_los(m, q, p2, x_req)
-            nl = torch.where(fwd, t.line_nu[midc], line_nu_rev[midc])
-            n_row = 1.0 - nl / nu
-            ahead = torch.where(fwd, n_row > b_req, n_row < b_req)
-            pred = (d_req < 0.0) | ahead
-            a = torch.where(active & ~pred, mid + 1, a)
-            b = torch.where(active & pred, mid, b)
-        i_walk = a
+        i_walk = _bisect(t, w, steps)
+        # the JAX package's count search where the predicate may not be
+        # monotone over the window (the two then differ)
+        counted = alive & (lo < hi) & ~monotone_window(t, w)
+        if bool(counted.any()):
+            sel = counted.nonzero()[:, 0]
+            i_walk[sel] = count_search(t, w.take(sel))
+            n_counted += len(sel)
         found = i_walk < hi
         k_before = i_walk - lo
         i_ev = torch.clamp(torch.where(fwd, i_walk, L - 1 - i_walk), 0,
                            L - 1)
-        tau_before = (prefix_at(i_walk) - c0).float()
-        tau_total = (prefix_at(hi) - c0).float()
+        tau_before = (prefix_at(i_walk) - w.c0).float()
+        tau_total = (prefix_at(hi) - w.c0).float()
 
         # ---- the event line's distance: bisection of beta_los = n_ev
         n_ev = 1.0 - t.line_nu[i_ev] / nu
@@ -538,6 +719,7 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
         eidx = eidx + 1
     res.summary[2] = n_events
     res.summary[3] = n_immortal
+    res.count_search_events = n_counted
     return res
 
 

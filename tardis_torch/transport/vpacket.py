@@ -30,6 +30,12 @@ lockstep loop over segments, as the JAX ``while_loop`` steps) only for CPU
 tensors.  The plain version cuts the records into chunks of at most
 ``max_rays_per_chunk`` rays, which bounds the memory of its lockstep
 temporaries, and adds every chunk into one histogram.
+
+On the card a segment's line search reads a bucketed index of the line list
+(``bucket_table``, built once for the tables and kept on them): the count
+of lines whose f32 bit pattern, shifted right, is at or below each bucket
+key.  The bucket of the threshold brackets the search; ``bucket_search`` is
+the card's search in torch, held against ``searchsorted`` by the CPU tests.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ class VolleyOutput:
     n_segments: torch.Tensor  # (1,) i64 shell segments traced
     nu: torch.Tensor | None = None  # (R*V,) f32 ray lab nu (return_packets)
     energy: torch.Tensor | None = None  # (R*V,) f32 attenuated energy
+    # (R*V,) i32 each ray's segments (the plain version's return_packets)
+    segments: torch.Tensor | None = None
 
 
 def _spawn_range(spawn_nu_range):
@@ -61,7 +69,8 @@ def _spawn_range(spawn_nu_range):
 
 
 def _volley_plain(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg):
-    """One chunk of records -> (ray nu, ray attenuated energy), (R*V,)."""
+    """One chunk of records -> (ray nu, ray attenuated energy, ray
+    segments), (R*V,)."""
     device = rec.device
     f32 = torch.float32
     S, L = t.n_shells, t.n_lines
@@ -109,6 +118,7 @@ def _volley_plain(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg):
     p2 = torch.clamp((r * r) * (1.0 - mu * mu), min=0.0)
     z = mu * r
     tau = torch.zeros_like(z)
+    segs = torch.zeros(z.shape, dtype=torch.int32, device=device)
     neg_line_nu = -t.line_nu
     pflat = t.prefix.reshape(-1)
     for _ in range(2 * S + 2):
@@ -117,6 +127,7 @@ def _volley_plain(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg):
         if not bool(n_active):
             break
         n_seg += n_active
+        segs += active.int()
         sc = torch.clamp(shell, 0, S - 1)
         r_in = t.r_inner[sc]
         r_out = t.r_outer[sc]
@@ -152,7 +163,101 @@ def _volley_plain(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg):
     in_range = (nu_vp >= edges[0]) & (nu_vp < edges[M])
     e_out = torch.where(in_range, e_out, 0.0)
     hist.index_add_(0, bins, e_out.double())
-    return nu_vp, e_out
+    return nu_vp, e_out, segs
+
+
+# the bucketed line index stays in the L1: at most this many int32 entries
+# (32 KB)
+BUCKET_ENTRIES = 8192
+
+
+@dataclass
+class BucketTable:
+    """Counts of a sorted array's entries by bucket of their f32 bit
+    pattern: ``counts[t]`` entries have key (bits >> ``shift``) at or below
+    ``base + t``; ``counts[0]`` is 0 and ``counts[-1]`` every entry."""
+
+    counts: torch.Tensor  # (n_buckets,) i32
+    base: int
+    shift: int
+
+    @property
+    def n_buckets(self) -> int:
+        return self.counts.shape[0]
+
+
+def _keys(values, shift):
+    return values.contiguous().view(torch.int32) >> shift
+
+
+def bucket_table(values, max_entries: int = BUCKET_ENTRIES) -> BucketTable:
+    """The bucket table of ``values`` (f32, positive, sorted either way) at
+    the smallest shift whose table has at most ``max_entries`` entries
+    (torch ops; reads the key range back once)."""
+    bits = values.contiguous().view(torch.int32)
+    k_min, k_max = (int(v) for v in torch.aminmax(bits))
+    shift = next(s for s in range(32)
+                 if (k_max >> s) - (k_min >> s) + 2 <= max_entries)
+    keys = torch.sort(_keys(values, shift)).values
+    base = (k_min >> shift) - 1
+    probe = base + torch.arange((k_max >> shift) - base + 1,
+                                device=values.device, dtype=torch.int32)
+    counts = torch.searchsorted(keys, probe, right=True).to(torch.int32)
+    return BucketTable(counts=counts, base=base, shift=shift)
+
+
+def line_buckets(t: TransportTables) -> BucketTable:
+    """The line list's bucket table, built once for ``t`` and kept there."""
+    table = t.__dict__.get("_line_buckets")
+    if table is None:
+        table = bucket_table(t.line_nu)
+        t.__dict__["_line_buckets"] = table
+    return table
+
+
+def bucket_search(table: BucketTable, line_nu, x, i_cur):
+    """K4's search in torch: the first line at or after ``i_cur`` with
+    line_nu <= x (line_nu descending), bisecting only the bracket that the
+    bucket of x's key gives, [L - counts[j], L - counts[j - 1]] from
+    ``i_cur`` on (j = key(x) - base, clamped into the table; a NaN counts
+    every line above it, as searchsorted sorts NaN last).  Equal to
+    max(searchsorted(-line_nu, -x), i_cur)."""
+    L = line_nu.shape[0]
+    nb = table.n_buckets - 1
+    j = _keys(x, table.shift) - table.base
+    j = torch.where(torch.isnan(x), -1, j).long()
+    lo = L - table.counts[torch.clamp(j, 0, nb)].long()
+    hi = L - table.counts[torch.clamp(j - 1, 0, nb)].long()
+    lo, hi = torch.maximum(lo, i_cur), torch.maximum(hi, i_cur)
+    while bool((lo < hi).any()):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        above = line_nu[torch.clamp(mid, max=L - 1)] > x
+        lo = torch.where(active & above, mid + 1, lo)
+        hi = torch.where(active & ~above, mid, hi)
+    return lo
+
+
+def direct_bin(edges, nu):
+    """K4's bin in torch: a direct index on a uniform grid, moved down then
+    up until edges[bin] <= nu < edges[bin + 1]; searchsorted(edges, nu,
+    right) - 1 for any ascending edges wherever edges[0] <= nu <
+    edges[-1] (the only rays that K4 bins)."""
+    M = edges.shape[0] - 1
+    inv_width = torch.tensor(float(M), dtype=torch.float32,
+                             device=edges.device) / (edges[M] - edges[0])
+    b = torch.clamp(((nu - edges[0]) * inv_width).long(), 0, M - 1)
+    while True:
+        down = (b > 0) & (edges[b] > nu)
+        if not bool(down.any()):
+            break
+        b = b - down.long()
+    while True:
+        up = (b < M - 1) & (edges[torch.clamp(b + 1, max=M)] <= nu)
+        if not bool(up.any()):
+            break
+        b = b + up.long()
+    return b
 
 
 def variant_name(t: TransportTables) -> str:
@@ -168,24 +273,30 @@ def library_defines(t: TransportTables) -> tuple:
 
 def _volley_cuda(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg,
                  ray_nu, ray_e):
-    fn = cuda.library("vpacket_volley", library_defines(t)).vpacket_volley
-    fn.restype = ctypes.c_int
-    vp, i64, ci, cf = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_float)
-    fn.argtypes = ([vp, i64, ci] + [vp] * 5 + [i64, ci, vp, ci, cf, cf]
-                   + [vp] * 5)
+    buckets = line_buckets(t)
+    fn = cuda.function("vpacket_volley", "vpacket_volley", _ARGTYPES,
+                       library_defines(t))
     p = cuda.ptr
+    M = edges.shape[0] - 1
     err = fn(
         p(rec), rec.shape[0], V, p(t.r_inner), p(t.r_outer), p(t.chi_e),
-        p(t.line_nu), p(t.prefix), t.n_lines, t.n_shells, p(edges),
-        edges.shape[0] - 1, lo, hi, p(hist), p(n_seg),
-        None if ray_nu is None else p(ray_nu),
+        p(t.line_nu), p(t.prefix), t.n_lines, t.n_shells, p(buckets.counts),
+        buckets.n_buckets, buckets.base, buckets.shift, p(edges), M, lo, hi,
+        p(hist),
+        p(n_seg), None if ray_nu is None else p(ray_nu),
         None if ray_e is None else p(ray_e), cuda.stream(),
     )
     cuda.check_launch("vpacket_volley", err)
     name = variant_name(t)
     by = trace_vpacket_records.launches_by_variant
     by[name] = by.get(name, 0) + 1
+
+
+_VP, _I64, _CI, _CF = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.c_float)
+_ARGTYPES = ([_VP, _I64, _CI] + [_VP] * 5 + [_I64, _CI, _VP, _CI, _CI, _CI,
+                                              _VP, _CI, _CF, _CF]
+             + [_VP] * 5)
 
 
 def _check_cuda(t: TransportTables, records, nu_edges):
@@ -235,11 +346,16 @@ def trace_vpacket_records_plain(t: TransportTables, records, n_vpackets: int,
     step = max(max_rays_per_chunk // max(V, 1), 1)
     for start in range(0, R, step):
         end = min(start + step, R)
-        nu_vp, e_out = _volley_plain(t, records[start:end], V, nu_edges, lo,
-                                     hi, out.hist, out.n_segments)
+        nu_vp, e_out, segs = _volley_plain(t, records[start:end], V,
+                                           nu_edges, lo, hi, out.hist,
+                                           out.n_segments)
         if return_packets:
             out.nu[start * V:end * V] = nu_vp
             out.energy[start * V:end * V] = e_out
+            if out.segments is None:
+                out.segments = torch.zeros(R * V, dtype=torch.int32,
+                                           device=records.device)
+            out.segments[start * V:end * V] = segs
     return out
 
 

@@ -42,6 +42,7 @@ from tardis_tpu.opacities.macro_atom_solver import solve_macro_state
 from tardis_tpu.plasma.solver import PlasmaSolver
 from tardis_tpu.transport.kernel import run_transport
 from tardis_tpu.transport.nonhomologous import (
+    _nonhom_pred_search,
     build_nonhom_tables,
     nonhomologous_plasma_state,
     run_nonhom_transport,
@@ -327,18 +328,16 @@ def test_k7_without_line_estimators_is_bitwise(k7, mode):
     assert not tnh.nonhom_transport_loop.launches_by_variant
 
 
-def k7_parity(k7, mode, seed, n, mu=None):
+def k7_parity(k7, mode, seed, n):
     """Both packages' nonhomologous loops on a pool of ``n`` packets under
-    ``seed`` (the port without line estimators; ``mu`` replaces the pool's
-    directions): each packet's status agreement and closeness (nu and
-    energy within 1e-5), and the bulk estimators' largest relative
-    differences."""
+    ``seed`` (the port without line estimators): each packet's status
+    agreement and closeness (nu and energy within 1e-5), the bulk
+    estimators' largest relative differences, and the events whose line
+    the port's count search took."""
     case = k7[mode]
     base = jax.random.key(np.uint32(seed))
     pool = sample_blackbody_packets(jax.random.fold_in(base, 0), n,
                                     k7["t_inner"])
-    if mu is not None:
-        pool = (jax.numpy.asarray(mu), pool[1])
     carry = run_nonhom_transport(case["tables"], case["static"], *pool,
                                  jax.random.fold_in(base, 1), n_packets=n,
                                  batch_size=256, max_steps=60000)
@@ -360,13 +359,13 @@ def k7_parity(k7, mode, seed, n, mu=None):
                              ("est_nubar", carry.est_nubar_f64()))}
     assert (st_p > 0).all() and res.summary[3].item() == 0
     assert res.line_diff.numel() == 0
-    return dict(pool_mu=np.array(pool[0]), same=same, close=close, rel=rel)
+    return dict(same=same, close=close, rel=rel,
+                count_search_events=res.count_search_events)
 
 
-# seeds that tests/test_torch_nonhomologous.py (11) does not use; on each
-# one packet of K7_N takes another trajectory in the two packages (at this
-# size seeds 1 and 11 part none, seed 2 one in macroatom mode, its
-# estimators 1.1e-5 apart)
+# seeds that tests/test_torch_nonhomologous.py (11) does not use; before
+# the count search, one packet of K7_N took another trajectory in the two
+# packages on each (seed 29's packet 124, seed 3's packet 455)
 K7_SEEDS = (3, 29)
 K7_N = 2048
 
@@ -375,29 +374,118 @@ K7_N = 2048
 @pytest.mark.parametrize("mode", ["scatter", "macroatom"])
 def test_k7_without_line_estimators_matches_jax(k7, mode, seed):
     """The plain K7 without line estimators against the JAX nonhomologous
-    loop on seeds of their own: statuses agree on >= 0.95 of packets, nu
-    and energy within 1e-5 on >= 0.95.  A packet parts where the event
-    predicate that both packages evaluate (the JAX package's inverted one)
-    is not monotone over the walked window: shell 0 of this law has a
-    velocity that falls steeply outward, so the line-of-sight velocity
-    extrapolated to a continuum point past the boundary turns back, and the
-    JAX package's 128-ary search and the port's bisection pick different
-    lines (seed 29's packet 124 at its first event, seed 3's packet 455 at
-    its second).  Such a packet carries up to 3.5e-3 of a shell's
-    estimator.  With the packets that part sent straight into the core
-    (mu = -1, no path) in both packages, the bulk estimators agree within
-    the 1e-3 bar of tests/test_torch_nonhomologous.py."""
-    first = k7_parity(k7, mode, seed, K7_N)
-    assert first["same"].mean() >= 0.95, first["same"].mean()
-    assert first["close"].mean() >= 0.95, first["close"].mean()
-    parted = np.flatnonzero(~first["close"])
-    assert len(parted) <= 2, parted
-    mu = first["pool_mu"].copy()
-    mu[parted] = -1.0
-    rest = k7_parity(k7, mode, seed, K7_N, mu=mu)
-    assert rest["close"].all()
-    assert all(r <= 1e-3 for r in rest["rel"].values()), (first["rel"],
-                                                          rest["rel"])
+    loop on seeds of their own, every packet compared: statuses agree on
+    >= 0.95 of packets, nu and energy within 1e-5 on >= 0.95, the bulk
+    estimators within the 1e-3 bar of tests/test_torch_nonhomologous.py.
+    Shell 0 of this law has a velocity that falls steeply outward, where
+    the event predicate turns back over some walked windows; there the port
+    takes the JAX package's line (``count_search``), and the packets that
+    once parted (seed 29's 124, seed 3's 455) agree like the rest."""
+    res = k7_parity(k7, mode, seed, K7_N)
+    assert res["same"].mean() >= 0.95, res["same"].mean()
+    assert res["close"].mean() >= 0.95, res["close"].mean()
+    assert all(r <= 1e-3 for r in res["rel"].values()), res["rel"]
+    assert res["count_search_events"] > 0
+
+
+def k7_windows(k7, seed, n=32768):
+    """``n`` event states of the steep-gradient law and their walked
+    windows: half of them in shell 0, whose velocity falls steeply
+    outward, in its inner fifth, where the pool is born (r, mu, the lab
+    frequency from the pool and tau_event drawn), half across the grid;
+    next_line the count of lines at or above the comoving frequency."""
+    tt = k7["scatter"]["tt"]
+    S = tt.n_shells
+    g = np.random.default_rng(seed)
+    steep = torch.as_tensor(g.random(n) < 0.5)
+    shell = torch.where(steep, 0, torch.as_tensor(g.integers(0, S, n)))
+    f = torch.as_tensor(g.uniform(0.0, 1.0, n).astype(np.float32))
+    f = torch.where(steep, 0.2 * f, f)
+    r = tt.r_inner[shell] + f * (tt.r_outer[shell] - tt.r_inner[shell])
+    mu = torch.as_tensor(g.uniform(-1.0, 1.0, n).astype(np.float32))
+    pool_nu = k7["pool"][1]
+    nu = pool_nu[torch.as_tensor(g.integers(0, pool_nu.shape[0], n))]
+    u = torch.as_tensor(g.uniform(1e-9, 1.0, n).astype(np.float32))
+    tau_event = (-torch.log(u.double())).float()
+    m = tt.m_grad[shell]
+    nu_cmf = nu * (1.0 - mu * (tt.beta_in[shell]
+                               + m * (r - tt.r_inner[shell])))
+    next_line = torch.searchsorted(-tt.line_nu, -nu_cmf, right=True)
+    return tnh.event_window(tt, r, mu, nu, shell, next_line,
+                            tau_event).window, shell
+
+
+def held_rows(tt, w, coarse):
+    """The search's predicate over every line of each window (false below
+    lo, true from hi on), (n, widest window) from each lane's lo."""
+    width = int((w.hi - w.lo).max())
+    idx = w.lo[:, None] + torch.arange(width + 1)[None, :]
+    wc = w.column()
+    return (idx >= wc.hi) | tnh.window_pred(tt, wc, idx, coarse)
+
+
+@pytest.mark.parametrize("seed", K7_SEEDS)
+def test_k7_count_search_matches_jax(k7, seed):
+    """The port's count search returns the JAX package's
+    ``_nonhom_pred_search`` line on every sampled window, forward and
+    backward, those over which the predicate turns back included, with
+    the JAX package's two-float prefix tables and the port's f64 prefix;
+    and where the predicate is monotone it is the bisection's line."""
+    tables = k7["scatter"]["tables"]
+    tt = k7["scatter"]["tt"]
+    w, shell = k7_windows(k7, seed)
+    found = tnh.count_search(tt, w)
+    assert torch.equal(found[w.lo == w.hi], w.lo[w.lo == w.hi])
+    jax_found = np.zeros(found.shape[0], np.int64)
+    for forward in (True, False):
+        sel = (w.fwd == forward).nonzero()[:, 0]
+        pt = tables.pred_fwd if forward else tables.pred_bwd
+        c_hi, c_lo = ((tables.tau_cum_hi, tables.tau_cum_lo) if forward
+                      else (tables.rev_cum_hi, tables.rev_cum_lo))
+        sh, lo = shell[sel].numpy(), w.lo[sel].numpy()
+
+        def arg(a):
+            return jax.numpy.asarray(a[sel].numpy())
+
+        jax_found[sel.numpy()] = np.asarray(_nonhom_pred_search(
+            pt, jax.numpy.asarray(sh, np.int32),
+            jax.numpy.asarray(lo, np.int32),
+            jax.numpy.asarray(w.hi[sel].numpy(), np.int32),
+            jax.numpy.asarray(np.asarray(c_hi)[sh, lo]),
+            jax.numpy.asarray(np.asarray(c_lo)[sh, lo]), arg(w.inv_chi),
+            arg(w.tau_event), arg(w.x0), arg(w.p2), arg(w.m), arg(w.q),
+            arg(w.nu), forward=forward))
+    assert np.array_equal(found.numpy(), jax_found)
+    held = held_rows(tt, w, coarse=False)
+    turns = ~(held[:, 1:] >= held[:, :-1]).all(1)
+    steps = int(np.ceil(np.log2(tt.n_lines + 1))) + 1
+    bisect = tnh._bisect(tt, w, steps)
+    assert torch.equal(found[~turns], bisect[~turns])
+    # forward and backward windows, and windows that turn back
+    assert 0 < int(w.fwd.sum()) < w.fwd.shape[0]
+    assert int(turns.sum()) > 0
+
+
+@pytest.mark.parametrize("seed", K7_SEEDS)
+def test_k7_guard_sends_no_turning_window_to_the_bisection(k7, seed):
+    """``monotone_window`` (the sign of beta_los' at the interval's nearest
+    and farthest |x|) holds only where the predicate, as the card
+    evaluates it in f32 with the exact and with the coarse prefix
+    differences, is false then true over the whole window; it sends the
+    windows that turn back to the count search, and takes the bisection
+    for most forward windows of the shells whose velocity rises outward
+    (not all: with q = beta_in - m r_in < 0, m + q / p turns negative for
+    a chord that passes close to the centre)."""
+    tt = k7["scatter"]["tt"]
+    w, shell = k7_windows(k7, seed)
+    proven = tnh.monotone_window(tt, w) & (w.lo < w.hi)
+    for coarse in (False, True):
+        held = held_rows(tt, w, coarse)
+        monotone = (held[:, 1:] >= held[:, :-1]).all(1)
+        assert bool(monotone[proven].all()), coarse
+    rising = tt.m_grad[shell] > 0.0
+    assert float(proven[rising & w.fwd].float().mean()) > 0.5
+    assert 0 < int(proven.sum()) < proven.shape[0]
 
 
 @pytest.mark.parametrize("n_dev", [2, 4])
@@ -579,13 +667,9 @@ if __name__ == "__main__":
     problem = k7_problem()
     for seed in (1, 2, 11) + K7_SEEDS:
         for mode in ("scatter", "macroatom"):
-            first = k7_parity(problem, mode, seed, K7_N)
-            parted = np.flatnonzero(~first["close"])
-            mu = first["pool_mu"].copy()
-            mu[parted] = -1.0
-            rest = k7_parity(problem, mode, seed, K7_N, mu=mu)
-            print(f"seed {seed} {mode}: parted {parted.tolist()} "
-                  f"(status differs: "
-                  f"{np.flatnonzero(~first['same']).tolist()}); "
-                  f"est_j / est_nubar max rel {first['rel']}; "
-                  f"without them {rest['rel']}")
+            res = k7_parity(problem, mode, seed, K7_N)
+            print(f"seed {seed} {mode}: parted "
+                  f"{np.flatnonzero(~res['close']).tolist()} (status "
+                  f"differs: {np.flatnonzero(~res['same']).tolist()}); "
+                  f"est_j / est_nubar max rel {res['rel']}; events by the "
+                  f"count search {res['count_search_events']}")
