@@ -4,7 +4,12 @@
 Usage (from the repository root, one CUDA card):  python3 chip_smoke.py
 
 Phases, one printed line each (plus one line per iteration):
-  1. header: the card (nvidia-smi), torch and CUDA versions, and the
+  0. hdf_loader: whether h5py and pandas import here, which decides how
+     the walk path takes its atomic data (a carsus file through
+     atom_data_from_hdf, else atom_data_from_arrays), and the import that
+     failed;
+  1. header: the card (nvidia-smi), torch and CUDA versions, the rates of
+     the bounds (the integer rate read from the card), and the
      parallel nvcc build of the kernel libraries in tardis_torch/csrc/
      without options (K2, K3, K5 and the probe's three kernels);
   2. checks at the paths' shapes (bench problem: synthetic atom data
@@ -42,6 +47,13 @@ Phases, one printed line each (plus one line per iteration):
      (check_sharded_transport): the main path's convergence K1 over 1, 2
      and 4 shards (cuda:0 repeated) against one device, the final
      iteration's records over 2 shards, and _final_reduce timed alone;
+     then K1's RNG-walk instantiations (check_walk_loop, WALK_CASES:
+     macroatom without line estimators at 2,097,152, with them and 8
+     records a packet at 4,194,304, downbranch at 2,097,152, on the walk
+     tables of solve_macro_state) bit for bit against their plain
+     version as the chain's are, and a walk line (jumps a macro-atom
+     event, mean and max, the share of walks at the 40-jump cap, the
+     walk tables' bytes and build ms);
   3. the IIP paths' kernels (the JAX package's IIP problem: H / He, H I
      continua, 20 shells, 1,048,576 packets): K3 at its line tables, K2's
      relativistic pool at 1,048,576, and each continuum K1 instantiation
@@ -83,7 +95,13 @@ Phases, one printed line each (plus one line per iteration):
      and K4's full-relativity branch;
   6. the options path: 3 iterations of 2,097,152 packets with the weighted
      pool, the reflective inner boundary (albedo 0.5) and the r-packet
-     tracker;
+     tracker; then the walk path: the bench problem's atomic data written
+     with the port's carsus writer to a temporary file and read back
+     with atom_data_from_hdf (every array equal to the written one), and
+     Simulation.from_config with atom_data: <that file> and
+     sim.transport.use_macro_chain = False, 2 convergence iterations of
+     2,097,152 packets and the production final iteration (K1's walk
+     instantiations, K4, K5), the bands of PERF.md section 2 held;
   7. the IIP path: TypeIIPWorkflow on the IIP problem, 3 convergence
      iterations of 1,048,576 packets, each with its thermal balance (25
      evaluations at most), and the final iteration; per iteration its
@@ -105,7 +123,8 @@ Phases, one printed line each (plus one line per iteration):
      path's own source-function tables (ms, device_ms, the per-ray event
      distribution, and the ray with the most events alone as floor_ms);
   9. where the time goes: torch.profiler over a two-iteration run of the
-     main path and of the IIP path, and over the gamma path (device time
+     main path, of the walk path and of the IIP path, and over the gamma
+     path (device time
      by kernel, host time by tardis.* span, the device's busy share; K6's
      device time summed over the gamma path's steps);
  10. a JSON line of every kernel (each K1, K2 and K4 variant on its own
@@ -120,10 +139,13 @@ Any failure raises and exits non-zero before the result line.  The script
 imports nothing of JAX and nothing of the JAX package.
 
 Bounds: bytes over 3.35 TB/s (each input read once, each output written
-once) against operations over 67 TFLOP/s, the H100 SXM's non-tensor f32
-rate; f64 and integer operations are counted against the same rate, which
-the card does not exceed for either, so the bound stays a lower bound.
-Where the work depends on the data (events, segments), the count is this
+once) against float operations over 67 TFLOP/s (the H100 SXM's non-tensor
+f32 rate, an FMA counted as two; f64 operations are counted against it
+too, which the card does not exceed) and integer operations (the threefry
+hashes, the searches' index arithmetic and compares) over the card's
+integer rate, its SMs x 64 int32 lanes a clock x its max SM clock, read
+on the card (set_int_rate); the larger time is the bound.  Where the work
+depends on the data (events, segments, walk jumps), the count is this
 run's.
 """
 
@@ -131,6 +153,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import importlib
 import json
 import math
 import os
@@ -143,8 +166,15 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
-THREEFRY_OPS = 120  # 20 rounds of add/rotate/xor plus 6 key injections
+OPS_PER_S = 67e12  # f32 operations, an FMA counted as two
+# integer operations a second: SMs x 64 int32 lanes x the max SM clock,
+# read from the card by set_int_rate() (an H100 SXM: 132 x 64 x 1.98e9)
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+# one threefry2x32 hash: 20 rounds of an add, a rotate (one funnel
+# shift) and an xor, and 6 key injections of two adds: integer operations
+# (a rotate counted as a shift pair and an or, 120 a hash, put the
+# relativistic pool's bound above its measured time at the integer rate)
+THREEFRY_OPS = 72
 
 N_PACKETS = 2_097_152
 FINAL_PACKETS = 4_194_304
@@ -263,6 +293,18 @@ PATHS = {
 }
 WITH_OPTIONS = ("transport_loop", "vpacket_volley", "nonhom_loop",
                 "gamma_step")
+# the walk path: the bench problem from a carsus file, with K1's RNG-walk
+# macro atom (use_macro_chain False); 2 convergence iterations and the
+# production final iteration
+WALK_ITERATIONS = 3
+WALK_CONFIG = copy.deepcopy(BENCH_CONFIG)
+WALK_CONFIG["montecarlo"]["iterations"] = WALK_ITERATIONS
+# K1's walk instantiations held against the plain version: (role, mode,
+# packets, line estimators and records); downbranch is the convergence
+# instantiation with one jump
+WALK_CASES = (("convergence", "macroatom", N_PACKETS, False),
+              ("final", "macroatom", FINAL_PACKETS, True),
+              ("downbranch", "downbranch", N_PACKETS, False))
 
 
 def line_name(kernel, variant):
@@ -323,10 +365,27 @@ def cuda_ms_queued(fn, reps, hold_cycles=40_000_000):
     return ms, out
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, n_int_ops=0):
+    """Least ms for ``n_bytes`` of traffic, ``n_ops`` float and
+    ``n_int_ops`` integer operations (hashes, searches): the larger of the
+    bytes' time and each kind's time at its own rate."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / OPS_PER_S * 1e3
+    t_ops = max(n_ops / OPS_PER_S, n_int_ops / INT_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def set_int_rate():
+    """INT_OPS_PER_S from the card: its SMs x 64 int32 lanes a clock x its
+    max SM clock (nvidia-smi clocks.max.sm); returns what it read."""
+    global INT_OPS_PER_S
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    INT_OPS_PER_S = sms * 64 * mhz * 1e6
+    return dict(sms=sms, max_sm_clock_mhz=mhz, int_ops_per_s=INT_OPS_PER_S,
+                float_ops_per_s=OPS_PER_S)
 
 
 def nbytes(*ts):
@@ -515,8 +574,8 @@ def check_blackbody_source(state, device, n_packets, iteration,
     # search, ~15 flops
     hashes = {"simple": 7, "relativistic": 9, "weighted": 3}[pool]
     n_out = nbytes(mu, nu) + (0 if w is None else nbytes(w))
-    b_ms, b_by = bound(n_out + 999 * 4,
-                       n_packets * (hashes * THREEFRY_OPS + 30 + 15))
+    b_ms, b_by = bound(n_out + 999 * 4, n_packets * 15,
+                       n_packets * (hashes * THREEFRY_OPS + 30))
     say("check_blackbody_source", pool=pool, n=n_packets, ms=ms,
         device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms, max_rel=rel,
         bitwise=bitwise)
@@ -583,7 +642,7 @@ def check_chain_build(atom, ps):
 
 
 def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0,
-             line_estimators=True):
+             line_estimators=True, walk_jumps=0):
     """Least time for K1: every table read once, outputs (spawn records and
     tracker rows included; the line difference array only with
     ``line_estimators``) written once, against the events' hashing,
@@ -593,7 +652,11 @@ def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0,
     grid (~4 operations a probe), interpolates and sums the C continua (~8
     operations each) and adds eight moments (counted as 8 operations), and
     the continuum tables, moments, free-free heating and per-packet event
-    counts are read or written once."""
+    counts are read or written once.  With the walk tables, the walk
+    tables are read once and each of this run's ``walk_jumps`` jumps
+    hashes once and bisects its level's block (~4 operations a probe,
+    log2 of the mean block's width).  Hashes and searches are integer
+    operations; the rest float."""
     t = tables
     in_bytes = 8 * n_packets + nbytes(
         t.r_inner, t.r_outer, t.chi_e, t.line_nu, t.prefix, t.line2macro,
@@ -601,17 +664,26 @@ def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0,
     line_diff = 2 * (t.n_lines + 1) * t.n_shells if line_estimators else 0
     out_bytes = (8 * n_packets + 8 * (line_diff + 2 * t.n_shells + 4)
                  + 32 * n_records)
-    per_event = (2 * THREEFRY_OPS + 8 * math.ceil(math.log2(t.n_lines + 1))
-                 + 60)
+    per_event = 60
+    int_per_event = (2 * THREEFRY_OPS
+                     + 8 * math.ceil(math.log2(t.n_lines + 1)))
+    n_int = 0
     c = t.continuum
     if c is not None:
         in_bytes += nbytes(*(v for v in vars(c).values()
                              if isinstance(v, torch.Tensor)))
         out_bytes += (8 * 8 * (c.n_grid - 1) * t.n_shells
                       + 8 * t.n_shells + 4 * n_packets)
-        per_event += (4 * math.ceil(math.log2(c.n_grid)) + 8 * c.n_continua
-                      + 8)
-    return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event)
+        per_event += 8 * c.n_continua + 8
+        int_per_event += 4 * math.ceil(math.log2(c.n_grid))
+    if t.walk is not None:
+        w = t.walk
+        in_bytes += nbytes(*w)
+        mean_block = w.dest.shape[0] / max(1, w.block_start.shape[0] - 1)
+        n_int += walk_jumps * (THREEFRY_OPS + 4 * max(
+            1, math.ceil(math.log2(mean_block))))
+    return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event,
+                 n_events * int_per_event + n_int)
 
 
 def lane_efficiency(events, width=32):
@@ -706,8 +778,10 @@ def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
                   + ([(rows_k - rows_p).abs().max().item()] if n_rec else []))
     extra = (0 if w is None else nbytes(w)) + nbytes(k.last_interaction,
                                                      k.tracker)
+    tally = getattr(p, "walk_tally", None)
     b_ms, b_by = k1_bound(tables, n, events[0], n_rec, extra,
-                          line_estimators)
+                          line_estimators,
+                          walk_jumps=tally["jumps"] if tally else 0)
     numbers = dict(n=n, line_estimators=line_estimators, ms=ms,
                    device_ms=device_ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, events=events[0],
@@ -718,7 +792,19 @@ def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
                    bitwise_packets=bitwise, tracker_rows_bitwise=rows_equal,
                    records_bitwise_as_multiset=records_equal, max_rel=rels,
                    max_abs_err=max_abs)
+    if tally:
+        numbers["walk"] = walk_numbers(tally, tables.max_jumps)
     return numbers, k, p
+
+
+def walk_numbers(tally, max_jumps):
+    """What the plain version's walks did: walks, jumps a walk (mean,
+    max) and the share that reached the last jump without emitting."""
+    walks = max(tally.get("walks", 0), 1)
+    return dict(walks=tally.get("walks", 0),
+                jumps_per_walk_mean=tally.get("jumps", 0) / walks,
+                jumps_per_walk_max=tally.get("max_jumps", 0),
+                cap=max_jumps, capped_share=tally.get("capped", 0) / walks)
 
 
 def k1_entry(name, replaces, numbers):
@@ -764,12 +850,14 @@ def k1_variant(path, tables, pool, line_estimators=True):
                    opts["tracker_length"], line_estimators)
 
 
-def build_variants(tables, pools, iip_tables=()):
+def build_variants(tables, pools, iip_tables=(), walk_tables=()):
     """Build, in parallel, the K1 and K4 instantiations the paths select
     on their own tables and pools, K1's continuum instantiations of
     ``iip_tables`` (with the weighted pool and last-interaction rows, as
-    the IIP paths run them), K7's NONHOM_CASES and K6's GAMMA_OPTIONS;
-    returns the wall seconds and the ptxas register lines."""
+    the IIP paths run them), K1's walk instantiations of ``walk_tables``
+    (with and without line estimators), K7's NONHOM_CASES and K6's
+    GAMMA_OPTIONS; returns the wall seconds and the ptxas register
+    lines."""
     from tardis_torch import cuda
     from tardis_torch.energy_input import gamma_kernel
     from tardis_torch.transport import kernel, nonhomologous, vpacket
@@ -781,6 +869,10 @@ def build_variants(tables, pools, iip_tables=()):
              for flags in dict.fromkeys(f for _, f, _, _ in NONHOM_CASES)]
     libs += [("gamma_step", gamma_kernel.library_defines(
         gamma_kernel.variant(**opts))) for opts in GAMMA_OPTIONS.values()]
+    libs += list(dict.fromkeys(
+        ("transport_loop", kernel.library_defines(kernel.variant(
+            t, line_estimators=line_estimators)))
+        for t in walk_tables for line_estimators in (False, True)))
     for path, opts in PATHS.items():
         t = tables[path]
         for line_estimators in (False, True):
@@ -923,11 +1015,11 @@ def check_vpacket_volley(tables, records, device):
     # occupied bucket) and ~30 operations of geometry and tau; per ray:
     # ~40 operations of direction, weight and Doppler factors, the f64 exp
     # and ~10 for the bin
-    n_ops = (segments[0] * (8 + 4 * math.ceil(math.log2(bracket + 1)) + 30)
-             + n_rays * (40 + 10))
+    n_ops = segments[0] * 30 + n_rays * (40 + 10)
+    n_int = segments[0] * (8 + 4 * math.ceil(math.log2(bracket + 1)))
     in_bytes = nbytes(records, tables.r_inner, tables.r_outer, tables.chi_e,
                       tables.line_nu, tables.prefix, buckets.counts, edges)
-    b_ms, b_by = bound(in_bytes + nbytes(k.hist), n_ops)
+    b_ms, b_by = bound(in_bytes + nbytes(k.hist), n_ops, n_int)
     rel_branch = tables.full_relativity
     name = line_name("vpacket_volley", variant_name(tables))
     say("check_vpacket_volley", line=name, records=R,
@@ -999,9 +1091,9 @@ def check_formal_integral(sim, device):
     # ~16 f32 operations per line event (zeta, J average, e-scatter source,
     # attenuation), ~20 per boundary event (two sqrt, the source), and the
     # start-line search
-    n_ops = (16 * n_line + 20 * n_boundary
-             + F * P * 4 * math.ceil(math.log2(L + 1)))
-    b_ms, b_by = bound(nbytes(*a.values()) + nbytes(k.i_p), n_ops)
+    n_ops = 16 * n_line + 20 * n_boundary
+    b_ms, b_by = bound(nbytes(*a.values()) + nbytes(k.i_p), n_ops,
+                       F * P * 4 * math.ceil(math.log2(L + 1)))
     say("check_formal_integral", frequencies=F, impact_parameters=P,
         lines=L, shells=S, line_events=n_line, boundary_events=n_boundary,
         capped=counts[0][COUNT_CAPPED],
@@ -1062,14 +1154,17 @@ def read_launches():
     return out
 
 
-def run_path(phase, config, atom, device, expected, bands=True):
+def run_path(phase, config, atom, device, expected, bands=True,
+             use_macro_chain=None):
     """run_tardis on ``config`` with the launch counts reset to 0 just
     before and read just after; every kernels line in ``expected`` must
     have launched exactly that often (None: at least once) and every other
     line, any variant of a wrapper included, never.  With ``bands``, the
     final iteration's luminosity ratios must lie in the bands of PERF.md
-    section 2."""
-    from tardis_torch.simulation.base import run_tardis
+    section 2.  With ``use_macro_chain``, the run is Simulation.from_config
+    with ``sim.transport.use_macro_chain`` set to it before the run."""
+    from tardis_torch.config.reader import config_from_dict
+    from tardis_torch.simulation.base import Simulation, run_tardis
 
     marks = []
 
@@ -1089,8 +1184,16 @@ def run_path(phase, config, atom, device, expected, bands=True):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     marks.append(t0)
-    sim = run_tardis(config, atom_data=atom, device=device,
-                     callbacks=[on_iteration])
+    if use_macro_chain is None:
+        sim = run_tardis(config, atom_data=atom, device=device,
+                         callbacks=[on_iteration])
+    else:
+        with torch.no_grad():
+            sim = Simulation.from_config(config_from_dict(config),
+                                         atom_data=atom, device=device)
+            sim.transport.use_macro_chain = use_macro_chain
+            sim.add_callback(on_iteration)
+            sim.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -1131,6 +1234,167 @@ def run_path(phase, config, atom, device, expected, bands=True):
                              f"{int_ratio}")
     check_launches(phase, launches, expected)
     return sim, launches, wall
+
+
+def hdf_support():
+    """Whether the carsus loader can run here: its imports, h5py and
+    pandas; returns (True, None) or (False, the import that failed)."""
+    for name in ("h5py", "pandas"):
+        try:
+            importlib.import_module(name)
+        except ImportError as err:
+            return False, f"{name}: {err}"
+    return True, None
+
+
+def walk_path_tables(state, atom, ps):
+    """K1's walk tables on the bench problem in macroatom and downbranch
+    mode (``solve_macro_state``, timed alone, and the transport tables
+    that carry them); returns the tables by mode and the build numbers."""
+    from tardis_torch.opacities.macro_atom_solver import solve_macro_state
+    from tardis_torch.transport.tables import build_transport_tables
+
+    tables, numbers = {}, {}
+    for mode in ("macroatom", "downbranch"):
+        macro = atom.downbranch if mode == "downbranch" else atom.macro_atom
+        ms, walk = cuda_ms(lambda: solve_macro_state(
+            macro, ps.beta_sobolev, ps.j_blues,
+            ps.stimulated_emission_factor), 5)
+        tables[mode] = build_transport_tables(
+            state.geometry, ps.electron_densities, ps.tau_prefix, atom, mode,
+            macro_walk=walk)
+        numbers[mode] = dict(build_ms=ms, table_bytes=nbytes(*walk),
+                             transitions=int(walk.dest.shape[0]),
+                             levels=int(walk.block_start.shape[0] - 1),
+                             max_jumps=tables[mode].max_jumps)
+    return tables, numbers
+
+
+def check_walk_loop(tables, build, pools):
+    """K1's walk instantiations against their plain version (WALK_CASES:
+    macroatom without line estimators at N_PACKETS, with them and 8
+    spawn records a packet at FINAL_PACKETS, downbranch at N_PACKETS),
+    held as compare_transport_loop holds the chain's: every packet and
+    event count bitwise, the records as a multiset, the f64 sums within
+    1e-9.  Prints each case and one ``walk`` line (jumps a macro-atom
+    event, mean and max, and the share of walks at the cap, from the plain
+    version's walks; the walk tables' bytes and build ms); returns the
+    kernels-line entries by role (downbranch, the convergence
+    instantiation with one jump, inside the convergence entry)."""
+    from tardis_torch.transport.kernel import variant, variant_name
+    from tardis_torch.transport.solver import (
+        VPACKET_RECORDS_PER_PACKET,
+        iteration_keys,
+    )
+
+    entries, walks = {}, {}
+    for role, mode, n, line_estimators in WALK_CASES:
+        t = tables[mode]
+        cap = VPACKET_RECORDS_PER_PACKET * n if line_estimators else 0
+        _, run_key = iteration_keys(SEED, ITERATIONS - 1 if cap else 0)
+        numbers, k, _ = compare_transport_loop(
+            t, pools[n], run_key, cap, line_estimators=line_estimators)
+        name = line_name("transport_loop", variant_name(variant(
+            t, line_estimators=line_estimators)))
+        say("check_walk_loop", line=name, role=role, mode=mode, **numbers)
+        walks[role] = numbers.pop("walk")
+        del k
+        torch.cuda.empty_cache()
+        if role == "downbranch":
+            conv = entries["convergence"]
+            if name != conv["name"]:
+                raise AssertionError(f"downbranch walks {name}, not "
+                                     f"{conv['name']}")
+            conv["max_abs_err"] = max(conv["max_abs_err"],
+                                      numbers["max_abs_err"])
+            conv["downbranch"] = {key: numbers[key] for key in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}
+        else:
+            entries[role] = k1_entry(name, REPLACES_WALK, numbers)
+    say("walk", jumps=walks, tables=build)
+    return entries
+
+
+REPLACES_WALK = "tardis_tpu/transport/kernel.py:281"
+
+
+def hdf_round_trip(source, loaded):
+    """Every array ``atom_data_from_hdf`` read back must equal the written
+    one: the file holds energies in eV and masses in u, and the loader
+    orders the lines by pandas' sort of nu, descending (not stable: its
+    own order of equal frequencies).  Returns the number of arrays."""
+    import pandas as pd
+
+    from tardis_torch.atomic.convert import atom_data_to_arrays
+    from tardis_torch.atomic.hdf_loader import EV_TO_ERG
+    from tardis_torch.constants import M_U
+
+    order = pd.DataFrame({"nu": source.line_nu}).sort_values(
+        "nu", ascending=False).index.to_numpy()
+    want = atom_data_to_arrays(source)
+    want["masses"] = (source.masses / M_U) * M_U
+    for name in ("ionization_energy", "level_energy"):
+        want[name] = (getattr(source, name) / EV_TO_ERG) * EV_TO_ERG
+    for name in ("line_nu", "line_f_lu", "line_lower_idx", "line_upper_idx",
+                 "line_z", "line_ion"):
+        want[name] = want[name][order]
+    got = atom_data_to_arrays(loaded)
+    differ = sorted(set(want) ^ set(got)) + [
+        k for k in want if k in got and not (
+            want[k].dtype == got[k].dtype and np.array_equal(want[k], got[k]))]
+    if differ:
+        raise AssertionError(f"atom_data_from_hdf: arrays differ {differ}")
+    return len(want)
+
+
+def run_walk_path(device, expected, hdf):
+    """The walk path: the bench problem's atomic data written with the
+    port's carsus writer to a file in a temporary directory, read back
+    with atom_data_from_hdf (every array equal to the written one), then
+    Simulation.from_config with ``atom_data: <that file>`` and
+    ``sim.transport.use_macro_chain = False`` (WALK_CONFIG: 2 convergence
+    iterations of N_PACKETS, the final one of FINAL_PACKETS with 2
+    virtual packets and the formal integral).  Where h5py or pandas is
+    missing (``hdf`` false) the same data goes in through
+    ``atom_data_from_arrays``."""
+    import tempfile
+
+    from tardis_torch.atomic.convert import (
+        atom_data_from_arrays,
+        atom_data_to_arrays,
+    )
+    from tardis_torch.atomic.synthetic import make_synthetic_atom_data
+
+    source = make_synthetic_atom_data(n_levels=200, max_level_jump=60)
+    config = copy.deepcopy(WALK_CONFIG)
+    numbers = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        atom = None
+        if hdf:
+            from tardis_torch.atomic.hdf_loader import (
+                atom_data_from_hdf,
+                write_atom_data_hdf,
+            )
+
+            path = os.path.join(tmp, "bench_atom_data.h5")
+            t0 = time.perf_counter()
+            write_atom_data_hdf(source, path)
+            t1 = time.perf_counter()
+            loaded = atom_data_from_hdf(path)
+            t2 = time.perf_counter()
+            numbers = dict(write_s=t1 - t0, read_s=t2 - t1,
+                           file_bytes=os.path.getsize(path),
+                           arrays_equal=hdf_round_trip(source, loaded))
+            config["atom_data"] = path
+        else:
+            atom = atom_data_from_arrays(atom_data_to_arrays(source))
+        say("walk_atom_data", loader="atom_data_from_hdf" if hdf else
+            "atom_data_from_arrays", **numbers)
+        sim, launches, _ = run_path("walk_path", config, atom, device,
+                                    expected, use_macro_chain=False)
+    if sim.transport.use_macro_chain is not False:
+        raise AssertionError("walk path: the solver did not walk")
+    return launches
 
 
 def run_relativity_path(atom, device, expected):
@@ -1584,6 +1848,32 @@ def profile_main_path(atom, device):
     say_profile("profile", prof, wall, iterations=PROFILE_ITERATIONS)
 
 
+def profile_walk_path(device):
+    """profile_main_path's breakdown of the walk path (one convergence
+    iteration and the final one, K1 walking the macro atom), its atomic
+    data given in memory (the loader's host time is not in it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tardis_torch.atomic.synthetic import make_synthetic_atom_data
+    from tardis_torch.config.reader import config_from_dict
+    from tardis_torch.simulation.base import Simulation
+
+    config = copy.deepcopy(WALK_CONFIG)
+    config["montecarlo"]["iterations"] = PROFILE_ITERATIONS
+    atom = make_synthetic_atom_data(n_levels=200, max_level_jump=60)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, torch.no_grad():
+        t0 = time.perf_counter()
+        sim = Simulation.from_config(config_from_dict(config),
+                                     atom_data=atom, device=device)
+        sim.transport.use_macro_chain = False
+        sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    say_profile("profile_walk", prof, wall, iterations=PROFILE_ITERATIONS)
+
+
 def ptxas_lines(libs):
     """ptxas's register and spill lines of each built library."""
     from tardis_torch import cuda
@@ -1777,9 +2067,10 @@ def k7_bound(t, n_packets, n_events, extra_bytes=0, line_estimators=True):
         in_bytes += nbytes(*t.walk)
     line_diff = 2 * (t.n_lines + 1) * t.n_shells if line_estimators else 0
     out_bytes = 8 * n_packets + 8 * (line_diff + 2 * t.n_shells + 4)
-    per_event = (2 * THREEFRY_OPS + 8 * math.ceil(math.log2(t.n_lines + 1))
-                 + 60)
-    return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event)
+    int_per_event = (2 * THREEFRY_OPS
+                     + 8 * math.ceil(math.log2(t.n_lines + 1)))
+    return bound(in_bytes + out_bytes + extra_bytes, n_events * 60,
+                 n_events * int_per_event)
 
 
 def check_nonhom_loop(state, atom, ps, pools):
@@ -2128,7 +2419,8 @@ def k6_bound(n_packets, n_moved, n_events, table_bytes, n_quadratures):
     estimators).  Interactions hash more and some events take the KN
     lookup: not counted, so the bound stays a lower bound."""
     return bound(52 * n_packets + 4 * n_moved + table_bytes,
-                 n_events * (2 * THREEFRY_OPS + 80) + 1000 * n_quadratures)
+                 n_events * 80 + 1000 * n_quadratures,
+                 n_events * 2 * THREEFRY_OPS)
 
 
 def run_nonhom_path(atom, device, expected):
@@ -2641,13 +2933,19 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tardis_torch import cuda
 
+    hdf, failed_import = hdf_support()
+    say("hdf_loader", available=hdf, failed_import=failed_import,
+        walk_path_atom_data="atom_data_from_hdf" if hdf
+        else "atom_data_from_arrays")
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
+    rates = set_int_rate()
     libs = [(name, ()) for name in cuda.KERNELS if name not in WITH_OPTIONS]
     build_s = cuda.build(libs)
     say("header", card=card, torch=torch.__version__,
-        cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas_lines(libs))
+        cuda=torch.version.cuda, build_s=build_s, ptxas=ptxas_lines(libs),
+        rates=rates)
 
     t = time.perf_counter()
     config, state, atom = build_problem(device)
@@ -2661,12 +2959,14 @@ def main() -> int:
         pools, k2 = check_pools(state, device)
         chain = check_chain_build(atom, ps)
         tables = path_tables(state, atom, ps, chain)
+        walk_tables, walk_build = walk_path_tables(state, atom, ps)
         iip_state, iip_atom = build_iip_problem()
         tables_iip = {
             "iip": iip_tables(iip_state, iip_atom, device),
             "iip_options": iip_tables(iip_state, iip_atom, device,
                                       channels=True)}
-        build_s, ptxas = build_variants(tables, pools, tables_iip.values())
+        build_s, ptxas = build_variants(tables, pools, tables_iip.values(),
+                                        walk_tables.values())
         say("build_variants", build_s=build_s, ptxas=ptxas)
         for path, opts in PATHS.items():
             k1[path], records = check_transport_loop(
@@ -2679,6 +2979,9 @@ def main() -> int:
             del records
             torch.cuda.empty_cache()
         check_sharded_transport(tables["main"], pools["simple"], device)
+        torch.cuda.empty_cache()
+        k1_walk = check_walk_loop(walk_tables, walk_build, pools["simple"])
+        del walk_tables
         torch.cuda.empty_cache()
         ps_main, pools_main = ps, pools["simple"]
         del ps, chain, tables, pools
@@ -2727,6 +3030,14 @@ def main() -> int:
         expected["sharded"][k1["main"]["name"]] = 2 * (ITERATIONS - 1)
         expected["sharded"][k1["main_final"]["name"]] = 2
         expected["probe"] = {name: None for name in k_probe}
+        # the walk path: the main path's lines with K1's walk
+        # instantiations in place of its chain ones
+        expected["walk"] = {"line_tables": None,
+                            k2["simple"]["name"]: WALK_ITERATIONS,
+                            k1_walk["convergence"]["name"]:
+                                WALK_ITERATIONS - 1,
+                            k1_walk["final"]["name"]: 1,
+                            k4["main"]["name"]: 1, "formal_integral": 1}
         launches = {}
         sim, launches["main"], wall = run_path("main_path", BENCH_CONFIG,
                                                atom, device,
@@ -2744,6 +3055,8 @@ def main() -> int:
         launches["options"] = run_options_path(atom, device,
                                                expected["options"])
         torch.cuda.empty_cache()
+        launches["walk"] = run_walk_path(device, expected["walk"], hdf)
+        torch.cuda.empty_cache()
         launches["iip"] = run_iip_path("iip_path", IIP_CONFIG, iip_atom,
                                        device, expected["iip"])
         torch.cuda.empty_cache()
@@ -2760,6 +3073,7 @@ def main() -> int:
         launches["probe"] = run_probe_path(device, expected["probe"])
         torch.cuda.empty_cache()
         profile_main_path(atom, device)
+        profile_walk_path(device)
         profile_iip_path(iip_atom, device)
         k6["path_device_ms_total"] = profile_gamma_path(state, device)
     # each line's launches come from the path that runs it
@@ -2772,6 +3086,7 @@ def main() -> int:
              (k4["relativity"], "relativity"),
              (k1["options"], "options"), (k1["options_final"], "options"),
              (k2["weighted"], "options"),
+             (k1_walk["convergence"], "walk"), (k1_walk["final"], "walk"),
              (k1["iip"], "iip"), (k1["iip_options"], "iip_options"),
              (k7, "nonhom"), (k7_final, "nonhom"), (k6, "gamma")] + [
                  (k, "probe") for k in k_probe.values()]

@@ -83,6 +83,29 @@ class MacroAtomData:
 
 
 @dataclass
+class CollisionData:
+    """Tabulated thermally-averaged collision strengths.
+
+    Counterpart of the reference's ``collision_data`` /
+    ``collision_data_temperatures`` HDF tables consumed by YgData
+    (tardis/plasma/properties/atomic.py:646): per (lower, upper) level
+    pair, Upsilon_ij / g_lower tabulated over a temperature grid; the
+    collisional rate coefficients follow Przybilla & Butler 2004 (A2):
+
+        q_lu = BETA_COLL / sqrt(T_e) * yg * exp(-dE / k T_e)
+        q_ul = BETA_COLL / sqrt(T_e) * yg * g_l / g_u
+    """
+
+    lower_flat: np.ndarray  # (Nc,) int32 flat level index (lower)
+    upper_flat: np.ndarray  # (Nc,) int32
+    temperatures: np.ndarray  # (Nt,) K, ascending
+    yg: np.ndarray  # (Nc, Nt) Upsilon / g_lower
+
+    def __len__(self):
+        return len(self.lower_flat)
+
+
+@dataclass
 class TwoPhotonData:
     """Two-photon decay transitions (e.g. H I 2s -> 1s).
 
@@ -183,6 +206,11 @@ class AtomData:
     # two-photon decay transitions (None when the dataset has none)
     two_photon: TwoPhotonData | None = None
 
+    # tabulated collision strengths (None when the dataset has no
+    # collision_data table; the continuum plasma then takes van Regemorter
+    # rates for every collisional transition)
+    collision: CollisionData | None = None
+
     # filled by prepare()
     species_z: np.ndarray | None = None  # (S,) unique species (Z, ion)
     species_ion: np.ndarray | None = None
@@ -252,6 +280,17 @@ class AtomData:
                     f.name: getattr(tp, f.name)[keep_tp]
                     for f in dataclasses.fields(TwoPhotonData)})
 
+        collision = None
+        if self.collision is not None:
+            co = self.collision
+            keep_c = np.isin(self.level_z[co.lower_flat], wanted)
+            collision = CollisionData(
+                lower_flat=old_to_new[co.lower_flat[keep_c]].astype(np.int32),
+                upper_flat=old_to_new[co.upper_flat[keep_c]].astype(np.int32),
+                temperatures=co.temperatures,
+                yg=co.yg[keep_c],
+            )
+
         return AtomData(
             atomic_numbers=self.atomic_numbers[emask],
             masses=self.masses[emask],
@@ -277,6 +316,7 @@ class AtomData:
             meta=dict(self.meta),
             photo_ion=photo_ion,
             two_photon=two_photon,
+            collision=collision,
             zeta_data=self.zeta_data,
         )
 

@@ -5,12 +5,13 @@ port's, or the JAX package's, which has the same fields) into
 ``{name: np.ndarray}``; ``atom_data_from_arrays`` rebuilds the port's
 ``AtomData`` from such a dict.  Both packages then compute on identical
 inputs.  Keys: the AtomData array fields by name; the macro-atom,
-downbranch, photoionization and two-photon tables as ``<table>/<field>``
-(``macro_atom``, ``downbranch``, ``photo_ion``, ``two_photon``); and the
-nebular zeta tables as ``zeta_data/<Z>/<ion>/t_rads`` and ``.../zeta``.
-The JAX package's tabulated collision strengths are not carried: they
-feed its NLTE plasma, which the port refuses; the port's continuum solver
-takes van Regemorter rates for every collisional transition.
+downbranch, photoionization, two-photon and collision-strength tables as
+``<table>/<field>`` (``macro_atom``, ``downbranch``, ``photo_ion``,
+``two_photon``, ``collision``); the nebular zeta tables as
+``zeta_data/<Z>/<ion>/t_rads`` and ``.../zeta``; and the carsus tables a
+loaded file keeps in ``meta`` (``linelist_atoms``, ``linelist_molecules``,
+``decay_radiation_data``: pandas frames; ``molecule_data``: a dict of
+them) as ``meta/<name>``, each a copy of the object.
 """
 
 from __future__ import annotations
@@ -21,13 +22,18 @@ import numpy as np
 
 from tardis_torch.atomic.atom_data import (
     AtomData,
+    CollisionData,
     MacroAtomData,
     PhotoIonizationData,
     TwoPhotonData,
 )
 
 _TABLES = {"macro_atom": MacroAtomData, "downbranch": MacroAtomData,
-           "photo_ion": PhotoIonizationData, "two_photon": TwoPhotonData}
+           "photo_ion": PhotoIonizationData, "two_photon": TwoPhotonData,
+           "collision": CollisionData}
+# the carsus tables of ``meta`` that are carried across
+META_TABLES = ("linelist_atoms", "linelist_molecules", "decay_radiation_data",
+               "molecule_data")
 
 
 def _array_fields(cls):
@@ -52,7 +58,17 @@ def atom_data_to_arrays(atom) -> dict[str, np.ndarray]:
     for (z, ion), (t_rads, zeta) in (atom.zeta_data or {}).items():
         out[f"zeta_data/{z}/{ion}/t_rads"] = np.asarray(t_rads).copy()
         out[f"zeta_data/{z}/{ion}/zeta"] = np.asarray(zeta).copy()
+    for name in META_TABLES:
+        v = (atom.meta or {}).get(name)
+        if v is not None:
+            out[f"meta/{name}"] = _copy_table(v)
     return out
+
+
+def _copy_table(v):
+    if isinstance(v, dict):
+        return {k: _copy_table(x) for k, x in v.items()}
+    return v.copy()
 
 
 def atom_data_from_arrays(arrays: dict[str, np.ndarray]) -> AtomData:
@@ -76,4 +92,6 @@ def atom_data_from_arrays(arrays: dict[str, np.ndarray]) -> AtomData:
                 np.asarray(v), np.asarray(arrays[k[:-len("t_rads")] + "zeta"])
             )
     kw["zeta_data"] = zeta or None
+    kw["meta"] = {name: _copy_table(arrays[f"meta/{name}"])
+                  for name in META_TABLES if f"meta/{name}" in arrays}
     return AtomData(**kw)

@@ -15,6 +15,7 @@ import numpy as np
 from tardis_torch.atomic.atom_data import (
     ATOMIC_MASSES,
     AtomData,
+    CollisionData,
     PhotoIonizationData,
     TwoPhotonData,
 )
@@ -31,6 +32,7 @@ def make_synthetic_atom_data(
     seed: int = 42,
     continuum_species=(),
     n_photo_ion_points: int = 16,
+    collision_species=(),
 ) -> AtomData:
     """Build a synthetic AtomData.
 
@@ -54,6 +56,11 @@ def make_synthetic_atom_data(
         one 2s-like two-photon decay per species: the stand-in for the
         reference's ``photoionization_data`` and ``two_photon_data`` tables
         the Type IIP continuum workflow reads.
+    collision_species
+        (Z, ion) pairs for which tabulated collision strengths are made
+        (every level with each of up to three levels below it, smooth and
+        rising with T on a 5-point temperature grid): the stand-in for the
+        reference's ``collision_data`` tables.
     """
     rng = np.random.RandomState(seed)
 
@@ -121,6 +128,8 @@ def make_synthetic_atom_data(
         photo_ion = _photo_ion_tables(continuum_species, max_ion_stage,
                                       n_levels, n_photo_ion_points, flat)
         two_photon = _two_photon_tables(continuum_species, flat, lene)
+    collision = _collision_tables(collision_species, max_ion_stage, n_levels,
+                                  flat)
 
     zs = np.asarray(sorted(set(int(z) for z in atomic_numbers)))
     zeta_t = np.linspace(2000.0, 40000.0, 20)
@@ -150,8 +159,30 @@ def make_synthetic_atom_data(
         meta={"source": "synthetic", "seed": seed},
         photo_ion=photo_ion,
         two_photon=two_photon,
+        collision=collision,
         zeta_data=zeta_data,
     )
+
+
+def _collision_tables(collision_species, max_ion_stage, n_levels, flat
+                      ) -> CollisionData | None:
+    """Smooth, T-increasing strengths ~ O(1) / g_l between every level of
+    each species and up to three levels below it."""
+    lo_idx, up_idx, yg = [], [], []
+    temps = np.array([2000.0, 5000.0, 10000.0, 20000.0, 40000.0])
+    for z, ion in collision_species:
+        if ion >= min(int(z), max_ion_stage):
+            continue
+        for u in range(1, n_levels):
+            for lo in range(max(0, u - 3), u):
+                lo_idx.append(flat[(z, ion, lo)])
+                up_idx.append(flat[(z, ion, u)])
+                yg.append((1.0 + 0.5 * lo + 0.2 * u) * (temps / 1e4) ** 0.3)
+    if not lo_idx:
+        return None
+    return CollisionData(lower_flat=np.asarray(lo_idx, np.int32),
+                         upper_flat=np.asarray(up_idx, np.int32),
+                         temperatures=temps, yg=np.asarray(yg))
 
 
 def _photo_ion_tables(continuum_species, max_ion_stage, n_levels, n_points,

@@ -8,7 +8,8 @@
 // `nonhom_transport_loop` (:540); the RNG-walk macro atom
 // tardis_tpu/transport/kernel.py:281 `_macro_walk` with `_uniform_from_key`
 // (:229) and `_bsearch_first_true` (:240) is the device function
-// `macro_walk` below; `_step_uniforms` (:209) and `_distance_boundary`
+// `tardis::macro_walk` (macro_walk.cuh, shared with K1's walk
+// instantiations); `_step_uniforms` (:209) and `_distance_boundary`
 // (:256) as in K1.
 //
 // Bound on the H100: what an event waits on, as K1.  An event hashes two or
@@ -79,6 +80,7 @@
 #include <cstdint>
 
 #include "event_loop.cuh"
+#include "macro_walk.cuh"
 #include "threefry.cuh"
 
 #ifndef NH_MACRO
@@ -107,7 +109,6 @@ constexpr float kCloseLine = 1.0000003f;  // 1 + CLOSE_LINE_MARGIN in f32
 constexpr float kXReqCap = 1e15f;
 constexpr int kBisectionSteps = 30;
 constexpr uint32_t kColAlbedo = 5;
-constexpr uint32_t kWalkTag = 8;
 
 struct Params {
   const float* pool_mu;
@@ -359,33 +360,6 @@ __device__ __forceinline__ int64_t count_above_near(const float* line_nu, int64_
   return lo;
 }
 
-// the macro-atom walk from the level line i_ev activates
-// (kernel.py:281-326): each jump draws u from its own key, takes the first
-// transition of the level's block whose cumulative probability reaches u
-// (clipped into the block), and ends on an emission; a walk that never
-// emits re-emits the absorbed line
-__device__ __forceinline__ int64_t macro_walk(const Params& p, tardis::Key ke,
-                                              int shell, int64_t i_ev) {
-  const int S = p.S;
-  int level = p.line2macro[i_ev];
-  for (int jump = 0; jump < p.max_jumps; ++jump) {
-    const tardis::Key kw = tardis::fold_in(ke, kWalkTag + (uint32_t)jump);
-    const float u = tardis::uniform_f32(tardis::random_bits(kw, 0u), kUMin, 1.0f);
-    const int b0 = p.block_start[level];
-    const int b1 = p.block_start[level + 1];
-    int lo = b0, hi = b1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (p.cum_prob[(int64_t)mid * S + shell] < u) lo = mid + 1;
-      else hi = mid;
-    }
-    const int t = min(max(lo, b0), max(b1 - 1, b0));
-    if (p.emit[t]) return (int64_t)p.mline[t];
-    level = p.dest[t];
-  }
-  return i_ev;
-}
-
 __device__ __forceinline__ void track(const Params& p, int64_t pid, int64_t ev,
                                       float r, float nu, float energy, int shell,
                                       float code) {
@@ -611,7 +585,7 @@ struct NonhomWalker {
       }
     } else {
       int64_t em_line = i_ev;
-      if constexpr (kMacro) em_line = macro_walk(p, ke, shell, i_ev);
+      if constexpr (kMacro) em_line = tardis::macro_walk(p, ke, shell, i_ev);
       nu = p.line_nu[em_line] * inv_dop_new;
       next_line = em_line + 1;
       if constexpr (kLast) {

@@ -67,7 +67,7 @@
 // Options.  The JAX package's static config switches five branches of the
 // step; here each is a template parameter of the kernel, and the library
 // is built with one instantiation, chosen by -D flags (TL_FULL_RELATIVITY,
-// TL_LAST_INTERACTION, TL_TRACKER, TL_REFLECTIVE, TL_WEIGHTS; the wrapper
+// TL_LAST_INTERACTION, TL_TRACKER, TL_REFLECTIVE, TL_WEIGHTS, TL_WALK; the wrapper
 // builds one library per combination it is asked for).  An option that is
 // off compiles to nothing, so the classic instantiation, which every
 // convergence iteration of the main path runs, carries no register or
@@ -87,6 +87,15 @@
 //     when a packet hits the core (the bits are counter-based, so a lazy
 //     draw is the same draw);
 //   - weights (:503-505): the birth energy times the pool's weight;
+//   - walk (TL_WALK; kernel.py:281 `_macro_walk` with :229 and :240, wired
+//     at :474-478,549-557,895-910): the RNG-walk macro atom instead of the
+//     chain tables, where they do not fit the device budget or the solver
+//     is told to walk (downbranch: the same instantiation with one jump).
+//     A line interaction walks tardis::macro_walk (macro_walk.cuh, shared
+//     with K7) from the event key, the global packet id's, and emits at
+//     line_nu[em_line].  Each jump is a hash and a bisection of its
+//     level's block; a plain, correct instantiation: the walk runs on the
+//     lane of its packet's event, as K7's does;
 //   - continuum (TL_CONTINUUM; the Type IIP workflow;
 //     kernel.py:366-422,571-606,714-740,781-792,829-863,879-889): chi
 //     = chi_e + chi_bf + chi_ff in the comoving frame.  One search on
@@ -136,6 +145,7 @@
 #include <cstdint>
 
 #include "event_loop.cuh"
+#include "macro_walk.cuh"
 #include "queue.cuh"
 #include "threefry.cuh"
 
@@ -162,6 +172,9 @@
 #endif
 #ifndef TL_ADIABATIC
 #define TL_ADIABATIC 0
+#endif
+#ifndef TL_WALK
+#define TL_WALK 0
 #endif
 #ifndef TL_LINE_ESTIMATORS
 #define TL_LINE_ESTIMATORS 1
@@ -254,6 +267,14 @@ struct Params {
   const int32_t* line2macro;
   const float* chain_cdf;
   const float* emit_cdf;
+  // the walk tables (TL_WALK): per-block cumulative probabilities (T, S),
+  // block offsets (M + 1), and per transition its destination level,
+  // whether it emits, and its line
+  const float* cum_prob;
+  const int32_t* block_start;
+  const int32_t* dest;
+  const bool* emit;
+  const int32_t* mline;
   float* out;          // (N, 2): signed nu, energy
   double* est_j;       // (S,)
   double* est_nubar;   // (S,)
@@ -272,6 +293,7 @@ struct Params {
   // reads and writes its own rows by the local id
   int64_t pid_offset;
   int S, M, W, We, mode, disable_line_scattering, tracker_length;
+  int max_jumps;  // jumps of one walk (TL_WALK: 40, downbranch 1)
   float nu_lo, nu_hi, albedo;
   tardis::Key key;
   ContinuumArgs cont;
@@ -397,7 +419,8 @@ constexpr int kClassicMinBlocks = 9;
 // One classic packet on its lane (tardis::lane_loop's Walker): the state
 // between two events, the lane's estimator run, and one event of the
 // event loop (kernel.py:425).
-template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights, bool kLineEst>
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights, bool kWalk,
+          bool kLineEst>
 struct ClassicWalker {
   const Params& p;
   double* sh_j;
@@ -618,7 +641,14 @@ struct ClassicWalker {
     } else {
       int64_t em_line = i_ev;
       float nu_em = nu_ev;
-      if (p.mode != kLineScatter) {
+      if constexpr (kWalk) {
+        // the walk instantiation (downbranch and macroatom): the emitted
+        // line's frequency from the line list (kernel.py:907-909)
+        if (p.mode != kLineScatter) {
+          em_line = tardis::macro_walk(p, ke, shell, i_ev);
+          nu_em = p.line_nu[em_line];
+        }
+      } else if (p.mode != kLineScatter) {
         int j = p.line2macro[i_ev];
         const int64_t row0 = (int64_t)shell * p.M;
         if (p.mode == kLineMacroatom) {
@@ -674,7 +704,8 @@ struct ClassicWalker {
 
 // The classic loop: a persistent grid whose lanes walk the packet queue
 // (tardis::lane_loop); the block's shared sums flush once, at exit.
-template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights, bool kLineEst>
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights, bool kWalk,
+          bool kLineEst>
 __global__ void __launch_bounds__(kClassicThreads, kClassicMinBlocks)
     transport_loop_kernel(Params p, unsigned long long* taken) {
   extern __shared__ double shm[];
@@ -684,8 +715,8 @@ __global__ void __launch_bounds__(kClassicThreads, kClassicMinBlocks)
   const int n_shared = 2 * p.S + 4;
   for (int i = threadIdx.x; i < n_shared; i += blockDim.x) shm[i] = 0.0;
   __syncthreads();
-  ClassicWalker<kRel, kLast, kTrack, kReflect, kWeights, kLineEst> w(p, sh_j, sh_nubar,
-                                                                     sh_sum);
+  ClassicWalker<kRel, kLast, kTrack, kReflect, kWeights, kWalk, kLineEst> w(p, sh_j, sh_nubar,
+                                                                            sh_sum);
   tardis::lane_loop(w, taken, p.n_packets, p.max_events);
   __syncthreads();
   for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
@@ -1219,7 +1250,8 @@ extern "C" int continuum_smem_fits(const ContinuumArgs* cont, int64_t L, int S, 
 }
 
 // One launch of K1: a persistent grid whose lanes take packet ids from the
-// zeroed device counter ``taken`` (classic: cont null, smem_tables 0).
+// zeroed device counter ``taken`` (classic: cont null, smem_tables 0; the
+// walk tables null unless TL_WALK).
 extern "C" int transport_loop(
     const void* pool_mu, const void* pool_nu, const void* pool_w,
     int64_t n_packets, const void* r_inner, const void* r_outer,
@@ -1231,11 +1263,17 @@ extern "C" int transport_loop(
     void* out, void* est_j, void* est_nubar, void* line_diff, void* summary,
     void* vp_records, void* vp_count, int64_t vp_capacity,
     void* last_interaction, void* tracker, int tracker_length,
+    const void* cum_prob, const void* block_start, const void* dest,
+    const void* emit, const void* mline, int max_jumps,
     const ContinuumArgs* cont, void* taken, int smem_tables, void* stream) {
   constexpr bool kCont = TL_CONTINUUM != 0;
   constexpr bool kLineEst = TL_LINE_ESTIMATORS != 0;
+  constexpr bool kWalk = TL_WALK != 0;
   if (kCont != (cont != nullptr) || taken == nullptr || (!kCont && smem_tables)
-      || (kCont && !kLineEst) || (kLineEst != (line_diff != nullptr)))
+      || (kCont && !kLineEst) || (kLineEst != (line_diff != nullptr))
+      || (kWalk && (kCont || cum_prob == nullptr || block_start == nullptr
+                    || dest == nullptr || emit == nullptr || mline == nullptr
+                    || max_jumps < 1)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.pool_mu = (const float*)pool_mu;
@@ -1249,6 +1287,12 @@ extern "C" int transport_loop(
   p.line2macro = (const int32_t*)line2macro;
   p.chain_cdf = (const float*)chain_cdf;
   p.emit_cdf = (const float*)emit_cdf;
+  p.cum_prob = (const float*)cum_prob;
+  p.block_start = (const int32_t*)block_start;
+  p.dest = (const int32_t*)dest;
+  p.emit = (const bool*)emit;
+  p.mline = (const int32_t*)mline;
+  p.max_jumps = max_jumps;
   p.out = (float*)out;
   p.est_j = (double*)est_j;
   p.est_nubar = (double*)est_nubar;
@@ -1288,7 +1332,7 @@ extern "C" int transport_loop(
   {
     auto kernel = transport_loop_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
                                         TL_TRACKER != 0, TL_REFLECTIVE != 0,
-                                        TL_WEIGHTS != 0, kLineEst>;
+                                        TL_WEIGHTS != 0, kWalk, kLineEst>;
     const size_t shm = (size_t)(2 * S + 4) * sizeof(double);
     unsigned blocks = 0;
     const cudaError_t err =

@@ -1,0 +1,182 @@
+"""pandas-HDFStore-compatible (fixed-format) HDF5 writer via h5py.
+
+The port's copy of ``write_series``, ``write_frame`` and
+``write_elements`` of ``tardis_tpu/io/pandas_hdf_writer.py``, the
+counterpart of the reference's ``HDFWriterMixin.to_hdf``
+(tardis/io/hdf_writer_mixin.py:40-180): scalars go into a
+``{path}/scalars`` Series, 1-D arrays into Series, 2-D arrays into
+DataFrames — in the on-disk *fixed* format that ``pandas.HDFStore`` (and
+therefore the whole TARDIS ecosystem: ``TARDISHistory``, regression
+tooling, SDEC notebooks) reads.  The layout is emitted directly with
+h5py, so PyTables is not needed: ``axis0``/``axis1`` index
+arrays, ``block0_items``/``block0_values`` data blocks, and the PyTables
+bookkeeping attributes (CLASS/VERSION/FLAVOR/pandas_type/...).
+
+The inverse of :mod:`tardis_torch.atomic.pandas_hdf`; structural attrs
+match pandas ``GenericFixed`` (pandas_version 0.15.2 layout).  pandas is
+imported inside the functions, so the rest of the port never needs it;
+``simulation_to_tardis_hdf`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import pickle
+
+import numpy as np
+
+
+def _grp_attrs(grp, pandas_type: str):
+    grp.attrs["CLASS"] = np.bytes_(b"GROUP")
+    grp.attrs["TITLE"] = np.bytes_(b"")
+    grp.attrs["VERSION"] = np.bytes_(b"1.0")
+    grp.attrs["pandas_type"] = np.bytes_(pandas_type.encode())
+    grp.attrs["pandas_version"] = np.bytes_(b"0.15.2")
+    grp.attrs["encoding"] = np.bytes_(b"UTF-8")
+    grp.attrs["errors"] = np.bytes_(b"strict")
+
+
+def _ds_attrs(ds, kind: str | None = None, name=None, transposed=None):
+    ds.attrs["CLASS"] = np.bytes_(b"ARRAY")
+    ds.attrs["VERSION"] = np.bytes_(b"2.4")
+    ds.attrs["TITLE"] = np.bytes_(b"")
+    ds.attrs["FLAVOR"] = np.bytes_(b"numpy")
+    if kind is not None:
+        ds.attrs["kind"] = np.bytes_(kind.encode())
+    if name is not None or kind is not None:
+        ds.attrs["name"] = (
+            np.bytes_(str(name).encode())
+            if name is not None
+            else np.void(pickle.dumps(None))
+        )
+    if transposed is not None:
+        ds.attrs["transposed"] = np.bool_(transposed)
+
+
+def _index_kind(index) -> str:
+    k = getattr(index, "inferred_type", None)
+    if k in ("integer",):
+        return "integer"
+    if k in ("floating", "mixed-integer-float"):
+        return "float"
+    if k in ("string", "unicode", "mixed"):
+        return "string"
+    return "object"
+
+
+def _index_values(index):
+    vals = np.asarray(index.values)
+    if vals.dtype.kind in ("O", "U"):
+        vals = np.array([str(v).encode() for v in vals], dtype="S")
+    return vals
+
+
+def _write_index(grp, key: str, index):
+    import pandas as pd
+
+    if isinstance(index, pd.MultiIndex):
+        grp.attrs[f"{key}_variety"] = np.bytes_(b"multi")
+        grp.attrs[f"{key}_nlevels"] = np.int64(index.nlevels)
+        for k in range(index.nlevels):
+            lvl = index.levels[k]
+            ds = grp.create_dataset(f"{key}_level{k}", data=_index_values(lvl))
+            _ds_attrs(ds, kind=_index_kind(lvl), name=index.names[k])
+            lab = grp.create_dataset(
+                f"{key}_label{k}", data=np.asarray(index.codes[k], np.int64)
+            )
+            _ds_attrs(lab, kind="integer", name=index.names[k])
+        return
+    grp.attrs[f"{key}_variety"] = np.bytes_(b"regular")
+    ds = grp.create_dataset(key, data=_index_values(index))
+    _ds_attrs(ds, kind=_index_kind(index), name=index.name)
+
+
+def write_series(f, key: str, series):
+    """Write ``series`` under ``key`` of the open h5py file ``f``."""
+    if key in f:
+        del f[key]
+    grp = f.create_group(key)
+    _grp_attrs(grp, "series")
+    _write_index(grp, "index", series.index)
+    vals = series.to_numpy()
+    if vals.dtype.kind in ("O", "U"):
+        vals = np.array([str(v).encode() for v in vals], dtype="S")
+    ds = grp.create_dataset("values", data=vals)
+    _ds_attrs(ds, transposed=False)
+    grp.attrs["name"] = (
+        np.bytes_(str(series.name).encode())
+        if series.name is not None
+        else np.void(pickle.dumps(None))
+    )
+
+
+def write_frame(f, key: str, df):
+    """Write the DataFrame ``df`` under ``key`` of the open h5py file
+    ``f``."""
+    import pandas as pd
+
+    if key in f:
+        del f[key]
+    grp = f.create_group(key)
+    _grp_attrs(grp, "frame")
+    grp.attrs["ndim"] = np.int64(2)
+    _write_index(grp, "axis0", df.columns)
+    _write_index(grp, "axis1", df.index)
+    # one block per dtype, matching pandas' BlockManager layout
+    blocks: dict[str, list] = {}
+    for col in df.columns:
+        arr = df[col].to_numpy()
+        if arr.dtype.kind in ("O", "U"):
+            kindkey = "S"
+        elif arr.dtype.kind == "b":
+            kindkey = "b"
+        elif arr.dtype.kind in ("i", "u"):
+            kindkey = "i8"
+        else:
+            kindkey = "f8"
+        blocks.setdefault(kindkey, []).append(col)
+    grp.attrs["nblocks"] = np.int64(len(blocks))
+    for b, (kindkey, cols) in enumerate(blocks.items()):
+        items = grp.create_dataset(
+            f"block{b}_items", data=_index_values(pd.Index(cols))
+        )
+        _ds_attrs(items, kind=_index_kind(pd.Index(cols)), name=None)
+        sub = df[cols]
+        if kindkey == "S":
+            vals = np.array(
+                [[str(v).encode() for v in sub[c]] for c in cols], dtype="S"
+            )
+        else:
+            dtype = {"b": np.bool_, "i8": np.int64, "f8": np.float64}[kindkey]
+            vals = np.ascontiguousarray(sub.to_numpy(dtype=dtype).T)
+        ds = grp.create_dataset(f"block{b}_values", data=vals)
+        _ds_attrs(ds, transposed=False)
+
+
+def write_elements(f, path: str, elements: dict):
+    """Store a dict of values under ``path`` with the reference's
+    conventions: scalars pooled into ``{path}/scalars``, 1-D arrays as
+    Series, 2-D arrays / DataFrames as frames."""
+    import pandas as pd
+
+    scalars = {}
+    for name, value in elements.items():
+        if value is None:
+            continue
+        if isinstance(value, pd.DataFrame):
+            write_frame(f, f"{path}/{name}", value)
+        elif isinstance(value, pd.Series):
+            write_series(f, f"{path}/{name}", value)
+        elif np.isscalar(value):
+            scalars[name] = value
+        else:
+            arr = np.asarray(value)
+            if arr.ndim == 0:
+                scalars[name] = arr.item()
+            elif arr.ndim == 1:
+                write_series(f, f"{path}/{name}", pd.Series(arr))
+            else:
+                write_frame(f, f"{path}/{name}", pd.DataFrame(arr))
+    if scalars:
+        write_series(
+            f, f"{path}/scalars", pd.Series(scalars, name="value")
+        )

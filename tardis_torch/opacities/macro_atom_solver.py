@@ -23,8 +23,10 @@ PyTorch ops in this slice.
 ``solve_transition_probabilities`` is the host f64 copy of the JAX
 package's, which the formal integral's source function reads.
 ``solve_macro_state`` builds the per-block cumulative probabilities that
-the nonhomologous event loop's RNG walk reads (the JAX package's
-nonhomologous mode always walks them, never the chain tables).
+the RNG walk of the event loops reads: K7's always (the JAX package's
+nonhomologous mode never takes the chain tables), and K1's where the
+chain tables do not fit the device budget (``chain_tables_fit``;
+``solve_macro_chain`` then returns None) or the solver is told to walk.
 """
 
 from __future__ import annotations
@@ -197,9 +199,15 @@ class _ChainContext:
         return self._on_device[key]
 
     def table_bytes(self, n_shells: int) -> float:
-        """Device bytes of the chain tables plus the largest batched solve."""
+        """Device bytes of the chain tables plus the largest batched solve,
+        counted as the JAX package counts them (``chain_tables_fit``: 4 B
+        an entry of the solve's three (Wp, Wp) matrices, whose f32 solve
+        it runs).  The port solves in f64, so its solve takes up to twice
+        that term: within 12e9 bytes under the 6e9 default budget, which
+        an 80 GB card holds; counting it so keeps the two packages'
+        choice of sampler the same."""
         solve = max(
-            (n_shells * b["n_cb"] * b["Wp"] * b["Wp"] * 8.0 * 3
+            (n_shells * b["n_cb"] * b["Wp"] * b["Wp"] * 4.0 * 3
              for b in self.bucket_meta),
             default=0.0,
         )
@@ -318,8 +326,8 @@ def solve_transition_probabilities(
 
 
 class MacroWalkTables(NamedTuple):
-    """The RNG-walk macro atom's tables on one device (the nonhomologous
-    event loop, K7, walks them)."""
+    """The RNG-walk macro atom's tables on one device (K7 always walks
+    them; K1 where the chain tables do not fit or it is told to walk)."""
 
     cum_prob: torch.Tensor  # (T, S) f32 block-normalized cumulative
     block_start: torch.Tensor  # (M+1,) i32 block offsets
@@ -400,6 +408,22 @@ def solve_macro_state(
     )
 
 
+def chain_tables_fit(macro: MacroAtomData, n_shells: int,
+                     mode: str = "macroatom", max_chain_bytes: float = 6e9,
+                     line_nu_scaled=None) -> bool:
+    """Whether ``solve_macro_chain`` builds tables (else the event loop
+    walks the macro atom): the JAX package's ``chain_tables_fit``, from the
+    transition table's sparsity and the shell count alone; downbranch
+    always fits.  ``line_nu_scaled`` is asked for because the structure it
+    builds, cached on ``macro``, carries the line frequencies."""
+    if mode == "downbranch":
+        return True
+    if line_nu_scaled is None:
+        raise ValueError("chain_tables_fit needs line_nu_scaled")
+    ctx = chain_context(macro, mode, line_nu_scaled)
+    return ctx.table_bytes(n_shells) <= max_chain_bytes
+
+
 def solve_macro_chain(
     macro: MacroAtomData,
     beta_sobolev: torch.Tensor,  # (L, S) f64
@@ -408,20 +432,16 @@ def solve_macro_chain(
     mode: str,
     line_nu_scaled,
     max_chain_bytes: float = 6e9,
-) -> MacroChainState:
-    """Build the chain tables on the device of ``beta_sobolev``.
-
-    Raises ``NotImplementedError`` when they would not fit
-    ``max_chain_bytes`` (the JAX package then falls back to an in-kernel
-    random walk, which is not ported).
+) -> MacroChainState | None:
+    """Build the chain tables on the device of ``beta_sobolev``; None when
+    they would not fit ``max_chain_bytes`` (``chain_tables_fit``), where
+    the event loop walks the macro atom instead (``solve_macro_state``),
+    as in the JAX package.
     """
-    ctx = chain_context(macro, mode, line_nu_scaled)
     S = beta_sobolev.shape[1]
-    if mode != "downbranch" and ctx.table_bytes(S) > max_chain_bytes:
-        raise NotImplementedError(
-            "macro-atom chain tables that do not fit device memory (the "
-            "random-walk fallback) are not ported"
-        )
+    if not chain_tables_fit(macro, S, mode, max_chain_bytes, line_nu_scaled):
+        return None
+    ctx = chain_context(macro, mode, line_nu_scaled)
     arrays = ctx.arrays(beta_sobolev.device)
     pn = p_norm(ctx, arrays, beta_sobolev.to(F64), j_blues.to(F64),
                 stim_factor.to(F64))

@@ -22,10 +22,11 @@ vectorized form of the reference's legacy IIP plasma
 - cooling/heating rates for the k-packet block and the thermal balance
   (ThermalBalanceTest, :744-1340).
 
-The JAX package replaces van Regemorter by tabulated collision strengths
-where its atom data carries them; the port's atom data carries none
-(``atomic/convert.py``), so every collisional transition takes van
-Regemorter here.
+Where the atom data carries tabulated collision strengths
+(``AtomData.collision``, from a carsus file's ``collision_data``), a
+transition whose (lower, upper) level pair has them takes the
+interpolated strengths (Przybilla & Butler 2004 A2), as the JAX package
+does; van Regemorter stays the fallback for the pairs without.
 
 All quantities are flat (C, S) / (P, S) numpy arrays in continuum_idx order
 (threshold frequency descending).
@@ -55,6 +56,21 @@ C0_FF = 1.426e-27
 # van Regemorter constant (iip_plasma/continuum/constants.py:14)
 C0_REGEMORTER = 5.465e-11
 I_H = 2.1798724e-11  # hydrogen ionization energy [erg]
+# BETA_COLL = (h^4 / (8 k_B m_e^3 pi^3))^1/2, the tabulated-strength rate
+# prefactor (reference equilibrium/rates/collision_strengths.py:62;
+# Przybilla & Butler 2004 eq. A2)
+BETA_COLL = float(np.sqrt(H**4 / (8.0 * K_B * M_E**3 * np.pi**3)))
+
+
+def interp_yg(collision, t_electrons: np.ndarray) -> np.ndarray:
+    """yg = Upsilon / g_l linearly interpolated in T_e -> (Nc, S), clipped
+    to the tabulated range (the JAX package's ``plasma/nlte.py``
+    ``interp_yg``; reference YgData, plasma/properties/atomic.py:646)."""
+    temps = collision.temperatures
+    t = np.clip(t_electrons, temps[0], temps[-1])
+    pos = np.clip(np.searchsorted(temps, t), 1, len(temps) - 1)
+    f = (t - temps[pos - 1]) / (temps[pos] - temps[pos - 1])
+    return collision.yg[:, pos - 1] * (1.0 - f) + collision.yg[:, pos] * f
 
 
 def _trapz_blocks(values: np.ndarray, nu: np.ndarray, refs: np.ndarray):
@@ -256,6 +272,18 @@ class ContinuumSolver:
         self._coll_gbar = np.where(
             atom_data.line_ion[lid] == 0, 0.2, 0.7
         )
+        # the row of each transition's (lower, upper) pair in the dataset's
+        # collision-strength table, -1 where it has none (reference
+        # CollExcRateCoeff, iip_plasma/properties/continuum.py:527-646)
+        self._coll_yg_idx = np.full(len(lid), -1, np.int64)
+        co = atom_data.collision
+        if co is not None and len(co):
+            pair_to_row = {(int(lf), int(uf)): i for i, (lf, uf) in
+                           enumerate(zip(co.lower_flat, co.upper_flat))}
+            for j in range(len(lid)):
+                self._coll_yg_idx[j] = pair_to_row.get(
+                    (int(self._coll_lower_flat[j]),
+                     int(self._coll_upper_flat[j])), -1)
 
     # ------------------------------------------------------------------
     def phi_lucy(self, t_electrons: np.ndarray) -> np.ndarray:
@@ -409,6 +437,13 @@ class ContinuumSolver:
             * np.exp(-u0l)
             * self._coll_gbar[:, None]
         )
+        # the tabulated strengths override van Regemorter wherever the
+        # dataset has them (q_lu = beta_coll / sqrt(T_e) yg exp(-dE / kT_e))
+        has_yg = self._coll_yg_idx >= 0
+        if has_yg.any():
+            yg = interp_yg(self.atom.collision, t_e)[self._coll_yg_idx[has_yg]]
+            q_lu[has_yg] = (BETA_COLL / np.sqrt(t_e)[None, :] * yg
+                            * np.exp(-u0l[has_yg]))
         coll_exc_coeff = q_lu
         coll_deexc_coeff = (
             q_lu * (self._coll_gl / self._coll_gu)[:, None] * np.exp(u0l)

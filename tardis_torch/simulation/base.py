@@ -12,10 +12,11 @@ and, with ``spectrum.method: integrated``, the formal-integral spectrum
 (host source function, rays on K5).
 
 Each stage runs inside a ``torch.profiler.record_function`` span named
-``tardis.<stage>`` (plasma, macro_chain, transport_tables, packet_source,
-transport_loop, vpacket_volley, finalize, radiation_field, spectrum,
-source_function, formal_integral); a span costs a few microseconds when no
-profiler is recording, and ``chip_smoke.py`` reads them.
+``tardis.<stage>`` (plasma, macro_chain or macro_walk, transport_tables,
+packet_source, transport_loop, vpacket_volley, finalize, radiation_field,
+spectrum, source_function, formal_integral); a span costs a few
+microseconds when no profiler is recording, and ``chip_smoke.py`` reads
+them.
 
 Everything runs on one device, the card unless the caller passes another,
 except the classic event loop: as in the JAX package, its packets are
@@ -28,10 +29,15 @@ package wires them: last-interaction tracking (on by default), the
 r-packet tracker (``initial_array_length`` events a packet), full
 relativity (which selects the relativistic packet pool), the reflective
 inner boundary (its albedo applies only when it is enabled) and the
-weighted pool.  Options outside the port raise ``NotImplementedError``
-naming the option (see ``check_supported``): NLTE, detailed rates, helium,
-vpacket biasing, the macro-atom random-walk fallback of the chain tables
-and HDF atom data.  ``montecarlo.enable_nonhomologous_expansion`` selects
+weighted pool.  ``atom_data`` given as a path (the config's
+``atom_data`` or the argument) is read with ``atom_data_from_hdf``, as the
+JAX package does.  The macro atom takes the absorbing-chain tables where
+they fit the device budget and K1's random walk otherwise
+(``TransportSolver.use_macro_chain``; set ``sim.transport.use_macro_chain``
+before the run to choose).  Options outside the port raise
+``NotImplementedError`` naming the option (see ``check_supported``): NLTE,
+detailed rates, helium and vpacket biasing.
+``montecarlo.enable_nonhomologous_expansion`` selects
 the nonhomologous transport solver (K7), as the JAX package does.
 Continuum species run only through the Type IIP workflow
 (``workflows/type_iip.py``); ``run_tardis`` refuses them, as its classic
@@ -42,12 +48,14 @@ not ported.
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from tardis_torch.atomic.hdf_loader import atom_data_from_hdf
 from tardis_torch.atomic.synthetic import make_synthetic_atom_data
 from tardis_torch.config.reader import ConfigDict
 from tardis_torch.constants import C
@@ -90,6 +98,17 @@ class IterationRecord:
 # the JAX package's accepted values; every one runs the rays on the
 # simulation's device
 INTEGRATED_COMPUTE = ("jax", "cpu", "gpu", "automatic", "")
+
+
+def load_atom_data(atom_data):
+    """The atomic data a run takes: the synthetic set for None or
+    "synthetic", a carsus HDF file's for a path (``atom_data_from_hdf``),
+    or ``atom_data`` itself when it already is an AtomData."""
+    if atom_data in (None, "synthetic"):
+        return make_synthetic_atom_data()
+    if isinstance(atom_data, (str, os.PathLike)):
+        return atom_data_from_hdf(os.fspath(atom_data))
+    return atom_data
 
 
 def check_supported(config: ConfigDict, continuum: bool = False) -> None:
@@ -182,12 +201,8 @@ class Simulation:
         check_supported(config, continuum)
         state = SimulationState.from_config(config)
         lit = config.plasma.line_interaction_type
-        if atom_data is None:
-            if config.atom_data not in (None, "synthetic"):
-                raise NotImplementedError(
-                    "atom_data files: the HDF loader is not ported yet"
-                )
-            atom_data = make_synthetic_atom_data()
+        atom_data = load_atom_data(
+            config.atom_data if atom_data is None else atom_data)
         if atom_data.species_z is None:
             atom_data = atom_data.prepare(
                 selected_atoms=list(state.composition.atomic_numbers),

@@ -61,6 +61,13 @@ combination is its own compiled instantiation of K1):
   the inverse-CDF table (column 8);
 - ``adiabatic`` (``:917-928,1016-1021``): the adiabatic-cooling channel
   ends the packet with output (-nu before the interaction, energy 0).
+- ``walk`` (``tables.walk``, ``:281`` ``_macro_walk``, wired at
+  ``:474-478,549-557,895-910``): where the chain tables do not fit the
+  device budget, or the solver is told to walk, a line interaction in
+  downbranch or macroatom mode walks the macro atom
+  (``macro_walk.macro_walk``: up to 40 jumps, or 1 in downbranch mode, each
+  drawn from ``fold_in(event key, 8 + jump)``) and emits at
+  ``line_nu[em_line]``.
 
 ``line_estimators`` (``TL_LINE_ESTIMATORS``, on by default) is the line
 difference array, the j_blue / e_dot estimators' increments, which only the
@@ -99,6 +106,7 @@ import torch
 
 from tardis_torch import cuda
 from tardis_torch.transport import rng
+from tardis_torch.transport.macro_walk import lower_bound, macro_walk
 from tardis_torch.transport.tables import (
     GAMMA_FLOOR,
     LINE_MACROATOM,
@@ -129,7 +137,7 @@ EMIT_LINE, EMIT_BF, EMIT_TWO_PHOTON, EMIT_ADIABATIC = 0, 1, 3, 4
 # K1's compile-time options, in the order of their -D flags; every option
 # is off by default but the line estimators, which are on
 OPTIONS = ("full_relativity", "last_interaction", "tracker", "reflective",
-           "weights", "continuum", "two_photon", "adiabatic",
+           "weights", "continuum", "two_photon", "adiabatic", "walk",
            "line_estimators")
 
 logger = logging.getLogger(__name__)
@@ -172,7 +180,15 @@ def variant(t: TransportTables, pool_w=None, last_interaction=False,
             tracker_length > 0, t.inner_boundary_albedo > 0.0,
             pool_w is not None, c is not None,
             c is not None and c.two_photon, c is not None and c.adiabatic,
-            bool(line_estimators))
+            walks(t), bool(line_estimators))
+
+
+def walks(t: TransportTables) -> bool:
+    """Whether K1's line interactions walk the macro atom (the walk
+    tables are set, in downbranch or macroatom mode, without continuum)
+    instead of drawing from the chain tables."""
+    return (t.walk is not None and t.mode != LINE_SCATTER
+            and t.continuum is None)
 
 
 def variant_name(flags, options=OPTIONS, plain="classic") -> str:
@@ -277,19 +293,6 @@ def _search(t: TransportTables, shell, lo, chi, z, nu, tau_event,
     return lo
 
 
-def _lower_bound(values, idx_of, lo, hi, u, steps):
-    """First t in [lo, hi) with values[idx_of(t)] >= u (hi if none), by
-    ``steps`` bisection steps over lanes; values are non-decreasing on
-    [lo, hi)."""
-    for _ in range(steps):
-        active = lo < hi
-        mid = (lo + hi) >> 1
-        below = values[idx_of(torch.minimum(mid, hi - 1).clamp(min=0))] < u
-        lo = torch.where(active & below, mid + 1, lo)
-        hi = torch.where(active & ~below, mid, hi)
-    return lo
-
-
 def _emission(t: TransportTables, shell, i_ev, u_chain, u_emit):
     """Macro-atom / downbranch emitted line id and frequency."""
     M, W, We = t.n_states, t.chain_width, t.emit_width
@@ -341,8 +344,8 @@ def _markov(c: ContinuumTables, S, shell, state0, u_row, u_deact):
     a = torch.clamp((row < u_row[:, None]).sum(1), max=M - 1)
     b0 = c.deact_block_start[a].long()
     b1 = c.deact_block_start[a + 1].long()
-    t = _lower_bound(c.deact_cum_prob, lambda i: i * S + shell, b0, b1,
-                     u_deact, c.deact_steps)
+    t = lower_bound(c.deact_cum_prob, lambda i: i * S + shell, b0, b1,
+                    u_deact, c.deact_steps)
     t = torch.minimum(torch.maximum(t, b0), torch.maximum(b1 - 1, b0))
     return c.deact_kind[t].long(), c.deact_id[t].long()
 
@@ -353,8 +356,8 @@ def _free_bound_nu(c: ContinuumTables, S, shell, cont_id, z):
     cc = torch.clamp(cont_id, 0, c.n_continua - 1)
     b0 = c.pion_block_start[cc].long()
     b1 = c.pion_block_start[cc + 1].long()
-    idx = _lower_bound(c.fb_cdf, lambda i: i * S + shell, b0, b1, z,
-                       c.fb_steps)
+    idx = lower_bound(c.fb_cdf, lambda i: i * S + shell, b0, b1, z,
+                      c.fb_steps)
     idx = torch.minimum(torch.maximum(idx, b0 + 1),
                         torch.maximum(b1 - 1, b0 + 1))
     cdf_i = c.fb_cdf[idx * S + shell]
@@ -423,7 +426,8 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     so per-packet outputs do not depend on ``batch_size``.  Spawn records
     are appended in lane order within a step, as the JAX package's cumsum
     slots are.  ``line_estimators`` False skips the line difference array.
-    Each packet's event count is kept in ``events``.
+    Each packet's event count is kept in ``events``; with the walk, the
+    walks' jump counts in ``res.walk_tally`` (``macro_walk.macro_walk``).
     """
     device = pool_mu.device
     N = pool_mu.shape[0]
@@ -431,12 +435,14 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     full_rel = t.full_relativity
     reflective = t.inner_boundary_albedo > 0.0
     cont = t.continuum
+    walk = walks(t)
     if cont is not None and vpacket_capacity:
         raise NotImplementedError("virtual packets with continuum transport")
     _check_line_estimators(cont, line_estimators)
     res = _allocate(N, S, L, vpacket_capacity, last_interaction,
                     tracker_length, device, cont, line_estimators,
                     events=True)
+    walk_tally = {}
     moments = res.cont_moments.view(-1)
     n_vp = 0
     nu_lo, nu_hi = _window(nu_window)
@@ -650,6 +656,15 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
         elif t.mode == LINE_SCATTER:
             em_line, nu_em = i_ev, nu_ev
             next_em = em_line + 1
+        elif walk:
+            em_line = i_ev.clone()
+            if bool(is_line.any()):
+                sel = is_line.nonzero()[:, 0]
+                em_line[sel] = macro_walk(t.walk, t.max_jumps, t.walk_steps,
+                                          shell[sel], i_ev[sel], ke[0][sel],
+                                          ke[1][sel], walk_tally)
+            nu_em = t.line_nu[torch.clamp(em_line, 0, L - 1)]
+            next_em = em_line + 1
         else:
             em_line, nu_em = _emission(t, shell, i_ev, U[:, col[COL_CHAIN]],
                                        U[:, col[COL_EMIT]])
@@ -708,6 +723,8 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     res.summary[2] = n_events
     res.summary[3] = n_immortal
     res.vp_count[0] = n_vp
+    if walk:
+        res.walk_tally = walk_tally
     return res
 
 
@@ -760,6 +777,20 @@ def smem_tables_fit(t: TransportTables, defines: tuple) -> bool:
         ctypes.byref(_continuum_args(t.continuum, None)), t.n_lines,
         t.n_shells, ctypes.byref(fits)))
     return bool(fits.value)
+
+
+def _check_walk(t: TransportTables, device):
+    w = t.walk
+    i32 = torch.int32
+    cuda.check_cuda("transport_loop", device,
+                    cum_prob=(w.cum_prob, torch.float32),
+                    block_start=(w.block_start, i32), dest=(w.dest, i32),
+                    emit=(w.emit, torch.bool), line=(w.line, i32))
+    T = w.dest.shape[0]
+    if (w.cum_prob.shape != (T, t.n_shells) or w.emit.shape != (T,)
+            or w.line.shape != (T,) or w.block_start.dim() != 1
+            or t.max_jumps < 1):
+        raise ValueError("transport_loop: walk table shapes do not agree")
 
 
 def _check_continuum(c: ContinuumTables, t: TransportTables, device):
@@ -860,7 +891,10 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     )
     S, L = t.n_shells, t.n_lines
     rows = S * t.n_states
-    classic_macro = cont is None and t.mode != LINE_SCATTER
+    walk = walks(t)
+    classic_macro = cont is None and t.mode != LINE_SCATTER and not walk
+    if walk:
+        _check_walk(t, device)
     if (pool_mu.shape != (N,) or pool_nu.shape != (N,)
             or (pool_w is not None and pool_w.shape != (N,))
             or t.prefix.shape != (S, L + 1)
@@ -891,6 +925,10 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         p(res.vp_records),
         p(res.vp_count), vpacket_capacity, p(res.last_interaction),
         p(res.tracker), tracker_length]
+    w = t.walk if walk else None
+    args += ([None] * 5 + [0] if w is None else
+             [p(w.cum_prob), p(w.block_start), p(w.dest), p(w.emit),
+              p(w.line), t.max_jumps])
     # the lanes' packet queue: the next packet id to take
     taken = torch.zeros(1, dtype=torch.int64, device=device)
     if cont is None:
@@ -919,8 +957,8 @@ _VP, _I64, _CI, _CF = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
 _ARGTYPES = (
     [_VP, _VP, _VP, _I64] + [_VP] * 8 + [_I64] + [_CI] * 6
     + [ctypes.c_uint32, ctypes.c_uint32, _CF, _CF, _CF, _I64, _I64]
-    + [_VP] * 7 + [_I64, _VP, _VP, _CI, ctypes.POINTER(ContinuumArgs)]
-    + [_VP, _CI, _VP]
+    + [_VP] * 7 + [_I64, _VP, _VP, _CI] + [_VP] * 5 + [_CI]
+    + [ctypes.POINTER(ContinuumArgs), _VP, _CI, _VP]
 )
 
 

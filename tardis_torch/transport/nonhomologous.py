@@ -4,7 +4,8 @@ Counterpart of ``tardis_tpu/transport/nonhomologous.py``: the tables
 (``nonhomologous_tau_scale``, ``nonhomologous_plasma_state``,
 ``build_nonhom_tables``) and the event loop (``make_nonhom_step`` driven by
 ``nonhom_transport_loop``), with the RNG-walk macro atom of
-``tardis_tpu/transport/kernel.py`` ``_macro_walk``.
+``tardis_tpu/transport/kernel.py`` ``_macro_walk`` (``macro_walk.py``,
+shared with K1).
 
 Within shell ``i`` the velocity is piecewise linear, v(r) = v_in + m (r -
 r_in).  Along a chord x = mu r + s the line-of-sight velocity (in c units,
@@ -48,7 +49,7 @@ event_idx), (10,), 1e-9, 1)``):
    jump), ())`` and taking the first transition of the level's block whose
    cumulative probability reaches it; an emission ends the walk, else the
    walk moves to the transition's destination; a walk that never emits
-   scatters resonantly.
+   scatters resonantly (``macro_walk.macro_walk``).
 
 Options (each a compile-time instantiation on the card): the macro-atom
 walk (downbranch and macroatom modes), last-interaction rows, the r-packet
@@ -84,14 +85,13 @@ from tardis_torch.transport.kernel import (
     LI_ESCAT,
     LI_LINE,
     MAX_EVENTS,
-    U_MIN,
     TransportOutput,
     _allocate,
     _draws,
-    _lower_bound,
     _window,
 )
 from tardis_torch.transport.kernel import variant_name as _variant_name
+from tardis_torch.transport.macro_walk import macro_walk, max_jumps, walk_steps
 from tardis_torch.transport.tables import (
     LINE_DOWNBRANCH,
     LINE_MODES,
@@ -102,13 +102,8 @@ from tardis_torch.transport.tables import (
 # relative margin that keeps the just-emitted resonance out of a backward
 # walk (the JAX package's CLOSE_LINE_MARGIN)
 CLOSE_LINE_MARGIN = 3e-7
-# jumps of one macro-atom walk; the JAX package takes 40 on the CPU and 24
-# on an accelerator, the port 40 on both devices
-MAX_MACRO_JUMPS = 40
 BISECTION_STEPS = 30
 X_REQ_CAP = 1e15
-# the walk's draw of jump j is keyed by fold_in(event key, WALK_TAG + j)
-WALK_TAG = 8
 
 # K7's compile-time options, in the order of their -D flags; every option
 # is off by default but the line estimators, which are on
@@ -177,11 +172,6 @@ def _prefix(tau: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _walk_steps(block_start) -> int:
-    widest = int(np.max(np.diff(np.asarray(block_start))))
-    return int(np.ceil(np.log2(max(2, widest)))) + 1
-
-
 def build_nonhom_tables(geometry, plasma_state, atom_data,
                         line_interaction_type: str = "scatter",
                         walk: MacroWalkTables | None = None,
@@ -206,8 +196,8 @@ def build_nonhom_tables(geometry, plasma_state, atom_data,
     dvdr = np.asarray(geometry.velocity_gradient, dtype=np.float64)
     kw = {}
     if mode != LINE_SCATTER:
-        kw = dict(walk=walk, walk_steps=_walk_steps(walk.block_start.cpu()),
-                  max_jumps=1 if mode == LINE_DOWNBRANCH else MAX_MACRO_JUMPS)
+        kw = dict(walk=walk, walk_steps=walk_steps(walk.block_start.cpu()),
+                  max_jumps=max_jumps(mode == LINE_DOWNBRANCH))
     return NonhomTables(
         r_inner=f32(geometry.r_inner / ct),
         r_outer=f32(geometry.r_outer / ct),
@@ -464,36 +454,6 @@ def event_window(t: NonhomTables, r, mu, nu, shell, next_line, tau_event):
                            cnt_m=cnt_m)
 
 
-def _walk(t: NonhomTables, shell, i_ev, ke0, ke1):
-    """The macro-atom walk of each lane from the level its line activates;
-    returns the emitted line (the absorbed one if no jump emits)."""
-    w = t.walk
-    S = t.n_shells
-    cum = w.cum_prob.reshape(-1)
-    level = w.line2macro[i_ev].long()
-    em = i_ev.clone()
-    done = torch.zeros_like(i_ev, dtype=torch.bool)
-    # every jump's draw in one hash (the bits are counter-based, so they
-    # are the draws K7 makes one jump at a time)
-    tags = WALK_TAG + torch.arange(t.max_jumps, device=i_ev.device)
-    u_all = rng.uniform(rng.scalar_bits(rng.fold_in(
-        (ke0[:, None], ke1[:, None]), tags[None, :])), U_MIN, 1.0)
-    for jump in range(t.max_jumps):
-        if bool(done.all()):
-            break
-        u = u_all[:, jump]
-        b0 = w.block_start[level].long()
-        b1 = w.block_start[level + 1].long()
-        tr = _lower_bound(cum, lambda i: i * S + shell, b0, b1, u,
-                          t.walk_steps)
-        tr = torch.minimum(torch.maximum(tr, b0), torch.maximum(b1 - 1, b0))
-        emit = w.emit[tr] & ~done
-        em = torch.where(emit, w.line[tr].long(), em)
-        level = torch.where(~done & ~w.emit[tr], w.dest[tr].long(), level)
-        done = done | emit
-    return em
-
-
 def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
                                 nu_window=(0.0, np.inf),
                                 batch_size: int = 65536,
@@ -673,8 +633,9 @@ def nonhom_transport_loop_plain(t: NonhomTables, pool_mu, pool_nu, key,
         if t.mode != LINE_SCATTER and bool(is_line.any()):
             sel = is_line.nonzero()[:, 0]
             em_line = i_ev.clone()
-            em_line[sel] = _walk(t, shell[sel], i_ev[sel], ke[0][sel],
-                                 ke[1][sel])
+            em_line[sel] = macro_walk(t.walk, t.max_jumps, t.walk_steps,
+                                      shell[sel], i_ev[sel], ke[0][sel],
+                                      ke[1][sel])
         interacts = is_escat | is_line
         nu_new = torch.where(
             is_escat, nu * dop_old_pos * inv_dop_new,

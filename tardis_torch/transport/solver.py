@@ -18,6 +18,14 @@ relativity and the simple pool otherwise; ``track_last_interaction`` and
 ``.rpacket_tracker`` (kept on the device until first read);
 ``inner_boundary_albedo`` > 0 reflects packets at the inner boundary.
 
+``use_macro_chain`` chooses the macro atom's sampler in downbranch and
+macroatom modes, as in the JAX package (``tardis_tpu/transport/
+solver.py:201,213-216,265``): "auto" builds the absorbing-chain tables
+where they fit the device budget (``solve_macro_chain``, which returns
+None where they do not) and walks the macro atom in K1 otherwise
+(``solve_macro_state``, span ``tardis.macro_walk``); False always walks;
+True takes the chain tables and raises where they do not fit.
+
 ``mesh`` spreads the packets of an iteration over several devices, as the
 JAX package's solver does (``tardis_tpu/transport/solver.py:203-209,
 376-400``): "auto" takes every visible CUDA card when more than one is
@@ -223,6 +231,7 @@ class TransportSolver:
         inner_boundary_albedo: float = 0.0,
         packet_source: str = "auto",
         mesh: object = "auto",
+        use_macro_chain: bool | str = "auto",
     ):
         if line_interaction_type not in ("scatter", "downbranch",
                                          "macroatom"):
@@ -231,6 +240,8 @@ class TransportSolver:
             )
         if packet_source not in ("auto", *POOLS):
             raise ValueError(f"packet_source {packet_source!r}")
+        if use_macro_chain not in ("auto", True, False):
+            raise ValueError(f"use_macro_chain {use_macro_chain!r}")
         self.line_interaction_type = line_interaction_type
         self.disable_electron_scattering = disable_electron_scattering
         self.disable_line_scattering = disable_line_scattering
@@ -241,6 +252,10 @@ class TransportSolver:
         self.inner_boundary_albedo = float(inner_boundary_albedo)
         self.packet_source = packet_source
         self.mesh = mesh
+        # "auto": the absorbing-chain tables where they fit the device
+        # budget (solve_macro_chain), K1's RNG walk otherwise; True: the
+        # chain tables (raises where they do not fit); False: the walk
+        self.use_macro_chain = use_macro_chain
         self._logged_one_device = False
 
     def devices_for(self, device: torch.device) -> list[torch.device]:
@@ -292,7 +307,7 @@ class TransportSolver:
         continuum_state=None,
         continuum_macro=None,
     ) -> TransportResult:
-        macro_chain = continuum = None
+        macro_chain = macro_walk = continuum = None
         lit = self.line_interaction_type
         device = plasma_state.tau_prefix.device
         with_continuum = continuum_state is not None
@@ -308,12 +323,20 @@ class TransportSolver:
         elif lit in ("downbranch", "macroatom"):
             macro = (atom_data.downbranch if lit == "downbranch"
                      else atom_data.macro_atom)
-            with record_function("tardis.macro_chain"):
-                macro_chain = solve_macro_chain(
-                    macro, plasma_state.beta_sobolev, plasma_state.j_blues,
-                    plasma_state.stimulated_emission_factor, mode=lit,
-                    line_nu_scaled=atom_data.line_nu / NU_UNIT,
-                )
+            args = (macro, plasma_state.beta_sobolev, plasma_state.j_blues,
+                    plasma_state.stimulated_emission_factor)
+            if self.use_macro_chain in ("auto", True):
+                with record_function("tardis.macro_chain"):
+                    macro_chain = solve_macro_chain(
+                        *args, mode=lit,
+                        line_nu_scaled=atom_data.line_nu / NU_UNIT)
+                if macro_chain is None and self.use_macro_chain is True:
+                    raise ValueError(
+                        "use_macro_chain=True: the macro-atom chain tables "
+                        "do not fit the device budget (chain_tables_fit)")
+            if macro_chain is None:
+                with record_function("tardis.macro_walk"):
+                    macro_walk = solve_macro_state(*args)
         with record_function("tardis.transport_tables"):
             tables = build_transport_tables(
                 sim_state.geometry,
@@ -327,6 +350,7 @@ class TransportSolver:
                 full_relativity=self.full_relativity(with_continuum),
                 inner_boundary_albedo=self.inner_boundary_albedo,
                 continuum=continuum,
+                macro_walk=macro_walk,
             )
         src_key, run_key = iteration_keys(seed, iteration)
         with record_function("tardis.packet_source"):

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 
 from tardis_torch.constants import C, SIGMA_THOMSON
+from tardis_torch.opacities.macro_atom_solver import MacroWalkTables
+from tardis_torch.transport.macro_walk import max_jumps, walk_steps
 
 NU_UNIT = 1.0e15  # Hz
 GAMMA_FLOOR = 1e-12  # 1 - beta^2 is floored here before the square root
@@ -68,6 +70,13 @@ class TransportTables:
     # bound-free / free-free opacity and the absorbing-Markov macro atom
     # of the Type IIP workflow (None: classic transport)
     continuum: ContinuumTables | None = None
+    # the RNG-walk macro atom's tables (``solve_macro_state``: per-block
+    # f32 cumulative probabilities (T, S), block_start, dest, emit, line,
+    # line2macro), where the line interaction walks instead of drawing
+    # from the chain tables (None: the chain tables, or scatter)
+    walk: MacroWalkTables | None = None
+    max_jumps: int = 0  # jumps of one walk (1 in downbranch mode)
+    walk_steps: int = 1  # bisection steps of the widest transition block
 
     @property
     def n_shells(self) -> int:
@@ -135,15 +144,20 @@ class ContinuumTables:
 
 def _tables_to(tables, device):
     """A copy of a tables dataclass with every tensor (and the nested
-    continuum tables) moved to ``device`` by an asynchronous copy, ordered
-    on the current streams of both devices; ``tables`` itself when nothing
-    moves."""
+    continuum and walk tables) moved to ``device`` by an asynchronous
+    copy, ordered on the current streams of both devices; ``tables``
+    itself when nothing moves."""
     device = torch.device(device)
     moved = {}
     for field in dataclasses.fields(tables):
         v = getattr(tables, field.name)
         if isinstance(v, ContinuumTables):
             v_on = v.to(device)
+        elif isinstance(v, MacroWalkTables):
+            v_on = MacroWalkTables(*(x.to(device, non_blocking=True)
+                                     for x in v))
+            if all(a is b for a, b in zip(v_on, v)):
+                v_on = v
         elif isinstance(v, torch.Tensor):
             v_on = v.to(device, non_blocking=True)
         else:
@@ -260,11 +274,14 @@ def build_transport_tables(
     full_relativity: bool = False,
     inner_boundary_albedo: float = 0.0,
     continuum: ContinuumTables | None = None,
+    macro_walk: MacroWalkTables | None = None,
 ) -> TransportTables:
-    """Tables on the device of ``prefix`` (the K3 tau prefix).  With
-    ``continuum`` (``build_continuum_tables``) the line interaction goes
-    through the absorbing-Markov macro atom and ``macro_chain`` is not
-    needed."""
+    """Tables on the device of ``prefix`` (the K3 tau prefix).  The macro
+    modes take ``macro_chain`` (``solve_macro_chain``) or, where its tables
+    do not fit, ``macro_walk`` (``solve_macro_state``: the line interaction
+    walks the macro atom).  With ``continuum`` (``build_continuum_tables``)
+    the line interaction goes through the absorbing-Markov macro atom and
+    neither is needed."""
     device = prefix.device
     ct = C * geometry.time_explosion
     L = atom_data.n_lines
@@ -279,9 +296,17 @@ def build_transport_tables(
         line2macro = torch.zeros(L, dtype=torch.int32, device=device)
         chain_cdf = torch.zeros((1, 1), dtype=torch.float32, device=device)
         emit_cdf = torch.zeros((1, 3), dtype=torch.float32, device=device)
+    elif macro_walk is not None:
+        line2macro = macro_walk.line2macro
+        chain_cdf = torch.zeros((1, 1), dtype=torch.float32, device=device)
+        emit_cdf = torch.zeros((1, 3), dtype=torch.float32, device=device)
+        kw = dict(walk=macro_walk,
+                  max_jumps=max_jumps(mode == LINE_DOWNBRANCH),
+                  walk_steps=walk_steps(macro_walk.block_start.cpu()))
     else:
         if macro_chain is None:
-            raise ValueError(f"{line_interaction_type} needs macro_chain")
+            raise ValueError(f"{line_interaction_type} needs macro_chain "
+                             "or macro_walk")
         mc = macro_chain
         line2macro = torch.as_tensor(mc.line2macro, dtype=torch.int32,
                                      device=device)

@@ -88,7 +88,9 @@ class TARDISHEWorkflow:
                  atom_data=None, device=None):
         """isotope_mass_fractions: {'Ni56': (S,) or scalar, 'Cr48': ...},
         chains from model/decay._HALF_LIVES; ``ni56_mass_fraction`` is the
-        same as {'Ni56': value}."""
+        same as {'Ni56': value}; ``atom_data`` (an AtomData or the path of
+        a carsus file) brings its ``decay_radiation_data``, if it has
+        one."""
         self.state = sim_state
         self.device = resolve_device(device)
         S = sim_state.no_of_shells
@@ -112,7 +114,10 @@ class TARDISHEWorkflow:
         # has them, override the built-in NNDC table
         self.radiation = dict(DECAY_RADIATION)
         if atom_data is not None:
-            self.radiation.update(decay_radiation_from_atom_data(atom_data))
+            from tardis_torch.simulation.base import load_atom_data
+
+            self.radiation.update(
+                decay_radiation_from_atom_data(load_atom_data(atom_data)))
 
     def _composition_sums(self):
         """Per shell: the iron-group fraction (Z >= 21, plus the radioactive

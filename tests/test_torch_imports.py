@@ -44,6 +44,53 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# imported only inside the carsus loader's and writer's functions
+LAZY = ("h5py", "pandas", "tables")
+
+
+def _module_level_imports(path: Path):
+    """The modules ``path`` imports at module level (not inside a function
+    or a class body)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_no_module_level_h5py_or_pandas(path):
+    """h5py and pandas are imported only where the loader and the writer
+    run, so the rest of the port (and a card's machine without them)
+    never needs them."""
+    bad = [m for m in _module_level_imports(path)
+           if m.split(".")[0] in LAZY]
+    assert not bad, f"{path.name} imports {bad} at module level"
+
+
+def test_port_imports_without_h5py_and_pandas():
+    """Every module of the port imports in a process where h5py, pandas
+    and PyTables cannot be imported."""
+    import subprocess
+    import sys
+
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "tardis_torch").rglob("*.py")
+        if p.name != "__init__.py")
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in LAZY)
+            + "import importlib\n"
+            + "".join(f"importlib.import_module({m!r})\n" for m in modules))
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert done.returncode == 0, done.stderr[-2000:]
+
+
 def test_default_device_raises_without_a_card(monkeypatch):
     """run_tardis defaults to the card and raises where there is none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
