@@ -25,7 +25,13 @@ Phases, one printed line each (plus one line per iteration):
      shells, the bench lines with the shells repeated, past one block's
      chunk of 87 shells and past the 128 shells whose inputs go by value:
      against the plain version, bitwise run to run and bitwise equal to
-     the 20-shell run in each repeated shell); K2's simple and
+     the 20-shell run in each repeated shell); K3's estimators
+     instantiation (detailed radiative rates) on a seeded stand-in for
+     the estimator j_blues with zeros in ~30% of its entries, at the bench
+     shape and at 100 and 200 shells: bitwise equal to the default
+     instantiation with the select applied (torch.where, also its
+     library_ms), bitwise run to run, against its plain version (the
+     estimator entries bit for bit); K2's simple and
      relativistic pools
      at both packet counts, the weighted pool at 2,097,152 (each also as
      device time of queued calls, device_ms); then the K1 and
@@ -35,7 +41,9 @@ Phases, one printed line each (plus one line per iteration):
      parallel, and K1 at each path's shapes: the convergence iterations'
      2,097,152 packets without spawn records or line estimators and the
      final iteration's with line estimators (on the main and relativity
-     paths 4,194,304 packets with 8 records a packet), each timed as CUDA
+     paths 4,194,304 packets with 8 records a packet; on the main path
+     also at 2,097,152 without records, the detailed_nlte path's
+     convergence shape), each timed as CUDA
      events around each call (ms) and as device time of queued calls
      (device_ms), with its per-packet event distribution and the lane
      efficiency a layout of one thread a packet would have (from the plain
@@ -88,7 +96,12 @@ Phases, one printed line each (plus one line per iteration):
      sharded path, the same run with device=[card, card] (K1 twice an
      iteration; each iteration replayed on one device from the same
      inputs, bitwise per packet; t_inner, t_rad and the luminosities
-     within 1e-5 of the main path's separate run);
+     within 1e-5 of the main path's separate run); then the detailed_nlte
+     path, the main path with radiative_rates_type: detailed and Si II
+     in NLTE (K1 with line estimators in all 5 iterations, K3's
+     estimators instantiation in the 4 solves after a convergence
+     iteration), each iteration line with the NLTE solve's host seconds
+     and the estimator readback's ms, the bands of PERF.md section 2;
   5. the relativity path: the same run with enable_full_relativity and
      last-interaction tracking at its default (on), so the relativistic
      pool, K1's full-relativity instantiation with last-interaction rows
@@ -101,7 +114,13 @@ Phases, one printed line each (plus one line per iteration):
      Simulation.from_config with atom_data: <that file> and
      sim.transport.use_macro_chain = False, 2 convergence iterations of
      2,097,152 packets and the production final iteration (K1's walk
-     instantiations, K4, K5), the bands of PERF.md section 2 held;
+     instantiations, K4, K5), the bands of PERF.md section 2 held; then
+     the helium path at reduced depth: the bench problem's elements with
+     He (synthetic data, 200 levels, jumps up to 60), recomb-nlte over 2
+     convergence iterations of 2,097,152 packets and a final one of
+     4,194,304 without virtual packets, then numerical-nlte with a
+     heating-rate file written here over one convergence iteration, each
+     with the helium solve's host seconds;
   7. the IIP path: TypeIIPWorkflow on the IIP problem, 3 convergence
      iterations of 1,048,576 packets, each with its thermal balance (25
      evaluations at most), and the final iteration; per iteration its
@@ -128,7 +147,8 @@ Phases, one printed line each (plus one line per iteration):
      by kernel, host time by tardis.* span, the device's busy share; K6's
      device time summed over the gamma path's steps);
  10. a JSON line of every kernel (each K1, K2 and K4 variant on its own
-     line, K6 and K7 by the instantiations their paths run, with the
+     line, K6 and K7 by the instantiations their paths run, K3's
+     estimators instantiation as line_tables[estimators], with the
      launches of the path that runs it; K6's entry also carries its
      gamma-path totals: ms around each call, device ms, bound ms; the
      weighted pool's
@@ -305,6 +325,31 @@ WALK_CONFIG["montecarlo"]["iterations"] = WALK_ITERATIONS
 WALK_CASES = (("convergence", "macroatom", N_PACKETS, False),
               ("final", "macroatom", FINAL_PACKETS, True),
               ("downbranch", "downbranch", N_PACKETS, False))
+# the detailed_nlte path: the main path with detailed radiative rates and
+# Si II in NLTE, so K1 accumulates line estimators in every iteration and
+# each plasma solve after the first takes K3's estimators instantiation
+DETAILED_CONFIG = copy.deepcopy(BENCH_CONFIG)
+DETAILED_CONFIG["plasma"].update(radiative_rates_type="detailed",
+                                 nlte={"species": ["Si 2"]})
+W_EPSILON = 1e-10  # the configuration's default
+# the helium path, at reduced depth: the bench problem's elements with He
+# (synthetic data, 200 levels, jumps up to 60), recomb-nlte over 2
+# convergence iterations and the final one without virtual packets, then
+# numerical-nlte over one convergence iteration with a heating-rate file
+HELIUM_ELEMENTS = (2, 8, 12, 14, 16, 18, 20)
+HELIUM_ITERATIONS = 3
+HELIUM_CONFIG = copy.deepcopy(BENCH_CONFIG)
+HELIUM_CONFIG["model"]["abundances"] = {
+    "type": "uniform", "He": 0.2, "O": 0.15, "Mg": 0.03, "Si": 0.42,
+    "S": 0.12, "Ar": 0.04, "Ca": 0.04}
+HELIUM_CONFIG["plasma"].update(helium_treatment="recomb-nlte")
+HELIUM_CONFIG["montecarlo"].update(iterations=HELIUM_ITERATIONS,
+                                   no_of_virtual_packets=0)
+HELIUM_CONFIG["spectrum"].update(method="real")
+del HELIUM_CONFIG["spectrum"]["integrated"]
+NUMERICAL_HELIUM_CONFIG = copy.deepcopy(HELIUM_CONFIG)
+NUMERICAL_HELIUM_CONFIG["plasma"]["helium_treatment"] = "numerical-nlte"
+NUMERICAL_HELIUM_CONFIG["montecarlo"]["iterations"] = 2
 
 
 def line_name(kernel, variant):
@@ -440,6 +485,64 @@ def line_tables_bitwise(a, b):
                for name in K3_NAMES)
 
 
+def estimator_table(jb, seed=SEED):
+    """A stand-in for the estimator j_blues: the dilute-Planck table times
+    a seeded factor in [0.5, 1.5), zero in ~30% of the entries, so K3's
+    select takes both branches."""
+    g = torch.Generator(device=jb.device).manual_seed(seed)
+    u = torch.rand(jb.shape, generator=g, device=jb.device,
+                   dtype=torch.float64)
+    return torch.where(u < 0.3, 0.0, jb * (0.5 + u))
+
+
+def estimators_bitwise(k_est, k, est):
+    """K3's estimators instantiation against its default one on the same
+    inputs: stim, tau, beta and the prefix bit for bit, and the j_blues
+    the select over the default's, est where est > 0, else W_EPSILON times
+    the dilute-Planck value."""
+    picked = torch.where(est > 0, est, W_EPSILON * k.j_blues)
+    return (all(torch.equal(getattr(k_est, name), getattr(k, name))
+                for name in ("stim", "tau", "beta", "prefix"))
+            and torch.equal(k_est.j_blues, picked))
+
+
+def check_estimators(args, k, pop, static):
+    """K3's estimators instantiation (``detailed`` radiative rates) at the
+    shape of ``args``: bitwise against its default instantiation with the
+    select applied (``estimators_bitwise``), bitwise run to run, against
+    its plain version within compare_line_tables's limits (the estimator
+    entries bit for bit), timed as for the default one, beside the one
+    PyTorch expression that applies the select to K3's output
+    (``torch.where``).  Returns (numbers, estimators table, output)."""
+    from tardis_torch.plasma.line_tables import line_tables, line_tables_plain
+
+    est = estimator_table(k.j_blues)
+    kw = dict(j_estimators=est, w_epsilon=W_EPSILON)
+    ms, ke = cuda_ms_queued(lambda: line_tables(*args, **kw), 200)
+    host_ms, _ = cuda_ms(lambda: line_tables(*args, **kw), 20)
+    plain_ms, pe = cuda_ms(lambda: line_tables_plain(*args, **kw), 5)
+    taken = est > 0
+    bitwise = (estimators_bitwise(ke, k, est)
+               and line_tables_bitwise(line_tables(*args, **kw), ke)
+               and torch.equal(ke.j_blues[taken], pe.j_blues[taken]))
+    if not bitwise:
+        raise AssertionError("line_tables[estimators]: not bitwise")
+    max_abs = compare_line_tables(ke, pe, "estimators")
+    library_ms, _ = cuda_ms_queued(
+        lambda: torch.where(est > 0, est, W_EPSILON * k.j_blues), 200)
+    L, S = k.tau.shape
+    in_bytes = nbytes(pop, static.lower_idx, static.upper_idx,
+                      static.g_lower, static.g_upper, static.wl_flu,
+                      static.line_nu, static.nu3_coef, est) + 16 * S
+    out_bytes = nbytes(ke.stim, ke.tau, ke.beta, ke.j_blues, ke.prefix)
+    b_ms, b_by = bound(in_bytes + out_bytes, L * S * 57)
+    numbers = dict(L=L, S=S, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                   estimator_share=taken.double().mean().item(),
+                   bitwise=bitwise, max_abs_err=max_abs)
+    return numbers, est, ke
+
+
 def check_line_tables(state, atom, device, wide_shells=()):
     """K3 against its plain version (``compare_line_tables``), bitwise
     equal to itself over two more runs, and timed two ways beside the one
@@ -487,6 +590,9 @@ def check_line_tables(state, atom, device, wide_shells=()):
         plain_ms=plain_ms, library_ms=library_ms,
         library_host_ms=library_host_ms, bound_ms=b_ms,
         bitwise_run_to_run=bitwise, max_abs_err=max_abs)
+    est_numbers, est, k_est = check_estimators(args, k, pop, st)
+    say("check_line_tables_estimators", **est_numbers)
+    est_wide = {}
     wide = {}
     for n_shells in wide_shells:
         idx = torch.arange(n_shells, device=device) % S
@@ -513,8 +619,27 @@ def check_line_tables(state, atom, device, wide_shells=()):
         say("check_line_tables_wide", L=L, S=n_shells, ms=w_ms,
             bitwise_run_to_run=w_bitwise, repeated_shells_bitwise=repeated,
             max_abs_err=w_abs)
-        del kwide
-    return ps, dict(
+        # the estimators instantiation over the same repeated shells
+        e_kw = dict(j_estimators=est[:, idx].contiguous(),
+                    w_epsilon=W_EPSILON)
+        e_ms, ke_wide = cuda_ms_queued(
+            lambda: line_tables(*wide_args, **e_kw), 20)
+        e_bitwise = (estimators_bitwise(ke_wide, kwide, e_kw["j_estimators"])
+                     and line_tables_bitwise(
+                         line_tables(*wide_args, **e_kw), ke_wide)
+                     and torch.equal(ke_wide.j_blues, k_est.j_blues[:, idx]))
+        if not e_bitwise:
+            raise AssertionError(
+                f"line_tables[estimators] at {n_shells} shells: not bitwise")
+        e_abs = compare_line_tables(
+            ke_wide, line_tables_plain(*wide_args, **e_kw),
+            f"estimators at {n_shells} shells")
+        est_wide[n_shells] = dict(ms=e_ms, max_abs_err=e_abs)
+        est_numbers["max_abs_err"] = max(est_numbers["max_abs_err"], e_abs)
+        say("check_line_tables_estimators_wide", L=L, S=n_shells, ms=e_ms,
+            bitwise=e_bitwise, max_abs_err=e_abs)
+        del kwide, ke_wide
+    k3 = dict(
         name="line_tables", route="cuda",
         source="tardis_torch/csrc/line_tables.cu",
         replaces="tardis_tpu/plasma/device_line.py:163",
@@ -523,6 +648,16 @@ def check_line_tables(state, atom, device, wide_shells=()):
         library_host_ms=library_host_ms,
         **({"wide_shells": wide} if wide else {}),
     )
+    k3_est = dict(
+        name=line_name("line_tables", "estimators"), route="cuda",
+        source="tardis_torch/csrc/line_tables.cu",
+        replaces="tardis_tpu/plasma/solver.py:458",
+        **{key: est_numbers[key] for key in (
+            "max_abs_err", "ms", "host_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        **({"wide_shells": est_wide} if est_wide else {}),
+    )
+    return ps, k3, k3_est
 
 
 REPLACES_K2 = {"simple": "tardis_tpu/transport/source.py:31",
@@ -933,6 +1068,10 @@ def check_transport_loop(path, tables, pools):
              ("final", final_n, final_key,
               VPACKET_RECORDS_PER_PACKET * final_n if opts["records"] else 0,
               True))
+    if path == "main":
+        # the detailed_nlte path's convergence iterations: the final
+        # instantiation (line estimators) at N_PACKETS without records
+        cases += (("detailed_convergence", N_PACKETS, 0, 0, True),)
     entries, records = {}, None
     for role, n, iteration, cap, line_estimators in cases:
         name = line_name("transport_loop", variant_name(k1_variant(
@@ -944,7 +1083,13 @@ def check_transport_loop(path, tables, pools):
         numbers.update(tracker_counts(tables, k))
         say("check_transport_loop_records" if cap else
             "check_transport_loop", line=name, role=role, **numbers)
-        entries[role] = k1_entry(name, REPLACES_K1[path], numbers)
+        if role == "detailed_convergence":
+            entries["final"][role] = {
+                key: numbers[key] for key in (
+                    "n", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "max_abs_err")}
+        else:
+            entries[role] = k1_entry(name, REPLACES_K1[path], numbers)
         if cap:
             records = k.vp_records[:k.n_vp_records]
         del k
@@ -1136,14 +1281,15 @@ def reset_launches():
     for w in wrappers().values():
         if hasattr(w, "launches_by_variant"):
             w.launches_by_variant.clear()
-        else:
+        if hasattr(w, "launches"):
             w.launches = 0
 
 
 def read_launches():
-    """Launches by kernels-line name: K3 and K5, and every variant K1, K2,
+    """Launches by kernels-line name: K5, and every variant K1, K2, K3,
     K4, K6 and K7 launched under its own line
-    (``transport_loop[full_relativity+last_interaction+weights]``)."""
+    (``transport_loop[full_relativity+last_interaction+weights]``,
+    ``line_tables[estimators]``)."""
     out = {}
     for kernel, w in wrappers().items():
         if hasattr(w, "launches_by_variant"):
@@ -1155,14 +1301,16 @@ def read_launches():
 
 
 def run_path(phase, config, atom, device, expected, bands=True,
-             use_macro_chain=None):
+             use_macro_chain=None, per_iteration=None):
     """run_tardis on ``config`` with the launch counts reset to 0 just
     before and read just after; every kernels line in ``expected`` must
     have launched exactly that often (None: at least once) and every other
     line, any variant of a wrapper included, never.  With ``bands``, the
     final iteration's luminosity ratios must lie in the bands of PERF.md
     section 2.  With ``use_macro_chain``, the run is Simulation.from_config
-    with ``sim.transport.use_macro_chain`` set to it before the run."""
+    with ``sim.transport.use_macro_chain`` set to it before the run.
+    ``per_iteration()``, where given, returns numbers for each iteration's
+    line."""
     from tardis_torch.config.reader import config_from_dict
     from tardis_torch.simulation.base import Simulation, run_tardis
 
@@ -1177,7 +1325,8 @@ def run_path(phase, config, atom, device, expected, bands=True,
         say("iteration", path=phase, index=sim.iterations_executed - 1,
             packets=res.n_packets, wall_s=now - marks[-1],
             t_inner=sim.state.t_inner, L_emitted_over_requested=ratio,
-            events=res.n_events, vp_records=res.vp_records)
+            events=res.n_events, vp_records=res.vp_records,
+            **(per_iteration() if per_iteration else {}))
         marks.append(now)
 
     reset_launches()
@@ -1426,6 +1575,165 @@ def run_options_path(atom, device, expected):
     if tr is None or tr["type"].shape != (N_PACKETS, TRACKER_LENGTH):
         raise AssertionError("options path: no r-packet tracker rows")
     return launches
+
+
+@contextlib.contextmanager
+def host_seconds(*targets):
+    """Swaps each ``(owner, attr, sync)`` of ``targets`` for a wrapper that
+    adds its call's host seconds to ``spent[attr]`` (with ``sync``, the
+    card is synchronized before the call, so a call that ends in a copy to
+    the host is timed alone); yields ``spent`` and restores the
+    attributes."""
+    spent = {}
+    saved = [(owner, attr, sync, getattr(owner, attr))
+             for owner, attr, sync in targets]
+
+    def timed(attr, sync, fn):
+        def call(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            spent[attr] = spent.get(attr, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    for owner, attr, sync, fn in saved:
+        setattr(owner, attr, timed(attr, sync, fn))
+    try:
+        yield spent
+    finally:
+        for owner, attr, _, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def drain(spent, names):
+    """``spent``'s entries under ``names`` since the last drain, reset."""
+    return {name: spent.pop(key, 0.0) * scale
+            for name, (key, scale) in names.items()}
+
+
+def run_detailed_nlte_path(atom, device, expected):
+    """The main path with ``detailed`` radiative rates and Si II in NLTE:
+    every iteration accumulates K1's line estimators, reads them back
+    (``read_line_estimators``, timed on the host after a synchronize: the
+    scan and the copy) and feeds their j_blues into the next plasma solve
+    (K3's estimators instantiation); each iteration line carries the NLTE
+    solve's host seconds since the last line and the readback's ms.  The
+    final plasma must keep the estimator j_blues (no re-solve)."""
+    from tardis_torch.plasma import solver as plasma_solver
+    from tardis_torch.transport import solver as transport_solver
+
+    names = {"nlte_s": ("nlte_level_boltzmann_factor", 1.0),
+             "estimator_readback_ms": ("read_line_estimators", 1e3)}
+    with host_seconds(
+            (plasma_solver, "nlte_level_boltzmann_factor", False),
+            (transport_solver, "read_line_estimators", True)) as spent:
+        sim, launches, wall = run_path(
+            "detailed_nlte_path", DETAILED_CONFIG, atom, device, expected,
+            per_iteration=lambda: drain(spent, names))
+    ps = sim.plasma_state
+    if not (sim.plasma_solver.nlte_species == [(14, 1)]
+            and sim.last_transport_result.j_blue_estimator is not None
+            and bool(torch.isfinite(ps.j_blues).all())):
+        raise AssertionError("detailed_nlte path: no NLTE species or no "
+                             "estimator j_blues")
+    return launches
+
+
+def helium_problem():
+    """The helium path's atomic data: the bench problem's synthetic data
+    with He added."""
+    from tardis_torch.atomic.synthetic import make_synthetic_atom_data
+
+    return make_synthetic_atom_data(
+        atomic_numbers=HELIUM_ELEMENTS, n_levels=200,
+        max_level_jump=60).prepare(selected_atoms=list(HELIUM_ELEMENTS),
+                                   line_interaction_type="macroatom")
+
+
+def helium_k1_lines(atom, n_shells, k1, k1_walk):
+    """The K1 lines (convergence, final) the helium path launches: the
+    chain's where its tables fit the device budget, else the walk's."""
+    from tardis_torch.opacities.macro_atom_solver import chain_tables_fit
+    from tardis_torch.transport.tables import NU_UNIT
+
+    fits = chain_tables_fit(atom.macro_atom, n_shells,
+                            line_nu_scaled=atom.line_nu / NU_UNIT)
+    lines = ((k1["main"], k1["main_final"]) if fits else
+             (k1_walk["convergence"], k1_walk["final"]))
+    return tuple(k["name"] for k in lines), fits
+
+
+def run_helium_path(device, k2_name, k1, k1_walk):
+    """Both helium treatments on the helium problem: recomb-nlte through
+    run_tardis (HELIUM_ITERATIONS - 1 convergence iterations and the final
+    one), then numerical-nlte with a heating-rate file written here, one
+    convergence iteration (Simulation.run_convergence); launch counts
+    reset and read around each, each iteration line with the helium
+    solve's host seconds.  He I's ground level must be empty under
+    recomb-nlte, the helium populations finite and positive somewhere."""
+    import tempfile
+
+    from tardis_torch.config.reader import config_from_dict
+    from tardis_torch.plasma import helium
+    from tardis_torch.plasma.solver import PlasmaSolver
+    from tardis_torch.simulation.base import Simulation
+
+    t = time.perf_counter()
+    atom = helium_problem()
+    (conv, final), chain = helium_k1_lines(
+        atom, HELIUM_CONFIG["model"]["structure"]["velocity"]["num"], k1,
+        k1_walk)
+    say("helium_problem", lines=atom.n_lines, levels=atom.n_levels,
+        setup_s=time.perf_counter() - t, chain_tables=chain,
+        k1_lines=[conv, final])
+    names = {"helium_s": ("_recomb_helium", 1.0)}
+    expected = {"line_tables": None, k2_name: HELIUM_ITERATIONS,
+                conv: HELIUM_ITERATIONS - 1, final: 1}
+    with host_seconds((PlasmaSolver, "_recomb_helium", False)) as spent:
+        sim, recomb, wall = run_path(
+            "helium_path", HELIUM_CONFIG, atom, device, expected,
+            bands=False, per_iteration=lambda: drain(spent, names))
+    n_level = sim.plasma_state.level_number_density
+    rows1 = helium.species_rows(atom, 0)
+    if not (np.isfinite(n_level).all() and (n_level[rows1[0]] == 0.0).all()
+            and (n_level[rows1[1:]] > 0).any()):
+        raise AssertionError("helium path: recomb-nlte populations")
+    del sim
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        heating = os.path.join(tmp, "heating_rates.dat")
+        np.savetxt(heating, np.column_stack(
+            [np.arange(20.0), np.geomspace(1e-8, 1e-6, 20)]))
+        cfg = copy.deepcopy(NUMERICAL_HELIUM_CONFIG)
+        cfg["plasma"]["heating_rate_data_file"] = heating
+        expected = {"line_tables": None, k2_name: 1, conv: 1}
+        with host_seconds((helium, "helium_numerical_nlte", False)) as spent:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                sim = Simulation.from_config(config_from_dict(cfg),
+                                             atom_data=atom, device=device)
+                sim.run_convergence()
+            torch.cuda.synchronize()
+            n_wall = time.perf_counter() - t0
+            numerical = read_launches()
+    n_level = sim.plasma_state.level_number_density
+    he_rows = np.concatenate([helium.species_rows(atom, j)
+                              for j in range(3)])
+    finite = bool(np.isfinite(n_level).all()
+                  and np.isfinite(sim.history[0].t_radiative).all())
+    say("numerical_helium_path", wall_s=n_wall, launches=numerical,
+        helium_s=spent.get("helium_numerical_nlte", 0.0),
+        heating_rate_rows=sim.plasma_solver.heating_rate_data.shape[1],
+        t_inner=sim.state.t_inner, finite=finite)
+    if not (finite and (n_level[he_rows] > 0).any()):
+        raise AssertionError("helium path: numerical-nlte populations")
+    check_launches("numerical_helium_path", numerical, expected)
+    return recomb, numerical
 
 
 def build_iip_problem():
@@ -1917,7 +2225,7 @@ def check_iip_kernels(device, state, atom, tables, k2, k3):
     channels).  Returns the K1 lines by path."""
     from tardis_torch.transport.solver import iteration_keys
 
-    _, k3_iip = check_line_tables(state, atom, device)
+    _, k3_iip, _ = check_line_tables(state, atom, device)
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_iip["max_abs_err"])
     k3["iip_shape"] = {key: k3_iip[key] for key in (
         "ms", "host_ms", "plain_ms", "bound_ms", "library_ms",
@@ -2955,7 +3263,8 @@ def main() -> int:
     with torch.no_grad():
         t = time.perf_counter()
         k_probe = check_probe2(device)
-        ps, k3 = check_line_tables(state, atom, device, K3_WIDE_SHELLS)
+        ps, k3, k3_est = check_line_tables(state, atom, device,
+                                           K3_WIDE_SHELLS)
         pools, k2 = check_pools(state, device)
         chain = check_chain_build(atom, ps)
         tables = path_tables(state, atom, ps, chain)
@@ -3025,6 +3334,15 @@ def main() -> int:
                               k7_final["name"]: 1}
         # K6: two kernel launches a step (the list, the walk)
         expected["gamma"] = {k6["name"]: 2 * GAMMA_STEPS}
+        # detailed rates: K1 with line estimators in every iteration, K3's
+        # default instantiation for the first solve and its estimators
+        # one for each solve after a convergence iteration, no final
+        # re-solve
+        expected["detailed_nlte"] = {
+            "line_tables": 3, k3_est["name"]: 3 * (ITERATIONS - 1),
+            k2["simple"]["name"]: ITERATIONS,
+            k1["main_final"]["name"]: ITERATIONS,
+            k4["main"]["name"]: 1, "formal_integral": 1}
         # the main path with two shards: K1 twice an iteration
         expected["sharded"] = dict(expected["main"])
         expected["sharded"][k1["main"]["name"]] = 2 * (ITERATIONS - 1)
@@ -3049,6 +3367,9 @@ def main() -> int:
         launches["sharded"] = run_sharded_path(atom, device,
                                                expected["sharded"], main)
         torch.cuda.empty_cache()
+        launches["detailed_nlte"] = run_detailed_nlte_path(
+            atom, device, expected["detailed_nlte"])
+        torch.cuda.empty_cache()
         launches["relativity"] = run_relativity_path(
             atom, device, expected["relativity"])
         torch.cuda.empty_cache()
@@ -3056,6 +3377,9 @@ def main() -> int:
                                                expected["options"])
         torch.cuda.empty_cache()
         launches["walk"] = run_walk_path(device, expected["walk"], hdf)
+        torch.cuda.empty_cache()
+        launches["helium"], launches["numerical_helium"] = run_helium_path(
+            device, k2["simple"]["name"], k1, k1_walk)
         torch.cuda.empty_cache()
         launches["iip"] = run_iip_path("iip_path", IIP_CONFIG, iip_atom,
                                        device, expected["iip"])
@@ -3080,6 +3404,7 @@ def main() -> int:
     lines = [(k1["main"], "main"), (k1["main_final"], "main"),
              (k2["simple"], "main"), (k3, "main"),
              (k4["main"], "main"), (k5, "main"),
+             (k3_est, "detailed_nlte"),
              (k1["relativity"], "relativity"),
              (k1["relativity_final"], "relativity"),
              (k2["relativistic"], "relativity"),
@@ -3103,6 +3428,12 @@ def main() -> int:
     for key in ("main", "main_final"):
         k1[key]["sharded_path_launches"] = launches["sharded"][
             k1[key]["name"]]
+    # the detailed_nlte path's launches of the final instantiation (every
+    # iteration) and of K3's default one
+    k1["main_final"]["detailed_nlte_path_launches"] = launches[
+        "detailed_nlte"][k1["main_final"]["name"]]
+    k3["detailed_nlte_path_launches"] = launches["detailed_nlte"][
+        "line_tables"]
     print(json.dumps({"kernels": [k for k, _ in lines]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

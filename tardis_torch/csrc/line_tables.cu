@@ -33,6 +33,13 @@
 // per-shell inputs h / (k T_rad) and W arrive by value in the kernel's
 // parameters while 2 S doubles fit (S <= kShellsByValue), else from a
 // device buffer.  Built with --fmad=false (see tardis_torch/cuda.py).
+//
+// The estimators instantiation (``detailed`` radiative rates,
+// tardis_tpu/plasma/solver.py:458-465): pass A also reads an (L, S) f64
+// table of estimator j_blues and keeps each positive one in place of the
+// dilute-Planck value, which it scales by w_epsilon elsewhere: one more f64
+// read a line-shell, no extra pass.  Without estimators pass A is the
+// same code as before the option existed (a template parameter).
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -61,6 +68,8 @@ struct LineArgs {
   const double* line_nu;    // Hz, (L,)
   const double* nu3_coef;   // 2 h nu^3 / c^2, (L,)
   const double* shell_dev;  // (2 S,) [h / (k T_rad), W] when S > kShellsByValue
+  const double* j_est;      // (L, S) estimator j_blues, or null
+  double w_epsilon;
   double sobolev_coefficient, time_explosion;
   int64_t L;
   int S, chunk;             // shells per block (blockIdx.y picks the chunk)
@@ -145,11 +154,13 @@ __device__ __forceinline__ TileSmem tile_smem(double* smem, int sc) {
 }
 
 // stim, tau, beta and j_blues of line l in shell s (plasma/lte.py's
-// formulas in their order)
+// formulas in their order); kEst: j_blues from the estimators where they
+// are positive
 struct LineValues {
   double stim, tau, beta, jb;
 };
 
+template <bool kEst>
 __device__ __forceinline__ LineValues line_values(const LineArgs& a, int64_t l, int s,
                                                   double h_over_kt, double jb_w) {
   const int S = a.S;
@@ -169,6 +180,10 @@ __device__ __forceinline__ LineValues line_values(const LineArgs& a, int64_t l, 
   // jb_w * lte.intensity_black_body
   const double x = fmin(a.line_nu[l] * h_over_kt, 700.0);
   v.jb = jb_w * (a.nu3_coef[l] / expm1(x));
+  if constexpr (kEst) {
+    const double e = a.j_est[l * S + s];
+    v.jb = e > 0.0 ? e : a.w_epsilon * v.jb;
+  }
   return v;
 }
 
@@ -181,6 +196,7 @@ __device__ __forceinline__ void store_values(const LineArgs& a, int64_t i,
 }
 
 // pass A on one tile: its four tables and its per-shell tau sums
+template <bool kEst>
 __device__ __forceinline__ void tile_elements(const LineArgs& a, const ShellInputs& shin,
                                               const Tile& t, double* smem) {
   const int S = a.S;
@@ -199,7 +215,8 @@ __device__ __forceinline__ void tile_elements(const LineArgs& a, const ShellInpu
     const int sl = e - ll * t.sc;
     double tv = 0.0;
     if (e < n) {
-      const LineValues v = line_values(a, t.l0 + ll, t.s0 + sl, m.hkt[sl], m.jbw[sl]);
+      const LineValues v =
+          line_values<kEst>(a, t.l0 + ll, t.s0 + sl, m.hkt[sl], m.jbw[sl]);
       store_values(a, (t.l0 + ll) * S + t.s0 + sl, v);
       tv = v.tau;
     }
@@ -240,10 +257,11 @@ __device__ __forceinline__ void tile_prefix(const LineArgs& a, const Tile& t,
 // at most 40 registers, so that 6 blocks share an SM: its f64 arithmetic
 // (two expm1 and two divisions an element) then overlaps its stores
 // (0.080 -> 0.069 ms at the bench shape on an H100 80GB HBM3 at 700 W)
+template <bool kEst>
 __global__ void __launch_bounds__(kThreads, 6) line_elements_kernel(LineArgs a,
                                                                  ShellInputs shin) {
   extern __shared__ double smem[];
-  tile_elements(a, shin, make_tile(a, blockIdx.x, blockIdx.y), smem);
+  tile_elements<kEst>(a, shin, make_tile(a, blockIdx.x, blockIdx.y), smem);
 }
 
 // pass B: shell blockIdx.x's carries, the exclusive scan of its tile sums,
@@ -310,13 +328,16 @@ __global__ void __launch_bounds__(kThreads) prefix_kernel(LineArgs a) {
 // (S), W (S)], read during this call, when S <= kShellsByValue; otherwise
 // as the device array shell_dev of the same layout.  scratch holds 2
 // n_tiles S doubles (tile sums and carries), n_tiles = ceil(L / kTile).
+// j_est, where not null, is the (L, S) estimator table of the estimators
+// instantiation.
 extern "C" int line_tables(
     const void* level_pop, const void* lower_idx, const void* upper_idx,
     const void* g_lower, const void* g_upper, const void* wl_flu,
     const void* line_nu, const void* nu3_coef, const double* shell_host,
     const void* shell_dev, double sobolev_coefficient, double time_explosion,
     int64_t L, int S, void* stim, void* tau, void* beta, void* jb,
-    void* prefix, void* scratch, void* stream) {
+    void* prefix, void* scratch, const void* j_est, double w_epsilon,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (S <= 0) return 0;
   if (S > kShellsByValue && shell_dev == nullptr) return (int)cudaErrorInvalidValue;
@@ -339,6 +360,8 @@ extern "C" int line_tables(
   a.line_nu = (const double*)line_nu;
   a.nu3_coef = (const double*)nu3_coef;
   a.shell_dev = (const double*)shell_dev;
+  a.j_est = (const double*)j_est;
+  a.w_epsilon = w_epsilon;
   a.sobolev_coefficient = sobolev_coefficient;
   a.time_explosion = time_explosion;
   a.L = L;
@@ -358,7 +381,10 @@ extern "C" int line_tables(
   }
   const size_t shm = (size_t)a.chunk * (kTile + 1 + kSegments + 3) * sizeof(double);
   const dim3 grid((unsigned)n_tiles, (unsigned)n_chunks);
-  line_elements_kernel<<<grid, kThreads, shm, st>>>(a, shin);
+  if (a.j_est != nullptr)
+    line_elements_kernel<true><<<grid, kThreads, shm, st>>>(a, shin);
+  else
+    line_elements_kernel<false><<<grid, kThreads, shm, st>>>(a, shin);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   carry_kernel<<<S, kCarryThreads, 0, st>>>(a);

@@ -163,21 +163,19 @@ struct EventWindow {
 };
 
 // the distance the optical depth left after walk-order line i allows
-// (d_req) and the chord coordinate it reaches (x_req).  ``coarse`` takes the
-// prefix difference from the two prefixes rounded to f32, as the JAX
-// package's coarse levels read their hi parts; else the f64 difference
-// rounded.
-__device__ __forceinline__ float2 reach(const EventWindow& w, int64_t i, bool coarse) {
+// (d_req) and the chord coordinate it reaches (x_req), from the f64 prefix
+// difference rounded to f32
+__device__ __forceinline__ float2 reach(const EventWindow& w, int64_t i) {
   const double c = w.prow[i + 1];
-  const float dC = coarse ? (float)c - (float)w.c0 : (float)(c - w.c0);
+  const float dC = (float)(c - w.c0);
   const float d_req = (w.tau_event - dC) * w.inv_chi;
   return make_float2(d_req, fminf(w.x0 + fmaxf(d_req, 0.0f), kXReqCap));
 }
 
 // the inverted event predicate of walk-order line i: the line lies beyond
 // the line-of-sight velocity at x_req, or the optical depth is spent
-__device__ __forceinline__ bool window_pred(const EventWindow& w, int64_t i, bool coarse) {
-  const float2 r = reach(w, i, coarse);
+__device__ __forceinline__ bool window_pred(const EventWindow& w, int64_t i) {
+  const float2 r = reach(w, i);
   const float b_req = beta_los(w.m, w.q, w.p2, r.y);
   const float nl = w.fwd ? w.line_nu[i] : w.line_nu[w.L - 1 - i];
   const float n_row = 1.0f - nl / w.nu;
@@ -194,15 +192,12 @@ __device__ __forceinline__ double los_slope(double m, double q, double p2, doubl
 // true where the predicate is proven monotone over the window [lo, hi), so
 // that the bisection finds the count search's line (proof at
 // tardis_torch/transport/nonhomologous.py `monotone_window`): every row's
-// x_req, exact or coarse, lies between those of the window's last and first
-// lines; there beta_los' is affine in g(|x|) = p^2 / (p^2 + x^2)^(3/2), which
+// x_req lies between those of the window's last and first lines; there beta_los' is affine in g(|x|) = p^2 / (p^2 + x^2)^(3/2), which
 // falls with |x|, so its sign over the interval is its sign at the nearest
 // and farthest |x|.  Non-decreasing serves a forward walk, non-increasing a
 // backward one; NaN (p^2 = 0 at x = 0) proves nothing.
 __device__ __forceinline__ bool monotone_window(const EventWindow& w, int64_t lo, int64_t hi) {
-  const float x_lo = fminf(reach(w, hi - 1, false).y, reach(w, hi - 1, true).y);
-  const float x_hi = fmaxf(reach(w, lo, false).y, reach(w, lo, true).y);
-  const double a = (double)x_lo, b = (double)x_hi;
+  const double a = (double)reach(w, hi - 1).y, b = (double)reach(w, lo).y;
   const double near = (a <= 0.0 && b >= 0.0) ? 0.0 : fmin(fabs(a), fabs(b));
   const double far = fmax(fabs(a), fabs(b));
   const double m = (double)w.m, q = (double)w.q, p2 = (double)w.p2;
@@ -219,7 +214,7 @@ constexpr int64_t kTile = 128;
 // (each evaluates every participants-th sample from its rank on; a ballot
 // counts the false ones)
 __device__ __forceinline__ int64_t false_samples(const EventWindow& w, int64_t lo, int64_t hi,
-                                                 int64_t base, int64_t stride, bool coarse,
+                                                 int64_t base, int64_t stride,
                                                  unsigned mask, int rank, int participants) {
   auto below = [&](int64_t x) -> int64_t {
     if (x <= base) return 0;
@@ -230,7 +225,7 @@ __device__ __forceinline__ int64_t false_samples(const EventWindow& w, int64_t l
   int64_t n = k_lo;
   for (int64_t k0 = k_lo; k0 < k_hi; k0 += participants) {
     const int64_t k = k0 + rank;
-    const bool is_false = k < k_hi && !window_pred(w, base + k * stride, coarse);
+    const bool is_false = k < k_hi && !window_pred(w, base + k * stride);
     n += __popc(__ballot_sync(mask, is_false));
   }
   return n;
@@ -239,21 +234,21 @@ __device__ __forceinline__ int64_t false_samples(const EventWindow& w, int64_t l
 // the line tardis_tpu/transport/nonhomologous.py:133 `_nonhom_pred_search`
 // returns for one lane's window: the count of false samples at every
 // kTile^2-th line, then every kTile-th line from the last coarse sample
-// before that count, then every line of one tile (the coarse levels on
-// f32-rounded prefixes, the last exact), counted by the ``mask`` lanes
-// together
+// before that count, then every line of one tile (every level on the exact
+// prefix difference, where the JAX package's coarse levels read f32-rounded
+// prefixes), counted by the ``mask`` lanes together
 __device__ __forceinline__ int64_t count_search(const EventWindow& w, int64_t lo, int64_t hi,
                                                 unsigned mask, int rank, int participants) {
   const int64_t t0 = (w.L + kTile - 1) / kTile;
   const int64_t t1 = (t0 + kTile - 1) / kTile;
   const int64_t c2 =
-      false_samples(w, lo, hi, 0, kTile * kTile, true, mask, rank, participants);
+      false_samples(w, lo, hi, 0, kTile * kTile, mask, rank, participants);
   const int64_t tile1 = c2 - 1 < 0 ? 0 : (c2 - 1 > t1 - 1 ? t1 - 1 : c2 - 1);
   const int64_t c1 =
-      false_samples(w, lo, hi, tile1 * kTile * kTile, kTile, true, mask, rank, participants);
+      false_samples(w, lo, hi, tile1 * kTile * kTile, kTile, mask, rank, participants);
   const int64_t u = tile1 * kTile + c1 - 1;
   const int64_t tile0 = u < 0 ? 0 : (u > t0 - 1 ? t0 - 1 : u);
-  const int64_t c0 = false_samples(w, lo, hi, tile0 * kTile, 1, false, mask, rank, participants);
+  const int64_t c0 = false_samples(w, lo, hi, tile0 * kTile, 1, mask, rank, participants);
   const int64_t i = tile0 * kTile + c0;
   return i < lo ? lo : (i > hi ? hi : i);
 }
@@ -473,7 +468,7 @@ struct NonhomWalker {
       int64_t b = hi;
       while (a < b) {
         const int64_t mid = (a + b) >> 1;
-        if (window_pred(win, mid, false)) b = mid;
+        if (window_pred(win, mid)) b = mid;
         else a = mid + 1;
       }
     }

@@ -13,6 +13,12 @@ the plain PyTorch version ``line_tables_plain`` only for CPU tensors.  On
 the card the tables are built in three passes over tiles of 64 lines:
 the elementwise tables and each tile's tau sums, the tiles' carries, and
 the prefix (``csrc/line_tables.cu``).
+
+Under ``detailed`` radiative rates the j_blues table takes the estimators
+where they are positive and ``w_epsilon`` times the dilute-Planck value
+elsewhere (``tardis_tpu/plasma/solver.py:458-465``): the ``estimators``
+instantiation, whose first pass reads the (L, S) estimator table beside
+its other inputs.
 """
 
 from __future__ import annotations
@@ -91,7 +97,9 @@ def beta_sobolev(tau: torch.Tensor) -> torch.Tensor:
 
 
 def line_tables_plain(static: LineStatic, level_pop: torch.Tensor, t_rad,
-                      jb_w, time_explosion: float) -> LineTables:
+                      jb_w, time_explosion: float,
+                      j_estimators: torch.Tensor | None = None,
+                      w_epsilon: float = 1e-10) -> LineTables:
     """Plain PyTorch version of K3 (same formulas and evaluation order)."""
     h_over_kt, w = _shell_inputs(t_rad, jb_w, level_pop.device)
     n_lower = level_pop[static.lower_idx.long()]
@@ -108,6 +116,8 @@ def line_tables_plain(static: LineStatic, level_pop: torch.Tensor, t_rad,
     beta = beta_sobolev(tau)
     x = torch.clamp(static.line_nu[:, None] * h_over_kt[None, :], max=700.0)
     jb = w[None, :] * (static.nu3_coef[:, None] / torch.expm1(x))
+    if j_estimators is not None:
+        jb = torch.where(j_estimators > 0, j_estimators, w_epsilon * jb)
     S = tau.shape[1]
     prefix = torch.zeros((S, tau.shape[0] + 1), dtype=F64,
                          device=tau.device)
@@ -122,7 +132,7 @@ TILE = 64
 SHELLS_BY_VALUE = 128
 _ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_double, ctypes.c_double,
                                        ctypes.c_int64, ctypes.c_int]
-             + [ctypes.c_void_p] * 7)
+             + [ctypes.c_void_p] * 7 + [ctypes.c_double, ctypes.c_void_p])
 
 
 def shell_inputs_packed(t_rad, jb_w) -> np.ndarray:
@@ -148,24 +158,32 @@ def _check_static(static: LineStatic, device) -> None:
 
 
 def line_tables(static: LineStatic, level_pop: torch.Tensor, t_rad, jb_w,
-                time_explosion: float) -> LineTables:
+                time_explosion: float,
+                j_estimators: torch.Tensor | None = None,
+                w_epsilon: float = 1e-10) -> LineTables:
     """K3 on the card; the plain version for CPU tensors.
 
     One call launches K3's three passes, one kernel each (``launches``
-    counts the kernels).  The five outputs and the passes' scratch are one
-    allocation; h / (k T_rad) and W go by value in the launch's parameters
-    up to SHELLS_BY_VALUE shells, beyond that through one pinned buffer
-    and one asynchronous copy.
+    counts the kernels, ``launches_by_variant`` by instantiation:
+    "default", or "estimators" where the j_blues take the estimators).
+    The five outputs and the passes' scratch are one allocation; h / (k
+    T_rad) and W go by value in the launch's parameters up to
+    SHELLS_BY_VALUE shells, beyond that through one pinned buffer and one
+    asynchronous copy.  ``j_estimators`` (L, S) f64, where given, selects
+    the estimators instantiation.
     """
     device = level_pop.device
     if device.type == "cpu":
         return line_tables_plain(static, level_pop, t_rad, jb_w,
-                                 time_explosion)
+                                 time_explosion, j_estimators, w_epsilon)
     if device.type != "cuda":
         raise ValueError(f"line_tables: unsupported device {device}")
     level_pop = level_pop.to(F64).contiguous()
     _check_static(static, device)
     cuda.check_cuda("line_tables", device, level_pop=(level_pop, F64))
+    if j_estimators is not None:
+        cuda.check_cuda("line_tables", device,
+                        j_estimators=(j_estimators, F64))
     L = static.line_nu.shape[0]
     S = level_pop.shape[1]
     shell = shell_inputs_packed(t_rad, jb_w)
@@ -188,13 +206,20 @@ def line_tables(static: LineStatic, level_pop: torch.Tensor, t_rad, jb_w,
         None if shell_dev is None else shell_dev.data_ptr(),
         float(SOBOLEV_COEFFICIENT), float(time_explosion), L, S,
         base, base + 8 * LS, base + 16 * LS, base + 24 * LS, base + 32 * LS,
-        base + 8 * (4 * LS + S * (L + 1)), cuda.stream(),
+        base + 8 * (4 * LS + S * (L + 1)),
+        None if j_estimators is None else j_estimators.data_ptr(),
+        float(w_epsilon), cuda.stream(),
     )
     cuda.check_launch("line_tables", err)
-    line_tables.launches += 3 if L else 0  # passes A, B and C
+    if L:  # passes A, B and C
+        line_tables.launches += 3
+        v = "default" if j_estimators is None else "estimators"
+        line_tables.launches_by_variant[v] = (
+            line_tables.launches_by_variant.get(v, 0) + 3)
     stim, tau, beta, jb = buf[:4 * LS].view(4, L, S).unbind(0)
     return LineTables(stim=stim, tau=tau, beta=beta, j_blues=jb,
                       prefix=buf[4 * LS:4 * LS + S * (L + 1)].view(S, L + 1))
 
 
 line_tables.launches = 0  # kernel launches, three a call
+line_tables.launches_by_variant = {}

@@ -34,9 +34,13 @@ weighted pool.  ``atom_data`` given as a path (the config's
 JAX package does.  The macro atom takes the absorbing-chain tables where
 they fit the device budget and K1's random walk otherwise
 (``TransportSolver.use_macro_chain``; set ``sim.transport.use_macro_chain``
-before the run to choose).  Options outside the port raise
-``NotImplementedError`` naming the option (see ``check_supported``): NLTE,
-detailed rates, helium and vpacket biasing.
+before the run to choose).  The plasma options run as in the JAX
+package: NLTE species (``plasma.nlte``, with ``coronal_approximation`` /
+``classical_nebular``), both ``helium_treatment``s and ``detailed``
+radiative rates, under which every iteration accumulates the line
+estimators and ``advance_state`` feeds their j_blues back into the plasma
+(K3's estimators instantiation).  vpacket biasing raises
+``NotImplementedError`` naming the option (see ``check_supported``).
 ``montecarlo.enable_nonhomologous_expansion`` selects
 the nonhomologous transport solver (K7), as the JAX package does.
 Continuum species run only through the Type IIP workflow
@@ -61,7 +65,9 @@ from tardis_torch.config.reader import ConfigDict
 from tardis_torch.constants import C
 from tardis_torch.cuda import resolve_device
 from tardis_torch.model.state import SimulationState
+from tardis_torch.opacities.macro_atom_solver import chain_tables_fit
 from tardis_torch.parallel.transport import packet_devices
+from tardis_torch.plasma.nlte import parse_species
 from tardis_torch.plasma.solver import PlasmaSolver
 from tardis_torch.simulation.convergence import (
     ConvergenceState,
@@ -79,6 +85,7 @@ from tardis_torch.transport.solver import (
     TransportSolver,
     solve_radiation_field,
 )
+from tardis_torch.transport.tables import NU_UNIT
 
 logger = logging.getLogger(__name__)
 
@@ -115,7 +122,6 @@ def check_supported(config: ConfigDict, continuum: bool = False) -> None:
     """Raise ``NotImplementedError`` for every option this slice refuses;
     continuum species pass only with ``continuum`` (the Type IIP
     workflow)."""
-    mc = config.montecarlo
     plasma = config.plasma
     virtual = config.spectrum.get("virtual", {}) or {}
     refused = [
@@ -124,12 +130,6 @@ def check_supported(config: ConfigDict, continuum: bool = False) -> None:
         ("plasma.continuum_interaction.species",
          not continuum and bool((plasma.get("continuum_interaction", {})
                                  or {}).get("species"))),
-        ("plasma.nlte.species",
-         bool((plasma.get("nlte", {}) or {}).get("species"))),
-        ("plasma.radiative_rates_type: detailed",
-         plasma.get("radiative_rates_type") == "detailed"),
-        ("plasma.helium_treatment",
-         plasma.get("helium_treatment", "none") not in ("none", None)),
     ]
     for name, hit in refused:
         if hit:
@@ -208,16 +208,29 @@ class Simulation:
                 selected_atoms=list(state.composition.atomic_numbers),
                 line_interaction_type=lit,
             )
+        plasma = config.plasma
+        nlte = plasma.get("nlte", {}) or {}
+        # the reference schema defaults heating_rate_data_file to the
+        # string "none"
+        heating = plasma.get("heating_rate_data_file", None)
         plasma_solver = PlasmaSolver(
             atom_data,
             state,
             device,
-            ionization=config.plasma.ionization,
-            excitation=config.plasma.excitation,
-            radiative_rates_type=config.plasma.radiative_rates_type,
-            link_t_rad_t_electron=config.plasma.get(
-                "link_t_rad_t_electron", 0.9),
-            w_epsilon=config.plasma.get("w_epsilon", 1e-10),
+            ionization=plasma.ionization,
+            excitation=plasma.excitation,
+            radiative_rates_type=plasma.radiative_rates_type,
+            link_t_rad_t_electron=plasma.get("link_t_rad_t_electron", 0.9),
+            w_epsilon=plasma.get("w_epsilon", 1e-10),
+            helium_treatment=plasma.get("helium_treatment", "none"),
+            heating_rate_data_file=(None if heating in ("none", "", None)
+                                    else heating),
+            nlte_species=[parse_species(sp) if isinstance(sp, str)
+                          else tuple(sp) for sp in nlte.get("species", [])],
+            nlte_coronal_approximation=bool(
+                nlte.get("coronal_approximation", False)),
+            nlte_classical_nebular=bool(
+                nlte.get("classical_nebular", False)),
         )
         mc = config.montecarlo
         if int(mc.get("nthreads", 1)) != 1:
@@ -259,6 +272,32 @@ class Simulation:
         """fn(simulation) is called after each iteration."""
         self._callbacks.append(fn)
 
+    @property
+    def detailed(self) -> bool:
+        return self.plasma_solver.radiative_rates_type == "detailed"
+
+    def _device_line_ok(self) -> bool:
+        """Whether the JAX package's convergence loop solves this run's
+        plasma in device-line mode (tardis_tpu/simulation/base.py:252-285):
+        the classic solver, no detailed rates, no NLTE species, no
+        continuum species and, for downbranch and macroatom, the chain
+        tables engaged (``use_macro_chain`` "auto" or True and the tables
+        fit)."""
+        t = self.transport
+        ok = (type(t) is TransportSolver
+              and not self.detailed
+              and not self.plasma_solver.nlte_species
+              and not (self.config.plasma.get("continuum_interaction", {})
+                       or {}).get("species"))
+        lit = t.line_interaction_type
+        if ok and lit in ("downbranch", "macroatom"):
+            macro = (self.atom_data.downbranch if lit == "downbranch"
+                     else self.atom_data.macro_atom)
+            ok = t.use_macro_chain in ("auto", True) and chain_tables_fit(
+                macro, self.state.no_of_shells, mode=lit,
+                line_nu_scaled=self.atom_data.line_nu / NU_UNIT)
+        return ok
+
     def _solve_plasma(self, estimator_j_blues=None):
         with record_function("tardis.plasma"):
             self.plasma_state = self.plasma_solver.update(
@@ -280,7 +319,9 @@ class Simulation:
         result = self.transport.run_iteration(
             self.state, self.plasma_state, self.atom_data,
             n_packets=n_packets, seed=self.seed, iteration=iteration,
-            need_line_estimators=False,
+            # the convergence iterations read the line estimators only
+            # under detailed rates; the final iteration always takes them
+            need_line_estimators=self.detailed,
             lum_nu_window=self._lum_nu_window(),
         )
         self.last_transport_result = result
@@ -290,7 +331,7 @@ class Simulation:
         """Invert estimators, check convergence, apply damped updates and
         re-solve the plasma."""
         with record_function("tardis.radiation_field"):
-            est_t_rad, est_w, _ = solve_radiation_field(
+            est_t_rad, est_w, est_j_blues = solve_radiation_field(
                 result, self.state, self.atom_data,
                 w_epsilon=self.plasma_solver.w_epsilon,
             )
@@ -333,7 +374,7 @@ class Simulation:
             iteration, emitted, self.state.luminosity_requested,
             self.state.t_inner,
         )
-        self._solve_plasma()
+        self._solve_plasma(est_j_blues if self.detailed else None)
         return converged
 
     def run_convergence(self):
@@ -353,12 +394,10 @@ class Simulation:
         iteration = self.iterations_executed
         # the JAX package re-solves the plasma at the final (t_rad, W) only
         # where there is none yet or its convergence loop solved it in
-        # device-line mode, a mode only the classic solver takes
-        # (tardis_tpu/simulation/base.py:256-258,435-441); the re-solve
-        # takes one more step of the n_e fixpoint, so the nonhomologous
-        # solver transports on the plasma of the last advance_state
-        if (self.plasma_state is None
-                or type(self.transport) is TransportSolver):
+        # device-line mode (tardis_tpu/simulation/base.py:433-441); the
+        # re-solve takes one more step of the n_e fixpoint, and under
+        # detailed rates it would drop the estimator j_blues
+        if self.plasma_state is None or self._device_line_ok():
             self._solve_plasma()
         result = self.transport.run_iteration(
             self.state, self.plasma_state, self.atom_data,

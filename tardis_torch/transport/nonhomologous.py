@@ -37,7 +37,8 @@ event_idx), (10,), 1e-9, 1)``):
    predicate can read true, false, true, and ``count_search`` counts false
    samples as the JAX package's three-level search does
    (``_nonhom_pred_search``), at the same sampled lines, so both packages
-   take the same line;
+   take the same line (every level on the exact prefix difference, where
+   the JAX package's coarse levels read the f32-rounded prefixes);
 4. the event line's distance by 30 f32 bisection steps of beta_los(x) =
    1 - nu_i / nu on [x0, x_boundary];
 5. a boundary crossing, a Thomson scatter or a line interaction; bulk
@@ -269,28 +270,27 @@ class _Window:
                          for f in dataclasses.fields(self)))
 
 
-def _x_req(t: NonhomTables, w: _Window, i, coarse=False):
+def _x_req(t: NonhomTables, w: _Window, i):
     """(d_req, x_req) of walk-order line ``i`` (clamped into the list): the
     distance the optical depth left after the line allows, and the chord
-    coordinate it reaches.  ``coarse`` takes the prefix difference as the
-    JAX package's coarse levels do, from the two prefixes rounded to f32;
-    else the f64 difference rounded to f32."""
+    coordinate it reaches, from the f64 prefix difference rounded to
+    f32."""
     ic = torch.clamp(i, 0, t.n_lines - 1)
     c = torch.where(w.fwd, t.prefix.reshape(-1)[w.row + ic + 1],
                     t.rev_prefix.reshape(-1)[w.row + ic + 1])
-    dC = c.float() - w.c0.float() if coarse else (c - w.c0).float()
+    dC = (c - w.c0).float()
     d_req = (w.tau_event - dC) * w.inv_chi
     return d_req, torch.clamp(w.x0 + torch.clamp(d_req, min=0.0),
                               max=X_REQ_CAP)
 
 
-def window_pred(t: NonhomTables, w: _Window, i, coarse=False):
+def window_pred(t: NonhomTables, w: _Window, i):
     """The inverted event predicate of walk-order line ``i`` (clamped into
     the list): the line lies beyond the line-of-sight velocity at x_req, or
     the optical depth is spent."""
     L = t.n_lines
     ic = torch.clamp(i, 0, L - 1)
-    d_req, x_req = _x_req(t, w, i, coarse)
+    d_req, x_req = _x_req(t, w, i)
     b_req = _beta_los(w.m, w.q, w.p2, x_req)
     nl = torch.where(w.fwd, t.line_nu[ic], t.line_nu[L - 1 - ic])
     n_row = 1.0 - nl / w.nu
@@ -317,10 +317,9 @@ def monotone_window(t: NonhomTables, w: _Window):
 
     A row's x_req = x0 + max(d_req, 0), d_req = (tau_event - dC) / chi,
     falls (weakly) as the row's index rises, since dC rises with it, in f32
-    too (rounding keeps order), and so does the coarse levels' dC.  So
-    every row the search evaluates has x_req in [a, b]: a the smaller of
-    the exact and the coarse x_req of the window's last line, b the larger
-    of those of its first.  n_row = 1 - nu_i / nu rises with the index
+    too (rounding keeps order).  So every row the search evaluates has
+    x_req in [a, b]: a the x_req of the window's last line, b that of its
+    first.  n_row = 1 - nu_i / nu rises with the index
     forward (line_nu descends) and falls backward.  If beta_los is
     non-decreasing on [a, b] (forward) or non-increasing (backward),
     b_req(i) = beta_los(x_req(i)) moves against n_row, the test n_row >
@@ -343,12 +342,8 @@ def monotone_window(t: NonhomTables, w: _Window):
     window's own: [x0, x0 + tau_event / chi], which holds every x_req an
     event could give, would send most events of such a shell to the count
     search, as electron scattering is thin across a shell."""
-    first, last = w.lo, w.hi - 1
-    ends = [_x_req(t, w, i, coarse)[1] for i in (first, last)
-            for coarse in (False, True)]
-    x_a = torch.minimum(ends[2], ends[3])
-    x_b = torch.maximum(ends[0], ends[1])
-    a, b = x_a.double(), x_b.double()
+    a = _x_req(t, w, w.hi - 1)[1].double()
+    b = _x_req(t, w, w.lo)[1].double()
     near = torch.where((a <= 0.0) & (b >= 0.0), torch.zeros_like(a),
                        torch.minimum(a.abs(), b.abs()))
     far = torch.maximum(a.abs(), b.abs())
@@ -373,28 +368,27 @@ def count_search(t: NonhomTables, w: _Window):
     levels, each counting the samples whose predicate is false (a sample
     below ``lo`` counts as false, one at ``hi`` or beyond as true), 128
     samples every TILE^2 lines, then every TILE lines from the last coarse
-    sample before the count, then every line of one tile.  The two coarse
-    levels take the prefix difference from the f32-rounded prefixes (the
-    JAX package reads the two-float pairs' hi parts there), the last the
-    exact difference.  Equal to the first true index where the predicate
-    is monotone."""
+    sample before the count, then every line of one tile.  Every level
+    takes the exact prefix difference, where the JAX package's two coarse
+    levels read the two-float pairs' hi parts: on a list whose prefix
+    reaches 1e9 those part from the f64 predicate.  Equal to the first
+    true index where the predicate is monotone."""
     L = t.n_lines
     t0 = -(-L // TILE)
     t1 = -(-t0 // TILE)
     k = torch.arange(TILE, device=w.lo.device)
     wc = w.column()
 
-    def false_samples(base, stride, coarse):
+    def false_samples(base, stride):
         idx = base[:, None] + k[None, :] * stride
-        held = (idx >= wc.lo) & ((idx >= wc.hi)
-                                 | window_pred(t, wc, idx, coarse))
+        held = (idx >= wc.lo) & ((idx >= wc.hi) | window_pred(t, wc, idx))
         return (~held).sum(1)
 
-    c2 = false_samples(torch.zeros_like(w.lo), TILE * TILE, True)
+    c2 = false_samples(torch.zeros_like(w.lo), TILE * TILE)
     tile1 = torch.clamp(c2 - 1, 0, t1 - 1)
-    c1 = false_samples(tile1 * TILE * TILE, TILE, True)
+    c1 = false_samples(tile1 * TILE * TILE, TILE)
     tile0 = torch.clamp(tile1 * TILE + c1 - 1, 0, t0 - 1)
-    c0 = false_samples(tile0 * TILE, 1, False)
+    c0 = false_samples(tile0 * TILE, 1)
     return torch.minimum(torch.maximum(tile0 * TILE + c0, w.lo), w.hi)
 
 

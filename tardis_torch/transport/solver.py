@@ -456,11 +456,8 @@ class TransportSolver:
         est_nubar = res.est_nubar.cpu().numpy() * e0 * ct * NU_UNIT
         j_blue = edot = None
         if need_line_estimators:
-            # scan along the innermost dimension, (2S, L+1): PyTorch's scan
-            # over the outer dimension of (L+1, 2S) is far slower on the card
-            diff = res.line_diff.reshape(L + 1, 2 * S).T.contiguous()
-            cum = torch.cumsum(diff, dim=1)[:, :L].T.contiguous()
-            cum = cum.cpu().numpy().reshape(L, S, 2)
+            with record_function("tardis.line_estimators"):
+                cum = read_line_estimators(res.line_diff, L, S)
             # under full relativity the increments carry no nu_i factor
             nu_scaled = (1.0 if full_relativity else
                          (atom_data.line_nu / NU_UNIT)[:, None])
@@ -630,6 +627,17 @@ def reconstruct_continuum_estimators(res, atom_data, sim_state, n_packets,
         photo_ion_statistics=stats,
         ff_heating=ff_heating * norm * H,
     )
+
+
+def read_line_estimators(line_diff: torch.Tensor, L: int, S: int):
+    """The line estimators on the host, (L, S, 2) f64 [j_blue, edot], from
+    K1's or K7's line difference array ((L+1) S 2,): its prefix along the
+    lines, then one copy to the host."""
+    # scan along the innermost dimension, (2S, L+1): PyTorch's scan over
+    # the outer dimension of (L+1, 2S) is far slower on the card
+    diff = line_diff.reshape(L + 1, 2 * S).T.contiguous()
+    cum = torch.cumsum(diff, dim=1)[:, :L].T.contiguous()
+    return cum.cpu().numpy().reshape(L, S, 2)
 
 
 def solve_radiation_field(result: TransportResult, sim_state, atom_data,

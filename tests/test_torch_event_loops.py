@@ -415,13 +415,13 @@ def k7_windows(k7, seed, n=32768):
                             tau_event).window, shell
 
 
-def held_rows(tt, w, coarse):
+def held_rows(tt, w):
     """The search's predicate over every line of each window (false below
     lo, true from hi on), (n, widest window) from each lane's lo."""
     width = int((w.hi - w.lo).max())
     idx = w.lo[:, None] + torch.arange(width + 1)[None, :]
     wc = w.column()
-    return (idx >= wc.hi) | tnh.window_pred(tt, wc, idx, coarse)
+    return (idx >= wc.hi) | tnh.window_pred(tt, wc, idx)
 
 
 @pytest.mark.parametrize("seed", K7_SEEDS)
@@ -456,7 +456,7 @@ def test_k7_count_search_matches_jax(k7, seed):
             arg(w.tau_event), arg(w.x0), arg(w.p2), arg(w.m), arg(w.q),
             arg(w.nu), forward=forward))
     assert np.array_equal(found.numpy(), jax_found)
-    held = held_rows(tt, w, coarse=False)
+    held = held_rows(tt, w)
     turns = ~(held[:, 1:] >= held[:, :-1]).all(1)
     steps = int(np.ceil(np.log2(tt.n_lines + 1))) + 1
     bisect = tnh._bisect(tt, w, steps)
@@ -470,8 +470,8 @@ def test_k7_count_search_matches_jax(k7, seed):
 def test_k7_guard_sends_no_turning_window_to_the_bisection(k7, seed):
     """``monotone_window`` (the sign of beta_los' at the interval's nearest
     and farthest |x|) holds only where the predicate, as the card
-    evaluates it in f32 with the exact and with the coarse prefix
-    differences, is false then true over the whole window; it sends the
+    evaluates it in f32 from the exact prefix difference, is false then
+    true over the whole window; it sends the
     windows that turn back to the count search, and takes the bisection
     for most forward windows of the shells whose velocity rises outward
     (not all: with q = beta_in - m r_in < 0, m + q / p turns negative for
@@ -479,10 +479,9 @@ def test_k7_guard_sends_no_turning_window_to_the_bisection(k7, seed):
     tt = k7["scatter"]["tt"]
     w, shell = k7_windows(k7, seed)
     proven = tnh.monotone_window(tt, w) & (w.lo < w.hi)
-    for coarse in (False, True):
-        held = held_rows(tt, w, coarse)
-        monotone = (held[:, 1:] >= held[:, :-1]).all(1)
-        assert bool(monotone[proven].all()), coarse
+    held = held_rows(tt, w)
+    monotone = (held[:, 1:] >= held[:, :-1]).all(1)
+    assert bool(monotone[proven].all())
     rising = tt.m_grad[shell] > 0.0
     assert float(proven[rising & w.fwd].float().mean()) > 0.5
     assert 0 < int(proven.sum()) < proven.shape[0]

@@ -111,7 +111,8 @@ def test_formal_integral_solver_defaults_to_the_card(monkeypatch):
 def test_refused_options_name_themselves():
     cfg = copy.deepcopy(CONFIG)
     cfg["plasma"]["helium_treatment"] = "recomb-nlte"
-    with pytest.raises(NotImplementedError, match="helium_treatment"):
+    cfg["plasma"]["nlte"] = {"species": ["He 1"]}
+    with pytest.raises(ValueError, match="helium_treatment"):
         run_tardis(cfg, device="cpu")
     cfg = copy.deepcopy(CONFIG)
     cfg["spectrum"]["virtual"] = {"enable_biasing": True}

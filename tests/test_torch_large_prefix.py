@@ -6,13 +6,16 @@ multiplets) gives shell 0 a tau prefix of 1.42e9, where one f32 ulp is
 128 and tau_event is ~1.  The plain K1 takes the prefix difference in f64
 and rounds it to f32, so its event line must be the line an exact f64
 scan of the event predicate finds, on every event state that a run of
-the chain and of the walk sampler reaches.  Beside it the test reports,
-without asserting, the JAX package's per-packet agreement with the port
-on the same pool and key (its coarse search levels read the f32-rounded
-prefix; ``ROADMAP.md`` section 3) and K7's count-search agreement with
-the f64-prefix predicate on sampled nonhomologous windows.  Run it as a
-script (``JAX_PLATFORMS=cpu python -m tests.test_torch_large_prefix``)
-to print those readings.
+the chain and of the walk sampler reaches.  K7's count search reads the
+f64 difference at every level too: on sampled nonhomologous windows it
+takes the first line where the f64-prefix predicate holds, except where
+that predicate turns back, where it takes the count of false samples by
+design.  Beside them the script reports the JAX package's per-packet
+agreement with the port on the same pool and key (its coarse search
+levels read the f32-rounded prefix; ``ROADMAP.md`` section 3) and K7's
+agreement with the first true line.  Run it as a script
+(``JAX_PLATFORMS=cpu python -m tests.test_torch_large_prefix``) to print
+those readings.
 """
 
 import functools
@@ -176,18 +179,20 @@ def jax_agreement(sampler, res):
                          & (np.abs(np.abs(out[:, 0]) - nu_j) <= 1e-5 * nu_j)))
 
 
-def k7_count_search_agreement(n=4096, seed=3, chunk=1024):
-    """Share of sampled nonhomologous windows on this list (the
-    mixed-gradient law of tests/test_torch_nonhomologous.py, half in its
-    steep shell 0) whose count-search line is the first line of the
-    window where the f64-prefix predicate holds (a scan of the window)."""
+@functools.lru_cache(maxsize=None)
+def k7_count_search_windows(n=4096, seed=3, chunk=1024):
+    """Sampled nonhomologous windows on this list (the mixed-gradient law
+    of tests/test_torch_nonhomologous.py, half in its steep shell 0):
+    the tables, the windows, their shells, each window's count-search
+    line and the first line of the window where the f64-prefix predicate
+    holds (a scan of the window; hi if none)."""
     p = problem()
     state = p["state"]
     tgeom = TorchNonhomGeometry(**mixed_gradient_kw(state.geometry))
     tps = tnh.nonhomologous_plasma_state(port_plasma(p["ps"]), tgeom)
     tt = tnh.build_nonhom_tables(tgeom, tps, p["port_atom"], "scatter")
     pool = tuple(torch.as_tensor(np.array(a)) for a in p["pool"])
-    w, _ = k7_windows({"scatter": {"tt": tt}, "pool": pool}, seed, n)
+    w, shell = k7_windows({"scatter": {"tt": tt}, "pool": pool}, seed, n)
     found = tnh.count_search(tt, w)
     exact = w.hi.clone()
     pending = w.lo < w.hi
@@ -204,7 +209,56 @@ def k7_count_search_agreement(n=4096, seed=3, chunk=1024):
         done = hit | (ws.lo + start + chunk >= ws.hi)
         pending[sel[done]] = False
         start += chunk
+    return tt, w, shell, found, exact
+
+
+def k7_count_search_agreement(n=4096, seed=3):
+    """Share of the sampled windows whose count-search line is the first
+    line where the f64-prefix predicate holds."""
+    *_, found, exact = k7_count_search_windows(n, seed)
     return float((found == exact).double().mean())
+
+
+def f64_count_line(tt, w, lo, hi):
+    """The three-level count of false samples (tiles of
+    ``nonhomologous.TILE``; a sample below lo false, at hi or beyond
+    true), one window at a time on the f64-prefix predicate."""
+    tile = tnh.TILE
+    t0 = -(-tt.n_lines // tile)
+    t1 = -(-t0 // tile)
+
+    def false_samples(base, stride):
+        idx = base + torch.arange(tile) * stride
+        held = (idx >= lo) & ((idx >= hi)
+                              | tnh.window_pred(tt, w, idx[None, :])[0])
+        return int((~held).sum())
+
+    tile1 = min(max(false_samples(0, tile * tile) - 1, 0), t1 - 1)
+    c1 = false_samples(tile1 * tile * tile, tile)
+    tile0 = min(max(tile1 * tile + c1 - 1, 0), t0 - 1)
+    return min(max(tile0 * tile + false_samples(tile0 * tile, 1), lo), hi)
+
+
+def test_k7_count_search_takes_the_f64_line():
+    """K7's count search reads the f64 prefix difference at every level:
+    on the sampled windows it takes the first line where the f64-prefix
+    predicate holds, and each window where it does not is named by its
+    cause: the predicate turns back over it (a steep shell-0 window,
+    which the guard sends to the count search), where the count search
+    takes the count of false samples on that predicate, by design."""
+    tt, w, shell, found, exact = k7_count_search_windows()
+    assert tt.prefix[0, -1] > 5e8  # one f32 ulp: 64
+    assert int((w.lo < w.hi).sum()) > 2048
+    parted = (found != exact).nonzero()[:, 0]
+    assert parted.numel() <= 4, parted  # 1 of 4,096 on seed 3
+    for i in parted.tolist():
+        wi = w.take(torch.tensor([i])).column()
+        lo, hi = int(w.lo[i]), int(w.hi[i])
+        pred = tnh.window_pred(tt, wi, torch.arange(lo, hi)[None, :])[0]
+        assert bool((pred[1:].long() < pred[:-1].long()).any()), i
+        assert not bool(tnh.monotone_window(tt, w.take(torch.tensor([i]))))
+        assert int(shell[i]) == 0
+        assert int(found[i]) == f64_count_line(tt, wi, lo, hi), i
 
 
 if __name__ == "__main__":
