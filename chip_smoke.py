@@ -6,8 +6,9 @@ Usage (from the repository root, one CUDA card):  python3 chip_smoke.py
 Phases, one printed line each (plus one line per iteration):
   0. hdf_loader: whether h5py and pandas import here, which decides how
      the walk path takes its atomic data (a carsus file through
-     atom_data_from_hdf, else atom_data_from_arrays), and the import that
-     failed;
+     atom_data_from_hdf, else atom_data_from_arrays) and whether the
+     cli_path runs its HDF step (--hdf, a checkpoint and a resume), and
+     the import that failed;
   1. header: the card (nvidia-smi), torch and CUDA versions, the rates of
      the bounds (the integer rate read from the card), and the
      parallel nvcc build of the kernel libraries in tardis_torch/csrc/
@@ -120,7 +121,28 @@ Phases, one printed line each (plus one line per iteration):
      convergence iterations of 2,097,152 packets and a final one of
      4,194,304 without virtual packets, then numerical-nlte with a
      heating-rate file written here over one convergence iteration, each
-     with the helium solve's host seconds;
+     with the helium solve's host seconds; then the model-file path:
+     run_tardis on a YAML whose csvy_model is a csvy written here (20
+     shells over 1.1e4-2e4 km/s, branch85_w7 density tabulated at 1 day,
+     O / Mg outside, Si / S / Ar / Ca in the middle, Ni56 0.6 in the
+     inner 5 shells falling to 0 by shell 10 and a small Co56 column,
+     isotopes at 0 days, read at 13 days), on the bench problem's
+     synthetic data with Fe / Co / Ni (200 levels, jumps up to 60, ~2.7e5
+     lines), 2 convergence iterations of 2,097,152 packets and the
+     production final iteration: shell 0's decayed Ni / Co / Fe
+     fractions (Ni held to the Bateman solution), K1-K5 launched, the
+     bands of PERF.md section 2; then the cli_path:
+     tardis_torch.cli.main in this process with no --device (so on the
+     card) on a YAML naming a CMFGEN model of O-Ca written here
+     (structure type file, v_inner_boundary 11,700 km/s: shell 0 dropped,
+     shell 1 trimmed) on the default synthetic data, one convergence
+     iteration and a final one of 2,097,152 packets, --spectrum-kind
+     virtual: exit code 0, K1-K4 launched, the spectrum file finite and
+     equal row for row to the run's virtual spectrum, 19 shells; where
+     h5py imports, --hdf (read back) and a run checkpointed every
+     iteration, stopped after its first and resumed from the file,
+     within 1e-5 of the uninterrupted run in t_rad, W and t_inner, else
+     a line "hdf: skipped, <the failed import>";
   7. the IIP path: TypeIIPWorkflow on the IIP problem, 3 convergence
      iterations of 1,048,576 packets, each with its thermal balance (25
      evaluations at most), and the final iteration; per iteration its
@@ -350,6 +372,34 @@ del HELIUM_CONFIG["spectrum"]["integrated"]
 NUMERICAL_HELIUM_CONFIG = copy.deepcopy(HELIUM_CONFIG)
 NUMERICAL_HELIUM_CONFIG["plasma"]["helium_treatment"] = "numerical-nlte"
 NUMERICAL_HELIUM_CONFIG["montecarlo"]["iterations"] = 2
+# the model-file path: a csvy written here (MODEL_FILE_SHELLS shells over
+# the bench velocities, branch85_w7 density tabulated at 1 day, O / Mg
+# outside, Si / S / Ar / Ca in the middle, Ni56 0.6 in the inner 5 shells
+# falling to 0 by shell 10, a small Co56 column, isotopes at 0 days) read
+# through csvy_model at 13 days, on the bench problem's synthetic data
+# with the iron group; 2 convergence iterations and the production final
+# iteration
+MODEL_FILE_ELEMENTS = (8, 12, 14, 16, 18, 20, 26, 27, 28)
+MODEL_FILE_SHELLS = 20
+MODEL_FILE_ITERATIONS = 3
+MODEL_FILE_CONFIG = copy.deepcopy(BENCH_CONFIG)
+del MODEL_FILE_CONFIG["model"]
+MODEL_FILE_CONFIG["montecarlo"]["iterations"] = MODEL_FILE_ITERATIONS
+# the command-line path: a CMFGEN model of O-Ca written here, named by
+# model.structure (type file) with a v_inner_boundary that drops shell 0
+# and trims shell 1, on the default synthetic data; one convergence
+# iteration and a final one, both of N_PACKETS, with 2 virtual packets
+CLI_ITERATIONS = 2
+CLI_V_INNER_KMS = 11700.0
+CLI_CONFIG = copy.deepcopy(BENCH_CONFIG)
+CLI_CONFIG["montecarlo"].update(iterations=CLI_ITERATIONS,
+                                last_no_of_packets=N_PACKETS)
+del CLI_CONFIG["model"]["abundances"]  # the model file carries them
+CLI_CONFIG["spectrum"] = {"start": "500 angstrom", "stop": "20000 angstrom",
+                          "num": 1000}
+# the resume after a crash, against the uninterrupted run: the sharded
+# path's bar, since K1's racing f64 atomics part two runs in the last bits
+RESUME_RTOL = 1e-5
 
 
 def line_name(kernel, variant):
@@ -1734,6 +1784,289 @@ def run_helium_path(device, k2_name, k1, k1_walk):
         raise AssertionError("helium path: numerical-nlte populations")
     check_launches("numerical_helium_path", numerical, expected)
     return recomb, numerical
+
+
+def model_edges_kms(n_shells):
+    """The bench problem's shell edges [km/s]."""
+    return np.linspace(1.1e4, 2.0e4, n_shells + 1)
+
+
+def model_file_columns(n_shells):
+    """Per shell, the model file's mass-fraction columns: Ni56 0.6 in the
+    inner 5 shells, falling to 0 by shell 10, Co56 a thirtieth of it, and
+    the rest O / Mg weighted outward, Si / S / Ar / Ca inward."""
+    s = np.arange(n_shells, dtype=np.float64)
+    ni = 0.6 * np.clip((10.0 - s) / 5.0, 0.0, 1.0)
+    co = ni / 30.0
+    out = (s / (n_shells - 1)) ** 2
+    weights = {"O": 0.1 + 0.6 * out, "Mg": 0.02 + 0.08 * out,
+               "Si": 0.55 - 0.5 * out, "S": 0.22 - 0.2 * out,
+               "Ar": 0.045 - 0.04 * out, "Ca": 0.045 - 0.04 * out}
+    total = sum(weights.values())
+    cols = {k: (1.0 - ni - co) * w / total for k, w in weights.items()}
+    return {**cols, "Ni56": ni, "Co56": co}
+
+
+def write_model_csvy(path, n_shells):
+    """The model-file path's csvy: one row an edge, the first row's
+    density and fractions placeholders (the reader drops them)."""
+    from tardis_torch.constants import DAY
+    from tardis_torch.model.density import calculate_density
+
+    edges = model_edges_kms(n_shells)
+    mid = 0.5 * (edges[:-1] + edges[1:]) * 1e5
+    density = calculate_density({"type": "branch85_w7"}, mid, DAY)
+    cols = model_file_columns(n_shells)
+    rows = [",".join(["velocity", "density", *cols])]
+    for i, v in enumerate(edges):
+        j = max(i - 1, 0)
+        rows.append(",".join(repr(float(x)) for x in (
+            v, density[j], *(c[j] for c in cols.values()))))
+    with open(path, "w") as fh:
+        fh.write("---\nname: model_file_path\nmodel_density_time_0: 1 day\n"
+                 "model_isotope_time_0: 0 day\ndatatype:\n  fields:\n"
+                 "    - {name: velocity, unit: km/s}\n"
+                 "    - {name: density, unit: g/cm^3}\n"
+                 + "".join(f"    - {{name: {c}}}\n" for c in cols)
+                 + "---\n" + "\n".join(rows) + "\n")
+
+
+def write_yaml(path, config):
+    import yaml
+
+    with open(path, "w") as fh:
+        yaml.safe_dump(config, fh)
+
+
+
+def run_model_file_path(device, k1, k1_walk, k2_name, k4_name):
+    """run_tardis on a YAML whose csvy_model is the csvy written here, on
+    the bench problem's synthetic data with Fe / Co / Ni (200 levels,
+    jumps up to 60); shell 0's decayed Ni / Co / Fe fractions printed, Ni
+    held to the Bateman solution (0.6 exp(-ln 2 t / t_half)); K1-K5 must
+    launch and the bands of PERF.md section 2 hold."""
+    import tempfile
+
+    from tardis_torch.atomic.synthetic import make_synthetic_atom_data
+    from tardis_torch.config.reader import config_from_yaml
+    from tardis_torch.model.decay import _HALF_LIVES, LN2
+    from tardis_torch.model.state import SimulationState
+
+    t = time.perf_counter()
+    atom = make_synthetic_atom_data(
+        atomic_numbers=MODEL_FILE_ELEMENTS, n_levels=200,
+        max_level_jump=60).prepare(selected_atoms=list(MODEL_FILE_ELEMENTS),
+                                   line_interaction_type="macroatom")
+    (conv, final), chain = helium_k1_lines(atom, MODEL_FILE_SHELLS, k1,
+                                           k1_walk)
+    with tempfile.TemporaryDirectory() as tmp:
+        csvy = os.path.join(tmp, "model.csvy")
+        write_model_csvy(csvy, MODEL_FILE_SHELLS)
+        config = dict(MODEL_FILE_CONFIG, csvy_model=csvy)
+        path = os.path.join(tmp, "model_file.yml")
+        write_yaml(path, config)
+        state = SimulationState.from_config(config_from_yaml(path))
+        zs = [int(z) for z in state.composition.atomic_numbers]
+        shell0 = {sym: float(state.composition.mass_fractions[zs.index(z), 0])
+                  for sym, z in (("Ni", 28), ("Co", 27), ("Fe", 26))}
+        t_exp = state.time_explosion
+        ni_bateman = 0.6 * math.exp(-LN2 / _HALF_LIVES["Ni56"][0] * t_exp)
+        say("model_file_problem", lines=atom.n_lines, levels=atom.n_levels,
+            shells=state.no_of_shells, elements=zs,
+            setup_s=time.perf_counter() - t, chain_tables=chain,
+            k1_lines=[conv, final], shell0_mass_fractions=shell0,
+            ni_bateman=ni_bateman)
+        if (zs != list(MODEL_FILE_ELEMENTS)
+                or state.no_of_shells != MODEL_FILE_SHELLS
+                or abs(shell0["Ni"] / ni_bateman - 1.0) > 1e-12
+                or not shell0["Co"] > shell0["Fe"] > 0.0):
+            raise AssertionError(f"model file path: decayed composition "
+                                 f"{zs} {shell0} (Ni {ni_bateman})")
+        expected = {"line_tables": None, k2_name: MODEL_FILE_ITERATIONS,
+                    conv: MODEL_FILE_ITERATIONS - 1, final: 1, k4_name: 1,
+                    "formal_integral": 1}
+        sim, launches, _ = run_path("model_file_path", path, atom, device,
+                                    expected)
+    if sim.state.no_of_shells != MODEL_FILE_SHELLS:
+        raise AssertionError("model file path: shells")
+    return launches
+
+
+def write_cmfgen_model(path, n_shells):
+    """The command-line path's CMFGEN model (t0 = 1 day): O-Ca only,
+    branch85_w7 densities at 1 day, stratified as the model-file path's
+    without the iron group."""
+    from tardis_torch.constants import DAY
+    from tardis_torch.model.density import calculate_density
+
+    edges = model_edges_kms(n_shells)
+    mid = 0.5 * (edges[:-1] + edges[1:]) * 1e5
+    density = calculate_density({"type": "branch85_w7"}, mid, DAY)
+    cols = {k: v for k, v in model_file_columns(n_shells).items()
+            if not k[-1].isdigit()}
+    total = sum(cols.values())
+    lines = ["t0: 1.0 day",
+             "Index velocity temperature densities electron_densities "
+             + " ".join(cols),
+             "- km/s K g/cm^3 /cm^3" + " 1" * len(cols)]
+    for i, v in enumerate(edges):
+        j = max(i - 1, 0)
+        lines.append(" ".join(str(x) for x in (
+            i, repr(float(v)), 11000.0 - 150.0 * j, repr(float(density[j])),
+            1e9, *(repr(float(c[j] / total[j])) for c in cols.values()))))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+@contextlib.contextmanager
+def captured_runs():
+    """The simulations run_tardis returns inside the block (the command
+    line calls it)."""
+    from tardis_torch.simulation import base
+
+    runs, run = [], base.run_tardis
+
+    def recording(*args, **kw):
+        runs.append(run(*args, **kw))
+        return runs[-1]
+
+    base.run_tardis = recording
+    try:
+        yield runs
+    finally:
+        base.run_tardis = run
+
+
+@contextlib.contextmanager
+def kept_logger(name="tardis_torch"):
+    """The logger tree as it was before the block (the command line
+    configures it)."""
+    import logging
+
+    lg = logging.getLogger(name)
+    handlers, level, propagate = list(lg.handlers), lg.level, lg.propagate
+    try:
+        yield
+    finally:
+        lg.handlers[:] = handlers
+        lg.setLevel(level)
+        lg.propagate = propagate
+
+
+def run_cli_path(device, expected, hdf, failed_import):
+    """tardis_torch.cli.main on a YAML naming the CMFGEN model written here
+    (structure type file, v_inner_boundary inside shell 1), in this
+    process and with no --device, so on the card by default; launch
+    counts reset just before and read just after.  The spectrum file must
+    be finite and equal, row for row, to the run's virtual spectrum, and
+    the window must leave MODEL_FILE_SHELLS - 1 shells.  Where h5py
+    imports, the same call writes --hdf (read back), then a run
+    checkpointed every iteration stops after its first iteration, resumes
+    from the file and must end within RESUME_RTOL of the uninterrupted
+    run; else one line says the HDF step was skipped and why."""
+    import tempfile
+
+    from tardis_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "model.cmfgen.csv")
+        write_cmfgen_model(model, MODEL_FILE_SHELLS)
+        config = copy.deepcopy(CLI_CONFIG)
+        config["model"]["structure"] = {
+            "type": "file", "filetype": "cmfgen", "filename": model,
+            "v_inner_boundary": f"{CLI_V_INNER_KMS} km/s"}
+        path = os.path.join(tmp, "cli.yml")
+        write_yaml(path, config)
+        spectrum = os.path.join(tmp, "spectrum.dat")
+        argv = [path, spectrum, "--spectrum-kind", "virtual",
+                "--log-level", "WARNING"]
+        if hdf:
+            argv += ["--hdf", os.path.join(tmp, "cli.h5")]
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with captured_runs() as runs, kept_logger():
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        sim = runs[0]
+        rows = np.loadtxt(spectrum)
+        spec = sim.spectrum_virtual
+        wl = spec.wavelength * 1e8
+        order = np.argsort(wl)
+        want = np.column_stack([wl[order], spec.luminosity_lambda[order]])
+        equal = bool(rows.shape == want.shape
+                     and np.array_equal(rows, want))
+        say("cli_path", rc=rc, wall_s=wall, launches=launches,
+            device=str(sim.plasma_solver.device),
+            shells=sim.state.no_of_shells,
+            v_inner_kms=float(sim.state.geometry.v_inner[0]) / 1e5,
+            spectrum_rows=int(rows.shape[0]),
+            spectrum_finite=bool(np.isfinite(rows).all()),
+            spectrum_equal=equal)
+        if rc != 0 or sim.plasma_solver.device.type != "cuda":
+            raise AssertionError(f"cli path: rc {rc} on "
+                                 f"{sim.plasma_solver.device}")
+        if not (equal and np.isfinite(rows).all()):
+            raise AssertionError("cli path: the spectrum file is not the "
+                                 "run's virtual spectrum")
+        if (sim.state.no_of_shells != MODEL_FILE_SHELLS - 1
+                or sim.state.geometry.v_inner[0] != CLI_V_INNER_KMS * 1e5):
+            raise AssertionError("cli path: the velocity window")
+        check_launches("cli_path", launches, expected)
+        if not hdf:
+            print(f"hdf: skipped, {failed_import}", flush=True)
+            return launches
+        check_cli_hdf(argv[-1], sim, path, device, tmp)
+    return launches
+
+
+def check_cli_hdf(hdf_path, sim, config_path, device, tmp):
+    """The --hdf file holds the run's state, and a run checkpointed every
+    iteration, stopped after its first and resumed from the file, ends
+    where the uninterrupted run does."""
+    from tardis_torch.config.reader import config_from_yaml
+    from tardis_torch.io.hdf import load_simulation_state, resume_simulation
+    from tardis_torch.simulation.base import Simulation
+
+    state = load_simulation_state(hdf_path)
+    if not np.array_equal(state["t_radiative"], sim.state.t_radiative):
+        raise AssertionError("cli path: the --hdf file's t_rad")
+    config = config_from_yaml(config_path)
+    config.montecarlo.iterations = 3
+
+    def simulation():
+        return Simulation.from_config(config, atom_data=sim.atom_data,
+                                      device=device)
+
+    class Stop(Exception):
+        pass
+
+    def crash(s):
+        if s.iterations_executed == 1:
+            raise Stop
+
+    checkpoint = os.path.join(tmp, "run.ckpt.h5")
+    with torch.no_grad():
+        full = simulation().run_convergence()
+        first = simulation()
+        first.add_callback(crash)
+        try:
+            first.run_convergence(checkpoint_path=checkpoint)
+        except Stop:
+            pass
+        resumed = simulation()
+        resume_simulation(resumed, checkpoint)
+        resumed.run_convergence(checkpoint_path=checkpoint)
+    rels = {name: max_rel(getattr(resumed.state, name),
+                          getattr(full.state, name))
+            for name in ("t_radiative", "dilution_factor", "t_inner")}
+    say("cli_resume", iterations=resumed.iterations_executed,
+        max_rel=rels, bar=RESUME_RTOL)
+    if (resumed.iterations_executed != full.iterations_executed
+            or max(rels.values()) > RESUME_RTOL):
+        raise AssertionError(f"cli path: resume {rels}")
 
 
 def build_iip_problem():
@@ -3356,6 +3689,13 @@ def main() -> int:
                                 WALK_ITERATIONS - 1,
                             k1_walk["final"]["name"]: 1,
                             k4["main"]["name"]: 1, "formal_integral": 1}
+        # the command-line path: K3, K2 and K1 as the main path's, one
+        # convergence iteration and the final one with K4, no K5
+        expected["cli"] = {"line_tables": None,
+                           k2["simple"]["name"]: CLI_ITERATIONS,
+                           k1["main"]["name"]: CLI_ITERATIONS - 1,
+                           k1["main_final"]["name"]: 1,
+                           k4["main"]["name"]: 1}
         launches = {}
         sim, launches["main"], wall = run_path("main_path", BENCH_CONFIG,
                                                atom, device,
@@ -3381,6 +3721,14 @@ def main() -> int:
         launches["helium"], launches["numerical_helium"] = run_helium_path(
             device, k2["simple"]["name"], k1, k1_walk)
         torch.cuda.empty_cache()
+        t = time.perf_counter()
+        launches["model_file"] = run_model_file_path(
+            device, k1, k1_walk, k2["simple"]["name"], k4["main"]["name"])
+        torch.cuda.empty_cache()
+        launches["cli"] = run_cli_path(device, expected["cli"], hdf,
+                                       failed_import)
+        torch.cuda.empty_cache()
+        say("model_io_phases", wall_s=time.perf_counter() - t)
         launches["iip"] = run_iip_path("iip_path", IIP_CONFIG, iip_atom,
                                        device, expected["iip"])
         torch.cuda.empty_cache()

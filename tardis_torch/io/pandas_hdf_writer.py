@@ -13,9 +13,10 @@ arrays, ``block0_items``/``block0_values`` data blocks, and the PyTables
 bookkeeping attributes (CLASS/VERSION/FLAVOR/pandas_type/...).
 
 The inverse of :mod:`tardis_torch.atomic.pandas_hdf`; structural attrs
-match pandas ``GenericFixed`` (pandas_version 0.15.2 layout).  pandas is
-imported inside the functions, so the rest of the port never needs it;
-``simulation_to_tardis_hdf`` is not ported yet.
+match pandas ``GenericFixed`` (pandas_version 0.15.2 layout).  pandas and
+h5py are imported inside the functions, so the rest of the port never
+needs them.  ``simulation_to_tardis_hdf`` writes a finished simulation in
+the reference's layout with the JAX package's keys.
 """
 
 from __future__ import annotations
@@ -23,6 +24,14 @@ from __future__ import annotations
 import pickle
 
 import numpy as np
+
+
+def host_array(value):
+    """A host numpy array of ``value`` (a torch tensor is copied from its
+    device)."""
+    if hasattr(value, "detach"):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
 
 
 def _grp_attrs(grp, pandas_type: str):
@@ -180,3 +189,154 @@ def write_elements(f, path: str, elements: dict):
         write_series(
             f, f"{path}/scalars", pd.Series(scalars, name="value")
         )
+
+
+def simulation_to_tardis_hdf(sim, path: str, name: str = "simulation"):
+    """Write a finished Simulation in the reference's HDF layout
+    (group names per the reference classes' ``hdf_properties``:
+    simulation/base.py:125, model/base.py:85,
+    montecarlo_transport_state.py:16, spectrum/base.py:15), with the JAX
+    package's keys; the plasma's line tables come from the device here."""
+    import h5py
+    import pandas as pd
+
+    st = sim.state
+    with h5py.File(path, "w") as f:
+        f.attrs["PYTABLES_FORMAT_VERSION"] = np.bytes_(b"2.1")
+        f.attrs["CLASS"] = np.bytes_(b"GROUP")
+        f.attrs["TITLE"] = np.bytes_(b"")
+        f.attrs["VERSION"] = np.bytes_(b"1.0")
+        base = f"/{name}"
+        write_elements(
+            f,
+            f"{base}/simulation_state",
+            {
+                "t_inner": float(st.t_inner),
+                "time_explosion": float(st.time_explosion),
+                "dilution_factor": np.asarray(st.dilution_factor),
+                "t_radiative": np.asarray(st.t_radiative),
+                "v_inner": np.asarray(st.geometry.v_inner),
+                "v_outer": np.asarray(st.geometry.v_outer),
+                "r_inner": np.asarray(st.geometry.r_inner),
+                "density": np.asarray(st.composition.density),
+                "abundance": pd.DataFrame(st.composition.mass_fractions),
+            },
+        )
+        ps = getattr(sim, "plasma_state", None)
+        if ps is not None:
+            atom = sim.atom_data
+            lvl_idx = pd.MultiIndex.from_arrays(
+                [atom.level_z, atom.level_ion, atom.level_number],
+                names=["atomic_number", "ion_number", "level_number"],
+            )
+            write_elements(
+                f,
+                f"{base}/plasma",
+                {
+                    "electron_densities": pd.Series(ps.electron_densities),
+                    "t_electrons": pd.Series(ps.t_electrons),
+                    "t_rad": pd.Series(np.asarray(st.t_radiative)),
+                    "w": pd.Series(np.asarray(st.dilution_factor)),
+                    "tau_sobolevs": pd.DataFrame(host_array(ps.tau_sobolev)),
+                    "j_blues": pd.DataFrame(host_array(ps.j_blues)),
+                    "level_number_density": pd.DataFrame(
+                        np.asarray(ps.level_number_density), index=lvl_idx
+                    ),
+                    "ion_number_density": pd.DataFrame(
+                        np.asarray(ps.ion_number_density)
+                    ),
+                },
+            )
+        res = getattr(sim, "last_transport_result", None)
+        if res is not None:
+            tpath = f"{base}/transport/transport_state"
+            L = sim.atom_data.n_lines
+            S = st.no_of_shells
+            elements = {
+                "time_of_simulation": float(res.time_of_simulation),
+                "output_nu": np.asarray(res.output_nu),
+                "output_energy": np.asarray(res.output_energy),
+                "j_estimator": np.asarray(res.j_estimator),
+                "nu_bar_estimator": np.asarray(res.nu_bar_estimator),
+                "packet_luminosity": np.asarray(res.output_energy)
+                / float(res.time_of_simulation),
+                "emitted_packet_mask": np.asarray(res.output_status) == 1,
+            }
+            # None during convergence iterations when the line-estimator
+            # readback was skipped (run_final always materializes it)
+            if res.j_blue_estimator is not None:
+                elements["j_blue_estimator"] = pd.DataFrame(
+                    np.asarray(res.j_blue_estimator).reshape(L, S)
+                )
+            vp = getattr(res, "vpackets", None)
+            if vp is not None:
+                # reference vpacket_hdf_properties
+                # (montecarlo_transport_state.py:33-44)
+                elements.update(vp)
+            li = getattr(res, "last_interaction", None)
+            if li is not None:
+                elements.update(
+                    {
+                        "last_interaction_type": li["type"],
+                        "last_interaction_in_nu": li["in_nu"],
+                        "last_interaction_in_r": li["r"],
+                        "last_line_interaction_in_id": li["in_line"],
+                        "last_line_interaction_out_id": li["out_line"],
+                        "last_line_interaction_shell_id": li["shell"],
+                    }
+                )
+            write_elements(f, tpath, elements)
+        spec_names = {
+            "spectrum_real_packets": getattr(sim, "spectrum_real", None),
+            "spectrum_virtual_packets": getattr(sim, "spectrum_virtual", None),
+            "spectrum_integrated": getattr(sim, "spectrum_integrated", None),
+        }
+        for label, spec in spec_names.items():
+            if spec is None:
+                continue
+            write_elements(
+                f,
+                f"{base}/spectrum_solver/{label}",
+                {
+                    "_frequency": np.asarray(spec.nu_edges),
+                    "luminosity": np.asarray(spec.luminosity_nu)
+                    * np.abs(np.diff(np.asarray(spec.nu_edges))),
+                    "delta_frequency": float(
+                        np.abs(np.diff(np.asarray(spec.nu_edges))).mean()
+                    ),
+                    "wavelength": np.asarray(spec.wavelength),
+                    "luminosity_density_lambda": np.asarray(
+                        spec.luminosity_lambda
+                    ),
+                },
+            )
+        if getattr(sim, "history", None):
+            hist = sim.history
+            write_frame(
+                f,
+                f"{base}/iterations_w",
+                pd.DataFrame(np.stack([h.dilution_factor for h in hist])),
+            )
+            write_frame(
+                f,
+                f"{base}/iterations_t_rad",
+                pd.DataFrame(np.stack([h.t_radiative for h in hist])),
+            )
+            write_frame(
+                f,
+                f"{base}/iterations_electron_densities",
+                pd.DataFrame(
+                    np.stack([h.electron_densities for h in hist])
+                ),
+            )
+            write_series(
+                f,
+                f"{base}/iterations_t_inner",
+                pd.Series([h.t_inner for h in hist]),
+            )
+        write_series(
+            f,
+            f"{base}/metadata",
+            pd.Series({"tardis_version": "tardis-torch"}),
+        )
+    return path

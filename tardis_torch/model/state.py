@@ -14,7 +14,12 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from tardis_torch.atomic.atom_data import SYMBOL_TO_Z
+from tardis_torch.config.reader import parse_quantity
 from tardis_torch.constants import B_WIEN, C, SIGMA_SB
+from tardis_torch.model.decay import (
+    fold_isotopes_into_elements,
+    parse_isotope,
+)
 from tardis_torch.model.density import calculate_density
 from tardis_torch.model.geometry import Radial1DGeometry
 
@@ -63,19 +68,21 @@ class SimulationState:
         """Build the state from a validated config tree.
 
         Mirrors ``parse_simulation_state``
-        (tardis/io/model/parse_simulation_state.py:9) for the
-        'specific' structure type with uniform abundances.
+        (tardis/io/model/parse_simulation_state.py:9): a ``csvy_model``,
+        a ``file`` structure read by ``io/model_readers.py``, or the
+        'specific' structure type with uniform (isotope entries decayed
+        to ``time_explosion``) or file abundances.
         """
-        # csvy and file-based structures need the model readers
+        # top-level csvy_model key (reference SimulationState.from_csvy,
+        # model/base.py:322) or structure.type 'file' with a filetype
+        # (reference parse_geometry_configuration.py) dispatch to readers
         if config.get("csvy_model"):
-            raise NotImplementedError(
-                "csvy_model: model readers are not ported yet"
-            )
+            from tardis_torch.io.csvy import simulation_state_from_csvy
+
+            return simulation_state_from_csvy(config.csvy_model, config)
         structure = config.model.structure
         if structure.get("type") == "file":
-            raise NotImplementedError(
-                "model.structure.type 'file': model readers are not ported yet"
-            )
+            return cls._from_file_structure(structure, config)
         vel = structure.velocity
         edges = np.linspace(vel.start, vel.stop, vel.num + 1)
         # density evaluated at the UNTRIMMED shell centres (the boundary
@@ -131,17 +138,34 @@ class SimulationState:
         elif abund_type == "uniform":
             elements = []
             fractions = []
+            isotopes = {}
             for sym, frac in abund_cfg.items():
                 if sym in ("filename", "filetype", "model_isotope_time_0"):
                     continue
                 z = SYMBOL_TO_Z.get(sym)
                 if z is None:
-                    raise ValueError(
-                        f"Unknown element symbol '{sym}' (isotope abundances "
-                        "are not ported yet)"
-                    )
+                    if parse_isotope(sym) is not None:
+                        isotopes[sym] = float(frac)
+                        continue
+                    raise ValueError(f"Unknown element symbol '{sym}'")
                 elements.append(z)
                 fractions.append(float(frac))
+            if isotopes:
+                # isotope entries decay along their chains from
+                # model_isotope_time_0 to time_explosion and their products
+                # fold into the elemental fractions (the reference's
+                # IsotopeAbundances.decay; the file and csvy readers too);
+                # the time is a quantity ("5 day") or seconds, where the
+                # JAX package takes seconds only
+                t0 = parse_quantity(
+                    abund_cfg.get("model_isotope_time_0", 0.0))
+                t_exp = config.supernova.time_explosion
+                elements, fractions = fold_isotopes_into_elements(
+                    elements, fractions, isotopes, max(t_exp - t0, 0.0)
+                )
+                fractions = np.asarray(fractions, np.float64).reshape(
+                    len(elements)
+                )
             order = np.argsort(elements)
             elements = np.asarray(elements)[order]
             fractions = np.asarray(fractions)[order]
@@ -228,6 +252,114 @@ class SimulationState:
         with np.errstate(divide="ignore", invalid="ignore"):
             mf = np.where(norm > 0, mf / norm, 0.0)
         return zs, mf
+
+    @classmethod
+    def _from_file_structure(cls, structure, config) -> "SimulationState":
+        """structure: {type: file, filename, filetype} dispatch
+        (reference io/model/parse_geometry_configuration.py + readers/).
+
+        ``v_inner_boundary`` / ``v_outer_boundary`` apply to file-based
+        structures too: the reader builds the full model, then the state is
+        trimmed to the velocity window.
+        """
+        filetype = structure.get("filetype", "csvy")
+        filename = structure.filename
+
+        def _windowed(state):
+            vib = structure.get("v_inner_boundary") or 0.0
+            vob = structure.get("v_outer_boundary") or np.inf
+            if vib > 0.0 or np.isfinite(vob):
+                state = state.masked_to_velocity_window(vib, vob, config)
+            return state
+
+        if filetype == "csvy":
+            from tardis_torch.io.csvy import simulation_state_from_csvy
+
+            return _windowed(simulation_state_from_csvy(filename, config))
+        if filetype in ("artis", "simple_ascii"):
+            from tardis_torch.io.model_readers import (
+                simulation_state_from_artis,
+            )
+
+            abund = config.model.abundances
+            if abund.get("type") != "file":
+                raise ValueError(
+                    f"{filetype} density files require a file-type "
+                    "abundances section"
+                )
+            return _windowed(
+                simulation_state_from_artis(filename, abund.filename,
+                                            config)
+            )
+        if filetype in ("cmfgen", "cmfgen_model"):
+            from tardis_torch.io.model_readers import (
+                simulation_state_from_cmfgen,
+            )
+
+            return _windowed(simulation_state_from_cmfgen(filename, config))
+        if filetype == "blondin_toymodel":
+            from tardis_torch.io.model_readers import (
+                simulation_state_from_blondin,
+            )
+
+            return _windowed(
+                simulation_state_from_blondin(filename, config)
+            )
+        raise ValueError(f"unknown model filetype {filetype!r}")
+
+    def masked_to_velocity_window(self, vib: float, vob: float,
+                                  config) -> "SimulationState":
+        """Trim a built state to the [v_inner_boundary, v_outer_boundary]
+        window (reference parse_geometry_configuration boundary handling):
+        shells outside are dropped, partially-covered edge shells are
+        trimmed to the boundary velocity, and t_inner is recomputed from
+        the requested luminosity at the new inner radius (unless pinned by
+        plasma.initial_t_inner)."""
+        import dataclasses
+
+        g = self.geometry
+        if vib >= vob:
+            raise ValueError("v_inner_boundary must be < v_outer_boundary")
+        keep = (g.v_outer > vib) & (g.v_inner < vob)
+        if not keep.any():
+            raise ValueError(
+                "no shells inside the v_inner/outer_boundary window"
+            )
+        idx = np.nonzero(keep)[0]
+        edges = np.concatenate(
+            [g.v_inner[idx[0] : idx[-1] + 1], [g.v_outer[idx[-1]]]]
+        ).copy()
+        edges[0] = max(edges[0], vib)
+        edges[-1] = min(edges[-1], vob)
+        geometry = Radial1DGeometry.from_velocity_grid(
+            edges, self.time_explosion
+        )
+        composition = Composition(
+            atomic_numbers=self.composition.atomic_numbers,
+            mass_fractions=self.composition.mass_fractions[:, keep],
+            density=self.composition.density[keep],
+        )
+        initial_t_inner = float(
+            config.plasma.get("initial_t_inner", -1)
+            if config is not None else -1
+        )
+        if initial_t_inner > 0:
+            t_inner = initial_t_inner
+        else:
+            t_inner = float(
+                (
+                    self.luminosity_requested
+                    / (4.0 * np.pi * geometry.r_inner[0] ** 2 * SIGMA_SB)
+                ) ** 0.25
+            )
+        return dataclasses.replace(
+            self,
+            geometry=geometry,
+            composition=composition,
+            t_inner=t_inner,
+            t_radiative=self.t_radiative[keep],
+            dilution_factor=self.dilution_factor[keep],
+        )
 
     def t_inner_from_luminosity(self, emitted_luminosity: float, exponent=-0.5):
         """Updated t_inner estimate from the emitted/requested luminosity ratio

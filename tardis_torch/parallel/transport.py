@@ -87,7 +87,8 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
                           last_interaction: bool = False,
                           tracker_length: int = 0,
                           max_events: int = MAX_EVENTS,
-                          line_estimators: bool = True) -> TransportOutput:
+                          line_estimators: bool = True,
+                          progress=None) -> TransportOutput:
     """K1 on a pool of N packets split into D = len(devices) shards.
 
     Shard d runs packets [d N/D, (d+1) N/D) on ``devices[d]`` with the
@@ -99,8 +100,10 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
     ``n_vp_records`` counts only kept rows and the attempts past each
     shard's capacity show as ``vp_count`` above it).  With
     ``line_estimators`` False no shard allocates or writes a line difference
-    array, and the result's is empty.  Raises when N is not a multiple of
-    D, as the JAX package does.
+    array, and the result's is empty.  ``progress(n)``, where given, is
+    called with the shard's N/D packets after each shard's launch is
+    queued (no host sync).  Raises when N is not a multiple of D, as the
+    JAX package does.
     """
     devices = packet_devices(devices)
     n_dev = len(devices)
@@ -127,6 +130,8 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
                 last_interaction=last_interaction,
                 tracker_length=tracker_length, pid_offset=d * n_local,
                 line_estimators=line_estimators))
+        if progress is not None:
+            progress(n_local)
     return _final_reduce(parts, devices[0])
 
 

@@ -97,6 +97,9 @@ class PlasmaSolver:
             np.loadtxt(heating_rate_data_file, unpack=True)
             if heating_rate_data_file else None)
         self._last_n_e = None
+        # the n_e the last solve's fixpoint started from: a checkpoint
+        # keeps it, so a resumed run repeats that solve bit for bit
+        self._n_e_seed_used = None
         self.line_static = LineStatic.from_atom_data(atom_data, self.device)
         self._build_index_maps(simulation_state)
 
@@ -198,6 +201,7 @@ class PlasmaSolver:
         per-shell array and ``_fixed_electron_densities`` to its n_e.
         """
         atom = self.atom
+        seed_n_e = self._last_n_e
         beta = lte.beta_rad(t_rad)
         t_electrons = self.link_t_rad_t_electron * t_rad
         beta_el = lte.beta_rad(t_electrons)
@@ -259,6 +263,7 @@ class PlasmaSolver:
                 n_electron_init=self._last_n_e,
                 electron_densities=self._fixed_electron_densities,
             )
+        self._n_e_seed_used = seed_n_e
         self._last_n_e = n_e
         n_level = lte.level_number_density(
             bf, z_part, ion_density[self.species_ion_row],

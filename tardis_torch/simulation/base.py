@@ -45,8 +45,15 @@ estimators and ``advance_state`` feeds their j_blues back into the plasma
 the nonhomologous transport solver (K7), as the JAX package does.
 Continuum species run only through the Type IIP workflow
 (``workflows/type_iip.py``); ``run_tardis`` refuses them, as its classic
-loop runs no continuum transport.  Checkpoint / resume is
-not ported.
+loop runs no continuum transport.  ``run_convergence(checkpoint_path=)``
+writes the resume state after every iteration (``io/hdf.py``
+``save_checkpoint``, h5py) and ``io.hdf.resume_simulation`` continues an
+interrupted run; ``run_tardis`` configures the ``tardis_torch`` logger
+(``io/logger.py``) and, with ``show_progress_bars``, shows a packet bar
+that advances once per K1 launch.  The model comes from the
+configuration: a ``specific`` structure, a ``csvy_model`` or a ``file``
+structure (``io/csvy.py``, ``io/model_readers.py``), with isotope
+abundances decayed to ``time_explosion``.
 """
 
 from __future__ import annotations
@@ -377,11 +384,24 @@ class Simulation:
         self._solve_plasma(est_j_blues if self.detailed else None)
         return converged
 
-    def run_convergence(self):
+    def run_convergence(self, checkpoint_path: str | None = None):
+        """The convergence loop, from ``iterations_executed`` on.
+
+        ``checkpoint_path``: after each iteration, before the callbacks,
+        write the resume state there (``io/hdf.py`` ``save_checkpoint``:
+        t_rad, W, t_inner, the iteration, the damping constants and the
+        n_e the last plasma solve started from), so an interrupted run
+        continues with ``io.hdf.resume_simulation``.  The iteration keys
+        are derived from (seed, iteration), so on the CPU the continued
+        run is the uninterrupted one bit for bit."""
+        if checkpoint_path is not None:
+            from tardis_torch.io.hdf import save_checkpoint
         for iteration in range(self.iterations_executed, self.iterations - 1):
             result = self.iterate(self.no_of_packets, iteration)
             converged = self.advance_state(result, iteration)
             self.iterations_executed += 1
+            if checkpoint_path is not None:
+                save_checkpoint(self, checkpoint_path)
             for cb in self._callbacks:
                 cb(self)
             if converged and self.stop_if_converged:
@@ -463,7 +483,8 @@ class Simulation:
 
 
 def run_tardis(config_or_path, atom_data=None, device=None,
-               callbacks=()) -> Simulation:
+               callbacks=(), log_level=None, specific_log_level=False,
+               show_progress_bars=False) -> Simulation:
     """Top-level API: build, converge and run the final iteration.
 
     ``device`` defaults to the CUDA card and raises where there is none;
@@ -471,7 +492,13 @@ def run_tardis(config_or_path, atom_data=None, device=None,
     or a list of devices to split the packets of the classic event loop
     over them (the simulation lives on the first; a device may repeat).
     Each of ``callbacks`` is called with the simulation after every
-    iteration.
+    iteration.  ``log_level`` / ``specific_log_level`` configure the
+    ``tardis_torch`` logger (``io/logger.py`` ``logging_state``: the
+    config's ``debug`` section and ``montecarlo.logger_buffer`` as the JAX
+    package reads them); where neither the arguments nor the config ask
+    for logging, the logger tree is left as the caller set it (the JAX
+    package always configures it).  ``show_progress_bars`` shows a
+    packet bar that advances once per K1 launch.
     """
     from tardis_torch.config.reader import config_from_dict, config_from_yaml
 
@@ -481,9 +508,14 @@ def run_tardis(config_or_path, atom_data=None, device=None,
         config = config_or_path
     else:
         config = config_from_dict(config_or_path)
+    from tardis_torch.io.logger import logging_asked, logging_state
+
+    if logging_asked(log_level, config, specific_log_level):
+        logging_state(log_level, config, specific_log_level)
     with torch.no_grad():
         sim = Simulation.from_config(config, atom_data=atom_data,
                                      device=device)
+        sim.transport.show_packet_progress = bool(show_progress_bars)
         for cb in callbacks:
             sim.add_callback(cb)
         return sim.run()

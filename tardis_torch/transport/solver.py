@@ -36,6 +36,11 @@ simulation's device and split by ``parallel/transport.py``; an iteration
 whose packet count is not a multiple of the device count runs on one
 device, as in the JAX package, and the solver logs it once.  The virtual
 packets (K4) and every later step run on the gathered outputs.
+``show_packet_progress`` (``run_tardis(show_progress_bars=True)``) shows
+a tqdm bar over an iteration's packets; it advances once per K1 launch,
+per shard under packet parallelism, as the launch is queued: K1 is one
+persistent launch, and neither a split nor a host sync is added for the
+bar (the JAX package's bar advances by chunks).
 
 With a ``continuum_state`` and ``continuum_macro`` (the Type IIP workflow)
 K1 runs its continuum instantiation: full relativity is forced, and with
@@ -232,6 +237,7 @@ class TransportSolver:
         packet_source: str = "auto",
         mesh: object = "auto",
         use_macro_chain: bool | str = "auto",
+        show_packet_progress: bool = False,
     ):
         if line_interaction_type not in ("scatter", "downbranch",
                                          "macroatom"):
@@ -256,6 +262,9 @@ class TransportSolver:
         # budget (solve_macro_chain), K1's RNG walk otherwise; True: the
         # chain tables (raises where they do not fit); False: the walk
         self.use_macro_chain = use_macro_chain
+        # the in-run packet bar: it advances once per K1 launch (per shard
+        # under packet parallelism), as the launch is queued
+        self.show_packet_progress = show_packet_progress
         self._logged_one_device = False
 
     def devices_for(self, device: torch.device) -> list[torch.device]:
@@ -376,12 +385,18 @@ class TransportSolver:
                 "%d packets do not split over %d devices: the iteration "
                 "runs on %s", n_packets, len(devices), device)
             self._logged_one_device = True
+        pbar = self._packet_bar(n_packets)
         with record_function("tardis.transport_loop"):
             if sharded:
-                res = run_transport_sharded(tables, pool_mu, pool_nu,
-                                            run_key, devices, **kw)
+                res = run_transport_sharded(
+                    tables, pool_mu, pool_nu, run_key, devices,
+                    progress=None if pbar is None else pbar.update, **kw)
             else:
                 res = transport_loop(tables, pool_mu, pool_nu, run_key, **kw)
+                if pbar is not None:
+                    pbar.update(n_packets)
+        if pbar is not None:
+            pbar.close()
         virtual = {}
         if n_vpackets > 0:
             with record_function("tardis.vpacket_volley"):
@@ -394,6 +409,19 @@ class TransportSolver:
                                   need_line_estimators, lum_nu_window,
                                   self.full_relativity(with_continuum),
                                   **virtual)
+
+    def _packet_bar(self, n_packets: int):
+        """A tqdm bar over the iteration's packets where
+        ``show_packet_progress`` asks for one (and tqdm imports), else
+        None."""
+        if not self.show_packet_progress:
+            return None
+        try:
+            from tqdm.auto import tqdm
+        except ImportError:  # pragma: no cover
+            return None
+        return tqdm(total=n_packets, desc="packets", unit="pkt",
+                    unit_scale=True, leave=False)
 
     def _volley(self, tables, res, n_vpackets, nu_edges, spawn_nu_range,
                 n_packets, sim_state) -> dict:

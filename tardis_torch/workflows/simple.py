@@ -84,8 +84,8 @@ class SimpleTARDISWorkflow:
 
 
 class StandardTARDISWorkflow(SimpleTARDISWorkflow):
-    """Adds per-iteration logging and an iteration progress bar (reference
-    standard_tardis_workflow.py:16)."""
+    """Adds per-iteration logging, an iteration progress bar and a packet
+    bar (reference standard_tardis_workflow.py:16)."""
 
     def __init__(self, config, atom_data=None, show_convergence_plots=False,
                  show_progress_bars=True, device=None):
@@ -96,6 +96,9 @@ class StandardTARDISWorkflow(SimpleTARDISWorkflow):
         super().__init__(config, atom_data, device)
         self.show_convergence_plots = False
         self.show_progress_bars = show_progress_bars
+        # the in-run packet bar rides the same flag: it advances once per
+        # K1 launch (per shard under packet parallelism)
+        self.sim.transport.show_packet_progress = bool(show_progress_bars)
 
     @torch.no_grad()
     def run(self):

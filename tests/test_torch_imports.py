@@ -44,8 +44,10 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-# imported only inside the carsus loader's and writer's functions
-LAZY = ("h5py", "pandas", "tables")
+# imported only inside the functions that use them: the carsus loader,
+# the HDF writers and model readers, the progress bars and the notebook
+# log panel
+LAZY = ("h5py", "pandas", "tables", "tqdm", "IPython", "ipywidgets")
 
 
 def _module_level_imports(path: Path):
@@ -64,17 +66,19 @@ def _module_level_imports(path: Path):
     "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_no_module_level_h5py_or_pandas(path):
-    """h5py and pandas are imported only where the loader and the writer
-    run, so the rest of the port (and a card's machine without them)
-    never needs them."""
+    """h5py, pandas, tqdm and IPython / ipywidgets are imported only where
+    the loader, the writers, the readers, a progress bar or the notebook
+    panel run, so the rest of the port (and a card's machine without
+    them) never needs them."""
     bad = [m for m in _module_level_imports(path)
            if m.split(".")[0] in LAZY]
     assert not bad, f"{path.name} imports {bad} at module level"
 
 
 def test_port_imports_without_h5py_and_pandas():
-    """Every module of the port imports in a process where h5py, pandas
-    and PyTables cannot be imported."""
+    """Every module of the port imports in a process where none of LAZY
+    (h5py, pandas, PyTables, tqdm, IPython, ipywidgets) can be
+    imported."""
     import subprocess
     import sys
 
@@ -309,3 +313,14 @@ def test_continuum_wrapper_never_falls_back():
         transport_loop(tables, torch.zeros(8), torch.zeros(8), (0, 1),
                        vpacket_capacity=16)
     assert not transport_loop.launches_by_variant
+
+
+def test_model_io_and_cli_modules_are_scanned():
+    """The model readers, the HDF writers, the logger, the debug packet
+    log, the CMFGEN converter and the command line are among the files
+    the import scan reads."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("model/state.py", "io/csvy.py", "io/model_readers.py",
+                 "io/cmfgen2tardis.py", "io/logger.py", "io/hdf.py",
+                 "io/pandas_hdf_writer.py", "io/debug_packets.py", "cli.py"):
+        assert f"tardis_torch/{name}" in scanned, name
