@@ -41,8 +41,8 @@ Phases, one printed line each (plus one line per iteration):
      continuum K1 instantiations of the IIP paths included), built in
      parallel, and K1 at each path's shapes: the convergence iterations'
      2,097,152 packets without spawn records or line estimators and the
-     final iteration's with line estimators (on the main and relativity
-     paths 4,194,304 packets with 8 records a packet; on the main path
+     final iteration's with line estimators (on the main, relativity and
+     v_inner paths 4,194,304 packets with 8 records a packet; on the main path
      also at 2,097,152 without records, the detailed_nlte path's
      convergence shape), each timed as CUDA
      events around each call (ms) and as device time of queued calls
@@ -142,7 +142,29 @@ Phases, one printed line each (plus one line per iteration):
      h5py imports, --hdf (read back) and a run checkpointed every
      iteration, stopped after its first and resumed from the file,
      within 1e-5 of the uninterrupted run in t_rad, W and t_inner, else
-     a line "hdf: skipped, <the failed import>";
+     a line "hdf: skipped, <the failed import>"; then the v_inner path:
+     InnerVelocitySolverWorkflow with no device on the bench problem,
+     the target tau the first solve's Rosseland profile at shell 5
+     (printed), 3 convergence iterations of 2,097,152 packets, each
+     moving the inner boundary (one line each: v_inner, t_inner,
+     get_tau_integ's CUDA-event ms), and the final iteration of
+     4,194,304 packets with 2 virtual packets and last-interaction rows,
+     no formal integral (K1's two last-interaction instantiations, K2,
+     K3, K4): the boundary moved and stayed inside the grid, the
+     virtual / real band; where matplotlib imports, a ConvergencePlots
+     frame an iteration in a temporary directory, else a line "plots:
+     skipped, <the failed import>"; then the analysis of its final
+     simulation: get_tau_integ and OpacityCalculator (300 bins) within
+     1e-10 of a host numpy f64 evaluation of the same tables,
+     LastLineInteraction's line counts and (in, out) pairs in two
+     windows and both filter modes equal to a host numpy count over the
+     rows, and, where pandas imports, the DataFrames of
+     LastLineInteraction, LineInfo, shell_info_table and
+     ion_fraction_table held to the same counts, each call's ms; then
+     the grid path: TardisGrid.from_axes on the bench data over 10 and
+     13 days x 15 and 20 shells with no device, each row 1 + 1
+     iterations of 1,048,576 packets (one line a row: wall, t_inner,
+     launches, torch.cuda.max_memory_allocated);
   7. the IIP path: TypeIIPWorkflow on the IIP problem, 3 convergence
      iterations of 1,048,576 packets, each with its thermal balance (25
      evaluations at most), and the final iteration; per iteration its
@@ -332,6 +354,10 @@ PATHS = {
     "options": dict(tables={"inner_boundary_albedo": ALBEDO}, pool="weighted",
                     last_interaction=False, tracker_length=TRACKER_LENGTH,
                     records=False),
+    # the v_inner path: the main path's tables and pool with
+    # last-interaction rows; its K4 instantiation is the main path's
+    "v_inner": dict(tables={}, pool="simple", last_interaction=True,
+                    tracker_length=0, records=True),
 }
 WITH_OPTIONS = ("transport_loop", "vpacket_volley", "nonhom_loop",
                 "gamma_step")
@@ -400,6 +426,36 @@ CLI_CONFIG["spectrum"] = {"start": "500 angstrom", "stop": "20000 angstrom",
 # the resume after a crash, against the uninterrupted run: the sharded
 # path's bar, since K1's racing f64 atomics part two runs in the last bits
 RESUME_RTOL = 1e-5
+# the inner-velocity solver path: the bench problem through
+# InnerVelocitySolverWorkflow, 3 convergence iterations (each moving the
+# inner boundary) and the production final iteration without the formal
+# integral, last-interaction tracking at its default (on)
+V_INNER_ITERATIONS = 4
+# the target tau: the first solve's Rosseland profile at this shell, inside
+# the profile (the default 2/3 may lie above it, where the boundary stays)
+V_INNER_TAU_SHELL = 5
+V_INNER_CONFIG = copy.deepcopy(BENCH_CONFIG)
+V_INNER_CONFIG["montecarlo"]["iterations"] = V_INNER_ITERATIONS
+del V_INNER_CONFIG["montecarlo"]["tracking"]
+V_INNER_CONFIG["spectrum"].update(method="real")
+del V_INNER_CONFIG["spectrum"]["integrated"]
+# the analysis of the v_inner path's final simulation against a host
+# numpy f64 evaluation of the same tables (f64 on both sides: only the
+# order of the sums differs)
+ANALYSIS_RTOL = 1e-10
+OPACITY_BINS = 300
+ANALYSIS_WINDOWS = ((500.0, 20000.0), (3000.0, 7000.0))  # Angstrom
+# the grid path: TardisGrid.from_axes on the bench data, each row 1 + 1
+# iterations of GRID_PACKETS, real-packet spectrum
+GRID_PACKETS = 1_048_576
+GRID_AXES = {"supernova.time_explosion": ["10 day", "13 day"],
+             "model.structure.velocity.num": [15, 20]}
+GRID_CONFIG = copy.deepcopy(BENCH_CONFIG)
+GRID_CONFIG["montecarlo"].update(iterations=2, no_of_packets=GRID_PACKETS,
+                                 last_no_of_packets=GRID_PACKETS,
+                                 no_of_virtual_packets=0)
+GRID_CONFIG["spectrum"].update(method="real")
+del GRID_CONFIG["spectrum"]["integrated"]
 
 
 def line_name(kernel, variant):
@@ -1014,7 +1070,8 @@ def main_tables(state, atom, ps, chain, **options):
 
 REPLACES_K1 = {"main": "tardis_tpu/transport/kernel.py:425",
                "relativity": "tardis_tpu/transport/kernel.py:491",
-               "options": "tardis_tpu/transport/kernel.py:798"}
+               "options": "tardis_tpu/transport/kernel.py:798",
+               "v_inner": "tardis_tpu/transport/kernel.py:969"}
 
 
 def path_tables(state, atom, ps, chain):
@@ -1435,15 +1492,21 @@ def run_path(phase, config, atom, device, expected, bands=True,
     return sim, launches, wall
 
 
-def hdf_support():
-    """Whether the carsus loader can run here: its imports, h5py and
-    pandas; returns (True, None) or (False, the import that failed)."""
-    for name in ("h5py", "pandas"):
+def import_support(*names):
+    """Whether every module of ``names`` imports here; returns (True, None)
+    or (False, the import that failed)."""
+    for name in names:
         try:
             importlib.import_module(name)
         except ImportError as err:
             return False, f"{name}: {err}"
     return True, None
+
+
+def hdf_support():
+    """Whether the carsus loader can run here: its imports, h5py and
+    pandas; returns (True, None) or (False, the import that failed)."""
+    return import_support("h5py", "pandas")
 
 
 def walk_path_tables(state, atom, ps):
@@ -3539,6 +3602,431 @@ def run_sharded_path(atom, device, expected, main):
     return launches
 
 
+def run_v_inner_path(atom, expected, plots, failed_plot_import):
+    """InnerVelocitySolverWorkflow on the bench problem with no device
+    argument (so on the card), the target tau the first solve's Rosseland
+    profile at V_INNER_TAU_SHELL (printed); launch counts reset just before
+    the run and read just after.  One line per convergence iteration: the
+    moved v_inner (km/s), t_inner, get_tau_integ's CUDA-event ms and the
+    iteration's wall (synchronised at each line), and, where matplotlib
+    imports, a ConvergencePlots frame drawn before the move (its seconds
+    apart, plot_s).  Held: the boundary moved outward and stayed inside the
+    grid, the launch counts, finite outputs and the virtual / real band of
+    PERF.md section 2; L_emitted / L_requested printed.  Returns (the
+    final simulation, the launches)."""
+    import tempfile
+
+    from tardis_torch.workflows import v_inner_solver
+    from tardis_torch.workflows.util import get_tau_integ
+
+    workflow = v_inner_solver.InnerVelocitySolverWorkflow
+    probe = workflow(copy.deepcopy(V_INNER_CONFIG), atom_data=atom)
+    probe.solve_plasma()
+    rosseland = get_tau_integ(probe.sim.plasma_state, atom,
+                              probe.sim.state)["rosseland"]
+    tau = float(rosseland[V_INNER_TAU_SHELL])
+    v0 = float(probe.sim.state.geometry.v_inner[0])
+    v_edge = float(probe.sim.state.geometry.v_outer[-1])
+    say("v_inner_target", tau=tau, shell=V_INNER_TAU_SHELL,
+        rosseland=[float(x) for x in rosseland], v_inner_kms=v0 / 1e5)
+    del probe
+    torch.cuda.empty_cache()
+
+    tau_ms = []
+
+    def timed_tau_integ(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = get_tau_integ(*args, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        tau_ms.append(a.elapsed_time(b))
+        return out
+
+    frames = tempfile.TemporaryDirectory() if plots else None
+    marks = []
+
+    class Traced(workflow):
+        """The workflow with one line per boundary move."""
+
+        def advance_v_inner(self):
+            plot_s = None
+            if self.plots is not None:
+                t = time.perf_counter()
+                self.plots.update(self.sim)
+                plot_s = time.perf_counter() - t
+            super().advance_v_inner()
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            sim = self.sim
+            res = sim.last_transport_result
+            say("v_inner_iteration", index=len(self.v_inner_history) - 1,
+                packets=res.n_packets, wall_s=now - marks[-1],
+                v_inner_kms=self.v_inner_history[-1] / 1e5,
+                t_inner=sim.state.t_inner, tau_integ_ms=tau_ms[-1],
+                L_emitted_over_requested=sim.history[-1].emitted_luminosity
+                / sim.state.luminosity_requested, plot_s=plot_s)
+            marks.append(time.perf_counter())
+
+    v_inner_solver.get_tau_integ = timed_tau_integ
+    try:
+        with torch.no_grad():
+            wf = Traced(copy.deepcopy(V_INNER_CONFIG), atom_data=atom,
+                        tau=tau)
+            wf.plots = None
+            if plots:
+                from tardis_torch.visualization.convergence import (
+                    ConvergencePlots,
+                )
+
+                wf.plots = ConvergencePlots(frame_dir=frames.name)
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            marks.append(t0)
+            wf.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        v_inner_solver.get_tau_integ = get_tau_integ
+    sim = wf.sim
+    res = sim.last_transport_result
+    history = wf.v_inner_history
+    real = sim.spectrum_real.luminosity
+    virt_ratio = sim.spectrum_virtual.luminosity / real
+    final_ratio = (res.emitted_luminosity(*sim._lum_nu_window())
+                   / sim.state.luminosity_requested)
+    finite = bool(
+        np.isfinite(sim.spectrum_real.luminosity_nu).all()
+        and np.isfinite(sim.spectrum_virtual.luminosity_nu).all()
+        and np.isfinite(res.output_nu).all()
+        and all(np.isfinite(h.t_radiative).all()
+                and np.isfinite(h.dilution_factor).all()
+                for h in sim.history))
+    n_total = (sim.no_of_packets * (V_INNER_ITERATIONS - 1)
+               + sim.last_no_of_packets)
+    say("v_inner_path", wall_s=wall, packets=n_total,
+        packets_per_s=n_total / wall, launches=launches,
+        v_inner_history_kms=[v / 1e5 for v in history],
+        tau_integ_ms=tau_ms, final_L_emitted_over_requested=final_ratio,
+        virtual_over_real=virt_ratio, vp_records=res.vp_records,
+        finite=finite, immortal=res.n_immortal, card=card_line())
+    if not finite:
+        raise AssertionError("v_inner path produced non-finite values")
+    if not (len(history) == V_INNER_ITERATIONS - 1
+            and history[-1] > v0 and all(v0 <= v < v_edge for v in history)
+            and sim.state.geometry.v_inner[0] == history[-1]):
+        raise AssertionError(f"v_inner path: the boundary {history} did "
+                             f"not move inside [{v0}, {v_edge})")
+    if not 0.85 <= virt_ratio <= 1.18:
+        raise AssertionError(f"v_inner path: virtual / real luminosity "
+                             f"{virt_ratio}")
+    check_launches("v_inner_path", launches, expected)
+    if plots:
+        names = sorted(os.listdir(frames.name))
+        frames.cleanup()
+        print(f"plots: {len(names)} frames, {names[-1]}", flush=True)
+        if len(names) != V_INNER_ITERATIONS - 1:
+            raise AssertionError(f"convergence plots: frames {names}")
+    else:
+        print(f"plots: skipped, {failed_plot_import}", flush=True)
+    return sim, launches
+
+
+def host_rel_err(a, b):
+    """rel_err of two host arrays."""
+    return rel_err(*(torch.as_tensor(np.ascontiguousarray(x)) for x in (a, b)))
+
+
+def tau_integ_host(tau, line_nu, t_rad, n_e, dr, t_exp, bin_size=10):
+    """get_tau_integ's profiles in host numpy f64 on copied tables: the
+    lines in ascending frequency, bins of ``bin_size`` after zero padding,
+    Planck and Rosseland weights, the reversed cumulative sum."""
+    from tardis_torch.constants import C, H, K_B, SIGMA_THOMSON
+
+    order = np.argsort(line_nu)
+    extra = bin_size - len(line_nu) % bin_size
+    freqs = np.hstack((np.arange(extra + 1) + 1.0, line_nu[order]))
+    taus = np.vstack((np.zeros((extra + 1, tau.shape[1])), tau[order]))
+    low = freqs[:-bin_size:bin_size]
+    dnu = freqs[bin_size::bin_size] - low
+    n_bins = len(dnu)
+    dnu = np.where(dnu == 0, 1.0, dnu)
+    summed = (-np.expm1(-taus[1:n_bins * bin_size + 1]
+                        .reshape(n_bins, bin_size, -1))).sum(axis=1)
+    nu, t = low[:, None], t_rad[None, :]
+    b = 2.0 * H * nu**3 / C**2 / np.expm1(np.minimum(H * nu / (K_B * t),
+                                                      500.0))
+    u = b**2 * (C / nu) ** 2 / (2.0 * K_B * t**2)
+    kappa_exp = (low / dnu)[:, None] / (t_exp * C) * summed
+    kappa_thom = n_e * SIGMA_THOMSON
+    w_b, w_u = b * dnu[:, None], u * dnu[:, None]
+    planck = kappa_thom + (w_b * kappa_exp).sum(0) / w_b.sum(0)
+    rosseland = w_u.sum(0) / (w_u / (kappa_thom + kappa_exp)).sum(0)
+    return {"rosseland": np.cumsum((rosseland * dr)[::-1])[::-1],
+            "planck": np.cumsum((planck * dr)[::-1])[::-1]}
+
+
+def kappa_exp_host(tau, line_nu, edges, t_exp):
+    """OpacityCalculator.kappa_exp in host numpy f64 on the copied table,
+    with the bar of a card reading: 1 - exp(-tau), the JAX package's form,
+    cancels for small tau, so the card's f64 exp and the host's, which may
+    part by an ulp, give terms that part by up to 2^-52 each; a bin of n
+    lines is held to ANALYSIS_RTOL |kappa| + 2 n 2^-52 times its scale
+    (nu / dnu / (c t)).  Returns (kappa_exp, the bar)."""
+    from tardis_torch.constants import C
+
+    n_bins = len(edges) - 1
+    binned = np.zeros((n_bins, tau.shape[1]))
+    idx = np.searchsorted(edges, line_nu, side="left") - 1
+    ok = (idx >= 0) & (idx < n_bins)
+    np.add.at(binned, idx[ok], 1.0 - np.exp(-tau[ok]))
+    scale = edges[:-1] / np.diff(edges) / (C * t_exp)
+    kappa = binned * scale[:, None]
+    lines = np.bincount(idx[ok], minlength=n_bins)
+    bar = (ANALYSIS_RTOL * np.abs(kappa)
+           + (2 * lines * 2.0**-52 * scale)[:, None])
+    return kappa, bar
+
+
+def over_bar(a, b, bar):
+    """max |a - b| / bar; an entry whose bar is 0 counts 0 where equal,
+    inf where not."""
+    diff = np.abs(a - b)
+    safe = np.where(bar > 0, bar, 1.0)
+    return float(np.where(bar > 0, diff / safe,
+                          np.where(diff > 0, np.inf, 0.0)).max())
+
+
+def last_line_host(li, out, window, filter_mode):
+    """The last-interaction mask of LastLineInteraction on copied rows, in
+    host numpy f64."""
+    from tardis_torch.constants import C
+    from tardis_torch.transport.tables import NU_UNIT
+
+    nu = (np.abs(out[:, 0]) if filter_mode == "packet_out_nu"
+          else li[:, 4]) * NU_UNIT
+    lo, hi = C / (window[1] * 1e-8), C / (window[0] * 1e-8)
+    return (out[:, 0] > 0) & (li[:, 0] == 2) & (nu > lo) & (nu < hi)
+
+
+def check_analysis(sim, pandas_ok):
+    """The analysis of the v_inner path's final simulation on the card:
+    get_tau_integ and OpacityCalculator (OPACITY_BINS bins) against host
+    numpy f64 evaluations of the same tables, copied once for the check
+    (ANALYSIS_RTOL; kappa_exp's bins also within the cancellation bar of
+    kappa_exp_host); LastLineInteraction's line counts and distinct (in,
+    out) pairs, both filter modes and ANALYSIS_WINDOWS, equal to a host
+    numpy count over the rows copied once; where pandas imports
+    (``pandas_ok``), the DataFrames of LastLineInteraction and LineInfo held
+    to the same counts, and shell_info_table / ion_fraction_table finite
+    with each shell's ion fractions summing to 1.  Each call's ms by CUDA
+    events (median of 5 after a warm-up)."""
+    from tardis_torch.analysis.last_interaction import LastLineInteraction
+    from tardis_torch.analysis.opacities import OpacityCalculator
+    from tardis_torch.workflows.util import get_tau_integ
+
+    ps, state, atom = sim.plasma_state, sim.state, sim.atom_data
+    g = state.geometry
+    t0 = time.perf_counter()
+    tau = ps.tau_sobolev.cpu().numpy()
+    copy_s = time.perf_counter() - t0
+    numbers = {"tau_table_bytes": tau.nbytes, "tau_copy_s": copy_s}
+    ms, prof = cuda_ms(lambda: get_tau_integ(ps, atom, state), 5)
+    ref = tau_integ_host(tau, atom.line_nu, ps.t_rad, ps.electron_densities,
+                         g.r_outer - g.r_inner, state.time_explosion)
+    numbers["tau_integ"] = dict(
+        ms=ms, max_rel=max(host_rel_err(prof[k], ref[k]) for k in ref),
+        rosseland_shell0=float(prof["rosseland"][0]))
+    def opacities():
+        calc = OpacityCalculator(sim, nbins=OPACITY_BINS)
+        calc.kappa_exp
+        return calc
+
+    ms, calc = cuda_ms(opacities, 5)
+    ref, bar = kappa_exp_host(tau, atom.line_nu, calc.nu_bins,
+                              state.time_explosion)
+    numbers["kappa_exp"] = dict(
+        ms=ms, shape=list(calc.kappa_exp.shape),
+        max_rel=host_rel_err(calc.kappa_exp, ref),
+        over_bar=over_bar(calc.kappa_exp, ref, bar),
+        planck_tau_shell0=float(calc.planck_tau[0]),
+        finite=bool(np.isfinite(calc.planck_tau).all()))
+    del tau
+    res = sim.last_transport_result
+    li = res._li.cpu().numpy().astype(np.float64)
+    out = res._out.cpu().numpy().astype(np.float64)
+    counts = []
+    for window in ANALYSIS_WINDOWS:
+        for filter_mode in ("packet_out_nu", "packet_in_nu"):
+            lli = LastLineInteraction.from_simulation(
+                sim, packet_filter_mode=filter_mode).set_wavelength_range(
+                    window[0] * 1e-8, window[1] * 1e-8)
+            mask = last_line_host(li, out, window, filter_mode)
+            entry = dict(window=window, filter_mode=filter_mode,
+                         packets=int(mask.sum()))
+            for which, column in (("in", 1), ("out", 2)):
+                ms, (ids, n) = cuda_ms(lambda: lli.line_counts(which), 5)
+                ids_h, n_h = np.unique(
+                    li[mask, column][li[mask, column] >= 0].astype(np.int64),
+                    return_counts=True)
+                entry[f"line_counts_{which}_ms"] = ms
+                entry[f"lines_{which}"] = int(len(ids))
+                if not (np.array_equal(ids, ids_h)
+                        and np.array_equal(n, n_h)):
+                    raise AssertionError(f"line counts ({which}) differ "
+                                         f"from the host count: {entry}")
+            ms, (p_in, p_out, p_n) = cuda_ms(lli.line_pairs, 5)
+            pairs_h, n_h = np.unique(li[mask][:, 1:3].astype(np.int64),
+                                     axis=0, return_counts=True)
+            order = np.lexsort((p_out, p_in))
+            entry.update(line_pairs_ms=ms, pairs=int(len(p_n)))
+            if not (np.array_equal(np.stack((p_in, p_out), 1)[order],
+                                   pairs_h)
+                    and np.array_equal(p_n[order], n_h)
+                    and int(p_n.sum()) == entry["packets"]):
+                raise AssertionError(f"line pairs differ from the host "
+                                     f"count: {entry}")
+            if pandas_ok:
+                entry.update(check_analysis_tables(sim, lli, li, mask,
+                                                   window, filter_mode))
+            counts.append(entry)
+    numbers["last_line_interaction"] = counts
+    if pandas_ok:
+        numbers["shell_info"] = check_shell_info(sim)
+    say("analysis", card=card_line(), tables=pandas_ok, **numbers)
+    if not (numbers["tau_integ"]["max_rel"] <= ANALYSIS_RTOL
+            and numbers["kappa_exp"]["over_bar"] <= 1.0
+            and numbers["kappa_exp"]["finite"]):
+        raise AssertionError("get_tau_integ / OpacityCalculator differ from "
+                             "the host evaluation")
+
+
+def check_analysis_tables(sim, lli, li, mask, window, filter_mode):
+    """The DataFrames over the same window: LastLineInteraction's tables
+    hold line_counts' numbers, LineInfo's species fractions the host count
+    of the emitted lines' species, and its last-line counts of the
+    leading species every masked packet whose absorbed line is of that
+    species."""
+    from tardis_torch.analysis.line_info import LineInfo
+    from tardis_torch.utils.base import species_tuple_to_string
+
+    atom = sim.atom_data
+    out = {}
+    for which in ("in", "out"):
+        t = time.perf_counter()
+        table = getattr(lli, f"last_line_{which}")
+        out[f"last_line_{which}_s"] = time.perf_counter() - t
+        ids, n = lli.line_counts(which)
+        order = np.argsort(table["line_id"].to_numpy())
+        if not (np.array_equal(table["line_id"].to_numpy()[order], ids)
+                and np.array_equal(table["count"].to_numpy()[order], n)):
+            raise AssertionError(f"last_line_{which} differs from its "
+                                 "line counts")
+    info = LineInfo.from_simulation(sim)
+    t = time.perf_counter()
+    species = info.get_species_interactions(window, filter_mode=filter_mode)
+    out["species_interactions_s"] = time.perf_counter() - t
+    emitted = li[mask, 2][li[mask, 2] >= 0].astype(np.int64)
+    names = np.array([species_tuple_to_string((z, i)) for z, i in zip(
+        atom.line_z[emitted], atom.line_ion[emitted])])
+    host, n_host = np.unique(names, return_counts=True)
+    fractions = dict(zip(host, n_host / n_host.sum()))
+    got = species["Fraction of packets interacting"]
+    if set(got.index) != set(fractions) or any(
+            abs(got[k] - fractions[k]) > 1e-12 for k in fractions):
+        raise AssertionError(f"species fractions {dict(got)} against the "
+                             f"host count {fractions}")
+    top = species.index[0]
+    t = time.perf_counter()
+    counts = info.get_last_line_counts(top, wavelength_range=window,
+                                       filter_mode=filter_mode)
+    out["last_line_counts_s"] = time.perf_counter() - t
+    absorbed = np.clip(li[mask, 1].astype(np.int64), 0, atom.n_lines - 1)
+    n_top = sum(species_tuple_to_string((z, i)) == top for z, i in zip(
+        atom.line_z[absorbed], atom.line_ion[absorbed]))
+    out.update(species=len(species), leading_species=top,
+               leading_species_packets=int(n_top))
+    if int(counts["No. of packets"].sum()) != n_top:
+        raise AssertionError(f"last-line counts of {top}: "
+                             f"{int(counts['No. of packets'].sum())} packets "
+                             f"against {n_top} on the host")
+    return out
+
+
+def check_shell_info(sim):
+    """shell_info_table and ion_fraction_table of every element: finite,
+    one row a shell, each shell's ion fractions summing to 1."""
+    from tardis_torch.analysis.shell_info import (
+        ion_fraction_table,
+        shell_info_table,
+    )
+
+    t = time.perf_counter()
+    table = shell_info_table(sim)
+    fractions = [ion_fraction_table(sim, int(z))
+                 for z in sim.plasma_solver.element_z]
+    wall = time.perf_counter() - t
+    S = sim.state.no_of_shells
+    ok = (table.shape[0] == S and np.isfinite(table.to_numpy()).all()
+          and all(f.shape[0] == S and np.allclose(f.sum(axis=1), 1.0,
+                                                  rtol=1e-12)
+                  for f in fractions))
+    if not ok:
+        raise AssertionError("shell_info_table / ion_fraction_table")
+    return dict(wall_s=wall, columns=list(table.columns),
+                elements=len(fractions))
+
+
+def run_grid_path(atom, expected):
+    """TardisGrid.from_axes over GRID_AXES on the bench data with no device
+    (so on the card); each row's simulation runs 1 + 1 iterations of
+    GRID_PACKETS with the launch counts reset and the peak memory
+    statistics cleared just before and read just after.  One line a row:
+    its wall, t_inner, launches and torch.cuda.max_memory_allocated.
+    Held: every row on the card, its shell count, finite outputs and the
+    launch counts."""
+    from tardis_torch.grid.base import TardisGrid
+
+    grid = TardisGrid.from_axes(copy.deepcopy(GRID_CONFIG), GRID_AXES,
+                                atom_data=atom)
+    t0 = time.perf_counter()
+    for i in range(len(grid.grid)):
+        row = {k: (v.item() if hasattr(v, "item") else v)
+               for k, v in grid.grid.iloc[i].items()}
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            sim = grid.run_sim_from_grid(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = read_launches()
+        res = sim.last_transport_result
+        finite = bool(np.isfinite(sim.spectrum_real.luminosity_nu).all()
+                      and np.isfinite(res.output_nu).all()
+                      and np.isfinite(sim.state.t_radiative).all())
+        say("grid_row", index=i, overrides=row, wall_s=wall,
+            shells=sim.state.no_of_shells, t_inner=sim.state.t_inner,
+            launches=launches,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            L_emitted_over_requested=res.emitted_luminosity(
+                *sim._lum_nu_window()) / sim.state.luminosity_requested,
+            finite=finite, card=card_line())
+        if not (finite and sim.plasma_solver.device.type == "cuda"
+                and sim.state.no_of_shells
+                == row["model.structure.velocity.num"]):
+            raise AssertionError(f"grid row {i}: {row}")
+        check_launches(f"grid_row {i}", launches, expected)
+        grid.results[i] = None
+        del sim, res
+        torch.cuda.empty_cache()
+    say("grid_path", rows=len(grid.grid), wall_s=time.perf_counter() - t0)
+
+
 # what the sharded path holds against the main path's separate run
 MAIN_HELD = ("t_inner", "t_rad", "real_luminosity", "virtual_luminosity",
              "integrated_luminosity")
@@ -3573,11 +4061,18 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from tardis_torch import cuda
+    from tardis_torch.transport import vpacket
 
     hdf, failed_import = hdf_support()
     say("hdf_loader", available=hdf, failed_import=failed_import,
         walk_path_atom_data="atom_data_from_hdf" if hdf
         else "atom_data_from_arrays")
+    # the analysis tables and the grid need pandas, the plots matplotlib
+    pandas_ok, failed_pandas_import = import_support("pandas")
+    plots, failed_plot_import = import_support("matplotlib")
+    say("analysis_imports", pandas=pandas_ok, matplotlib=plots,
+        failed_imports=[m for m in (failed_pandas_import,
+                                    failed_plot_import) if m])
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -3615,7 +4110,12 @@ def main() -> int:
                 path, tables[path], pools[opts["pool"]])
             k1[f"{path}_final"] = k1[path]["final"]
             k1[path] = k1[path]["convergence"]
-            if records is not None:
+            # each K4 instantiation once, on the first path that selects it
+            # (the v_inner path's is the main path's)
+            held = {k["name"] for k in k4.values()}
+            if records is not None and line_name(
+                    "vpacket_volley",
+                    vpacket.variant_name(tables[path])) not in held:
                 k4[path] = check_vpacket_volley(tables[path], records,
                                                 device)
             del records
@@ -3696,6 +4196,19 @@ def main() -> int:
                            k1["main"]["name"]: CLI_ITERATIONS - 1,
                            k1["main_final"]["name"]: 1,
                            k4["main"]["name"]: 1}
+        # the v_inner path: its own K1 lines (last-interaction rows), the
+        # main path's K4, no K5; a grid row: the main path's K1 lines, no
+        # K4
+        expected["v_inner"] = {"line_tables": None,
+                               k2["simple"]["name"]: V_INNER_ITERATIONS,
+                               k1["v_inner"]["name"]: V_INNER_ITERATIONS - 1,
+                               k1["v_inner_final"]["name"]: 1,
+                               k4["main"]["name"]: 1}
+        expected["grid"] = {"line_tables": None,
+                            k2["simple"]["name"]: GRID_CONFIG[
+                                "montecarlo"]["iterations"],
+                            k1["main"]["name"]: 1,
+                            k1["main_final"]["name"]: 1}
         launches = {}
         sim, launches["main"], wall = run_path("main_path", BENCH_CONFIG,
                                                atom, device,
@@ -3729,6 +4242,19 @@ def main() -> int:
                                        failed_import)
         torch.cuda.empty_cache()
         say("model_io_phases", wall_s=time.perf_counter() - t)
+        t = time.perf_counter()
+        sim, launches["v_inner"] = run_v_inner_path(
+            atom, expected["v_inner"], plots, failed_plot_import)
+        check_analysis(sim, pandas_ok)
+        del sim
+        torch.cuda.empty_cache()
+        if pandas_ok:
+            run_grid_path(atom, expected["grid"])
+        else:
+            print(f"grid: skipped, {failed_pandas_import}", flush=True)
+        torch.cuda.empty_cache()
+        say("around_run_phases", wall_s=time.perf_counter() - t,
+            card=card_line())
         launches["iip"] = run_iip_path("iip_path", IIP_CONFIG, iip_atom,
                                        device, expected["iip"])
         torch.cuda.empty_cache()
@@ -3760,6 +4286,7 @@ def main() -> int:
              (k1["options"], "options"), (k1["options_final"], "options"),
              (k2["weighted"], "options"),
              (k1_walk["convergence"], "walk"), (k1_walk["final"], "walk"),
+             (k1["v_inner"], "v_inner"), (k1["v_inner_final"], "v_inner"),
              (k1["iip"], "iip"), (k1["iip_options"], "iip_options"),
              (k7, "nonhom"), (k7_final, "nonhom"), (k6, "gamma")] + [
                  (k, "probe") for k in k_probe.values()]

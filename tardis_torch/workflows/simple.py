@@ -8,9 +8,10 @@ solve_spectrum), so custom workflows subclass and replace single stages.
 Runs on the card unless ``device="cpu"`` is passed; with a list of
 devices the simulation lives on the first and the classic event loop
 splits its packets over all of them, as the JAX workflows' default
-``TransportSolver(mesh="auto")`` does over every visible device.  Live
-convergence plots are not ported: ``show_convergence_plots=True`` raises
-``NotImplementedError``.
+``TransportSolver(mesh="auto")`` does over every visible device.
+``StandardTARDISWorkflow(show_convergence_plots=True)`` draws the
+convergence plots (``visualization/convergence.py``) after the final
+iteration, as the JAX workflow does.
 """
 
 from __future__ import annotations
@@ -84,17 +85,14 @@ class SimpleTARDISWorkflow:
 
 
 class StandardTARDISWorkflow(SimpleTARDISWorkflow):
-    """Adds per-iteration logging, an iteration progress bar and a packet
-    bar (reference standard_tardis_workflow.py:16)."""
+    """Adds per-iteration logging, an iteration progress bar, a packet bar
+    and, with ``show_convergence_plots``, the convergence plots after the
+    final iteration (reference standard_tardis_workflow.py:16)."""
 
     def __init__(self, config, atom_data=None, show_convergence_plots=False,
                  show_progress_bars=True, device=None):
-        if show_convergence_plots:
-            raise NotImplementedError(
-                "show_convergence_plots: the visualization package is not "
-                "ported")
         super().__init__(config, atom_data, device)
-        self.show_convergence_plots = False
+        self.show_convergence_plots = show_convergence_plots
         self.show_progress_bars = show_progress_bars
         # the in-run packet bar rides the same flag: it advances once per
         # K1 launch (per shard under packet parallelism)
@@ -126,5 +124,12 @@ class StandardTARDISWorkflow(SimpleTARDISWorkflow):
             if converged and sim.stop_if_converged:
                 break
         self.solve_spectrum()
+        if self.show_convergence_plots:
+            self.plot_convergence()
         self.completed = True
         return self
+
+    def plot_convergence(self):
+        from tardis_torch.visualization.convergence import plot_convergence
+
+        return plot_convergence(self.sim)

@@ -130,8 +130,8 @@ def test_continuum_transport_options(workflows):
 
 def test_refusals():
     """The workflow needs photoionization data and macroatom; run_tardis
-    and the classic workflows refuse continuum species, and live
-    convergence plots are not ported."""
+    and the classic workflows refuse continuum species; the convergence
+    plots are no longer refused (tests/test_torch_viz.py runs them)."""
     from tardis_torch.atomic.synthetic import make_synthetic_atom_data as syn
     from tardis_torch.simulation.base import run_tardis
 
@@ -151,9 +151,9 @@ def test_refusals():
             run(copy.deepcopy(CONFIG))
     cfg = copy.deepcopy(CONFIG)
     del cfg["plasma"]["continuum_interaction"]
-    with pytest.raises(NotImplementedError, match="convergence_plots"):
-        StandardTARDISWorkflow(cfg, atom_data=_torch_atom(), device="cpu",
-                               show_convergence_plots=True)
+    wf = StandardTARDISWorkflow(cfg, atom_data=_torch_atom(), device="cpu",
+                                show_convergence_plots=True)
+    assert wf.show_convergence_plots
 
 
 def _torch_atom():

@@ -45,9 +45,10 @@ def test_no_jax_or_reference_imports(path):
 
 
 # imported only inside the functions that use them: the carsus loader,
-# the HDF writers and model readers, the progress bars and the notebook
-# log panel
-LAZY = ("h5py", "pandas", "tables", "tqdm", "IPython", "ipywidgets")
+# the HDF writers and model readers, the progress bars, the notebook
+# log panel, the analysis tables and the plots
+LAZY = ("h5py", "pandas", "tables", "tqdm", "IPython", "ipywidgets",
+        "matplotlib")
 
 
 def _module_level_imports(path: Path):
@@ -66,10 +67,10 @@ def _module_level_imports(path: Path):
     "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_no_module_level_h5py_or_pandas(path):
-    """h5py, pandas, tqdm and IPython / ipywidgets are imported only where
-    the loader, the writers, the readers, a progress bar or the notebook
-    panel run, so the rest of the port (and a card's machine without
-    them) never needs them."""
+    """h5py, pandas, tqdm, IPython / ipywidgets and matplotlib are imported
+    only where the loader, the writers, the readers, a progress bar, the
+    notebook panel, an analysis table or a plot run, so the rest of the
+    port (and a card's machine without them) never needs them."""
     bad = [m for m in _module_level_imports(path)
            if m.split(".")[0] in LAZY]
     assert not bad, f"{path.name} imports {bad} at module level"
@@ -77,7 +78,7 @@ def test_no_module_level_h5py_or_pandas(path):
 
 def test_port_imports_without_h5py_and_pandas():
     """Every module of the port imports in a process where none of LAZY
-    (h5py, pandas, PyTables, tqdm, IPython, ipywidgets) can be
+    (h5py, pandas, PyTables, tqdm, IPython, ipywidgets, matplotlib) can be
     imported."""
     import subprocess
     import sys
@@ -324,3 +325,21 @@ def test_model_io_and_cli_modules_are_scanned():
                  "io/cmfgen2tardis.py", "io/logger.py", "io/hdf.py",
                  "io/pandas_hdf_writer.py", "io/debug_packets.py", "cli.py"):
         assert f"tardis_torch/{name}" in scanned, name
+
+
+def test_analysis_grid_utils_and_plots_are_scanned():
+    """The analysis, grid, utils and visualization packages and the two
+    workflow modules around the run are among the files the import scans
+    read, every module of those packages included."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("workflows/util.py", "workflows/v_inner_solver.py",
+                 "analysis/last_interaction.py", "analysis/line_info.py",
+                 "analysis/shell_info.py", "analysis/opacities.py",
+                 "analysis/history.py", "grid/base.py", "utils/base.py",
+                 "visualization/convergence.py",
+                 "visualization/widgets/shell_info.py",
+                 "visualization/widgets/line_info.py"):
+        assert f"tardis_torch/{name}" in scanned, name
+    for package in ("analysis", "grid", "utils", "visualization"):
+        files = sorted((ROOT / "tardis_torch" / package).rglob("*.py"))
+        assert files and set(files) <= set(_port_files()), package
