@@ -170,7 +170,23 @@ Phases, one printed line each (plus one line per iteration):
      evaluations at most), and the final iteration; per iteration its
      wall, thermal-balance host time, K1 milliseconds and luminosity;
      then the IIP options path, 2 iterations with the two-photon and
-     adiabatic-cooling channels on; the nonhomologous path,
+     adiabatic-cooling channels on; the iip_vpacket path: TypeIIPWorkflow
+     for one iteration, then its TransportSolver.run_iteration with the
+     workflow's continuum state and Markov macro atom and 2 virtual
+     packets a record (K1's continuum records instantiation, checked
+     before in check_continuum_records: timed uncapped at 1,048,576,
+     nearly every attempt past the capacity; capped at IIP_EVENT_CAP
+     against the plain version, every packet bitwise, the attempts
+     exactly and the capacity's rows kept; on the records problem, the
+     IIP problem at 1.6e4-2.6e4 km/s and 14 days with 32 rows a packet
+     so that every record fits, the records bitwise as a multiset; K4
+     on its records), then
+     run_tardis with continuum species (the classic loop, 2 iterations
+     of 1,048,576 with virtual packets and their logging), each part's
+     wall, the kept rows by li_type, and the visualization modules' data
+     preparation on the card's result (SDEC in both modes, LIV,
+     Grotrian; the figures where matplotlib imports, else "plots:
+     skipped, ..."); the nonhomologous path,
      NonhomologousTARDISWorkflow on the bench problem under the perturbed
      law, 4 convergence iterations of 2,097,152 packets and a final one of
      4,194,304 (real-packet spectrum); the gamma-ray path,
@@ -221,6 +237,7 @@ import importlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -323,6 +340,34 @@ IIP_OPTIONS_CONFIG = copy.deepcopy(IIP_CONFIG)
 IIP_OPTIONS_CONFIG["montecarlo"]["iterations"] = IIP_OPTIONS_ITERATIONS
 IIP_OPTIONS_CONFIG["plasma"]["continuum_interaction"].update(
     enable_two_photon_decay=True, enable_adiabatic_cooling=True)
+# the continuum-records problem of tests/test_torch_continuum_vpackets.py:
+# the IIP problem at 1.6e4-2.6e4 km/s and 14 days, where few packets
+# random-walk and continuum processes still write type-3 records; at its
+# 1,000 packets every record fits 8 a packet, at 65,536 on the card the
+# walkers (one of 44,227 events) made 16.3 attempts a packet, so its
+# kernel check keeps RECORDS_PROBLEM_PER_PACKET rows a packet to hold
+# every record
+RECORDS_CONFIG = copy.deepcopy(IIP_CONFIG)
+RECORDS_CONFIG["model"]["structure"]["velocity"].update(start="1.6e4 km/s",
+                                                        stop="2.6e4 km/s")
+RECORDS_CONFIG["supernova"]["time_explosion"] = "14 day"
+RECORDS_PROBLEM_PER_PACKET = 32
+# both sides of the records problem's bitwise check stop here: its p99 is
+# 39 events a packet at 1,048,576 packets (on an NVIDIA H100 80GB HBM3),
+# and the plain lockstep loop runs as many steps as the cap (32.3 s there
+# at IIP_EVENT_CAP)
+RECORDS_EVENT_CAP = 300
+# continuum species through run_tardis (the classic loop, as the JAX
+# package runs it): the IIP problem, 2 iterations at its width with
+# virtual packets and their logging
+CONTINUUM_SPECIES_CONFIG = copy.deepcopy(IIP_CONFIG)
+CONTINUUM_SPECIES_CONFIG["montecarlo"].update(
+    iterations=2, no_of_virtual_packets=N_VPACKETS)
+CONTINUUM_SPECIES_CONFIG["spectrum"]["virtual"] = {
+    "virtual_packet_logging": True}
+# K4 (full relativity) on K1's continuum records: its own kernels line,
+# counted under the full-relativity instantiation's launches
+K4_CONTINUUM_LINE = "vpacket_volley[full_relativity,continuum_records]"
 
 # the nonhomologous path: the bench problem under a perturbed velocity law
 # (the JAX package's end-to-end test, tests/test_nonhomologous.py:252-257),
@@ -1096,7 +1141,7 @@ def build_variants(tables, pools, iip_tables=(), walk_tables=()):
     """Build, in parallel, the K1 and K4 instantiations the paths select
     on their own tables and pools, K1's continuum instantiations of
     ``iip_tables`` (with the weighted pool and last-interaction rows, as
-    the IIP paths run them), K1's walk instantiations of ``walk_tables``
+    the IIP paths run them; the IIP path's also with spawn records), K1's walk instantiations of ``walk_tables``
     (with and without line estimators), K7's NONHOM_CASES and K6's
     GAMMA_OPTIONS; returns the wall seconds and the ptxas register
     lines."""
@@ -1105,8 +1150,11 @@ def build_variants(tables, pools, iip_tables=(), walk_tables=()):
     from tardis_torch.transport import kernel, nonhomologous, vpacket
 
     libs = [("transport_loop", kernel.library_defines(kernel.variant(
-        t, pools["relativistic"][N_PACKETS][2], last_interaction=True)))
-        for t in iip_tables]
+        t, pools["relativistic"][N_PACKETS][2], last_interaction=True,
+        vpacket_capacity=records)))
+        for t in iip_tables for records in (0, 1)
+        if not records or not (t.continuum.two_photon
+                               or t.continuum.adiabatic)]
     libs += [("nonhom_loop", nonhomologous.library_defines(flags))
              for flags in dict.fromkeys(f for _, f, _, _ in NONHOM_CASES)]
     libs += [("gamma_step", gamma_kernel.library_defines(
@@ -1203,7 +1251,7 @@ def check_transport_loop(path, tables, pools):
     return entries, records
 
 
-def check_vpacket_volley(tables, records, device):
+def check_vpacket_volley(tables, records, device, config=BENCH_CONFIG):
     """K4 on K1's spawn records at a path's shapes (the main path's final
     iteration's records, or the full-relativity records of
     ``check_transport_loop_relativity`` through K4's full-relativity
@@ -1226,7 +1274,7 @@ def check_vpacket_volley(tables, records, device):
         variant_name,
     )
 
-    spec = config_from_dict(BENCH_CONFIG).spectrum
+    spec = config_from_dict(config).spectrum
     edges = torch.as_tensor(
         (frequency_grid(spec.start, spec.stop, spec.num) / NU_UNIT)
         .astype(np.float32), device=device)
@@ -2281,7 +2329,7 @@ def compare_continuum(k, p):
                     counts_equal, summation_bound=sums, max_abs_err=max_abs)
 
 
-def check_continuum_loop(tables, pool, run_key, replaces):
+def check_continuum_loop(tables, pool, run_key, replaces, plain_out=None):
     """A continuum K1 instantiation at the IIP path's width, in both of its
     table placements (shared memory, the one its size picks at the IIP
     problem, and device memory).  Each is timed uncapped as the path runs
@@ -2293,7 +2341,11 @@ def check_continuum_loop(tables, pool, run_key, replaces):
     stopped at IIP_EVENT_CAP events a packet (the plain lockstep loop runs
     as many steps as its longest packet).  Every comparison: each packet's
     row, event count and last-interaction row bitwise (a stopped packet's
-    row is zero in both), the sums within CONTINUUM_LIMITS.  Returns the
+    row is zero in both), the sums within CONTINUUM_LIMITS.  With a
+    ``plain_out`` dict, the plain version also writes the spawn records of
+    the records instantiation's capacity (VPACKET_RECORDS_PER_PACKET a
+    packet; the records change nothing else), and its result is left there
+    under "plain" for ``check_continuum_records``.  Returns the
     kernels-line entry."""
     from tardis_torch.transport.kernel import (
         library_defines,
@@ -2303,6 +2355,7 @@ def check_continuum_loop(tables, pool, run_key, replaces):
         variant,
         variant_name,
     )
+    from tardis_torch.transport.solver import VPACKET_RECORDS_PER_PACKET
 
     mu, nu, w = pool
     n = mu.shape[0]
@@ -2360,9 +2413,12 @@ def check_continuum_loop(tables, pool, run_key, replaces):
                                & (full.out[:, 1] == 0)).sum())}
     del full
 
+    cap = 0 if plain_out is None else VPACKET_RECORDS_PER_PACKET * n
     plain_ms, p = cuda_ms(lambda: transport_loop_plain(
         tables, mu, nu, run_key, batch_size=n, max_events=IIP_EVENT_CAP,
-        **kw), 1, warmup=False)
+        vpacket_capacity=cap, **kw), 1, warmup=False)
+    if plain_out is not None:
+        plain_out.update(plain=p, plain_ms=plain_ms)
     capped = {}
     for smem in placements:
         capped_ms, k = cuda_ms(lambda: transport_loop(
@@ -2400,6 +2456,313 @@ def check_continuum_loop(tables, pool, run_key, replaces):
                  **({"device_tables_ms": runs[False]["ms"]}
                     if picked else {}))
     return entry
+
+
+def record_kinds(records):
+    """Kept spawn records by li_type: births (-1), e-scatters (1), lines (2)
+    and continuum processes (3)."""
+    kinds = records[:, 6]
+    return {name: int((kinds == k).sum()) for name, k in (
+        ("birth", -1.0), ("escat", 1.0), ("line", 2.0), ("continuum", 3.0))}
+
+
+def ptxas_numbers(name, defines):
+    """Registers and spill bytes ptxas reported for a library's kernels
+    (the lines of its build log)."""
+    lines = ptxas_lines([(name, defines)]).get(" ".join((name, *defines)),
+                                                [])
+    regs = [int(m) for ln in lines
+            for m in re.findall(r"Used (\d+) registers", ln)]
+    spills = [int(m) for ln in lines
+              for m in re.findall(r"(\d+) bytes spill stores", ln)]
+    return dict(registers=max(regs, default=None),
+                spill_store_bytes=max(spills, default=None), ptxas=lines)
+
+
+def records_problem(device):
+    """The continuum-records problem of tests/test_torch_continuum_vpackets
+    .py (the IIP problem at 1.6e4-2.6e4 km/s and 14 days, the first
+    iteration's plasma): K1's tables with the relativistic pool at
+    IIP_PACKETS and the first iteration's keys."""
+    from tardis_torch.config.reader import config_from_dict
+    from tardis_torch.model.state import SimulationState
+    from tardis_torch.transport.solver import iteration_keys
+    from tardis_torch.transport.source import blackbody_source
+
+    state = SimulationState.from_config(config_from_dict(RECORDS_CONFIG))
+    _, atom = build_iip_problem()
+    src_key, run_key = iteration_keys(SEED, 0)
+    pool = blackbody_source(src_key, IIP_PACKETS, state.t_inner, device,
+                            "relativistic", beta_inner(state))
+    return iip_tables(state, atom, device), pool, run_key
+
+
+def check_continuum_records(device, tables, pool, run_key, plain):
+    """K1's continuum instantiation with spawn records (TL_RECORDS), as the
+    iip_vpacket path runs it (relativistic pool, last-interaction rows,
+    VPACKET_RECORDS_PER_PACKET records a packet), and K4 on its records.
+
+    On the IIP problem (``tables``, ``pool``) it is timed uncapped, one
+    launch as the path runs it: nearly every attempt is past the capacity
+    there (packets random-walk ~2,400 events), so which rows are kept
+    depends on the schedule of the atomic claims and no plain version can
+    hold them; the kept rows by li_type are printed.  Stopped at
+    IIP_EVENT_CAP events a packet it is held against the plain version's
+    run of check_continuum_loop (``plain``, the same cap, with records):
+    every packet bitwise (compare_continuum), the attempts ``vp_count``
+    exactly and exactly ``capacity`` rows kept.  On the records problem
+    (records_problem, with RECORDS_PROBLEM_PER_PACKET rows a packet so
+    that every record fits, births and continuum processes included)
+    both are stopped at RECORDS_EVENT_CAP and the records compared as
+    multisets, bitwise; the uncapped run keeps every attempt.  K4
+    (full relativity) on the IIP run's kept records: check_vpacket_volley
+    with the IIP configuration's 1,000 bins; on the records problem's
+    uncapped records the histogram within 1e-9 of the plain version's and
+    the rays bitwise.  Returns the K1 and K4 kernels-line entries."""
+    from tardis_torch.transport.kernel import (
+        library_defines,
+        transport_loop,
+        transport_loop_plain,
+        variant,
+        variant_name,
+    )
+    from tardis_torch.transport.solver import VPACKET_RECORDS_PER_PACKET
+    from tardis_torch.transport.vpacket import (
+        trace_vpacket_records,
+        trace_vpacket_records_plain,
+    )
+
+    mu, nu, w = pool
+    n = mu.shape[0]
+    cap = VPACKET_RECORDS_PER_PACKET * n
+    kw = dict(pool_w=w, last_interaction=True, vpacket_capacity=cap)
+    flags = variant(tables, w, last_interaction=True, vpacket_capacity=cap)
+    name = line_name("transport_loop", variant_name(flags))
+    plain_ms = plain["plain_ms"]
+    ms, k = cuda_ms(lambda: transport_loop(tables, mu, nu, run_key, **kw), 1,
+                    warmup=False)
+    attempts = int(k.vp_count[0])
+    kinds = record_kinds(k.vp_records)
+    events = k.summary[2].item()
+    if not (attempts > cap and k.n_vp_records == cap
+            and kinds["birth"] >= 1 and kinds["continuum"] >= 1):
+        raise AssertionError(f"{name} uncapped: {attempts} attempts, "
+                             f"{k.n_vp_records} kept of {cap}, {kinds}")
+    k4 = check_vpacket_volley(tables, k.vp_records, device,
+                              config=IIP_CONFIG)
+    del k
+    p = plain["plain"]
+    kc = transport_loop(tables, mu, nu, run_key, max_events=IIP_EVENT_CAP,
+                        **kw)
+    ok, capped = compare_continuum(kc, p)
+    capped.update(attempts=int(kc.vp_count[0]),
+                  plain_attempts=int(p.vp_count[0]),
+                  kept=kc.n_vp_records, plain_kept=p.n_vp_records)
+    if not (ok and capped["attempts"] == capped["plain_attempts"] > cap
+            and capped["kept"] == capped["plain_kept"] == cap):
+        raise AssertionError(f"{name} capped at {IIP_EVENT_CAP} against its "
+                             f"plain version: {capped}")
+    last_interaction = kc.last_interaction
+    del kc, p
+    plain.clear()
+    torch.cuda.empty_cache()
+
+    # the records problem: every record fits RECORDS_PROBLEM_PER_PACKET
+    # rows a packet
+    tables_b, (mu_b, nu_b, w_b), key_b = records_problem(device)
+    cap_b = RECORDS_PROBLEM_PER_PACKET * n
+    kw_b = dict(pool_w=w_b, last_interaction=True, vpacket_capacity=cap_b)
+    kb = transport_loop(tables_b, mu_b, nu_b, key_b, **kw_b)
+    rows_b = kb.vp_records[:kb.n_vp_records]
+    fits = dict(attempts=int(kb.vp_count[0]), capacity=cap_b,
+                records=record_kinds(rows_b),
+                events_per_packet=event_distribution(
+                    kb.events, kb.summary[3].item()))
+    edges = iip_edges(device)
+    vk = trace_vpacket_records(tables_b, rows_b, N_VPACKETS, edges,
+                               return_packets=True)
+    vp = trace_vpacket_records_plain(tables_b, rows_b, N_VPACKETS, edges,
+                                     return_packets=True)
+    fits.update(k4_hist_max_rel=rel_err(vk.hist, vp.hist),
+                k4_rays_bitwise=bool(torch.equal(vk.nu, vp.nu)
+                                     and torch.equal(vk.energy, vp.energy)))
+    if not (fits["attempts"] <= cap_b and fits["records"]["continuum"] >= 1
+            and fits["k4_hist_max_rel"] <= 1e-9 and fits["k4_rays_bitwise"]):
+        raise AssertionError(f"{name} on the records problem: {fits}")
+    del kb, rows_b, vk, vp
+    plain_b_ms, pb = cuda_ms(lambda: transport_loop_plain(
+        tables_b, mu_b, nu_b, key_b, batch_size=PLAIN_LANES,
+        max_events=RECORDS_EVENT_CAP, **kw_b), 1, warmup=False)
+    kb = transport_loop(tables_b, mu_b, nu_b, key_b,
+                        max_events=RECORDS_EVENT_CAP, **kw_b)
+    ok_b, numbers_b = compare_continuum(kb, pb)
+    rows_k = sorted_rows(kb.vp_records[:kb.n_vp_records])
+    rows_p = sorted_rows(pb.vp_records[:pb.n_vp_records])
+    records_equal = (int(kb.vp_count[0]) == int(pb.vp_count[0]) <= cap_b
+                     and torch.equal(rows_k, rows_p))
+    fits.update(capped=dict(numbers_b, records_bitwise_as_multiset=
+                            records_equal, plain_ms=plain_b_ms,
+                            event_cap=RECORDS_EVENT_CAP))
+    if not (ok_b and records_equal):
+        raise AssertionError(f"{name} on the records problem, capped at "
+                             f"{RECORDS_EVENT_CAP}: {fits['capped']}")
+    max_abs = max(capped["max_abs_err"], numbers_b["max_abs_err"])
+    del kb, pb, rows_k, rows_p, tables_b
+    torch.cuda.empty_cache()
+
+    b_ms, b_by = k1_bound(tables, n, events, n_records=cap,
+                          extra_bytes=nbytes(w, last_interaction))
+    regs = ptxas_numbers("transport_loop", library_defines(flags))
+    numbers = dict(line=name, n=n, ms=ms, events=events, attempts=attempts,
+                   kept=cap, records=kinds, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, event_cap=IIP_EVENT_CAP, capped=capped,
+                   records_problem=fits, max_abs_err=max_abs, **regs)
+    say("check_continuum_records", **numbers)
+    entry = k1_entry(name, "tardis_tpu/transport/kernel.py:987", numbers)
+    entry.update(registers=regs["registers"],
+                 spill_store_bytes=regs["spill_store_bytes"], records=kinds)
+    k4["name"] = K4_CONTINUUM_LINE
+    k4["counted_as"] = line_name("vpacket_volley", "full_relativity")
+    return entry, k4
+
+
+def iip_edges(device):
+    """The IIP configuration's spectrum bin edges in NU_UNIT, f32."""
+    from tardis_torch.config.reader import config_from_dict
+    from tardis_torch.spectrum.base import frequency_grid
+    from tardis_torch.transport.tables import NU_UNIT
+
+    spec = config_from_dict(IIP_CONFIG).spectrum
+    return torch.as_tensor(
+        (frequency_grid(spec.start, spec.stop, spec.num) / NU_UNIT)
+        .astype(np.float32), device=device)
+
+
+def run_iip_vpacket_path(atom, device, expected, plots, failed_plot_import):
+    """Continuum transport with virtual packets, through the entry points a
+    user calls, with the launch counts reset to 0 just before and read just
+    after: TypeIIPWorkflow(IIP_CONFIG, one iteration).run(), then its
+    TransportSolver.run_iteration with the workflow's continuum state and
+    Markov macro atom and N_VPACKETS virtual packets a record (K2, K1's
+    continuum records instantiation, K4 under full relativity); then
+    run_tardis on CONTINUUM_SPECIES_CONFIG (continuum species through the
+    classic loop, 2 iterations at IIP_PACKETS with virtual packets and
+    their logging: the v_inner path's K1 instantiations, the main path's
+    K4).  Prints the records run's attempts, the kept rows by li_type, its
+    virtual luminosity, the run_tardis wall time, and the visualization
+    modules' data preparation on the card's results (the plots themselves
+    where matplotlib imports)."""
+    from tardis_torch.opacities.continuum_macro import (
+        solve_continuum_macro_state,
+    )
+    from tardis_torch.simulation.base import run_tardis
+    from tardis_torch.transport.solver import VPACKET_RECORDS_PER_PACKET
+    from tardis_torch.workflows.type_iip import TypeIIPWorkflow
+
+    config = copy.deepcopy(IIP_CONFIG)
+    config["montecarlo"]["iterations"] = 1
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf = TypeIIPWorkflow(config, atom_data=atom, device=device).run()
+    sim = wf.sim
+    macro = solve_continuum_macro_state(
+        sim.atom_data, sim.plasma_state, wf.cont_state,
+        sim.plasma_state.j_blues, enable_two_photon=wf.enable_two_photon,
+        enable_adiabatic_cooling=wf.enable_adiabatic_cooling,
+        time_explosion=sim.state.time_explosion)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = sim.transport.run_iteration(
+        sim.state, sim.plasma_state, sim.atom_data, n_packets=IIP_PACKETS,
+        seed=sim.seed, iteration=1, n_vpackets=N_VPACKETS,
+        spectrum_nu_edges=sim.spectrum_nu_edges, need_line_estimators=False,
+        lum_nu_window=sim._lum_nu_window(), continuum_state=wf.cont_state,
+        continuum_macro=macro)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sim_a = run_tardis(copy.deepcopy(CONTINUUM_SPECIES_CONFIG), atom_data=atom,
+                       device=device)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = read_launches()
+    cap = VPACKET_RECORDS_PER_PACKET * IIP_PACKETS
+    virtual = float(res.virt_energy_hist.sum() / res.time_of_simulation)
+    real = res.emitted_luminosity(*sim._lum_nu_window())
+    spectra = {k: getattr(sim_a, f"spectrum_{k}") for k in ("real",
+                                                            "virtual")}
+    finite = bool(np.isfinite(res.virt_energy_hist).all()
+                  and all(np.isfinite(s.luminosity_nu).all()
+                          for s in spectra.values()))
+    numbers = dict(
+        wall_s=t3 - t0, workflow_s=t1 - t0, records_run_s=t2 - t1,
+        run_tardis_s=t3 - t2, launches=launches, attempts=res.vp_records,
+        capacity=cap, virtual_luminosity=virtual, real_luminosity=real,
+        virtual_over_real=virtual / real, run_tardis=dict(
+            device_line=sim_a._device_line_ok(),
+            luminosity={k: s.luminosity for k, s in spectra.items()},
+            t_inner=sim_a.state.t_inner, iterations=len(sim_a.history) + 1),
+        finite=finite)
+    numbers.update(viz=viz_data_prep(sim_a, plots, failed_plot_import))
+    say("iip_vpacket_path", **numbers)
+    if not (finite and res.vp_records > cap and virtual > 0
+            and not sim_a._device_line_ok()
+            and spectra["virtual"].luminosity > 0):
+        raise AssertionError(f"iip_vpacket_path: {numbers}")
+    check_launches("iip_vpacket_path", launches, expected)
+    return launches
+
+
+def viz_data_prep(sim, plots, failed_plot_import):
+    """The visualization modules' data preparation on a finished run on
+    the card (torch on its device): the SDEC decomposition in both modes
+    (the real components summing to the emitted luminosity in range within
+    1e-6), the LIV groups, the Grotrian ladder and transitions; then the
+    figures where matplotlib imports, else ``plots: skipped``."""
+    from tardis_torch.visualization.grotrian import GrotrianPlot
+    from tardis_torch.visualization.liv import LIVPlotter
+    from tardis_torch.visualization.sdec import SDECPlotter
+
+    t0 = time.perf_counter()
+    edges = sim.spectrum_nu_edges
+    p = SDECPlotter(sim)
+    out = {}
+    for mode in ("real", "virtual"):
+        em, ab = p._decompose(edges, mode)
+        total = float((sum(em.values()) * np.abs(np.diff(edges))).sum())
+        out[f"sdec_{mode}"] = dict(emission=len(em), absorption=len(ab),
+                                   luminosity=total)
+    res = sim.last_transport_result
+    in_rng = ((res.output_nu >= edges.min()) & (res.output_nu < edges.max())
+              & res.emitted_mask)
+    want = res.output_energy[in_rng].sum() / res.time_of_simulation
+    out["sdec_real"]["rel_err"] = abs(out["sdec_real"]["luminosity"]
+                                      - want) / want
+    liv = LIVPlotter(sim)
+    liv._prepare("real", None, None, None, 10)
+    out["liv_groups"] = liv._species_name
+    out["liv_packets"] = int(sum(len(d) for d in liv.plot_data))
+    g = GrotrianPlot(sim)
+    g._compute_level_data()
+    g._compute_transitions()
+    out["grotrian"] = dict(levels=len(g.merged_energies),
+                           excite=len(g.excite_lines),
+                           deexcite=len(g.deexcite_lines))
+    torch.cuda.synchronize()
+    out["data_prep_s"] = time.perf_counter() - t0
+    if not (out["sdec_real"]["rel_err"] <= 1e-6 and out["liv_packets"] > 0
+            and out["sdec_virtual"]["luminosity"] > 0):
+        raise AssertionError(f"visualization data preparation: {out}")
+    if plots:
+        import matplotlib.pyplot as plt
+
+        plt.close(p.generate_plot_mpl(packets_mode="virtual"))
+        plt.close(liv.generate_plot_mpl(num_bins=10).figure)
+        plt.close(g.display().figure)
+        out["plots"] = "drawn"
+    else:
+        print(f"plots: skipped, {failed_plot_import}", flush=True)
+    return out
 
 
 @contextlib.contextmanager
@@ -2618,7 +2981,10 @@ def check_iip_kernels(device, state, atom, tables, k2, k3):
     path's first key (each kept under its existing line, with the larger
     error), then K1's two continuum instantiations on ``tables`` (the IIP
     path's, and the IIP options path's with the two-photon and adiabatic
-    channels).  Returns the K1 lines by path."""
+    channels), and the IIP path's with spawn records with K4 on them
+    (check_continuum_records, on the plain run of the IIP path's check).
+    Returns the K1 lines by path ("iip_records" the records
+    instantiation's, "iip_records_k4" K4's on its records)."""
     from tardis_torch.transport.solver import iteration_keys
 
     _, k3_iip, _ = check_line_tables(state, atom, device)
@@ -2631,13 +2997,17 @@ def check_iip_kernels(device, state, atom, tables, k2, k3):
     k2["relativistic"]["max_abs_err"] = max(
         k2["relativistic"]["max_abs_err"], k2_iip["max_abs_err"])
     _, run_key = iteration_keys(SEED, 0)
-    lines = {}
+    lines, plain = {}, {}
     for path, replaces in (("iip", "tardis_tpu/transport/kernel.py:366"),
                            ("iip_options",
                             "tardis_tpu/transport/kernel.py:864")):
-        lines[path] = check_continuum_loop(tables[path], pool, run_key,
-                                           replaces)
+        lines[path] = check_continuum_loop(
+            tables[path], pool, run_key, replaces,
+            plain_out=plain if path == "iip" else None)
         torch.cuda.empty_cache()
+    lines["iip_records"], lines["iip_records_k4"] = check_continuum_records(
+        device, tables["iip"], pool, run_key, plain)
+    torch.cuda.empty_cache()
     return lines
 
 
@@ -4130,6 +4500,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         k1.update(check_iip_kernels(device, iip_state, iip_atom, tables_iip,
                                     k2, k3))
+        k4_continuum = k1.pop("iip_records_k4")
         check_sharded_continuum(tables_iip["iip"], iip_state, device)
         del tables_iip
         torch.cuda.empty_cache()
@@ -4161,6 +4532,17 @@ def main() -> int:
             expected[path] = {"line_tables": None,
                               k2["relativistic"]["name"]: n,
                               k1[path]["name"]: n}
+        # the workflow's iteration (K2, the continuum K1), its records run
+        # (K2, the continuum K1 with records, K4 under full relativity),
+        # then run_tardis with continuum species: the classic loop's K2 and
+        # the v_inner path's K1 lines (last-interaction rows), the main
+        # path's K4
+        expected["iip_vpacket"] = {
+            "line_tables": None, k2["relativistic"]["name"]: 2,
+            k1["iip"]["name"]: 1, k1["iip_records"]["name"]: 1,
+            k4_continuum["counted_as"]: 1, k2["simple"]["name"]: 2,
+            k1["v_inner"]["name"]: 1, k1["v_inner_final"]["name"]: 1,
+            k4["main"]["name"]: 1}
         expected["nonhom"] = {"line_tables": None,
                               k2["simple"]["name"]: NONHOM_ITERATIONS,
                               k7["name"]: NONHOM_ITERATIONS - 1,
@@ -4262,6 +4644,10 @@ def main() -> int:
             "iip_options_path", IIP_OPTIONS_CONFIG, iip_atom, device,
             expected["iip_options"])
         torch.cuda.empty_cache()
+        launches["iip_vpacket"] = run_iip_vpacket_path(
+            iip_atom, device, expected["iip_vpacket"], plots,
+            failed_plot_import)
+        torch.cuda.empty_cache()
         launches["nonhom"] = run_nonhom_path(atom, device, expected["nonhom"])
         torch.cuda.empty_cache()
         launches["gamma"], k6_path = run_gamma_path(state, device,
@@ -4288,10 +4674,12 @@ def main() -> int:
              (k1_walk["convergence"], "walk"), (k1_walk["final"], "walk"),
              (k1["v_inner"], "v_inner"), (k1["v_inner_final"], "v_inner"),
              (k1["iip"], "iip"), (k1["iip_options"], "iip_options"),
+             (k1["iip_records"], "iip_vpacket"),
+             (k4_continuum, "iip_vpacket"),
              (k7, "nonhom"), (k7_final, "nonhom"), (k6, "gamma")] + [
                  (k, "probe") for k in k_probe.values()]
     for k, path in lines:
-        k["launches"] = launches[path][k["name"]]
+        k["launches"] = launches[path][k.get("counted_as", k["name"])]
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on its path")
     # one weighted-pool call is two launches: the pool, then the division

@@ -67,7 +67,8 @@
 // Options.  The JAX package's static config switches five branches of the
 // step; here each is a template parameter of the kernel, and the library
 // is built with one instantiation, chosen by -D flags (TL_FULL_RELATIVITY,
-// TL_LAST_INTERACTION, TL_TRACKER, TL_REFLECTIVE, TL_WEIGHTS, TL_WALK; the wrapper
+// TL_LAST_INTERACTION, TL_TRACKER, TL_REFLECTIVE, TL_WEIGHTS, TL_WALK, and the
+// continuum's TL_CONTINUUM, TL_TWO_PHOTON, TL_ADIABATIC, TL_RECORDS; the wrapper
 // builds one library per combination it is asked for).  An option that is
 // off compiles to nothing, so the classic instantiation, which every
 // convergence iteration of the main path runs, carries no register or
@@ -122,7 +123,19 @@
 //   - two-photon (TL_TWO_PHOTON, :864-878): the two-photon channel's
 //     frequency by linear interpolation of its inverse-CDF table (u8);
 //   - adiabatic cooling (TL_ADIABATIC, :917-928,1016-1021): the channel
-//     ends the packet with output (-nu before the interaction, energy 0).
+//     ends the packet with output (-nu before the interaction, energy 0);
+//   - spawn records (TL_RECORDS, :520-545,987-1008): the continuum loop
+//     writes them only in this instantiation (the classic loop tests the
+//     capacity at run time), so the instantiation without records is the
+//     same code as before they were added.  Births write [beta_inner, mu,
+//     nu, energy, 0, birth_line, -1, -1]; every e-scatter, line and
+//     continuum process the state after the emission, li_type 1, 2 or 3,
+//     out_line = next_line - 1 for a line or a continuum process (both
+//     activate the macro atom), -1 for an e-scatter; a packet the adiabatic
+//     channel ends writes its row as well.  A random-walking IIP packet
+//     makes thousands of attempts, so at the IIP shape nearly all are
+//     counted and dropped, and which survive depends on the schedule of
+//     the atomic claims (the JAX package keeps the first in step order).
 //   Bound of the continuum instantiation: still latency, not bandwidth.
 //   An event adds ~C x 12 operations and C x 4 table reads (the IIP
 //   tables are 142 KB) to the classic event.  The Markov walk is
@@ -172,6 +185,9 @@
 #endif
 #ifndef TL_ADIABATIC
 #define TL_ADIABATIC 0
+#endif
+#ifndef TL_RECORDS
+#define TL_RECORDS 0
 #endif
 #ifndef TL_WALK
 #define TL_WALK 0
@@ -844,10 +860,12 @@ __device__ __forceinline__ void cont_birth(const Params& p, int64_t pid, ContPac
 }
 
 // one event of a continuum packet (ClassicWalker::event with the continuum
-// opacity, estimators and Markov macro atom, no spawn records, and the
-// event search a bisection of [next_line, L], as the plain version's);
-// returns false when the packet dies, its output row and sums written
-template <bool kRel, bool kTrack, bool kReflect, bool kTwoPhoton, bool kAdiabatic>
+// opacity, estimators and Markov macro atom, and the event search a
+// bisection of [next_line, L], as the plain version's; with kRecords an
+// interaction appends its spawn record, kernel.py:987-1008); returns false
+// when the packet dies, its output row and sums written
+template <bool kRel, bool kTrack, bool kReflect, bool kTwoPhoton, bool kAdiabatic,
+          bool kRecords>
 __device__ __forceinline__ bool cont_event(const Params& p, ContPacket& q, tardis::Key kp,
                                            Run& run, double* acc, double* sh_j,
                                            double* sh_nubar, double* sh_sum,
@@ -1134,6 +1152,14 @@ __device__ __forceinline__ bool cont_event(const Params& p, ContPacket& q, tardi
       row[2] = make_float2(event == kEvLine ? 2.0f : (contproc ? 4.0f : 1.0f), mu);
     }
   }
+  if constexpr (kRecords) {
+    // the state after the emission; a packet the adiabatic channel ends
+    // writes its row too, as the JAX package's (it is in `interacts`)
+    const bool absorbs = !(event == kEvEscat && !contproc);
+    spawn_record(p, r, mu, nu, energy, shell, next_line,
+                 event == kEvLine ? 2.0f : (contproc ? 3.0f : 1.0f),
+                 absorbs ? (float)(next_line - 1) : -1.0f);
+  }
   if constexpr (kAdiabatic) {
     if (adiabatic) {
       // the energy went into expansion work: no luminosity either way
@@ -1168,7 +1194,7 @@ __device__ __forceinline__ void cont_finish(const Params& p, const ContPacket& q
 // Each lane sums its packet's estimator terms in its run accumulator (Run,
 // above); the block's shared accumulators flush once, at exit.
 template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights,
-          bool kTwoPhoton, bool kAdiabatic, bool kSmemTables>
+          bool kTwoPhoton, bool kAdiabatic, bool kRecords, bool kSmemTables>
 __global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
     continuum_kernel(Params p, unsigned long long* taken) {
   extern __shared__ double shm[];
@@ -1190,6 +1216,8 @@ __global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
       const unsigned long long pid = tardis::take_slot(taken);
       if (pid >= (unsigned long long)p.n_packets) break;
       cont_birth<kRel, kWeights>(p, (int64_t)pid, q);
+      if constexpr (kRecords)
+        spawn_record(p, q.r, q.mu, q.nu, q.energy, 0, q.next_line, -1.0f, -1.0f);
       kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + q.pid));
       have = true;
     }
@@ -1197,7 +1225,7 @@ __global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
       atomicAdd(&sh_sum[3], 1.0);
       cont_finish<kLast>(p, q, p.max_events, sh_sum);
     } else {
-      const bool alive = cont_event<kRel, kTrack, kReflect, kTwoPhoton, kAdiabatic>(
+      const bool alive = cont_event<kRel, kTrack, kReflect, kTwoPhoton, kAdiabatic, kRecords>(
           p, q, kp, run, acc, sh_j, sh_nubar, sh_sum, sh_ff);
       q.ev += 1;
       if (alive) continue;
@@ -1223,7 +1251,8 @@ cudaError_t launch_continuum(const Params& p, unsigned long long* taken,
                              cudaStream_t stream) {
   auto kernel = continuum_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
                                  TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0,
-                                 TL_TWO_PHOTON != 0, TL_ADIABATIC != 0, kSmemTables>;
+                                 TL_TWO_PHOTON != 0, TL_ADIABATIC != 0, TL_RECORDS != 0,
+                                 kSmemTables>;
   const int threads = kSmemTables ? kSmemThreads : kContThreads;
   const size_t shm = continuum_shared_bytes(p.cont, p.L, p.S, kSmemTables);
   unsigned blocks = 0;
@@ -1269,7 +1298,9 @@ extern "C" int transport_loop(
   constexpr bool kCont = TL_CONTINUUM != 0;
   constexpr bool kLineEst = TL_LINE_ESTIMATORS != 0;
   constexpr bool kWalk = TL_WALK != 0;
+  constexpr bool kRecords = TL_RECORDS != 0;
   if (kCont != (cont != nullptr) || taken == nullptr || (!kCont && smem_tables)
+      || (!kCont && kRecords) || (kCont && kRecords != (vp_capacity > 0))
       || (kCont && !kLineEst) || (kLineEst != (line_diff != nullptr))
       || (kWalk && (kCont || cum_prob == nullptr || block_start == nullptr
                     || dest == nullptr || emit == nullptr || mline == nullptr

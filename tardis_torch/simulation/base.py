@@ -43,9 +43,12 @@ estimators and ``advance_state`` feeds their j_blues back into the plasma
 ``NotImplementedError`` naming the option (see ``check_supported``).
 ``montecarlo.enable_nonhomologous_expansion`` selects
 the nonhomologous transport solver (K7), as the JAX package does.
-Continuum species run only through the Type IIP workflow
-(``workflows/type_iip.py``); ``run_tardis`` refuses them, as its classic
-loop runs no continuum transport.  ``run_convergence(checkpoint_path=)``
+With continuum species (``plasma.continuum_interaction.species``)
+``run_tardis`` and the classic workflows run what the JAX package runs:
+the classic transport, which ignores the continua, with the plasma solved
+in host line mode (``_device_line_ok`` is false, so ``run_final`` does no
+re-solve); the continuum transport is the Type IIP workflow's
+(``workflows/type_iip.py``).  ``run_convergence(checkpoint_path=)``
 writes the resume state after every iteration (``io/hdf.py``
 ``save_checkpoint``, h5py) and ``io.hdf.resume_simulation`` continues an
 interrupted run; ``run_tardis`` configures the ``tardis_torch`` logger
@@ -125,22 +128,14 @@ def load_atom_data(atom_data):
     return atom_data
 
 
-def check_supported(config: ConfigDict, continuum: bool = False) -> None:
-    """Raise ``NotImplementedError`` for every option this slice refuses;
-    continuum species pass only with ``continuum`` (the Type IIP
-    workflow)."""
-    plasma = config.plasma
+def check_supported(config: ConfigDict) -> None:
+    """Raise ``NotImplementedError`` for vpacket biasing, which the JAX
+    package refuses too, and ``ValueError`` for an unknown
+    ``spectrum.integrated.compute``."""
     virtual = config.spectrum.get("virtual", {}) or {}
-    refused = [
-        ("spectrum.virtual.enable_biasing",
-         bool(virtual.get("enable_biasing", False))),
-        ("plasma.continuum_interaction.species",
-         not continuum and bool((plasma.get("continuum_interaction", {})
-                                 or {}).get("species"))),
-    ]
-    for name, hit in refused:
-        if hit:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if virtual.get("enable_biasing", False):
+        raise NotImplementedError(
+            "spectrum.virtual.enable_biasing is not ported yet")
     compute = str((config.spectrum.get("integrated", {}) or {})
                   .get("compute", "jax")).lower()
     if compute not in INTEGRATED_COMPUTE:
@@ -195,17 +190,16 @@ class Simulation:
 
     @classmethod
     def from_config(cls, config: ConfigDict, atom_data=None,
-                    device=None, continuum: bool = False) -> "Simulation":
-        """``continuum`` lets continuum species through (the Type IIP
-        workflow runs their transport).  ``device`` may be a list of
-        devices: the simulation lives on the first, and the classic event
-        loop splits its packets over all of them."""
+                    device=None) -> "Simulation":
+        """``device`` may be a list of devices: the simulation lives on
+        the first, and the classic event loop splits its packets over all
+        of them."""
         mesh = "auto"
         if isinstance(device, (list, tuple)):
             mesh = packet_devices([resolve_device(d) for d in device])
             device = mesh[0]
         device = resolve_device(device)
-        check_supported(config, continuum)
+        check_supported(config)
         state = SimulationState.from_config(config)
         lit = config.plasma.line_interaction_type
         atom_data = load_atom_data(

@@ -84,9 +84,14 @@ volley (``transport/vpacket.py``), as ``kernel.py:520-545,987-1008`` of the
 JAX package do: ``[r, mu, nu, energy, shell, next_line, li_type, out_line]``
 f32, the birth row ``[beta_inner, mu, nu, energy, 0, birth_line, -1, -1]``,
 an interaction row the state after the scatter with ``li_type`` 1 for an
-e-scatter and 2 for a line and ``out_line = next_line - 1`` for a line.
+e-scatter, 2 for a line and 3 for a continuum process and ``out_line =
+next_line - 1`` for a line or a continuum process (both activate the macro
+atom; a packet the adiabatic channel ends writes its row too).
 ``vp_count`` counts every attempt; rows past the capacity are dropped.
-Records with continuum transport are refused.
+On the card the continuum loop writes records only in its ``records``
+instantiation (``TL_RECORDS``), so the one without them stays as it was;
+which rows survive past the capacity depends on the order of the atomic
+claims there (the JAX package keeps the first in step order).
 
 ``transport_loop`` launches the CUDA kernel (a persistent grid of lanes
 that take packets from a queue and refill as soon as a packet ends) for
@@ -137,8 +142,8 @@ EMIT_LINE, EMIT_BF, EMIT_TWO_PHOTON, EMIT_ADIABATIC = 0, 1, 3, 4
 # K1's compile-time options, in the order of their -D flags; every option
 # is off by default but the line estimators, which are on
 OPTIONS = ("full_relativity", "last_interaction", "tracker", "reflective",
-           "weights", "continuum", "two_photon", "adiabatic", "walk",
-           "line_estimators")
+           "weights", "continuum", "two_photon", "adiabatic", "records",
+           "walk", "line_estimators")
 
 logger = logging.getLogger(__name__)
 
@@ -173,13 +178,17 @@ class TransportOutput:
 
 
 def variant(t: TransportTables, pool_w=None, last_interaction=False,
-            tracker_length=0, line_estimators=True) -> tuple:
-    """The option flags (in ``OPTIONS`` order) of one K1 configuration."""
+            tracker_length=0, line_estimators=True,
+            vpacket_capacity=0) -> tuple:
+    """The option flags (in ``OPTIONS`` order) of one K1 configuration;
+    ``records`` is the continuum loop's spawn records (the classic loop
+    tests its capacity at run time)."""
     c = t.continuum
     return (bool(t.full_relativity), bool(last_interaction),
             tracker_length > 0, t.inner_boundary_albedo > 0.0,
             pool_w is not None, c is not None,
             c is not None and c.two_photon, c is not None and c.adiabatic,
+            c is not None and vpacket_capacity > 0,
             walks(t), bool(line_estimators))
 
 
@@ -436,8 +445,6 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
     reflective = t.inner_boundary_albedo > 0.0
     cont = t.continuum
     walk = walks(t)
-    if cont is not None and vpacket_capacity:
-        raise NotImplementedError("virtual packets with continuum transport")
     _check_line_estimators(cont, line_estimators)
     res = _allocate(N, S, L, vpacket_capacity, last_interaction,
                     tracker_length, device, cont, line_estimators,
@@ -699,8 +706,9 @@ def transport_loop_plain(t: TransportTables, pool_mu, pool_nu, key,
             res.tracker[pid[slot], eidx[slot]] = torch.stack(
                 [r, nu_new, energy, shell.float(), code, mu], dim=1)[slot]
         if vpacket_capacity:
-            li_type = torch.where(is_line, 2.0, 1.0).float()
-            out_line = torch.where(is_line, (next_line - 1).float(), -1.0)
+            li_type = torch.where(is_line, LI_LINE, torch.where(
+                is_contproc, LI_CONTPROC, LI_ESCAT)).float()
+            out_line = torch.where(absorbs, (next_line - 1).float(), -1.0)
             n_vp = _spawn(res, n_vp, torch.stack(
                 [r, mu, nu_new, energy, shell.float(), next_line.float(),
                  li_type, out_line], dim=1)[interacts])
@@ -872,8 +880,6 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     if device.type != "cuda":
         raise ValueError(f"transport_loop: unsupported device {device}")
     cont = t.continuum
-    if cont is not None and vpacket_capacity:
-        raise NotImplementedError("virtual packets with continuum transport")
     if cont is None and smem_tables is not None:
         raise ValueError("transport_loop: smem_tables applies to the "
                          "continuum loop")
@@ -907,7 +913,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     if cont is not None:
         _check_continuum(cont, t, device)
     flags = variant(t, pool_w, last_interaction, tracker_length,
-                    line_estimators)
+                    line_estimators, vpacket_capacity)
     res = _allocate(N, S, L, vpacket_capacity, last_interaction,
                     tracker_length, device, cont, line_estimators)
     nu_lo, nu_hi = _window(nu_window)

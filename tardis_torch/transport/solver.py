@@ -47,7 +47,13 @@ K1 runs its continuum instantiation: full relativity is forced, and with
 it the relativistic pool under ``packet_source: auto``, as the JAX package
 forces them (``tardis_tpu/transport/solver.py:254-258,297-299,329-331``);
 ``TransportResult.continuum`` holds the per-continuum estimators rebuilt
-from K1's grid moments (``reconstruct_continuum_estimators``).
+from K1's grid moments (``reconstruct_continuum_estimators``).  With
+``n_vpackets`` > 0 as well, K1's continuum ``records`` instantiation writes
+the spawn records (``li_type`` 3 for a continuum process) and K4 traces
+them under full relativity, as the JAX package's ``_trace_tau`` does: the
+line and Thomson optical depths only, no bound-free or free-free opacity
+along a virtual packet's path.  A random-walking continuum packet makes
+thousands of attempts, so records past the capacity are the rule there.
 """
 
 from __future__ import annotations
@@ -320,9 +326,6 @@ class TransportSolver:
         lit = self.line_interaction_type
         device = plasma_state.tau_prefix.device
         with_continuum = continuum_state is not None
-        if with_continuum and n_vpackets > 0:
-            raise NotImplementedError(
-                "virtual packets with continuum transport are not ported")
         if with_continuum:
             # the absorbing-Markov tables replace the macro-atom chain
             with record_function("tardis.continuum_tables"):

@@ -29,16 +29,11 @@ logger = logging.getLogger(__name__)
 class SimpleTARDISWorkflow:
     """Stage-decomposed convergence workflow."""
 
-    # whether the workflow runs continuum transport (continuum species
-    # pass the simulation's checks only then)
-    continuum = False
-
     def __init__(self, config, atom_data=None, device=None):
         if not isinstance(config, ConfigDict):
             config = config_from_dict(config)
         self.sim = Simulation.from_config(config, atom_data=atom_data,
-                                          device=device,
-                                          continuum=self.continuum)
+                                          device=device)
         self.completed = False
 
     # --- stages (override points) -------------------------------------

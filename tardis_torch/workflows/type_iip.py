@@ -44,8 +44,6 @@ logger = logging.getLogger(__name__)
 
 
 class TypeIIPWorkflow(SimpleTARDISWorkflow):
-    continuum = True
-
     def __init__(self, config, atom_data=None, thermal_balance_max_nfev=25,
                  device=None):
         super().__init__(config, atom_data, device)

@@ -1,5 +1,6 @@
 """The Type IIP workflow end to end: the port's ``TypeIIPWorkflow`` against
-the JAX package's on one configuration, and the refusals around it.
+the JAX package's on one configuration, the refusals around it, and the
+classic loop with continuum species through both entry points.
 
 The configuration is the JAX package's IIP problem (H / He, H I continua,
 macroatom, 20 shells) moved outward and later, 1.5e4-2.5e4 km/s at 16
@@ -129,11 +130,11 @@ def test_continuum_transport_options(workflows):
 
 
 def test_refusals():
-    """The workflow needs photoionization data and macroatom; run_tardis
-    and the classic workflows refuse continuum species; the convergence
-    plots are no longer refused (tests/test_torch_viz.py runs them)."""
+    """The workflow needs photoionization data and macroatom; the
+    convergence plots are no longer refused (tests/test_torch_viz.py runs
+    them), nor are continuum species in the classic loop
+    (``test_classic_loop_with_continuum_species``)."""
     from tardis_torch.atomic.synthetic import make_synthetic_atom_data as syn
-    from tardis_torch.simulation.base import run_tardis
 
     plain = syn(atomic_numbers=(1, 2), max_ion_stage=2, n_levels=5)
     with pytest.raises(ValueError, match="photoionization"):
@@ -142,13 +143,6 @@ def test_refusals():
     cfg["plasma"]["line_interaction_type"] = "scatter"
     with pytest.raises(ValueError, match="macroatom"):
         TorchIIP(cfg, atom_data=_torch_atom(), device="cpu")
-    for run in (lambda c: run_tardis(c, atom_data=_torch_atom(),
-                                     device="cpu"),
-                lambda c: StandardTARDISWorkflow(c, atom_data=_torch_atom(),
-                                                 device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="continuum_interaction"):
-            run(copy.deepcopy(CONFIG))
     cfg = copy.deepcopy(CONFIG)
     del cfg["plasma"]["continuum_interaction"]
     wf = StandardTARDISWorkflow(cfg, atom_data=_torch_atom(), device="cpu",
@@ -158,6 +152,49 @@ def test_refusals():
 
 def _torch_atom():
     return atom_data_from_arrays(atom_data_to_arrays(_atom()))
+
+
+def _classic_runs(entry):
+    """Both packages' ``entry`` ("run_tardis" or "workflow", the standard
+    workflow) on CONFIG: continuum species with the classic loop."""
+    from tardis_torch.simulation.base import run_tardis as torch_run
+    from tardis_tpu.simulation.base import run_tardis
+    from tardis_tpu.workflows.simple import (
+        StandardTARDISWorkflow as JaxStandard,
+    )
+
+    if entry == "run_tardis":
+        return (run_tardis(copy.deepcopy(CONFIG), atom_data=_atom()),
+                torch_run(copy.deepcopy(CONFIG), atom_data=_torch_atom(),
+                          device="cpu"))
+    ref = JaxStandard(copy.deepcopy(CONFIG), atom_data=_atom()).run()
+    port = StandardTARDISWorkflow(copy.deepcopy(CONFIG),
+                                  atom_data=_torch_atom(), device="cpu").run()
+    return ref.sim, port.sim
+
+
+@pytest.mark.parametrize("entry", ["run_tardis", "workflow"])
+def test_classic_loop_with_continuum_species(entry):
+    """``run_tardis`` and ``StandardTARDISWorkflow`` with continuum species
+    run what the JAX package runs: the classic transport, which ignores
+    the continua, with the plasma in host line mode and no final
+    re-solve.  t_rad, W, t_inner and the emitted luminosity of every
+    iteration and the real spectrum's luminosity within RTOL (measured:
+    t_rad 2.2e-7, W 1.5e-6, t_inner 2.8e-8, L 1.1e-7, the spectrum's
+    luminosity 2.5e-10)."""
+    ref, port = _classic_runs(entry)
+    assert not port._device_line_ok() and not ref._device_line_ok()
+    assert port.last_transport_result.continuum is None
+    assert len(port.history) == len(ref.history) == 2
+    for h_p, h_r in zip(port.history, ref.history):
+        assert _rel(h_p.t_radiative, h_r.t_radiative) <= RTOL
+        assert _rel(h_p.dilution_factor, h_r.dilution_factor) <= RTOL
+        assert _rel(h_p.t_inner, h_r.t_inner) <= RTOL
+        assert _rel(h_p.emitted_luminosity, h_r.emitted_luminosity) <= RTOL
+    assert _rel(port.state.t_radiative, ref.state.t_radiative) <= RTOL
+    assert _rel(port.state.t_inner, ref.state.t_inner) <= RTOL
+    assert _rel(port.spectrum_real.luminosity,
+                ref.spectrum_real.luminosity) <= RTOL
 
 
 def test_standard_workflow_runs_the_classic_loop():

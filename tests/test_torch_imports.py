@@ -127,10 +127,14 @@ def test_refused_options_name_themselves():
     cfg["spectrum"]["integrated"] = {"compute": "numba"}
     with pytest.raises(ValueError, match="compute"):
         run_tardis(cfg, device="cpu")
+    # continuum species are no longer refused: the classic loop runs, with
+    # the plasma in host line mode, as in the JAX package
     cfg = copy.deepcopy(CONFIG)
     cfg["plasma"]["continuum_interaction"] = {"species": ["H I"]}
-    with pytest.raises(NotImplementedError, match="continuum_interaction"):
-        run_tardis(cfg, device="cpu")
+    cfg["montecarlo"].update(iterations=1, no_of_packets=64,
+                             last_no_of_packets=64)
+    sim = run_tardis(cfg, device="cpu")
+    assert not sim._device_line_ok() and sim.spectrum_real.luminosity > 0
 
 
 def test_wrappers_never_fall_back():
@@ -310,9 +314,19 @@ def test_continuum_wrapper_never_falls_back():
     with pytest.raises(ValueError, match="unsupported device"):
         transport_loop(tables, empty(8), empty(8), (0, 1), pool_w=empty(8),
                        last_interaction=True)
-    with pytest.raises(NotImplementedError, match="virtual packets"):
-        transport_loop(tables, torch.zeros(8), torch.zeros(8), (0, 1),
-                       vpacket_capacity=16)
+    # records with continuum select K1's continuum records instantiation;
+    # the classic loop has none (it tests the capacity at run time)
+    from tardis_torch.transport.kernel import (
+        library_defines,
+        variant,
+        variant_name,
+    )
+    flags = variant(tables, vpacket_capacity=16)
+    assert variant_name(flags).split("+")[-1] == "records"
+    assert "TL_RECORDS=1" in library_defines(flags)
+    classic = TransportTables(**{**vars(tables), "continuum": None})
+    assert "TL_RECORDS=0" in library_defines(variant(
+        classic, vpacket_capacity=16))
     assert not transport_loop.launches_by_variant
 
 
@@ -343,3 +357,17 @@ def test_analysis_grid_utils_and_plots_are_scanned():
     for package in ("analysis", "grid", "utils", "visualization"):
         files = sorted((ROOT / "tardis_torch" / package).rglob("*.py"))
         assert files and set(files) <= set(_port_files()), package
+
+
+def test_every_jax_module_has_a_port():
+    """The six plot modules are among the scanned files, and every module
+    of the JAX package's visualization package has its counterpart in the
+    port's."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("lineid", "custom_abundance", "grotrian", "liv", "rpacket",
+                 "sdec"):
+        assert f"tardis_torch/visualization/{name}.py" in scanned, name
+    ref = ROOT / "tardis_tpu" / "visualization"
+    for path in ref.rglob("*.py"):
+        port = ROOT / "tardis_torch" / "visualization" / path.relative_to(ref)
+        assert port in _port_files(), port
