@@ -33,6 +33,7 @@ def make_synthetic_atom_data(
     continuum_species=(),
     n_photo_ion_points: int = 16,
     collision_species=(),
+    fine_structure_split: float = 0.0,
 ) -> AtomData:
     """Build a synthetic AtomData.
 
@@ -56,6 +57,13 @@ def make_synthetic_atom_data(
         one 2s-like two-photon decay per species: the stand-in for the
         reference's ``photoionization_data`` and ``two_photon_data`` tables
         the Type IIP continuum workflow reads.
+    fine_structure_split
+        When > 0, every excited level is split into two fine-structure
+        components separated by ~split * E (relative), so the line loop
+        emits 4-component multiplets whose members differ by O(split) in
+        frequency: the near-degenerate line clustering of real line lists
+        (splittings of 1e-6..1e-4), which stresses the event-line search
+        on a large tau prefix.
     collision_species
         (Z, ion) pairs for which tabulated collision strengths are made
         (every level with each of up to three levels below it, smooth and
@@ -81,11 +89,26 @@ def make_synthetic_atom_data(
             energies = chi_next * (1.0 - 1.0 / (1.0 + ks) ** 2)
             gs = 2.0 * (ks + 1) ** 2
             metas = ks < 2
-            for k in range(n_levels):
+            if fine_structure_split > 0:
+                # split excited levels into two components: E and
+                # E(1 + split*u), g shared 40/60 — the line loop below then
+                # forms near-degenerate multiplets
+                e2, g2, m2 = [energies[0]], [gs[0]], [metas[0]]
+                for k in range(1, n_levels):
+                    u = rng.uniform(0.3, 1.0)
+                    e2 += [energies[k],
+                           energies[k] * (1.0 + fine_structure_split * u)]
+                    g2 += [0.4 * gs[k], 0.6 * gs[k]]
+                    m2 += [metas[k], metas[k]]
+                energies = np.asarray(e2)
+                gs = np.asarray(g2)
+                metas = np.asarray(m2)
+            n_lv = len(energies)
+            for k in range(n_lv):
                 level_rows.append((z, ion, k, energies[k], gs[k], metas[k]))
 
             # lines: all downward pairs within the jump window
-            for u in range(1, n_levels):
+            for u in range(1, n_lv):
                 l_lo = 0 if max_level_jump is None else max(0, u - max_level_jump)
                 for lo in range(l_lo, u):
                     d_e = energies[u] - energies[lo]

@@ -1,5 +1,6 @@
 """Device time of every K1 / K7 instantiation that a tree's paths launch, at
-``chip_smoke.py``'s bench shape, for comparing two commits on one card.
+``chip_smoke.py``'s bench shape, and of K2's three packet pools at the
+paths' shapes, for comparing two commits on one card.
 
 Run on a card, from the root of this repository:
 
@@ -19,7 +20,14 @@ to back, ``chip_smoke.cuda_ms_queued``), ``ms`` (CUDA events around each
 call, ``chip_smoke.cuda_ms``), the events and a hash of every packet's
 output row, equal across trees whose per-packet results agree bit for
 bit.  A tree without the ``line_estimators`` switch runs every launch with
-line estimators.  For a like-for-like reading run the trees in the order
+line estimators.  Each K2 pool at 1,048,576, 2,097,152 and 4,194,304
+packets (labels ``k2 <pool> <packets>``) prints, timed by this checkout's
+``chip_smoke.k2_timings`` whichever tree is run: its kernels alone
+(``kernel_ms``, the profiler's records, with their launches and every
+other device record a call), its calls queued behind a hold
+(``device_ms``, with ``held``: false when a call synchronised, so the
+reading is paced by the host), the host's microseconds a call, and a hash
+of mu, nu and w.  For a like-for-like reading run the trees in the order
 A, B, B, A, one after another on the same card, and compare each tree
 with itself first.
 """
@@ -28,10 +36,14 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib.util
 import inspect
 import json
 import os
 import sys
+
+K2_SHAPES = (1_048_576, 2_097_152, 4_194_304)
+K2_POOLS = ("simple", "relativistic", "weighted")
 
 
 def cases(cs):
@@ -48,7 +60,21 @@ def cases(cs):
             ("k1 options final", "k1", "options", n, opt_last, True, False),
             ("k7 macroatom", "k7", "macroatom", n, 0, False, False),
             ("k7 macroatom final", "k7", "macroatom", nf, last, True, False),
-            ("k7 scatter", "k7", "scatter", n, 0, False, False)]
+            ("k7 scatter", "k7", "scatter", n, 0, False, False)] + [
+                (f"k2 {pool} {m}", "k2", pool, m,
+                 last if m == nf else 0, False, False)
+                for pool in K2_POOLS for m in K2_SHAPES]
+
+
+def this_checkout_smoke():
+    """This checkout's ``chip_smoke.py`` (its timing functions), whichever
+    tree is timed."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        os.pardir, os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("timing_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def say(**kw):
@@ -57,6 +83,7 @@ def say(**kw):
 
 def main(tree, build, only=""):
     """Time (or, with ``build``, compile) ``tree``'s launches."""
+    timing = this_checkout_smoke()
     sys.path.insert(0, tree)
     os.chdir(tree)
     import torch
@@ -84,20 +111,26 @@ def main(tree, build, only=""):
     say(phase="card", tree=tree, card=cs.card_line(),
         line_estimators_switch=switch)
     config, state, atom = cs.build_problem(device)
-    ps = PlasmaSolver(atom, state, device).update(state.t_radiative,
-                                                  state.dilution_factor)
-    chain = solve_macro_chain(atom.macro_atom, ps.beta_sobolev, ps.j_blues,
-                              ps.stimulated_emission_factor, mode="macroatom",
-                              line_nu_scaled=atom.line_nu / NU_UNIT)
-    k1_tables = cs.path_tables(state, atom, ps, chain)
-    geom = cs.perturbed_geometry(state.geometry)
-    k7_tables = {m: cs.nonhom_tables(state, atom, ps, geom, m)
-                 for m in ("scatter", "macroatom")}
     b = cs.beta_inner(state)
+    chosen = [c for c in cases(cs) if c[0].startswith(only)]
+    if any(c[1] != "k2" for c in chosen):
+        ps = PlasmaSolver(atom, state, device).update(
+            state.t_radiative, state.dilution_factor)
+        chain = solve_macro_chain(
+            atom.macro_atom, ps.beta_sobolev, ps.j_blues,
+            ps.stimulated_emission_factor, mode="macroatom",
+            line_nu_scaled=atom.line_nu / NU_UNIT)
+        k1_tables = cs.path_tables(state, atom, ps, chain)
+        geom = cs.perturbed_geometry(state.geometry)
+        k7_tables = {m: cs.nonhom_tables(state, atom, ps, geom, m)
+                     for m in ("scatter", "macroatom")}
 
     def call(kern, where, n, it, le, records):
-        pool = cs.PATHS[where]["pool"] if kern == "k1" else "simple"
         key, run_key = iteration_keys(cs.SEED, it)
+        if kern == "k2":
+            return (("blackbody_source", ()), lambda: blackbody_source(
+                key, n, state.t_inner, device, where, b))
+        pool = cs.PATHS[where]["pool"] if kern == "k1" else "simple"
         mu, nu, w = blackbody_source(key, n, state.t_inner, device, pool, b)
         if kern == "k7":
             t = k7_tables[where]
@@ -117,14 +150,21 @@ def main(tree, build, only=""):
         return (("transport_loop", kernel.library_defines(flags)),
                 lambda: kernel.transport_loop(t, mu, nu, run_key, **kw))
 
-    calls = [(c[0], *call(*c[1:])) for c in cases(cs)
-             if c[0].startswith(only)]
+    calls = [(c[0], *call(*c[1:])) for c in chosen]
     if build:
         s = cuda.build([lib for _, lib, _ in calls])
         say(phase="build", seconds=s, libraries=len({lib for _, lib, _ in
                                                      calls}))
         return
     for label, _, fn in calls:
+        if label.startswith("k2 "):
+            numbers = timing.k2_timings(fn)
+            ms, out = cs.cuda_ms(fn, 10)
+            say(phase="launch", label=label, n=out[0].shape[0], ms=ms,
+                **numbers, out_sha=hashlib.sha256(b"".join(
+                    t.cpu().numpy().tobytes() for t in out
+                    if t is not None)).hexdigest()[:16])
+            continue
         device_ms, res = cs.cuda_ms_queued(fn, 5)
         ms, res = cs.cuda_ms(fn, 5)
         events = res.summary[2].item()
@@ -135,7 +175,6 @@ def main(tree, build, only=""):
                 res.out.cpu().numpy().tobytes()).hexdigest()[:16])
         del res
         torch.cuda.empty_cache()
-
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()

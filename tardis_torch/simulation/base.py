@@ -131,11 +131,28 @@ def load_atom_data(atom_data):
 def check_supported(config: ConfigDict) -> None:
     """Raise ``NotImplementedError`` for vpacket biasing, which the JAX
     package refuses too, and ``ValueError`` for an unknown
-    ``spectrum.integrated.compute``."""
+    ``spectrum.integrated.compute``; log, as the JAX package does, the
+    options that change nothing here (``montecarlo.nthreads``,
+    ``spectrum.virtual.tau_russian`` / ``survival_probability``)."""
+    if int(config.montecarlo.get("nthreads", 1)) != 1:
+        # the reference's numba prange thread count; packets run in
+        # parallel on the device (or the devices of ``device=[...]``)
+        logger.info(
+            "montecarlo.nthreads is a no-op: packet parallelism runs on "
+            "the device, or on the devices given as device=[...]")
     virtual = config.spectrum.get("virtual", {}) or {}
     if virtual.get("enable_biasing", False):
         raise NotImplementedError(
-            "spectrum.virtual.enable_biasing is not ported yet")
+            "spectrum.virtual.enable_biasing: v-packet biasing is not "
+            "implemented (the dense volley pass has no roulette to bias)")
+    if (float(virtual.get("tau_russian", 10.0)) != 10.0
+            or float(virtual.get("survival_probability", 0.0)) != 0.0):
+        # K4 integrates e^-tau exactly over the whole ray; Russian
+        # roulette is an approximation it does not need
+        logger.info(
+            "spectrum.virtual.tau_russian/survival_probability are "
+            "no-ops: the v-packet pass computes the exact e^-tau "
+            "attenuation the roulette would approximate")
     compute = str((config.spectrum.get("integrated", {}) or {})
                   .get("compute", "jax")).lower()
     if compute not in INTEGRATED_COMPUTE:

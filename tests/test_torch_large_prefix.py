@@ -267,3 +267,22 @@ if __name__ == "__main__":
         print(f"{sampler}: JAX per-packet agreement "
               f"{jax_agreement(sampler, res):.4f}")
     print(f"K7 count-search agreement {k7_count_search_agreement():.4f}")
+
+
+def test_port_generator_makes_the_same_list():
+    """The port's own generator with ``fine_structure_split`` makes the JAX
+    package's 105,948-line list, every array bit for bit (its card check
+    builds the list this way)."""
+    from tardis_torch.atomic.synthetic import (
+        make_synthetic_atom_data as torch_synthetic,
+    )
+
+    mine = atom_data_to_arrays(torch_synthetic(
+        n_levels=55, fine_structure_split=3e-6).prepare(
+        selected_atoms=[8, 12, 14, 16, 18, 20],
+        line_interaction_type="macroatom"))
+    theirs = atom_data_to_arrays(problem()["atom"])
+    assert len(mine["line_nu"]) == 105_948
+    assert sorted(mine) == sorted(theirs)
+    for name, a in theirs.items():
+        assert np.array_equal(mine[name], a), name
