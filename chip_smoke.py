@@ -20,7 +20,9 @@ Phases, one printed line each (plus one line per iteration):
      card could take (bound) and, where one PyTorch call computes the same
      function, its time.  The probe kernels (check_probe2: scale2,
      take_1d, take_along_rows, bitwise at the probe's shapes and at one
-     large shape each); K3 line tables (bitwise equal run to run, timed
+     large shape each; take_1d also after an L2 flush, beside the launch
+     floor, its bound the 32-byte sectors its indices touch; scale2 in
+     turns with torch.mul); K3 line tables (bitwise equal run to run, timed
      as device time of queued calls and with the host's launch work,
      beside torch.cumsum of its prefix both ways; then at 100 and 200
      shells, the bench lines with the shells repeated, past one block's
@@ -71,9 +73,10 @@ Phases, one printed line each (plus one line per iteration):
      (check_large_prefix: tests/test_full_e2e.py's 105,948 lines from the
      port's generator, shell 0's prefix 1.42e9; 65,536 packets at 5
      t_inner, both sides stopped at IIP_EVENT_CAP events): K1's chain and
-     walk instantiations of the final iteration and K4 on their records,
-     each bitwise against its plain version, one large_prefix line a
-     sampler;
+     walk instantiations of the final iteration, and the relativity
+     path's (its margin guard's fallbacks counted), and K4 on their
+     records, each bitwise against its plain version, one large_prefix
+     line a sampler;
   3. the IIP paths' kernels (the JAX package's IIP problem: H / He, H I
      continua, 20 shells, 1,048,576 packets): K3 at its line tables, K2's
      relativistic pool at 1,048,576, and each continuum K1 instantiation
@@ -117,7 +120,8 @@ Phases, one printed line each (plus one line per iteration):
   5. the relativity path: the same run with enable_full_relativity and
      last-interaction tracking at its default (on), so the relativistic
      pool, K1's full-relativity instantiation with last-interaction rows
-     and K4's full-relativity branch;
+     and K4's full-relativity branch; a line with the searches K1's
+     margin guard sent to the bisection in each launch;
   6. the options path: 3 iterations of 2,097,152 packets with the weighted
      pool, the reflective inner boundary (albedo 0.5) and the r-packet
      tracker; then the walk path: the bench problem's atomic data written
@@ -1393,7 +1397,8 @@ def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
                    record_capacity=cap, status_agreement=agree,
                    bitwise_packets=bitwise, tracker_rows_bitwise=rows_equal,
                    records_bitwise_as_multiset=records_equal, max_rel=rels,
-                   max_abs_err=max_abs)
+                   max_abs_err=max_abs,
+                   search_fallbacks=int(k.search_fallbacks[0]))
     if tally:
         numbers["walk"] = walk_numbers(tally, tables.max_jumps)
     return numbers, k, p
@@ -1954,8 +1959,9 @@ def large_prefix_tables(device):
     """The large-prefix problem on the card: the port's generator
     (n_levels=55, fine_structure_split=3e-6) on the bench model, its LTE
     plasma (K3's prefix), and the transport tables with the macro-atom
-    chain and with the walk.  Returns (state, prefix, tables by
-    sampler)."""
+    chain, with the walk, and with the chain under full relativity (whose
+    search the margin guard checks on near-degenerate multiplets).  Returns
+    (state, prefix, tables by sampler)."""
     from tardis_torch.atomic.synthetic import make_synthetic_atom_data
     from tardis_torch.config.reader import config_from_dict
     from tardis_torch.model.state import SimulationState
@@ -1980,20 +1986,25 @@ def large_prefix_tables(device):
     tables = {"chain": main_tables(state, atom, ps, chain),
               "walk": build_transport_tables(
                   state.geometry, ps.electron_densities, ps.tau_prefix, atom,
-                  "macroatom", macro_walk=walk)}
+                  "macroatom", macro_walk=walk),
+              "relativity": main_tables(state, atom, ps, chain,
+                                        full_relativity=True)}
     return state, ps.tau_prefix, tables
 
 
 def check_large_prefix(device):
     """K1's chain and walk instantiations of the final iteration (line
     estimators, 8 spawn records a packet) on the large-prefix problem,
-    LARGE_PREFIX_PACKETS packets, each against its plain version as
-    compare_transport_loop holds them (both stopped at IIP_EVENT_CAP
-    events a packet, as the continuum checks are; every packet bitwise),
-    then K4 on each one's records against its plain version
-    (check_vpacket_volley: every ray bitwise).  Prints one large_prefix
-    line a sampler (the list, shell 0's prefix and its f32 ulp, the event
-    counts, the agreement); returns the checked kernels-line names."""
+    LARGE_PREFIX_PACKETS packets, and the relativity path's final one (the
+    relativistic pool, last-interaction rows), each against its plain
+    version as compare_transport_loop holds them (both stopped at
+    IIP_EVENT_CAP events a packet, as the continuum checks are; every
+    packet bitwise), then K4 on each one's records against its plain
+    version (check_vpacket_volley: every ray bitwise).  Prints one
+    large_prefix line a sampler (the list, shell 0's prefix and its f32
+    ulp, the event counts, the agreement, the searches the relativistic
+    margin guard sent to the bisection); returns the checked kernels-line
+    names."""
     from tardis_torch.transport.kernel import variant, variant_name
     from tardis_torch.transport.solver import (
         VPACKET_RECORDS_PER_PACKET,
@@ -2005,15 +2016,21 @@ def check_large_prefix(device):
     top = float(prefix[0, -1])
     key, run_key = iteration_keys(SEED, ITERATIONS - 1)
     n = LARGE_PREFIX_PACKETS
-    pool = blackbody_source(key, n, LARGE_PREFIX_HOT * state.t_inner,
-                            device)
+    hot = LARGE_PREFIX_HOT * state.t_inner
+    pools = {"simple": blackbody_source(key, n, hot, device),
+             "relativistic": blackbody_source(key, n, hot, device,
+                                              "relativistic",
+                                              beta_inner(state))}
     checked = set()
     for sampler, t in tables.items():
+        rel = sampler == "relativity"
+        pool = pools["relativistic" if rel else "simple"]
         numbers, k, _ = compare_transport_loop(
             t, pool, run_key, VPACKET_RECORDS_PER_PACKET * n,
-            line_estimators=True, max_events=IIP_EVENT_CAP)
-        name = line_name("transport_loop",
-                         variant_name(variant(t, line_estimators=True)))
+            last_interaction=rel, line_estimators=True,
+            max_events=IIP_EVENT_CAP)
+        name = line_name("transport_loop", variant_name(variant(
+            t, pool[2], last_interaction=rel, line_estimators=True)))
         k4 = check_vpacket_volley(t, k.vp_records[:k.n_vp_records], device)
         say("large_prefix", sampler=sampler, line=name, k4_line=k4["name"],
             lines=t.n_lines, shell0_prefix=top,
@@ -2022,7 +2039,7 @@ def check_large_prefix(device):
             **{key: numbers[key] for key in (
                 "n", "events", "events_per_packet", "records",
                 "bitwise_packets", "records_bitwise_as_multiset", "max_rel",
-                "ms", "device_ms", "plain_ms")})
+                "ms", "device_ms", "plain_ms", "search_fallbacks")})
         checked |= {name, k4["name"]}
         del k
         torch.cuda.empty_cache()
@@ -2111,9 +2128,19 @@ def run_walk_path(device, expected, hdf):
 def run_relativity_path(atom, device, expected):
     """The main path with full relativity and last-interaction tracking at
     its default; the final result must carry one last-interaction row per
-    packet."""
-    sim, launches, _ = run_path("relativity_path", RELATIVITY_CONFIG, atom,
-                                device, expected)
+    packet.  Prints the searches K1's margin guard sent to the bisection
+    in each of the path's K1 launches."""
+    from tardis_torch.transport import solver as solver_module
+
+    with timed_launches(solver_module, "transport_loop",
+                        lambda res: (res.search_fallbacks,
+                                     res.summary[2:3])) as calls:
+        sim, launches, _ = run_path("relativity_path", RELATIVITY_CONFIG,
+                                    atom, device, expected)
+    fallbacks = [int(c[2][0][0]) for c in calls]
+    say("relativity_path_search_fallbacks", per_launch=fallbacks,
+        events_per_launch=[int(c[2][1][0]) for c in calls],
+        total=sum(fallbacks))
     li = sim.last_transport_result.last_interaction
     n_rows = None if li is None else len(li["type"])
     say("relativity_path_last_interaction", rows=n_rows,
@@ -4206,6 +4233,62 @@ PROBE_REPLACES = {
     "take_along_rows": "tardis_tpu/benchmarks/probe2.py:167"}
 
 
+# the L2 flush before a cold call: a write of more than twice the 50 MB L2
+L2_FLUSH_BYTES = 128 * 1024 * 1024
+COLD_REPS = 20
+SCALE2_ROUNDS = 3
+
+
+def cuda_ms_cold(fn, reps, device, hold_cycles=4_000_000):
+    """CUDA-event milliseconds of one call of ``fn`` with the L2 flushed
+    before it: each of ``reps`` calls follows a write of L2_FLUSH_BYTES,
+    both queued behind a hold of the card, so the events around the call
+    see the call alone (not the host's launch).  Returns (median, min,
+    max, last result)."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=device)
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(hold_cycles)
+        flush.fill_(1.0)
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    del flush
+    return statistics.median(times), min(times), max(times), out
+
+
+def launch_floor(device, reps=COLD_REPS):
+    """An empty kernel (``torch.cuda._sleep(0)``) timed as a cold call
+    (``cuda_ms_cold``: events around one launch on a held card) and as
+    calls queued back to back (``cuda_ms_queued``): what a launch costs
+    the card with no work."""
+    median, lo, hi, _ = cuda_ms_cold(lambda: torch.cuda._sleep(0), reps,
+                                     device)
+    queued, _ = cuda_ms_queued(lambda: torch.cuda._sleep(0), 50)
+    return dict(event_ms=median, event_ms_min=lo, event_ms_max=hi,
+                queued_ms=queued)
+
+
+def in_turns(calls, rounds, reps=50):
+    """Each of ``calls`` (name -> fn) timed by ``cuda_ms_queued`` in the
+    order a, b, b, a for ``rounds`` rounds; returns per name the readings
+    in order, their mean and their spread (min, max)."""
+    (a, fa), (b, fb) = calls.items()
+    got = {a: [], b: []}
+    for _ in range(rounds):
+        for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+            got[name].append(cuda_ms_queued(fn, reps)[0])
+    return {name: dict(ms=v, mean=statistics.fmean(v), min=min(v),
+                       max=max(v)) for name, v in got.items()}
+
+
 def check_probe2(device):
     """The probe kernels against their plain versions, bitwise, at the
     probe's shapes (scale2 at each VMEM_MB size; take_1d on a (4,096,)
@@ -4214,13 +4297,19 @@ def check_probe2(device):
     16-byte aligned) and at one large shape each (scale2 at 120 MB;
     take_1d on the probe's scalar gather, a 12,000,000-entry table with
     1,048,576 indices; take_along_rows at (131,072, 128)).  Timed at the
-    large shape (cuda_ms_queued; the 12,000,000-entry table fits the 50
-    MB L2 and stays warm, as in the JAX probe's repeated runs) beside the
-    plain version, one library call (``torch.mul``,
-    ``torch.index_select``, ``torch.gather`` on int64 indices made before
-    the timing) and the bound: bytes over 3.35 TB/s, the table entries the
-    indices touch, the indices and the output each moved once.  Returns
-    the kernels lines by name."""
+    large shape (cuda_ms_queued, warm: the probe calls each kernel again
+    and again, as the JAX probe takes the least of five) beside the plain
+    version, one library call (``torch.mul``, ``torch.index_select``,
+    ``torch.gather`` on int64 indices made before the timing) and the
+    bound: bytes over 3.35 TB/s, the indices and the output each moved
+    once, and for take_1d each 32-byte sector of the table that the
+    indices touch (``probe2.take_1d_bytes``; the earlier bound's 4 B a
+    distinct entry is printed beside it, as ``bound_ms_4b_entries``).
+    take_1d and index_select are also timed cold (``cuda_ms_cold``: the
+    L2 flushed before each call), beside the launch floor (``launch_floor``,
+    not inside the bound); scale2 and torch.mul in turns (``in_turns``:
+    kernel, library, library, kernel, SCALE2_ROUNDS rounds).  Returns the
+    kernels lines by name."""
     from tardis_torch.benchmarks import probe2
 
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -4245,10 +4334,10 @@ def check_probe2(device):
         "take_1d": ([(uniform(4096), indices(4096, 1024)),
                      (uniform(4096), indices(4096, 1027)),
                      (uniform(4096), indices(4096, 1027)[1:]),
+                     (uniform(4097)[1:], indices(4096, 1024)),
                      (uniform(12_000_000), indices(12_000_000, 1_048_576))],
                     lambda t, i: torch.index_select(t, 0, i),
-                    lambda t, i: 4 * torch.unique(i).numel()
-                    + 8 * i.numel()),
+                    probe2.take_1d_bytes),
         "take_along_rows": (
             [(uniform(1024, probe2.ROW), indices(probe2.ROW, 1024,
                                                  probe2.ROW)),
@@ -4270,11 +4359,35 @@ def check_probe2(device):
         library_ms, _ = cuda_ms_queued(lambda: library(*lib_args), 50)
         b_ms, b_by = bound(n_bytes(*args), 0)
         max_abs = (k - p).abs().max().item()
+        extra = {}
+        if name == "take_1d":
+            tab, idx = args
+            old_ms, _ = bound(4 * torch.unique(idx).numel()
+                              + 8 * idx.numel(), 0)
+            cold = cuda_ms_cold(lambda: kernel(*args), COLD_REPS, device)
+            lib_cold = cuda_ms_cold(lambda: library(*args), COLD_REPS,
+                                    device)
+            extra = dict(
+                sectors=probe2.table_sectors(tab, idx),
+                distinct_entries=int(torch.unique(idx).numel()),
+                bound_ms_4b_entries=old_ms, cold_ms=cold[0],
+                cold_ms_spread=list(cold[1:3]), library_cold_ms=lib_cold[0],
+                library_cold_ms_spread=list(lib_cold[1:3]),
+                share_of_bound_warm=b_ms / ms, share_of_bound_cold=b_ms
+                / cold[0], share_of_4b_bound_warm=old_ms / ms,
+                launch_floor=launch_floor(device))
+            bitwise.append(bool(torch.equal(cold[3], p)))
+        if name == "scale2":
+            turns = in_turns({"scale2": lambda: kernel(*args),
+                              "torch_mul": lambda: library(*args)},
+                             SCALE2_ROUNDS)
+            extra = dict(turns=turns, slower_than_mul_by=turns["scale2"][
+                "mean"] / turns["torch_mul"]["mean"])
         say("check_probe2", kernel=name,
             shapes=[[list(t.shape) for t in a] for a in shapes],
             bitwise=bitwise, ms=ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-            max_abs_err=max_abs)
+            max_abs_err=max_abs, **extra)
         if not all(bitwise):
             raise AssertionError(f"{name}: bitwise {bitwise}")
         lines[name] = dict(
@@ -4282,6 +4395,9 @@ def check_probe2(device):
             replaces=PROBE_REPLACES[name], max_abs_err=max_abs, ms=ms,
             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=library_ms)
+        if name == "take_1d":
+            lines[name].update(cold_ms=extra["cold_ms"],
+                               bound_ms_4b_entries=old_ms)
     return lines
 
 

@@ -1,18 +1,19 @@
 """Device time of every K1 / K7 instantiation that a tree's paths launch, at
-``chip_smoke.py``'s bench shape, and of K2's three packet pools at the
-paths' shapes, for comparing two commits on one card.
+``chip_smoke.py``'s bench shape, of K2's three packet pools at the paths'
+shapes and of the probe's ``take_1d`` and ``scale2``, for comparing two
+commits on one card.
 
 Run on a card, from the root of this repository:
 
     python tardis_torch/benchmarks/event_loops.py --tree DIR [--build]
-        [--only PREFIX]
+        [--only PREFIX ...]
 
 ``DIR`` is the root of any checkout of this repository (this one, or a
 ``git archive`` of an earlier commit); its own ``chip_smoke.py`` and
 ``tardis_torch`` build the problem, the pools and the kernels, so each tree
 is timed as its paths run it.  ``--build`` compiles the instantiations
 (one ``nvcc`` each, all at once) and exits; ``--only k7`` keeps the
-launches whose label starts so.  Each launch of the main,
+launches whose label starts so (given more than once, any of them).  Each launch of the main,
 relativity and options paths (the convergence iterations' and the final
 one's) and of the nonhomologous path (macroatom's, and scatter's at the
 convergence shape) prints one JSON line: ``device_ms`` (calls queued back
@@ -27,9 +28,14 @@ packets (labels ``k2 <pool> <packets>``) prints, timed by this checkout's
 other device record a call), its calls queued behind a hold
 (``device_ms``, with ``held``: false when a call synchronised, so the
 reading is paced by the host), the host's microseconds a call, and a hash
-of mu, nu and w.  For a like-for-like reading run the trees in the order
-A, B, B, A, one after another on the same card, and compare each tree
-with itself first.
+of mu, nu and w.  The probe's ``take_1d`` (labels ``probe take_1d``: a
+12,000,000-entry table, 1,048,576 indices) and ``scale2`` (``probe
+scale2``: 120 MB) print their calls queued back to back (``device_ms``,
+warm) and, for ``take_1d``, each call after an L2 flush (``cold_ms``,
+``chip_smoke.cuda_ms_cold``), with a hash of the output; the inputs come
+from one seeded generator, the same for every tree.  For a like-for-like
+reading run the trees in the order A, B, B, A, one after another on the
+same card, and compare each tree with itself first.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import sys
 
 K2_SHAPES = (1_048_576, 2_097_152, 4_194_304)
 K2_POOLS = ("simple", "relativistic", "weighted")
+PROBE_TABLE, PROBE_INDICES, PROBE_SCALE2_MB = 12_000_000, 1_048_576, 120
 
 
 def cases(cs):
@@ -63,7 +70,10 @@ def cases(cs):
             ("k7 scatter", "k7", "scatter", n, 0, False, False)] + [
                 (f"k2 {pool} {m}", "k2", pool, m,
                  last if m == nf else 0, False, False)
-                for pool in K2_POOLS for m in K2_SHAPES]
+                for pool in K2_POOLS for m in K2_SHAPES] + [
+                    ("probe take_1d", "probe", "take_1d", PROBE_INDICES, 0,
+                     False, False),
+                    ("probe scale2", "probe", "scale2", 0, 0, False, False)]
 
 
 def this_checkout_smoke():
@@ -81,7 +91,7 @@ def say(**kw):
     print(json.dumps(kw), flush=True)
 
 
-def main(tree, build, only=""):
+def main(tree, build, only=("",)):
     """Time (or, with ``build``, compile) ``tree``'s launches."""
     timing = this_checkout_smoke()
     sys.path.insert(0, tree)
@@ -110,10 +120,11 @@ def main(tree, build, only=""):
     device = torch.device("cuda", 0)
     say(phase="card", tree=tree, card=cs.card_line(),
         line_estimators_switch=switch)
-    config, state, atom = cs.build_problem(device)
-    b = cs.beta_inner(state)
-    chosen = [c for c in cases(cs) if c[0].startswith(only)]
-    if any(c[1] != "k2" for c in chosen):
+    chosen = [c for c in cases(cs) if c[0].startswith(tuple(only))]
+    if any(c[1] != "probe" for c in chosen):
+        config, state, atom = cs.build_problem(device)
+        b = cs.beta_inner(state)
+    if any(c[1] in ("k1", "k7") for c in chosen):
         ps = PlasmaSolver(atom, state, device).update(
             state.t_radiative, state.dilution_factor)
         chain = solve_macro_chain(
@@ -127,6 +138,18 @@ def main(tree, build, only=""):
 
     def call(kern, where, n, it, le, records):
         key, run_key = iteration_keys(cs.SEED, it)
+        if kern == "probe":
+            from tardis_torch.benchmarks import probe2
+
+            gen = torch.Generator(device=device).manual_seed(cs.SEED)
+            if where == "take_1d":
+                tab = torch.rand(PROBE_TABLE, generator=gen, device=device)
+                idx = torch.randint(0, PROBE_TABLE, (n,), generator=gen,
+                                    device=device, dtype=torch.int32)
+                return (("probe2", ()), lambda: probe2.take_1d(tab, idx))
+            x = torch.rand(PROBE_SCALE2_MB * 1024 * 1024 // 4 // probe2.ROW,
+                           probe2.ROW, generator=gen, device=device)
+            return (("probe2", ()), lambda: probe2.scale2(x))
         if kern == "k2":
             return (("blackbody_source", ()), lambda: blackbody_source(
                 key, n, state.t_inner, device, where, b))
@@ -157,6 +180,17 @@ def main(tree, build, only=""):
                                                      calls}))
         return
     for label, _, fn in calls:
+        if label.startswith("probe "):
+            device_ms, out = timing.cuda_ms_queued(fn, 50)
+            numbers = {}
+            if label == "probe take_1d":
+                cold = timing.cuda_ms_cold(fn, timing.COLD_REPS, device)
+                numbers = dict(cold_ms=cold[0], cold_ms_spread=cold[1:3])
+            say(phase="launch", label=label, n=out.numel(),
+                device_ms=device_ms, **numbers,
+                out_sha=hashlib.sha256(
+                    out.cpu().numpy().tobytes()).hexdigest()[:16])
+            continue
         if label.startswith("k2 "):
             numbers = timing.k2_timings(fn)
             ms, out = cs.cuda_ms(fn, 10)
@@ -180,6 +214,6 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", required=True)
     ap.add_argument("--build", action="store_true")
-    ap.add_argument("--only", default="")
+    ap.add_argument("--only", action="append", default=[])
     args = ap.parse_args()
-    main(os.path.abspath(args.tree), args.build, args.only)
+    main(os.path.abspath(args.tree), args.build, args.only or [""])

@@ -38,6 +38,7 @@ from tardis_torch import cuda
 ROW = 128  # take_along_rows' row length
 LP1S = 183061 * 20
 VMEM_MB = (16, 32, 64, 96, 120)
+SECTOR = 32  # bytes a scattered read moves from device memory
 
 
 def scale2_plain(x: torch.Tensor) -> torch.Tensor:
@@ -51,6 +52,22 @@ def take_1d_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def take_along_rows_plain(tab: torch.Tensor,
                           idx: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(tab, idx.long(), 1)
+
+
+def table_sectors(tab: torch.Tensor, idx: torch.Tensor) -> int:
+    """The distinct 32-byte sectors of the 1-D table ``tab`` that the
+    indices ``idx`` touch, where the table's first entry sits in its
+    sector counted: what a gather must read at the least."""
+    per = SECTOR // tab.element_size()
+    first = (tab.data_ptr() % SECTOR) // tab.element_size()
+    return int(torch.unique((idx.long() + first) // per).numel())
+
+
+def take_1d_bytes(tab: torch.Tensor, idx: torch.Tensor) -> int:
+    """Bytes ``take_1d`` must move: each sector of the table it touches
+    once, the indices read once and the output written once."""
+    return (SECTOR * table_sectors(tab, idx)
+            + idx.numel() * (idx.element_size() + tab.element_size()))
 
 
 def _launch(name, *args):

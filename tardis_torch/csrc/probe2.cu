@@ -17,8 +17,20 @@
 //     kernel's whole-array VMEM block has no counterpart: a stream never
 //     needs more than registers;
 //   - take_1d gives a thread four outputs: one 16-byte load of indices,
-//     four independent gathers in flight through the read-only path
-//     (__ldg; a random read costs a 32-byte sector), one 16-byte store;
+//     four independent gathers in flight through the read-only path, one
+//     16-byte store.  A random read moves a 32-byte sector, so its bound
+//     is the distinct sectors the indices touch (chip_smoke.py
+//     check_probe2), and 1,024 blocks of 256 threads put all ~1M gathers
+//     in flight at once: the time is the sectors' round trip.  The probe
+//     calls it again and again on one table (12,000,000 f32, 48 MB, beside
+//     the 50 MB L2), so the indices and the output, streamed once a call,
+//     are read and written evict-first (.cs: __ldcs / __stcs) and stop
+//     displacing table lines; warm calls then took 3.7% less than with
+//     default loads and stores (PERF.md).  Gathering the table under an L2
+//     evict-last policy (createpolicy.fractional.L2::evict_last with
+//     ld.global.nc.L2::cache_hint) changed nothing measurable, warm or
+//     cold, so the table is read through __ldg and no policy is set: no
+//     persisting access-policy window is left on the caller's stream;
 //   - take_along_rows gives one warp a row: the warp stages the row's 128
 //     values in shared memory with one float4 a lane, then each lane
 //     gathers four outputs from shared memory and writes them as one
@@ -76,13 +88,13 @@ __global__ void take_1d_kernel(const float* __restrict__ tab, int64_t n_tab,
                                float* __restrict__ o, int64_t n, int64_t n4) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n4) {
-    const int4 k = __ldg(reinterpret_cast<const int4*>(idx) + i);
-    reinterpret_cast<float4*>(o)[i] =
-        make_float4(take(tab, n_tab, k.x), take(tab, n_tab, k.y),
-                    take(tab, n_tab, k.z), take(tab, n_tab, k.w));
+    const int4 k = __ldcs(reinterpret_cast<const int4*>(idx) + i);
+    __stcs(reinterpret_cast<float4*>(o) + i,
+           make_float4(take(tab, n_tab, k.x), take(tab, n_tab, k.y),
+                       take(tab, n_tab, k.z), take(tab, n_tab, k.w)));
   }
   const int64_t j = 4 * n4 + i;  // the last n mod 4 (all, unaligned)
-  if (j < n) o[j] = take(tab, n_tab, idx[j]);
+  if (j < n) __stcs(o + j, take(tab, n_tab, __ldcs(idx + j)));
 }
 
 __global__ void take_along_rows_kernel(const float* __restrict__ tab,

@@ -28,12 +28,15 @@
 //     index of the plain version's bisection of [next_line, L].  Without
 //     full relativity it is, even in f32, on a non-decreasing prefix row
 //     (each term is a correctly rounded, monotone function of sorted
-//     inputs).  The full-relativity predicate (the resonance quadratic's
-//     root in f32) is not proven so; tests/test_torch_event_loops.py finds
-//     it monotone on every sampled state, and chip_smoke.py holds both
-//     instantiations bit for bit against the bisection on the card.
-//     Bisecting there instead made the relativity path's final launch
-//     slower than one thread a packet (PERF.md);
+//     inputs).  The full-relativity predicate is not: the f32 root of the
+//     resonance quadratic can dip by an ulp from one line frequency to the
+//     next lower one.  There a margin guard (rel_search_proven, below)
+//     proves from the optical depths at the lines on either side of the
+//     event line, as the search computed them, that the predicate is
+//     monotone on [next_line, L]; where it cannot, the bisection loop runs
+//     again as the plain version's bisection of [next_line, L], and the
+//     search is counted.  Bisecting every search made the relativity
+//     path's final launch slower than one thread a packet (PERF.md);
 //   - the line difference array only in the instantiations whose caller
 //     reads it (TL_LINE_ESTIMATORS; the final iteration): the convergence
 //     iterations write none;
@@ -339,6 +342,65 @@ __device__ __forceinline__ float resonance_distance(float nu_line, float nu, flo
   }
 }
 
+// The margin guard of the full-relativity search: true where the event
+// predicate P(i) = (nu_i <= nu_thresh) || (g_i > tau), g_i = (f32)(prefix
+// difference) + chi s_i, is proven monotone on [start, L], so that the
+// gallop's index k (P(k-1) false or k == start, P(k) true or k == L) is the
+// only such index and the bisection of [start, L] finds it too.
+//
+// Let G_i = D_i + chi S_i in exact arithmetic, with D_i the f32 prefix
+// difference as computed and S_i the resonance distance with every
+// operation exact on the same f32 inputs.  D_i is a rounded monotone
+// function of a non-decreasing f64 row, so non-decreasing.  In units N =
+// nu_i^2 + nu^2, A = nu_i^2 / N, B = 1 - A: S = max(B - sqrt(A (A - p2)) -
+// z, 0) (the root B for A <= p2), whose derivative in A is negative, and A
+// grows with nu_i, so S never falls as nu_i falls (line_nu is sorted
+// descending).  Hence G is non-decreasing in i.
+//
+// delta bounds |x_i - G_i|, x_i = D_i + fl(chi s_i) before the sum is
+// rounded, for every line with nu_i > nu_thresh (the others fire anyway).
+// With u = 2^-24 and A, B, |z|, p2 < 1, first-order in u (the slack in the
+// constants covers the rest; no intermediate leaves f32's normal range at
+// frequencies in units of 1e15 Hz, save a tiny p2, whose absolute error is
+// far below u N):
+//   - a - (a + b) p2 = N (A - p2 + e_t), |e_t| <= 2u A + 4.01u p2 (a, a+b
+//     and the product each round once, then the difference);
+//   - disc / N^2 = A (A - p2) + e_D, |e_D| <= u (4.02 A^2 + 6.03 A p2) <=
+//     u (4.1 + 6.1 p2) =: eps_D;
+//   - sqrt: |sqrt(x) - sqrt(x')| <= |x - x'| / sqrt(x').  Where nu_thresh
+//     >= nu / 2 and p2 <= 0.1 (at every velocity a model holds: p2 <= r^2,
+//     and nu_thresh ~ 0.8-0.95 nu), a line with nu_i > nu_thresh has A >
+//     1/5, so A (A - p2) > 0.02, and the root's error is at most eps_sq =
+//     eps_D / sqrt(0.02) <= 7.08 eps_D; elsewhere the guard proves nothing
+//     and the search falls back;
+//   - b - sqrt(disc) cancels, so its error is absolute: u (B + sqrt(A (A -
+//     p2)) + |y|) <= 2u (B + A) = 2u, plus eps_sq, in units of N (it
+//     scales with b / (a + b), not with y); the division by a + b adds 3u
+//     |y| <= 3u and the subtraction of z 2u: |s~ - S| <= 7.1u + 1.02 eps_sq;
+//   - chi s rounds once more (s < 2): |fl(chi s~) - chi S| <= chi (9.2u +
+//     1.03 eps_sq) <= chi (10u + 1.1 eps_sq) <= chi u (42 + 48 p2) =: delta.
+// Then for i < k - 1, x_i <= G_i + delta <= G_{k-1} + delta <= x_{k-1} +
+// 2 delta <= g_{k-1} (1 + u) + 2 delta, and g_i = fl(x_i) <= tau once that
+// is below tau (tau is an f32); for k < i with nu_i > nu_thresh, x_i >= g_k
+// (1 - u) - 2 delta, and g_i > tau once that exceeds tau (1 + 2u), the
+// next f32 above tau.  So P is monotone where
+//   - k == start, or g_{k-1} (1 + 2u) + 2 delta < tau; and
+//   - k == L, or nu_k <= nu_thresh, or g_k (1 - 2u) - 2 delta > tau (1 + 4u),
+// at least one u more on each side than the argument needs.  The test runs in f32
+// with every step rounded outward (__fmul_ru, __fadd_ru, __fsub_rd,
+// __fmul_rd), so each side is bounded the safe way.  g_{k-1} is the value
+// the search computed at its last probe that did not fire (-inf for k ==
+// start), g_k the one its probe at k computed, taken again from the event
+// line's resonance distance (+inf for k == L or nu_k <= nu_thresh).
+__device__ __forceinline__ bool rel_search_proven(float g_lo, float g_hi, float nu, float p2,
+                                                  float chi, float tau_event, float nu_thresh) {
+  if (!(2.0f * nu_thresh >= nu && p2 <= 0.1f)) return false;
+  constexpr float u2 = 1.1920928955078125e-7f;  // 2u = 2^-23
+  const float two_delta = __fmul_ru(__fmul_ru(chi, u2), __fadd_ru(42.0f, __fmul_ru(48.0f, p2)));
+  return __fadd_ru(__fmul_ru(g_lo, 1.0f + u2), two_delta) < tau_event &&
+         __fsub_rd(__fmul_rd(g_hi, 1.0f - u2), two_delta) > __fmul_ru(tau_event, 1.0f + 2.0f * u2);
+}
+
 // first index in [lo, hi) whose value is >= u (the count of entries < u on
 // a non-decreasing CDF row)
 __device__ __forceinline__ int cdf_lower_bound(const float* row, int n, float u) {
@@ -432,12 +494,26 @@ struct LastInteraction {
 constexpr int kClassicThreads = 128;
 constexpr int kClassicMinBlocks = 9;
 
+// the count of the searches the margin guard sent to the full bisection:
+// a pointer under full relativity, nothing (an empty base, so the walker's
+// layout does not change) otherwise
+template <bool kRel>
+struct FallbackCount {
+  __device__ explicit FallbackCount(unsigned long long*) {}
+};
+template <>
+struct FallbackCount<true> {
+  unsigned long long* search_fallbacks;
+  __device__ explicit FallbackCount(unsigned long long* count) : search_fallbacks(count) {}
+  __device__ __forceinline__ void count_fallback() { atomicAdd(search_fallbacks, 1ull); }
+};
+
 // One classic packet on its lane (tardis::lane_loop's Walker): the state
 // between two events, the lane's estimator run, and one event of the
 // event loop (kernel.py:425).
 template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights, bool kWalk,
           bool kLineEst>
-struct ClassicWalker {
+struct ClassicWalker : FallbackCount<kRel> {
   const Params& p;
   double* sh_j;
   double* sh_nubar;
@@ -449,8 +525,9 @@ struct ClassicWalker {
   tardis::Key kp{0u, 0u};
   LastInteraction li;
 
-  __device__ ClassicWalker(const Params& params, double* j, double* nubar, double* sum)
-      : p(params), sh_j(j), sh_nubar(nubar), sh_sum(sum) {}
+  __device__ ClassicWalker(const Params& params, double* j, double* nubar, double* sum,
+                           unsigned long long* fallbacks)
+      : FallbackCount<kRel>(fallbacks), p(params), sh_j(j), sh_nubar(nubar), sh_sum(sum) {}
 
   // birth: next_line = number of lines with nu_line >= nu_cmf
   __device__ __forceinline__ void birth(int64_t id) {
@@ -535,6 +612,10 @@ struct ClassicWalker {
       nu_thresh = nu * (1.0f - (z + d_b));
     }
     int64_t lo = next_line, hi = L;
+    // under full relativity the margin guard's input from the probes: the
+    // optical depth at the last that did not fire (line lo - 1; -inf if
+    // none)
+    float g_lo = __int_as_float(0xff800000);
     {
       int64_t probe = next_line, span = 1;
       while (probe < L) {
@@ -546,22 +627,48 @@ struct ClassicWalker {
           break;
         }
         lo = probe + 1;
+        if constexpr (kRel) g_lo = g;
         span *= 2;
         probe = next_line + span - 1;
       }
     }
-    while (lo < hi) {
-      const int64_t mid = (lo + hi) >> 1;
-      const float nl = p.line_nu[mid];
-      const float s = resonance_distance<kRel>(nl, nu, z, p2);
-      const float g = (float)(prow[mid + 1] - c0) + chi * s;
-      if ((nl <= nu_thresh) || (g > tau_event)) hi = mid;
-      else lo = mid + 1;
-    }
-    const int64_t i_ev = lo;
-    const float nu_ev = i_ev < L ? p.line_nu[i_ev] : __int_as_float(0xff800000);
-    const bool found = (i_ev < L) && (nu_ev > nu_thresh);
-    const float s_ev = resonance_distance<kRel>(nu_ev, nu, z, p2);
+    int64_t i_ev;
+    float nu_ev, s_ev;
+    bool found, again = false;
+    do {
+      while (lo < hi) {
+        const int64_t mid = (lo + hi) >> 1;
+        const float nl = p.line_nu[mid];
+        const float s = resonance_distance<kRel>(nl, nu, z, p2);
+        const float g = (float)(prow[mid + 1] - c0) + chi * s;
+        if ((nl <= nu_thresh) || (g > tau_event)) {
+          hi = mid;
+        } else {
+          lo = mid + 1;
+          if constexpr (kRel) g_lo = g;
+        }
+      }
+      i_ev = lo;
+      nu_ev = i_ev < L ? p.line_nu[i_ev] : __int_as_float(0xff800000);
+      found = (i_ev < L) && (nu_ev > nu_thresh);
+      s_ev = resonance_distance<kRel>(nu_ev, nu, z, p2);
+      if constexpr (kRel) {
+        // the guard, on the first pass only, with the optical depth at
+        // line i_ev as its probe computed it (+inf where the line's
+        // frequency fired it, or none did); where it fails, the loop runs
+        // again as the plain version's bisection of [next_line, L]
+        again = !again && !rel_search_proven(
+                              g_lo,
+                              found ? (float)(prow[i_ev + 1] - c0) + chi * s_ev
+                                    : __int_as_float(0x7f800000),
+                              nu, p2, chi, tau_event, nu_thresh);
+        if (again) {
+          this->count_fallback();
+          lo = next_line;
+          hi = L;
+        }
+      }
+    } while (again);
     const float tau_at = (float)(prow[i_ev] - c0);
     const float d_cont = fmaxf((tau_event - tau_at) / chi, 0.0f);
     const bool escat_f = p.disable_line_scattering || (d_cont < s_ev);
@@ -732,7 +839,7 @@ __global__ void __launch_bounds__(kClassicThreads, kClassicMinBlocks)
   for (int i = threadIdx.x; i < n_shared; i += blockDim.x) shm[i] = 0.0;
   __syncthreads();
   ClassicWalker<kRel, kLast, kTrack, kReflect, kWeights, kWalk, kLineEst> w(p, sh_j, sh_nubar,
-                                                                            sh_sum);
+                                                                            sh_sum, taken + 1);
   tardis::lane_loop(w, taken, p.n_packets, p.max_events);
   __syncthreads();
   for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
@@ -1279,8 +1386,9 @@ extern "C" int continuum_smem_fits(const ContinuumArgs* cont, int64_t L, int S, 
 }
 
 // One launch of K1: a persistent grid whose lanes take packet ids from the
-// zeroed device counter ``taken`` (classic: cont null, smem_tables 0; the
-// walk tables null unless TL_WALK).
+// zeroed device counter taken[0] (classic: cont null, smem_tables 0; the
+// walk tables null unless TL_WALK); the full-relativity classic loop counts
+// its guard's fallbacks to the bisection in taken[1], also zeroed.
 extern "C" int transport_loop(
     const void* pool_mu, const void* pool_nu, const void* pool_w,
     int64_t n_packets, const void* r_inner, const void* r_outer,

@@ -170,6 +170,10 @@ class TransportOutput:
     cont_moments: torch.Tensor
     est_ff_heat: torch.Tensor
     events: torch.Tensor
+    # (1,) i64: the event searches that K1's margin guard sent to the full
+    # bisection (classic loop under full relativity on the card; 0 from
+    # the plain version, which always bisects)
+    search_fallbacks: torch.Tensor
 
     @property
     def n_vp_records(self) -> int:
@@ -236,6 +240,7 @@ def _allocate(n_packets, S, L, capacity, last_interaction, tracker_length,
         events=z(n_packets if events or cont is not None else 0,
                  dtype=torch.int32,
                  device=device),
+        search_fallbacks=z(1, dtype=torch.int64, device=device),
     )
 
 
@@ -279,11 +284,8 @@ def _fires(t: TransportTables, shell, i, chi, z, nu, tau_event, nu_thresh,
            c0, p2):
     """K1's event predicate at line ``i`` (< L): nu_i at or below the
     boundary's frequency, or the optical depth to line i above tau."""
-    nl = t.line_nu[i]
-    s = _resonance_distance(nl, nu, z, p2, t.full_relativity)
-    g = (t.prefix.reshape(-1)[shell * (t.n_lines + 1) + i + 1] - c0).float() \
-        + chi * s
-    return (nl <= nu_thresh) | (g > tau_event)
+    return ((t.line_nu[i] <= nu_thresh)
+            | (_depth(t, shell, i, chi, z, nu, c0, p2) > tau_event))
 
 
 def _search(t: TransportTables, shell, lo, chi, z, nu, tau_event,
@@ -300,6 +302,81 @@ def _search(t: TransportTables, shell, lo, chi, z, nu, tau_event,
         lo = torch.where(active & ~fire, mid + 1, lo)
         hi = torch.where(active & fire, mid, hi)
     return lo
+
+
+def _depth(t: TransportTables, shell, i, chi, z, nu, c0, p2):
+    """The optical depth g_i that ``_fires`` compares with tau (i < L)."""
+    s = _resonance_distance(t.line_nu[i], nu, z, p2, t.full_relativity)
+    return (t.prefix.reshape(-1)[shell * (t.n_lines + 1) + i + 1]
+            - c0).float() + chi * s
+
+
+def _rel_search_proven(t: TransportTables, shell, start, k, chi, z, nu,
+                       tau_event, nu_thresh, c0, p2):
+    """K1's margin guard under full relativity (``rel_search_proven`` in
+    ``csrc/transport_loop.cu``, where the bound is derived), in the same
+    operations: True where the event predicate is proven monotone on
+    [start, L], so that the index ``k`` the gallop found is the
+    bisection's.  The optical depths at k - 1 and k, which the kernel
+    keeps from its probes, are computed again here, and the test runs in
+    f64, where the kernel rounds each f32 step outward: the two can part
+    only where a margin lies within an f32 rounding of the bound, and both
+    are sound."""
+    u = 2.0 ** -24
+    L = t.n_lines
+    two_delta = 2.0 * u * chi.double() * (42.0 + 48.0 * p2.double())
+    tau = tau_event.double()
+    g_before = _depth(t, shell, torch.clamp(k - 1, 0, L - 1), chi, z, nu,
+                      c0, p2).double()
+    before = (k <= start) | (g_before * (1.0 + 2.0 * u) + two_delta < tau)
+    kk = torch.clamp(k, max=L - 1)
+    g_at = _depth(t, shell, kk, chi, z, nu, c0, p2).double()
+    after = ((k >= L) | (t.line_nu[kk] <= nu_thresh)
+             | (g_at * (1.0 - 2.0 * u) - two_delta > tau * (1.0 + 4.0 * u)))
+    return (2.0 * nu_thresh >= nu) & (p2 <= 0.1) & before & after
+
+
+def _gallop(t: TransportTables, shell, lo, chi, z, nu, tau_event, nu_thresh,
+            c0, p2):
+    """K1's card search in torch ops (``ClassicWalker::event``): probes at
+    ``lo`` + 0, 1, 3, 7, ... up to the first that fires, then a bisection
+    of the bracket.  Without full relativity it is the whole search; under
+    it ``_gallop_guarded`` adds the margin guard."""
+    L = t.n_lines
+    start, hi = lo.clone(), torch.full_like(lo, L)
+    probe, span = lo.clone(), torch.ones_like(lo)
+    active = probe < L
+    while bool(active.any()):
+        fire = _fires(t, shell, torch.clamp(probe, max=L - 1), chi, z, nu,
+                      tau_event, nu_thresh, c0, p2)
+        hi = torch.where(active & fire, probe, hi)
+        lo = torch.where(active & ~fire, probe + 1, lo)
+        active = active & ~fire
+        span = span * 2
+        probe = start + span - 1
+        active = active & (probe < L)
+    while bool((lo < hi).any()):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        fire = _fires(t, shell, torch.clamp(mid, max=L - 1), chi, z, nu,
+                      tau_event, nu_thresh, c0, p2)
+        lo = torch.where(active & ~fire, mid + 1, lo)
+        hi = torch.where(active & fire, mid, hi)
+    return lo
+
+
+def _gallop_guarded(t: TransportTables, shell, lo, chi, z, nu, tau_event,
+                    nu_thresh, c0, p2):
+    """K1's card search under full relativity, in torch ops: ``_gallop``,
+    then the margin guard (``_rel_search_proven``); where the guard fails,
+    the bisection of [lo, L] (``_search``).  Returns (index, fell back).
+    The plain version itself bisects, as the JAX package does; the tests
+    hold this mirror against it."""
+    args = (chi, z, nu, tau_event, nu_thresh, c0, p2)
+    k = _gallop(t, shell, lo.clone(), *args)
+    fell_back = ~_rel_search_proven(t, shell, lo, k, *args)
+    bisect = _search(t, shell, lo.clone(), *args)
+    return torch.where(fell_back, bisect, k), fell_back
 
 
 def _emission(t: TransportTables, shell, i_ev, u_chain, u_emit):
@@ -935,8 +1012,10 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     args += ([None] * 5 + [0] if w is None else
              [p(w.cum_prob), p(w.block_start), p(w.dest), p(w.emit),
               p(w.line), t.max_jumps])
-    # the lanes' packet queue: the next packet id to take
-    taken = torch.zeros(1, dtype=torch.int64, device=device)
+    # the lanes' packet queue (the next packet id to take), then the count
+    # of the full-relativity search's fallbacks to the bisection
+    taken = torch.zeros(2, dtype=torch.int64, device=device)
+    res.search_fallbacks = taken[1:]
     if cont is None:
         err = fn(*args, None, p(taken), 0, cuda.stream())
     else:

@@ -34,7 +34,12 @@ from tardis_torch.transport import kernel as tk
 from tardis_torch.transport import nonhomologous as tnh
 from tardis_torch.transport import rng
 from tardis_torch.transport import solver as solver_module
-from tardis_torch.transport.tables import GAMMA_FLOOR, lorentz_gamma
+from tardis_torch.transport.tables import (
+    GAMMA_FLOOR,
+    LINE_SCATTER,
+    TransportTables,
+    lorentz_gamma,
+)
 from tardis_tpu.config.reader import config_from_dict
 from tardis_tpu.model.geometry import NonhomologousRadial1DGeometry
 from tardis_tpu.model.state import SimulationState
@@ -171,47 +176,13 @@ def test_k1_without_line_estimators_matches_jax(k1, name):
     assert res.line_diff.numel() == 0
 
 
-def _gallop(t, shell, lo, chi, z, nu, tau_event, nu_thresh, c0, p2):
-    """K1's card search without full relativity (``ClassicWalker::event``,
-    ``csrc/transport_loop.cu``): probes at next_line + 0, 1, 3, 7, ... up
-    to the first that fires, then a bisection of the bracket."""
-    L = t.n_lines
-    start, hi = lo.clone(), torch.full_like(lo, L)
-    probe, span = lo.clone(), torch.ones_like(lo)
-    active = probe < L
-    while bool(active.any()):
-        fire = tk._fires(t, shell, torch.clamp(probe, max=L - 1), chi, z, nu,
-                         tau_event, nu_thresh, c0, p2)
-        hi = torch.where(active & fire, probe, hi)
-        lo = torch.where(active & ~fire, probe + 1, lo)
-        active = active & ~fire
-        span = span * 2
-        probe = start + span - 1
-        active = active & (probe < L)
-    while bool((lo < hi).any()):
-        active = lo < hi
-        mid = (lo + hi) >> 1
-        fire = tk._fires(t, shell, torch.clamp(mid, max=L - 1), chi, z, nu,
-                         tau_event, nu_thresh, c0, p2)
-        lo = torch.where(active & ~fire, mid + 1, lo)
-        hi = torch.where(active & fire, mid, hi)
-    return lo
-
-
-@pytest.mark.parametrize("name", ["classic", "full_relativity"])
-def test_k1_gallop_finds_the_bisection_index(k1, name):
-    """K1's card search gallops from next_line; the plain version bisects
-    [next_line, L].  The two find the same line wherever the event
-    predicate is monotone in the line index: without full relativity it
-    is, in f32, on a non-decreasing prefix row; under full relativity (the
-    resonance quadratic's root in f32) it is not proven so.  Both held
-    over 4,096 event states (shell, r, mu, nu, tau_event, boundary
-    distance) drawn across the grid, every line from next_line on tested
-    for monotonicity."""
+def _search_states(k1, name, M=4096):
+    """M event states (shell, r, mu, nu, tau_event, boundary distance)
+    drawn across the grid of ``k1[name]``'s tables, as K1 searches them:
+    (tables, shell, next_line, the search's arguments after ``lo``)."""
     t = k1[name]["pt"]
     full_rel = name == "full_relativity"
     S, L = t.n_shells, t.n_lines
-    M = 4096
     g = np.random.default_rng(SEED)
     shell = torch.as_tensor(g.integers(0, S, M))
     f = torch.as_tensor(g.uniform(0.0, 1.0, M).astype(np.float32))
@@ -238,7 +209,25 @@ def test_k1_gallop_finds_the_bisection_index(k1, name):
         nu_thresh = nu * (1.0 - (z + d_b))
     next_line = (t.line_nu[None, :] >= (nu * dop)[:, None]).sum(1)
     c0 = t.prefix.reshape(-1)[shell * (L + 1) + next_line]
-    args = (chi, z, nu, tau_event, nu_thresh, c0, p2)
+    return t, shell, next_line, (chi, z, nu, tau_event, nu_thresh, c0, p2)
+
+
+@pytest.mark.parametrize("name", ["classic", "full_relativity"])
+def test_k1_gallop_finds_the_bisection_index(k1, name):
+    """K1's card search gallops from next_line; the plain version bisects
+    [next_line, L].  The two find the same line wherever the event
+    predicate is monotone in the line index: without full relativity it
+    is, in f32, on a non-decreasing prefix row; under full relativity (the
+    resonance quadratic's root in f32) it is not proven so, and the card
+    checks the gallop's index with a margin guard (``_gallop_guarded``, the
+    kernel's search in torch ops), which must give the bisection's index
+    and leave nearly every search it covers to the gallop.  Held over
+    4,096 event states (shell, r, mu, nu, tau_event, boundary distance)
+    drawn across the grid, every line from next_line on tested for
+    monotonicity."""
+    t, shell, next_line, args = _search_states(k1, name)
+    M, L = shell.shape[0], t.n_lines
+    nu_thresh = args[4]
     i = torch.arange(L)[None, :].expand(M, L)
     col = lambda a: None if a is None else a[:, None].expand(M, L)  # noqa: E731
     fire = tk._fires(t, col(shell), i, *(col(a) for a in args))
@@ -246,12 +235,127 @@ def test_k1_gallop_finds_the_bisection_index(k1, name):
     assert bool((fire[:, 1:] >= fire[:, :-1]).all())
     assert bool((t.prefix[:, 1:] >= t.prefix[:, :-1]).all())
     bisect = tk._search(t, shell, next_line.clone(), *args)
-    assert torch.equal(_gallop(t, shell, next_line.clone(), *args), bisect)
+    assert torch.equal(tk._gallop(t, shell, next_line.clone(), *args),
+                       bisect)
+    if name == "full_relativity":
+        guarded, fell_back = tk._gallop_guarded(t, shell, next_line.clone(),
+                                                *args)
+        assert torch.equal(guarded, bisect)
+        # the guard's bound holds where the boundary's frequency is at least
+        # half the packet's (every search of a real shell grid); these
+        # states also reach far below, where it falls back
+        nu, p2 = args[2], args[6]
+        covered = (2.0 * nu_thresh >= nu) & (p2 <= 0.1)
+        assert int(covered.sum()) > M // 2
+        assert bool(fell_back[~covered].all())
+        assert int((fell_back & covered).sum()) <= M // 100, int(
+            (fell_back & covered).sum())
     # the states end at lines (tau reached) and at boundaries, some far on
     found = (bisect < L) & (t.line_nu[torch.clamp(bisect, max=L - 1)]
                             > nu_thresh)
     assert 0 < int(found.sum()) < M
     assert int((bisect - next_line).max()) > 16
+
+
+# an f32 dip of the full-relativity resonance distance: consecutive f32
+# line frequencies nu_i > nu_{i+1} with s(nu_{i+1}) < s(nu_i)
+DIP_TRIALS = 256
+DIP_SPAN = 1 << 16
+
+
+def _f32(x):
+    return torch.tensor([x], dtype=torch.float32)
+
+
+def _dips(n_wanted):
+    """Packet states (nu, z, p2) and line triples (a line 4,096 f32 steps
+    above the dip, then the dip's two lines), found by scanning DIP_SPAN
+    consecutive f32 frequencies below each drawn state's comoving
+    frequency with the plain version's ``_resonance_distance``."""
+    g = np.random.default_rng(SEED)
+    found = []
+    for _ in range(DIP_TRIALS):
+        nu = np.float32(g.uniform(0.3, 3.0))
+        r = np.float32(g.uniform(0.02, 0.1))
+        mu = np.float32(g.uniform(-1.0, 1.0))
+        z = _f32(mu) * _f32(r)
+        p2 = torch.clamp((_f32(r) * _f32(r)) * (1.0 - _f32(mu) * _f32(mu)),
+                         min=0.0)
+        top = np.float32(nu * (1.0 - float(z)) * g.uniform(0.8, 1.0))
+        steps = np.arange(DIP_SPAN + 4096, dtype=np.int32)
+        lines = torch.as_tensor((np.int32(top.view(np.int32)) - steps).view(
+            np.float32))
+        s = tk._resonance_distance(lines, _f32(nu), z, p2, True)
+        dip = torch.nonzero(s[4097:] < s[4096:-1])
+        if dip.numel():
+            i = 4096 + int(dip[0])
+            found.append((_f32(nu), z, p2, lines[[i - 4096, i, i + 1]]))
+        if len(found) == n_wanted:
+            break
+    return found
+
+
+def test_k1_guard_on_an_f32_dip():
+    """Under full relativity the f32 root of the resonance quadratic dips:
+    a line one f32 step below another can lie an ulp nearer.  On hand-made
+    tables (one shell, chi 1, four lines: one well above the dip, the
+    dip's pair with no optical depth, then a thick line) with tau_event
+    at the dip's lower distance, the predicate fires on the pair's first
+    line and not its second: K1's unguarded gallop stops at the first, the
+    plain version's bisection of [0, L] at the thick line.  The margin
+    guard must send each such search to the bisection."""
+    dips = _dips(8)
+    assert len(dips) == 8
+    for nu, z, p2, lines in dips:
+        lines = torch.cat([lines, lines[2:] * 0.9])
+        t = TransportTables(
+            r_inner=_f32(0.01), r_outer=_f32(0.2), chi_e=_f32(1.0),
+            line_nu=lines,
+            prefix=torch.tensor([[0.0, 0.0, 0.0, 0.0, 100.0]],
+                                dtype=torch.float64),
+            line2macro=torch.zeros(4, dtype=torch.int32),
+            chain_cdf=torch.zeros(1, 1), emit_cdf=torch.zeros(1, 3),
+            mode=LINE_SCATTER, full_relativity=True)
+        s = tk._resonance_distance(lines, nu, z, p2, True)
+        assert s[0] < s[2] < s[1]
+        args = (_f32(1.0), z, nu, s[2:3].clone(), lines[3:] * 0.5,
+                torch.zeros(1, dtype=torch.float64), p2)
+        shell, lo = torch.zeros(1, dtype=torch.int64), torch.zeros(
+            1, dtype=torch.int64)
+        bisect = tk._search(t, shell, lo.clone(), *args)
+        assert int(bisect) == 3
+        assert int(tk._gallop(t, shell, lo.clone(), *args)) == 1
+        guarded, fell_back = tk._gallop_guarded(t, shell, lo.clone(), *args)
+        assert bool(fell_back) and torch.equal(guarded, bisect)
+
+
+def test_k1_guard_falls_back_near_ties(k1):
+    """The margin guard on near ties: each of the 4,096 states of
+    ``test_k1_gallop_finds_the_bisection_index`` that ends at a line
+    (full relativity) gets tau_event one f32 step below that line's optical
+    depth, so the predicate still fires there, within the guard's margin:
+    every such search must fall back to the bisection, and find it."""
+    t, shell, next_line, args = _search_states(k1, "full_relativity")
+    L = t.n_lines
+    chi, z, nu, tau_event, nu_thresh, c0, p2 = args
+    k = tk._search(t, shell, next_line.clone(), *args)
+    kk = torch.clamp(k, max=L - 1)
+    at_line = (k < L) & (t.line_nu[kk] > nu_thresh)
+    g = tk._depth(t, shell, kk, chi, z, nu, c0, p2)
+    tie = torch.nextafter(g, torch.full_like(g, -math.inf))
+    # states the guard's bound covers (else it falls back whatever tau is)
+    keep = at_line & (tie > 0) & (2.0 * nu_thresh >= nu) & (p2 <= 0.1)
+    assert int(keep.sum()) > 100
+    sel = lambda a: a[keep]  # noqa: E731
+    args = tuple(sel(a) for a in (chi, z, nu)) + (sel(tie),) + tuple(
+        sel(a) for a in (nu_thresh, c0, p2))
+    start = next_line[keep]
+    bisect = tk._search(t, shell[keep], start.clone(), *args)
+    assert torch.equal(bisect, k[keep])
+    guarded, fell_back = tk._gallop_guarded(t, shell[keep], start.clone(),
+                                            *args)
+    assert bool(fell_back.all())
+    assert torch.equal(guarded, bisect)
 
 
 def k7_problem():

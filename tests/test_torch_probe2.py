@@ -73,6 +73,27 @@ def test_take_along_rows_matches_gkern2():
                                   _pallas(gkern2, (1024, 128), tab, idx))
 
 
+@pytest.mark.parametrize("offset", [0, 1, 7])
+def test_take_1d_bytes_count_sectors(offset):
+    """The bound chip_smoke.py's check_probe2 gives take_1d: the distinct
+    32-byte sectors of the table that seeded indices touch (the table a
+    view ``offset`` entries into a 32-byte aligned buffer), against a
+    numpy count, plus the indices and the output once; and the expected
+    count of uniform draws, n_sec (1 - exp(-n / n_sec)), within 1%."""
+    gen = np.random.default_rng(4)
+    n_tab, n = 120_000, 10_486
+    base = torch.zeros(n_tab + 64)
+    pad = (-base.data_ptr() % 32) // 4
+    tab = base[pad + offset:pad + offset + n_tab]
+    idx_np = gen.integers(0, n_tab, n).astype(np.int32)
+    idx = torch.as_tensor(idx_np)
+    want = np.unique((idx_np.astype(np.int64) + offset) // 8).size
+    assert probe2.table_sectors(tab, idx) == want
+    assert probe2.take_1d_bytes(tab, idx) == 32 * want + 8 * n
+    n_sec = (n_tab + offset + 7) // 8
+    assert abs(want / (n_sec * (1 - np.exp(-n / n_sec))) - 1) < 0.01
+
+
 def test_probe_needs_a_card(monkeypatch):
     """main() imports without a card and refuses to time on the CPU; the
     wrappers raise for a device that is neither, and the kernels are
