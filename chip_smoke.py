@@ -124,9 +124,15 @@ Phases, one printed line each (plus one line per iteration):
      margin guard sent to the bisection in each launch;
   6. the options path: 3 iterations of 2,097,152 packets with the weighted
      pool, the reflective inner boundary (albedo 0.5) and the r-packet
-     tracker; then the walk path: the bench problem's atomic data written
-     with the port's carsus writer to a temporary file and read back
-     with atom_data_from_hdf (every array equal to the written one), and
+     tracker, then an "rpacket" line: RPacketPlotter's coordinates of 15
+     tracked packets taken in torch on the card and padded to one length
+     (packets, the padded length m, the data-prep seconds on the host
+     clock after a synchronize), every coordinate finite and within the
+     outer shell's velocity (relative 1e-6), and the figure where plotly
+     (the animated one) or matplotlib imports; then the walk path: the
+     bench problem's atomic data written with the port's carsus writer to
+     a temporary file and read back with atom_data_from_hdf (every array
+     equal to the written one), and
      Simulation.from_config with atom_data: <that file> and
      sim.transport.use_macro_chain = False, 2 convergence iterations of
      2,097,152 packets and the production final iteration (K1's walk
@@ -201,7 +207,9 @@ Phases, one printed line each (plus one line per iteration):
      wall, the kept rows by li_type, and the visualization modules' data
      preparation on the card's result (SDEC in both modes, LIV,
      Grotrian; the figures where matplotlib imports, else "plots:
-     skipped, ..."); the nonhomologous path,
+     skipped, ..."; their plotly figures, SDEC of the virtual packets,
+     with each figure's trace count where plotly and matplotlib import,
+     else "plotly: skipped, ..."); the nonhomologous path,
      NonhomologousTARDISWorkflow on the bench problem under the perturbed
      law, 4 convergence iterations of 2,097,152 packets and a final one of
      4,194,304 (real-packet spectrum); the gamma-ray path,
@@ -2157,13 +2165,60 @@ def run_options_path(atom, device, expected):
     """The weighted pool, the reflective inner boundary and the r-packet
     tracker through run_tardis at N_PACKETS; the tracker must hold
     TRACKER_LENGTH rows per packet.  The reflective boundary raises the
-    emitted luminosity, so the luminosity bands are not applied."""
+    emitted luminosity, so the luminosity bands are not applied.  Then
+    the r-packet plot's data preparation on the card's tracker rows
+    (``rpacket_plot``)."""
     sim, launches, _ = run_path("options_path", OPTIONS_CONFIG, atom,
                                 device, expected, bands=False)
     tr = sim.last_transport_result.rpacket_tracker
     if tr is None or tr["type"].shape != (N_PACKETS, TRACKER_LENGTH):
         raise AssertionError("options path: no r-packet tracker rows")
+    rpacket_plot(sim)
     return launches
+
+
+def rpacket_plot(sim):
+    """RPacketPlotter's coordinates of the first 15 tracked packets (torch
+    on the tracker's device) padded to one length; prints an ``rpacket``
+    line (packets, padded length m, the data-prep seconds on the host
+    clock after a synchronize, the largest radius against the outer
+    shell's velocity) and raises unless every coordinate is finite and
+    within the outer shell's velocity (relative 1e-6).  Then the animated
+    plotly figure where plotly imports, else the matplotlib one where
+    matplotlib imports, else a skip line."""
+    from tardis_torch.visualization.rpacket import RPacketPlotter
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plotter = RPacketPlotter(sim)
+    xs, ys, tys = plotter.get_coordinates_multiple_packets()
+    xs, ys, tys, m = plotter.get_equal_array_size(xs, ys, tys)
+    prep_s = time.perf_counter() - t0
+    v_outer = float(plotter._shell_velocities()[-1])
+    finite = all(np.isfinite(x).all() and np.isfinite(y).all()
+                 for x, y in zip(xs, ys))
+    radius = max(float(np.hypot(x, y).max()) for x, y in zip(xs, ys))
+    numbers = dict(packets=len(xs), m=m, data_prep_s=prep_s,
+                   max_radius_km_s=radius, v_outer_km_s=v_outer,
+                   finite=finite)
+    if not (finite and len(xs) == plotter.no_of_packets and m >= 1
+            and radius <= v_outer * (1.0 + 1e-6)):
+        say("rpacket", **numbers)
+        raise AssertionError(f"rpacket: {numbers}")
+    plotly_ok, failed_plotly = import_support("plotly")
+    mpl_ok, failed_mpl = import_support("matplotlib")
+    if plotly_ok:
+        fig = plotter.generate_plot()
+        numbers["plotly"] = dict(traces=len(fig.data),
+                                 frames=len(fig.frames))
+    elif mpl_ok:
+        import matplotlib.pyplot as plt
+
+        plt.close(plotter.generate_plot_mpl())
+        numbers["plot"] = "drawn"
+    else:
+        numbers["plot"] = f"skipped, {failed_plotly}; {failed_mpl}"
+    say("rpacket", **numbers)
 
 
 @contextlib.contextmanager
@@ -3146,7 +3201,10 @@ def viz_data_prep(sim, plots, failed_plot_import):
     the card (torch on its device): the SDEC decomposition in both modes
     (the real components summing to the emitted luminosity in range within
     1e-6), the LIV groups, the Grotrian ladder and transitions; then the
-    figures where matplotlib imports, else ``plots: skipped``."""
+    figures where matplotlib imports, else ``plots: skipped``, and the
+    plotly figures (SDEC of the virtual packets, LIV, Grotrian) with their
+    trace counts where plotly and matplotlib import, else ``plotly:
+    skipped``."""
     from tardis_torch.visualization.grotrian import GrotrianPlot
     from tardis_torch.visualization.liv import LIVPlotter
     from tardis_torch.visualization.sdec import SDECPlotter
@@ -3190,6 +3248,16 @@ def viz_data_prep(sim, plots, failed_plot_import):
         out["plots"] = "drawn"
     else:
         print(f"plots: skipped, {failed_plot_import}", flush=True)
+    plotly_ok, failed_plotly = import_support("plotly", "matplotlib")
+    if plotly_ok:
+        figs = dict(sdec=p.generate_plot_ply(packets_mode="virtual"),
+                    liv=liv.generate_plot_ply(num_bins=10),
+                    grotrian=g.display_ply())
+        out["plotly_traces"] = {k: len(f.data) for k, f in figs.items()}
+        out["plotly_grotrian_arrows"] = len(figs["grotrian"].layout
+                                            .annotations)
+    else:
+        print(f"plotly: skipped, {failed_plotly}", flush=True)
     return out
 
 
@@ -4974,12 +5042,16 @@ def main() -> int:
     say("hdf_loader", available=hdf, failed_import=failed_import,
         walk_path_atom_data="atom_data_from_hdf" if hdf
         else "atom_data_from_arrays")
-    # the analysis tables and the grid need pandas, the plots matplotlib
+    # the analysis tables and the grid need pandas, the plots matplotlib,
+    # their interactive figures plotly
     pandas_ok, failed_pandas_import = import_support("pandas")
     plots, failed_plot_import = import_support("matplotlib")
+    plotly_ok, failed_plotly_import = import_support("plotly")
     say("analysis_imports", pandas=pandas_ok, matplotlib=plots,
+        plotly=plotly_ok,
         failed_imports=[m for m in (failed_pandas_import,
-                                    failed_plot_import) if m])
+                                    failed_plot_import,
+                                    failed_plotly_import) if m])
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()

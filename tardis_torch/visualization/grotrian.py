@@ -15,9 +15,10 @@ The level ladder and the transition counts (``_compute_level_data``,
 result lives on: K1's last-interaction rows stay there, the line and
 level tables are copied there, and the transitions are counted with one
 ``unique`` over (lower, upper) pairs; only the ladder and the per-pair
-counts and mean wavelengths reach the host.  matplotlib is imported inside
-``display``; the plotly backend (``display_ply``) is not ported (plotly is
-not installed).  ``plot_grotrian`` is the one-call wrapper.
+counts and mean wavelengths reach the host, the pairs in the order of
+their first packet.  The diagram is drawn from those host values, with
+matplotlib imported inside ``display`` or plotly inside ``display_ply``.
+``plot_grotrian`` is the one-call wrapper.
 """
 
 from __future__ import annotations
@@ -204,7 +205,8 @@ class GrotrianPlot:
     def _compute_transitions(self):
         """Absorption (``excite_lines``) and emission (``deexcite_lines``)
         packet counts between merged levels: {(lower, upper): (count, mean
-        wavelength Angstrom, arrow width)}, counted on the device."""
+        wavelength Angstrom, arrow width)}, counted on the device, the
+        pairs in the order of their first packet."""
         atom = self.atom
         li = self.sim.last_transport_result._li
         mask = li[:, 0] == 2
@@ -232,14 +234,20 @@ class GrotrianPlot:
             lam = C_CGS / line_nu[lines] * 1e8
             ml, mh = mapping[lower[lines]], mapping[upper[lines]]
             keep = (ml >= 0) & (mh >= 0) & (ml != mh)
-            pair, inv, count = torch.unique(
-                ml[keep] * n_merged + mh[keep], return_inverse=True,
-                return_counts=True)
+            code = ml[keep] * n_merged + mh[keep]
+            pair, inv, count = torch.unique(code, return_inverse=True,
+                                            return_counts=True)
             wsum = torch.zeros(pair.shape[0], dtype=torch.float64,
                                device=self.device).index_add_(
                 0, inv, lam[keep])
-            pair, count = pair.cpu().numpy(), count.cpu().numpy()
-            mean = wsum.cpu().numpy() / count
+            # pairs in the order their first packet comes, as the JAX
+            # package's dict fills (the plots draw them in that order)
+            first = torch.full_like(pair, code.shape[0]).scatter_reduce_(
+                0, inv, torch.arange(code.shape[0], device=self.device),
+                "amin")
+            order = torch.argsort(first)
+            pair, count = pair[order].cpu().numpy(), count[order].cpu().numpy()
+            mean = wsum[order].cpu().numpy() / count
             out[name] = {(int(p // n_merged), int(p % n_merged)):
                          (int(c), float(w))
                          for p, c, w in zip(pair, count, mean)}
@@ -314,10 +322,38 @@ class GrotrianPlot:
         return ax
 
     def display_ply(self):
-        """The plotly figure of the JAX package: not ported."""
-        raise NotImplementedError(
-            "GrotrianPlot.display_ply needs plotly, which the port does not "
-            "use; draw with display")
+        """Plotly rendering: a line a merged level (``level_widths``), an
+        annotation arrow a transition.  Requires plotly; raises ImportError
+        otherwise."""
+        import plotly.graph_objects as go
+
+        self._compute_level_data()
+        self._compute_transitions()
+        fig = go.Figure()
+        n = len(self.merged_energies)
+        for m, e in enumerate(self.merged_energies):
+            lw = 3.0 if self.level_widths is None else self.level_widths[m]
+            fig.add_trace(go.Scatter(
+                x=[0.08, 0.92], y=[e, e], mode="lines",
+                line=dict(color="black", width=lw), showlegend=False,
+                hovertemplate=f"level {m}: {e:.3f} eV<extra></extra>"))
+        for d, x0, color in ((self.excite_lines, 0.16, "#2E86AB"),
+                             (self.deexcite_lines, 0.56, "#C73E1D")):
+            for (ml, mh), (_, _, width) in d.items():
+                x = x0 + 0.3 * (ml + mh) / max(2 * n - 2, 1)
+                fig.add_annotation(
+                    x=x, y=self.merged_energies[mh],
+                    ax=x, ay=self.merged_energies[ml],
+                    xref="x", yref="y", axref="x", ayref="y",
+                    arrowwidth=width, arrowcolor=color,
+                    showarrow=True, arrowhead=2)
+        fig.update_layout(
+            title="Grotrian diagram: " + species_tuple_to_string(
+                (self.atomic_number, self.ion_number)),
+            yaxis_title="Level energy [eV]",
+            xaxis=dict(visible=False),
+        )
+        return fig
 
 
 def plot_grotrian(sim, species: str, max_levels: int = 10,

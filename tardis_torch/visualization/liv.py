@@ -12,9 +12,9 @@ the shell grid) and real or virtual packets.
 The interaction arrays and the grouping (``_interaction_arrays``,
 ``_prepare``) are taken in torch on the device the transport result lives
 on: K1's rows stay there, each group is one mask over them, and only each
-group's velocities reach the host (``plot_data``).  matplotlib is
-imported inside ``generate_plot_mpl``; the plotly backend
-(``generate_plot_ply``) is not ported (plotly is not installed).
+group's velocities reach the host (``plot_data``).  The step plots are
+drawn from those host arrays, with matplotlib imported inside
+``generate_plot_mpl`` or plotly inside ``generate_plot_ply``.
 """
 
 from __future__ import annotations
@@ -150,6 +150,16 @@ class LIVPlotter:
                                     num_bins + 1)
         self.bin_edges = bin_edges
 
+    def _set_colors(self, cmapname):
+        """``plot_colors``: one RGBA tuple a group from ``cmapname``."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        cmap = plt.get_cmap(cmapname, len(self.plot_data))
+        self.plot_colors = [cmap(i) for i in range(len(self.plot_data))]
+
     @staticmethod
     def _step_data(data, bin_edges):
         """Histogram -> step-plot x / y."""
@@ -179,8 +189,7 @@ class LIVPlotter:
 
         self._prepare(packets_mode, packet_wvl_range, species_list,
                       nelements, num_bins)
-        cmap = plt.get_cmap(cmapname, len(self.plot_data))
-        self.plot_colors = [cmap(i) for i in range(len(self.plot_data))]
+        self._set_colors(cmapname)
         if ax is None:
             _, ax = plt.subplots(figsize=(10, 5))
         for data, color, name in zip(
@@ -199,8 +208,39 @@ class LIVPlotter:
             ax.figure.savefig(save_path, dpi=120)
         return ax
 
-    def generate_plot_ply(self, *args, **kwargs):
-        """The plotly figure of the JAX package: not ported."""
-        raise NotImplementedError(
-            "LIVPlotter.generate_plot_ply needs plotly, which the port "
-            "does not use; draw with generate_plot_mpl")
+    def generate_plot_ply(
+        self,
+        packets_mode: str = "real",
+        packet_wvl_range=None,
+        species_list=None,
+        nelements=None,
+        num_bins=None,
+        log_scale: bool = False,
+        cmapname: str = "jet",
+        fig=None,
+    ):
+        """Interactive plotly step plot, one line a group, on ``fig`` or a
+        new figure.  Requires plotly (and matplotlib for the colour map);
+        raises ImportError otherwise."""
+        import plotly.graph_objects as go
+        from matplotlib.colors import to_hex
+
+        self._prepare(packets_mode, packet_wvl_range, species_list,
+                      nelements, num_bins)
+        self._set_colors(cmapname)
+        if fig is None:
+            fig = go.Figure()
+        for data, color, name in zip(
+            self.plot_data, self.plot_colors, self._species_name
+        ):
+            x, y = self._step_data(data, self.bin_edges)
+            fig.add_trace(go.Scatter(
+                x=x, y=y, mode="lines", name=name,
+                line=dict(color=to_hex(color), width=1.5)))
+        fig.update_layout(
+            xaxis_title="Last Interaction Velocity [km/s]",
+            yaxis_title="Packet Count",
+            yaxis_type="log" if log_scale else "linear",
+            height=500,
+        )
+        return fig

@@ -16,9 +16,9 @@ takes every plotted packet's angles at once as a cumulative sum over the
 tracker rows, in torch on the device they live on (the JAX package loops
 over the steps in numpy; the sums agree to rounding).
 
-``generate_plot_mpl`` draws with matplotlib, imported inside it; the
-animated plotly figure (``generate_plot``) is not ported (plotly is not
-installed).
+The figures are drawn from those host arrays: the animated plotly figure
+(``generate_plot``, plotly imported inside it) and a static matplotlib one
+(``generate_plot_mpl``, matplotlib imported inside it).
 """
 
 from __future__ import annotations
@@ -134,11 +134,101 @@ class RPacketPlotter:
         t_exp = self.sim.state.time_explosion
         return np.concatenate([[geo.r_inner[0]], geo.r_outer]) * 1e-5 / t_exp
 
-    def generate_plot(self, *args, **kwargs):
-        """The animated plotly figure of the JAX package: not ported."""
-        raise NotImplementedError(
-            "RPacketPlotter.generate_plot needs plotly, which the port does "
-            "not use; draw with generate_plot_mpl")
+    def generate_plot(self, theme: str = "light"):
+        """Animated plotly figure: the shells, each packet's trajectory as a
+        line and its events as markers, a legend entry an interaction type,
+        one frame a step with a step slider and play / pause buttons.
+        Requires plotly; raises ImportError otherwise."""
+        import plotly.graph_objects as go
+
+        th = _THEMES[theme]
+        xs, ys, tys = self.get_coordinates_multiple_packets()
+        xs, ys, tys, m = self.get_equal_array_size(xs, ys, tys)
+        shells_v = self._shell_velocities()
+        vmax = shells_v[-1] * 1.05
+
+        fig = go.Figure()
+        # the photosphere, then the shells
+        for k, v in enumerate(shells_v):
+            fig.add_shape(
+                type="circle", xref="x", yref="y",
+                x0=-v, y0=-v, x1=v, y1=v,
+                line=dict(color=th["shells_line_color"],
+                          width=1.5 if k == 0 else 0.5),
+                fillcolor=th["photosphere_fillcolor"] if k == 0 else None,
+                opacity=1.0 if k == 0 else 0.6,
+            )
+        # each packet's whole trajectory: a line trace and a marker trace
+        for p in range(len(xs)):
+            fig.add_trace(go.Scatter(
+                x=xs[p], y=ys[p], mode="lines",
+                line=dict(color=th["packet_line_color"], width=1.2),
+                name=f"packet {p}", showlegend=False))
+            props = [_INTERACTION_PROPS.get(c, _INTERACTION_PROPS[0])
+                     for c in np.asarray(tys[p], int)]
+            fig.add_trace(go.Scatter(
+                x=xs[p], y=ys[p], mode="markers", showlegend=False,
+                marker=dict(color=[q["color"] for q in props], size=5,
+                            opacity=0.8),
+                text=[q["text"] for q in props],
+                hovertemplate="%{text}<br>vx=%{x:.0f} km/s"
+                "<br>vy=%{y:.0f} km/s<extra></extra>"))
+        # a legend entry an interaction type, boundaries left out
+        for code, props in _INTERACTION_PROPS.items():
+            if code == 3:
+                continue
+            fig.add_trace(go.Scatter(
+                x=[None], y=[None], mode="markers",
+                marker=dict(color=props["color"], size=7),
+                name=props["text"], showlegend=True))
+
+        # one frame a step: every trajectory up to that step
+        fig.frames = [
+            go.Frame(
+                data=[trace for p in range(len(xs)) for trace in (
+                    go.Scatter(x=xs[p][: s + 1], y=ys[p][: s + 1],
+                               mode="lines"),
+                    go.Scatter(x=xs[p][: s + 1], y=ys[p][: s + 1],
+                               mode="markers"))],
+                name=str(s))
+            for s in range(m)
+        ]
+        slider_steps = [
+            {"args": [[str(s)], {"frame": {"duration": 0, "redraw": False},
+                                 "mode": "immediate"}],
+             "label": str(s), "method": "animate"}
+            for s in range(m)
+        ]
+        fig.update_layout(
+            width=700, height=700,
+            plot_bgcolor=th["plot_bgcolor"],
+            paper_bgcolor=th["paper_bgcolor"],
+            font=dict(color=th["font_color"]),
+            title="R-packet trajectories",
+            xaxis=dict(title="velocity [km/s]", range=[-vmax, vmax],
+                       gridcolor=th["gridcolor"]),
+            yaxis=dict(title="velocity [km/s]", range=[-vmax, vmax],
+                       scaleanchor="x", gridcolor=th["gridcolor"]),
+            updatemenus=[{
+                "type": "buttons",
+                "buttons": [
+                    {"label": "Play", "method": "animate",
+                     "args": [None, {
+                         "frame": {"duration": 500, "redraw": False},
+                         "fromcurrent": True,
+                         "transition": {"duration": 300,
+                                        "easing": "quadratic-in-out"}}]},
+                    {"label": "Pause", "method": "animate",
+                     "args": [[None], {
+                         "frame": {"duration": 0, "redraw": False},
+                         "mode": "immediate",
+                         "transition": {"duration": 0}}]},
+                ],
+            }],
+            sliders=[{"active": 0, "steps": slider_steps,
+                      "currentvalue": {"prefix": "Step: "}}],
+        )
+        return fig
 
     def generate_plot_mpl(self, save_path=None, theme: str = "light"):
         """Static matplotlib rendering of the trajectories."""

@@ -25,8 +25,9 @@ output and last-interaction rows stay there, the virtual packets' arrays
 are copied there, every histogram is a ``bincount`` over the bins of
 ``bucketize`` (``histogram``, the bins of ``np.histogram``), and only the
 per-species histograms reach the host.  The plot is drawn on the host
-with matplotlib, imported inside ``generate_plot_mpl``; the plotly
-backend (``generate_plot_ply``) is not ported (plotly is not installed).
+from those host arrays: with matplotlib, imported inside
+``generate_plot_mpl``, or with plotly, imported inside
+``generate_plot_ply``.
 """
 
 from __future__ import annotations
@@ -305,11 +306,63 @@ class SDECPlotter:
             fig.savefig(save_path, dpi=120)
         return fig
 
-    def generate_plot_ply(self, *args, **kwargs):
-        """The plotly figure of the JAX package: not ported."""
-        raise NotImplementedError(
-            "SDECPlotter.generate_plot_ply needs plotly, which the port "
-            "does not use; draw with generate_plot_mpl")
+    def generate_plot_ply(
+        self,
+        packets_mode: str = "real",
+        species_list=None,
+        nelements=None,
+        wavelength_range_angstrom=None,
+        distance=None,
+        observed_spectrum=None,
+        show_modeled_spectrum: bool = True,
+        blackbody_photosphere: bool = True,
+    ):
+        """Interactive plotly figure: the emission and absorption stacks,
+        the total, the photosphere's blackbody and an observed spectrum,
+        from the host arrays of ``_prep``.  Requires plotly; raises
+        ImportError otherwise."""
+        import plotly.graph_objects as go
+
+        lum_to_flux = 1.0
+        if distance is not None:
+            if distance <= 0:
+                raise ValueError("distance must be positive")
+            lum_to_flux = 4.0 * np.pi * float(distance) ** 2
+        elif observed_spectrum is not None:
+            raise ValueError(
+                "plotting an observed spectrum requires distance"
+            )
+        wl, em_stack, ab_stack, labels_e, labels_a, total = self._prep(
+            packets_mode, species_list, nelements, wavelength_range_angstrom
+        )
+        fig = go.Figure()
+        for name, y in zip(labels_e, em_stack):
+            fig.add_trace(go.Scatter(x=wl, y=y / lum_to_flux,
+                                     stackgroup="emission", name=name))
+        for name, y in zip(labels_a, ab_stack):
+            fig.add_trace(go.Scatter(x=wl, y=-y / lum_to_flux,
+                                     stackgroup="absorption",
+                                     name=f"{name} (abs)"))
+        if show_modeled_spectrum:
+            fig.add_trace(go.Scatter(x=wl, y=total / lum_to_flux,
+                                     name="total",
+                                     line=dict(color="black", width=1)))
+        if blackbody_photosphere:
+            fig.add_trace(go.Scatter(
+                x=wl, y=self._photosphere_luminosity_lambda(wl) / lum_to_flux,
+                name="blackbody photosphere",
+                line=dict(color="gray", width=1, dash="dash")))
+        if observed_spectrum is not None:
+            obs_wl, obs_flux = observed_spectrum
+            fig.add_trace(go.Scatter(x=np.asarray(obs_wl),
+                                     y=np.asarray(obs_flux), name="observed",
+                                     line=dict(color="red", width=1)))
+        fig.update_layout(
+            xaxis_title="wavelength [Å]",
+            yaxis_title="L_lambda [erg/s/Å]",
+            title=f"SDEC ({packets_mode} packets)",
+        )
+        return fig
 
 
 def _species_label(z, ion, species_filter):

@@ -46,9 +46,9 @@ def test_no_jax_or_reference_imports(path):
 
 # imported only inside the functions that use them: the carsus loader,
 # the HDF writers and model readers, the progress bars, the notebook
-# log panel, the analysis tables and the plots
+# log panel, the analysis tables and the plots (matplotlib and plotly)
 LAZY = ("h5py", "pandas", "tables", "tqdm", "IPython", "ipywidgets",
-        "matplotlib")
+        "matplotlib", "plotly")
 
 
 def _module_level_imports(path: Path):
@@ -67,10 +67,10 @@ def _module_level_imports(path: Path):
     "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_no_module_level_h5py_or_pandas(path):
-    """h5py, pandas, tqdm, IPython / ipywidgets and matplotlib are imported
-    only where the loader, the writers, the readers, a progress bar, the
-    notebook panel, an analysis table or a plot run, so the rest of the
-    port (and a card's machine without them) never needs them."""
+    """h5py, pandas, tqdm, IPython / ipywidgets, matplotlib and plotly are
+    imported only where the loader, the writers, the readers, a progress
+    bar, the notebook panel, an analysis table or a plot run, so the rest
+    of the port (and a card's machine without them) never needs them."""
     bad = [m for m in _module_level_imports(path)
            if m.split(".")[0] in LAZY]
     assert not bad, f"{path.name} imports {bad} at module level"
@@ -78,8 +78,8 @@ def test_no_module_level_h5py_or_pandas(path):
 
 def test_port_imports_without_h5py_and_pandas():
     """Every module of the port imports in a process where none of LAZY
-    (h5py, pandas, PyTables, tqdm, IPython, ipywidgets, matplotlib) can be
-    imported."""
+    (h5py, pandas, PyTables, tqdm, IPython, ipywidgets, matplotlib, plotly)
+    can be imported."""
     import subprocess
     import sys
 
@@ -371,3 +371,139 @@ def test_every_jax_module_has_a_port():
     for path in ref.rglob("*.py"):
         port = ROOT / "tardis_torch" / "visualization" / path.relative_to(ref)
         assert port in _port_files(), port
+
+
+# tardis_tpu modules with no file in the port, each with its reason
+NOT_PORTED = {
+    **{f"benchmarks/{name}.py": "an XLA:TPU probe of the lockstep step; "
+       "the port's are benchmarks/event_loops.py, ray_kernels.py and "
+       "chip_smoke.py's lane_efficiency"
+       for name in ("occupancy_probe", "probe_loop_ops", "probe_loop_ops2",
+                    "probe_scatter", "probe_scatter_gather", "probe_step2",
+                    "probe_step3", "profile_step")},
+    **{f"benchmarks/{name}.py": "a TPU benchmark harness: the port's "
+       "benchmark is written apart from it"
+       for name in ("production_run", "scaling_bench", "transport_bench")},
+    "native/__init__.py": "optional host C++ for the line tables: K3 builds "
+                          "them on the card",
+    "utils/twofloat.py": "two-float f32 pairs for a device without f64: the "
+                         "port keeps f64 on the card",
+    "utils/search.py": "the TPU's packed-row searches: the port searches "
+                       "with torch.searchsorted and K1 / K6 / K7's own",
+    "plasma/device_line.py": "the line-table program: K3 "
+                             "(plasma/line_tables.py) subsumes it",
+    "transport/device_state.py": "the packed tau tables: K1's flat f64 "
+                                 "prefixes subsume them",
+    "transport/tiled_search.py": "the tiled predicate search: K1's search "
+                                 "subsumes it",
+}
+
+# public names of ported modules with no counterpart of the same name in
+# the port's file, each with its reason
+NAMES_NOT_PORTED = {
+    "benchmarks/probe2.py": {
+        "timeit": "the JAX probe's XLA timer; the port times with CUDA "
+                  "events"},
+    "parallel/transport.py": {
+        "packet_mesh": "a JAX device mesh; the port takes a device list",
+        "shard_map": "JAX's shard_map shim; the port launches K1 a shard"},
+    "plasma/nlte.py": {
+        "interp_yg": "kept once, in plasma/continuum.py, and imported"},
+    "transport/kernel.py": {
+        name: "the XLA lockstep step and its carry: K1 "
+              "(transport_loop) replaces them"
+        for name in ("TransportCarry", "init_carry", "make_transport_step",
+                     "run_transport")},
+    "transport/nonhomologous.py": {
+        name: "the XLA nonhomologous step: K7 (nonhom_transport_loop) "
+              "replaces it"
+        for name in ("make_nonhom_step", "run_nonhom_transport")},
+    "transport/source.py": {
+        name: "the three pools are modes of K2's blackbody_source"
+        for name in ("sample_blackbody_packets",
+                     "sample_blackbody_packets_relativistic",
+                     "sample_blackbody_packets_weighted")},
+}
+
+
+def _public_names(path: Path):
+    """Public top-level functions and classes of ``path`` and the public
+    methods of those classes (``Class.method``)."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)) and not node.name.startswith("_"):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                out.update(f"{node.name}.{sub.name}" for sub in node.body
+                           if isinstance(sub, (ast.FunctionDef,
+                                               ast.AsyncFunctionDef))
+                           and not sub.name.startswith("_"))
+    return out
+
+
+def _defined_names(path: Path):
+    """Every name ``path`` defines at top level (functions, classes,
+    assignments; imports do not count) and every method or class
+    attribute of its classes (``Class.name``)."""
+    out = set()
+
+    def targets(node):
+        for t in (node.targets if isinstance(node, ast.Assign)
+                  else [node.target]):
+            yield from (n.id for n in ast.walk(t) if isinstance(n, ast.Name))
+
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        if isinstance(node, ast.ClassDef):
+            for sub in node.body:
+                if isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out.add(f"{node.name}.{sub.name}")
+                elif isinstance(sub, (ast.Assign, ast.AnnAssign)):
+                    out.update(f"{node.name}.{n}" for n in targets(sub))
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            out.update(targets(node))
+    return out
+
+
+def test_every_jax_file_and_name_has_a_port():
+    """Every tardis_tpu/**/*.py has a file at the same path in
+    tardis_torch/ and every public function, class and method of it a
+    counterpart of the same name there, but for NOT_PORTED and
+    NAMES_NOT_PORTED, each entry with its reason; neither list names the
+    atomic data download or a plot module, and no plot module of the port
+    raises NotImplementedError."""
+    ref = ROOT / "tardis_tpu"
+    missing, names = [], {}
+    for path in sorted(ref.rglob("*.py")):
+        rel = path.relative_to(ref).as_posix()
+        port = ROOT / "tardis_torch" / rel
+        if not port.exists():
+            if rel not in NOT_PORTED:
+                missing.append(rel)
+            continue
+        assert rel not in NOT_PORTED, f"{rel} is ported: drop its exclusion"
+        skip = NAMES_NOT_PORTED.get(rel, {})
+        lost = sorted(
+            n for n in _public_names(path) - _defined_names(port)
+            if n.split(".")[0] not in skip)
+        if lost:
+            names[rel] = lost
+        stale = [n for n in skip if n not in _public_names(path)
+                 or n in _defined_names(port)]
+        assert not stale, f"{rel}: stale exclusions {stale}"
+    assert not missing, f"no port of {missing}"
+    assert not names, f"no counterpart of {names}"
+    assert all(reason for reason in NOT_PORTED.values())
+    assert all(reason for d in NAMES_NOT_PORTED.values()
+               for reason in d.values())
+    assert all((ref / rel).exists() for rel in NOT_PORTED)
+    excluded = set(NOT_PORTED) | set(NAMES_NOT_PORTED)
+    assert "atomic/download.py" not in excluded
+    assert not [rel for rel in excluded
+                if rel.startswith("visualization/")]
+    for path in sorted((ROOT / "tardis_torch" / "visualization")
+                       .rglob("*.py")):
+        assert "NotImplementedError" not in path.read_text(), path

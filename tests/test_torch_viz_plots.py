@@ -8,14 +8,18 @@ are numpy over the result's host arrays, the port's take the same numbers
 in torch on the result's device, so every array is compared on the same
 run.  Sums taken in another order (bincount against np.histogram, a
 cumulative sum of angle steps against a loop) agree within RTOL;
-everything else is equal.  The figures are drawn to the Agg backend.
-Mirrors ``tests/test_analysis_viz.py`` and ``tests/test_sdec_vpackets.py``;
-the SDEC virtual mode also runs on a continuum run with type-3 virtual
-packets (``test_torch_continuum_vpackets.py``'s problem).
+everything else is equal.  The figures are drawn to the Agg backend;
+the plotly figures are held call for call under a recording stub of
+``plotly.graph_objects`` that the tests put in ``sys.modules`` (plotly is
+not installed).  Mirrors ``tests/test_analysis_viz.py`` and
+``tests/test_sdec_vpackets.py``; the SDEC virtual mode also runs on a
+continuum run with type-3 virtual packets
+(``test_torch_continuum_vpackets.py``'s problem).
 """
 
 import copy
-from types import SimpleNamespace
+import sys
+from types import ModuleType, SimpleNamespace
 
 import matplotlib
 
@@ -389,13 +393,192 @@ def test_custom_abundance_editor_matches_jax(sim, tmp_path):
     plt.close(ax.figure)
 
 
-@pytest.mark.parametrize("call", [
-    lambda s: sdec.SDECPlotter(s).generate_plot_ply(),
-    lambda s: liv.LIVPlotter(s).generate_plot_ply(),
-    lambda s: rpacket.RPacketPlotter(s).generate_plot(),
-    lambda s: grotrian.GrotrianPlot(s).display_ply()],
-    ids=["sdec", "liv", "rpacket", "grotrian"])
-def test_plotly_backends_refused(sim, call):
-    """The plotly figures are not ported: each raises naming plotly."""
-    with pytest.raises(NotImplementedError, match="plotly"):
-        call(sim)
+class _Call:
+    """What a stub plotly constructor was called with."""
+
+    def __init__(self, kind, kwargs):
+        self.kind, self.kwargs = kind, kwargs
+
+
+def _stub_plotly(monkeypatch):
+    """A recording ``plotly.graph_objects`` in ``sys.modules`` (for this
+    test only): ``Figure`` records ``add_trace``, ``add_shape``,
+    ``add_annotation``, ``update_layout`` and ``frames`` in call order;
+    ``Scatter`` and ``Frame`` record their kwargs."""
+
+    class Figure:
+        def __init__(self):
+            self.calls = []
+
+        def add_trace(self, trace):
+            self.calls.append(("add_trace", trace))
+
+        def add_shape(self, **kw):
+            self.calls.append(("add_shape", kw))
+
+        def add_annotation(self, **kw):
+            self.calls.append(("add_annotation", kw))
+
+        def update_layout(self, **kw):
+            self.calls.append(("update_layout", kw))
+
+        @property
+        def frames(self):
+            return [c[1] for c in self.calls if c[0] == "frames"][-1]
+
+        @frames.setter
+        def frames(self, value):
+            self.calls.append(("frames", list(value)))
+
+    go = ModuleType("plotly.graph_objects")
+    go.Figure = Figure
+    go.Scatter = lambda **kw: _Call("Scatter", kw)
+    go.Frame = lambda **kw: _Call("Frame", kw)
+    package = ModuleType("plotly")
+    package.graph_objects = go
+    monkeypatch.setitem(sys.modules, "plotly", package)
+    monkeypatch.setitem(sys.modules, "plotly.graph_objects", go)
+    return go
+
+
+def _same_record(a, b, atol, where="figure"):
+    """``a`` (the port's) against ``b`` (the JAX package's): the same
+    structure, call kinds, keys, strings and colours; numbers and arrays
+    within RTOL (and ``atol``); no torch.Tensor anywhere in ``a``."""
+    assert not isinstance(a, torch.Tensor), where
+    if isinstance(b, _Call):
+        assert isinstance(a, _Call) and a.kind == b.kind, where
+        _same_record(a.kwargs, b.kwargs, atol, f"{where}.{b.kind}")
+    elif isinstance(b, dict):
+        assert isinstance(a, dict) and set(a) == set(b), (where, a, b)
+        for k in b:
+            _same_record(a[k], b[k], atol, f"{where}.{k}")
+    elif isinstance(b, np.ndarray):
+        assert isinstance(a, np.ndarray) and a.shape == b.shape, where
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=atol,
+                                   err_msg=where)
+    elif isinstance(b, (list, tuple)):
+        assert isinstance(a, (list, tuple)) and len(a) == len(b), where
+        for k, (x, y) in enumerate(zip(a, b)):
+            _same_record(x, y, atol, f"{where}[{k}]")
+    elif isinstance(b, (bool, str, type(None))):
+        assert a == b and type(a) is type(b), (where, a, b)
+    else:  # a number
+        assert isinstance(a, (int, float, np.number)) \
+            and not isinstance(a, bool), (where, a)
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=atol,
+                                   err_msg=where)
+
+
+C_ANGSTROM = 2.99792458e18
+
+
+def _figures(sim, kind, go):
+    """The figure calls of ``kind`` for the port and the JAX package:
+    (port figures, JAX figures, atol for coordinates)."""
+    if kind == "sdec":
+        d = 10.0 * 3.0856775814913673e24
+        wl = C_ANGSTROM / sim.spectrum_nu_edges[::-1]
+        obs = (wl, np.linspace(1.0, 2.0, wl.size) * 1e-12)
+        calls = [dict(), dict(packets_mode="virtual", nelements=2),
+                 dict(species_list=["Si II", "Ca"], distance=d,
+                      observed_spectrum=obs, show_modeled_spectrum=False),
+                 dict(packets_mode="virtual", blackbody_photosphere=False)]
+        return ([sdec.SDECPlotter(sim).generate_plot_ply(**kw)
+                 for kw in calls],
+                [j_sdec.SDECPlotter(sim).generate_plot_ply(**kw)
+                 for kw in calls], 0.0)
+    if kind == "liv":
+        calls = [dict(), dict(num_bins=10, log_scale=True),
+                 dict(species_list=["Si II", "S I-III"], cmapname="viridis"),
+                 dict(packets_mode="virtual", nelements=2)]
+        port = [liv.LIVPlotter(sim).generate_plot_ply(**kw) for kw in calls]
+        jax = [j_liv.LIVPlotter(sim).generate_plot_ply(**kw) for kw in calls]
+        # onto a figure the caller hands in
+        port.append(liv.LIVPlotter(sim).generate_plot_ply(fig=go.Figure()))
+        jax.append(j_liv.LIVPlotter(sim).generate_plot_ply(fig=go.Figure()))
+        return port, jax, 0.0
+    if kind == "grotrian":
+        figs = []
+        for module in (grotrian, j_grotrian):
+            out = []
+            for settings in ({}, {"shell": 0}, {"level_diff_threshold": 0.5}):
+                g = module.GrotrianPlot.from_simulation(sim)
+                g.max_levels = 12
+                for name, value in settings.items():
+                    setattr(g, name, value)
+                out.append(g.display_ply())
+            figs.append(out)
+        return figs[0], figs[1], 0.0
+    p = rpacket.RPacketPlotter.from_simulation(sim, no_of_packets=5)
+    j = j_rpacket.RPacketPlotter.from_simulation(sim, no_of_packets=5)
+    vmax = p._shell_velocities()[-1]
+    return ([p.generate_plot(theme=t) for t in ("light", "dark")],
+            [j.generate_plot(theme=t) for t in ("light", "dark")],
+            RTOL * vmax)
+
+
+
+@pytest.mark.parametrize("kind", ["sdec", "liv", "grotrian", "rpacket"])
+def test_plotly_figures_match_jax(sim, monkeypatch, kind):
+    """Under a recording plotly stub, each figure makes the JAX package's
+    calls in the same order: the same traces, shapes, annotations, frames
+    and layout, strings, dicts and colours equal, arrays within RTOL (the
+    r-packet coordinates within RTOL of the outer shell's velocity, a
+    cumulative sum against a loop); no value handed to plotly is a
+    torch.Tensor."""
+    go = _stub_plotly(monkeypatch)
+    port, jax, atol = _figures(sim, kind, go)
+    for k, (a, b) in enumerate(zip(port, jax)):
+        assert [c[0] for c in a.calls] == [c[0] for c in b.calls], k
+        assert any(c[0] == "add_trace" for c in b.calls)
+        _same_record(a.calls, b.calls, atol, f"{kind}[{k}]")
+    if kind == "sdec":
+        names = [c[1].kwargs["name"] for c in port[2].calls
+                 if c[0] == "add_trace"]
+        assert "observed" in names and "total" not in names
+    if kind == "grotrian":
+        assert any(c[0] == "add_annotation" for c in port[0].calls)
+    if kind == "rpacket":
+        m = len(port[0].frames)
+        assert m > 1 and m == max(len(x) for x in rpacket.RPacketPlotter(
+            sim, no_of_packets=5).get_coordinates_multiple_packets()[0])
+        assert all(len(f.kwargs["data"]) == 2 * 5 for f in port[0].frames)
+        legend = [c[1].kwargs["name"] for c in port[0].calls
+                  if c[0] == "add_trace" and c[1].kwargs.get("showlegend")]
+        assert "Boundary" not in legend and len(legend) == 4
+
+
+@pytest.mark.parametrize("kw", [
+    dict(distance=0.0),
+    dict(observed_spectrum=(np.ones(3), np.ones(3)))],
+    ids=["distance", "observed_without_distance"])
+def test_sdec_plotly_refuses_what_jax_refuses(sim, monkeypatch, kw):
+    """A distance <= 0, and an observed spectrum without a distance, are
+    refused by both packages' plotly figure."""
+    _stub_plotly(monkeypatch)
+    for plotter in (sdec.SDECPlotter(sim), j_sdec.SDECPlotter(sim)):
+        with pytest.raises(ValueError, match="distance"):
+            plotter.generate_plot_ply(**kw)
+
+
+PLOTLY_CALLS = {
+    "sdec": ((sdec, j_sdec), lambda m, s: m.SDECPlotter(s)
+             .generate_plot_ply()),
+    "liv": ((liv, j_liv), lambda m, s: m.LIVPlotter(s).generate_plot_ply()),
+    "rpacket": ((rpacket, j_rpacket), lambda m, s: m.RPacketPlotter(s)
+                .generate_plot()),
+    "grotrian": ((grotrian, j_grotrian), lambda m, s: m.GrotrianPlot(s)
+                 .display_ply()),
+}
+
+
+@pytest.mark.parametrize("kind", list(PLOTLY_CALLS))
+def test_plotly_figures_need_plotly(sim, monkeypatch, kind):
+    """Without plotly each figure raises ImportError in both packages."""
+    monkeypatch.setitem(sys.modules, "plotly", None)
+    monkeypatch.setitem(sys.modules, "plotly.graph_objects", None)
+    modules, call = PLOTLY_CALLS[kind]
+    for module in modules:
+        with pytest.raises(ImportError):
+            call(module, sim)
