@@ -14,8 +14,13 @@ Phases, one printed line each (plus one line per iteration):
      parallel nvcc build of the kernel libraries in tardis_torch/csrc/
      without options (K2, K3, K5 and the probe's three kernels);
   2. checks at the paths' shapes (bench problem: synthetic atom data
-     with 200 levels and level jumps up to 60, 20 shells, macroatom): the
-     chain build timed alone, and each kernel against its plain PyTorch
+     with 200 levels and level jumps up to 60, 20 shells, macroatom): K8,
+     the macro-atom chain build (check_chain_build: macroatom and
+     downbranch, at 20 and at 100 shells, the chain rows within 1e-6 and
+     the emission rows within 2.4e-7 of the plain version with the shares
+     bit for bit, the copied columns bit for bit, two calls bit for bit,
+     beside one torch.linalg.solve of the same systems), and each kernel
+     against its plain PyTorch
      version on the card, with CUDA-event times of both, the least time the
      card could take (bound) and, where one PyTorch call computes the same
      function, its time.  The probe kernels (check_probe2: scale2,
@@ -532,7 +537,8 @@ del GRID_CONFIG["spectrum"]["integrated"]
 def line_name(kernel, variant):
     """The kernels-line name of one variant of a wrapper (K2 by pool, K1
     and K4 by the variant names of their modules)."""
-    if variant in ("simple", "classic", "scatter", "default"):
+    if variant in ("simple", "classic", "scatter", "default") or (
+            kernel, variant) == ("macro_chain", "macroatom"):
         return kernel
     return f"{kernel}[{variant}]"
 
@@ -1213,40 +1219,169 @@ def sorted_rows(rows):
     return rows[idx]
 
 
+# K8's bars against its plain version on the card: the chain rows, whose
+# solves differ (Gauss-Jordan at the real size against LU with partial
+# pivoting at the power-of-two size), and the emission rows, whose sums
+# the plain version takes in atomic order and its running sum by a
+# parallel scan
+K8_CHAIN_ATOL = 1e-6
+K8_EMIT_ATOL = 2.4e-7
+K8_WIDE_SHELLS = 100  # K3's wide shape: the bench lines, shells repeated
+REPLACES_K8 = "tardis_tpu/opacities/macro_atom_solver.py:389"
+
+
+def shells_repeated(rates, n_shells):
+    """The (L, S) tables with shell s taking shell s % S's column."""
+    S = rates[0].shape[1]
+    idx = torch.arange(n_shells, device=rates[0].device) % S
+    return tuple(t[:, idx].contiguous() for t in rates)
+
+
+def compare_chain(ctx, k, p, what):
+    """K8's (chain_cdf, emit_cdf) ``k`` against the plain version's ``p``:
+    the CDF columns within their bars, the copied columns (line ids,
+    frequencies, base level) bit for bit, every row non-decreasing and
+    finite; returns the largest differences and the shares of CDF entries
+    equal bit for bit."""
+    (kc, ke), (pc, pe) = k, p
+    out = {}
+    for name, a, b, width, bar in (("emit", ke, pe, ctx.We, K8_EMIT_ATOL),
+                                   ("chain", kc, pc, ctx.W, K8_CHAIN_ATOL)):
+        if width == 0:
+            if a is not None or b is not None:
+                raise AssertionError(f"macro_chain {what}: chain rows in "
+                                     "downbranch mode")
+            continue
+        err = (a[:, :width] - b[:, :width]).abs().max().item()
+        out[f"{name}_max_abs"] = err
+        out[f"{name}_bitwise_share"] = (
+            a[:, :width] == b[:, :width]).double().mean().item()
+        if not (err <= bar and bool(torch.isfinite(a).all())
+                and bool((a[:, :width].diff(dim=1) >= 0).all())
+                and torch.equal(a[:, width:], b[:, width:])):
+            raise AssertionError(f"macro_chain {what} {name}: max abs {err}"
+                                 f" (bar {bar}), or a row not finite, "
+                                 f"decreasing, or its copies differ")
+    return out
+
+
+def chain_bitwise(a, b):
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def k8_bound(ctx, arrays, rates, out):
+    """Least time for one K8 build: the three (L, S) tables, the
+    transition table, the emission blocks' line ids and frequencies and
+    the work groups read once, the two row tables written once; against
+    2 n^3 f64 operations a (component, shell) system for its Gauss-Jordan
+    inverse (fewer than LU and two triangular solves, 8/3 n^3, so the
+    bound stays a lower bound), ~6 a (transition, shell) for p, the block
+    sum and the normalisation, and ~4 an entry of the row tables (the
+    product by d, the clamp, the running sum, the division).  Operations
+    at OPS_PER_S, 67e12: the H100 SXM's FP64 tensor-core peak (its FP64
+    vector peak is half that; K8 uses no tensor cores).  Returns (ms, what
+    bounds it, the elimination's operations)."""
+    S = rates[0].shape[1]
+    read = [arrays[k] for k in ("coef", "k8_refs", "k8_line", "k8_type",
+                                "k8_dest", "line_dense", "nu_dense",
+                                "k8_base", "k8_size", "k8_t0", "k8_t1")]
+    written = [t for t in out if t is not None]
+    sizes = ctx.arrays_np["k8_size"].astype(np.float64)
+    gj_ops = S * float((2.0 * sizes**3).sum()) if ctx.W else 0.0
+    n_ops = (gj_ops + 6.0 * len(ctx.arrays_np["coef"]) * S
+             + 4.0 * sum(t.numel() for t in written))
+    return bound(nbytes(*rates, *read, *written), n_ops) + (gj_ops,)
+
+
+def chain_library_inputs(ctx, arrays, rates):
+    """The bench build's (shell, component) systems at their real size n
+    (every component of the bench atom has the same size): A = I - Q and
+    diag(d), from the plain version's arithmetic, for one
+    torch.linalg.solve."""
+    from tardis_torch.opacities import macro_atom_solver as mas
+
+    sizes = np.unique(ctx.arrays_np["k8_size"])
+    if len(sizes) != 1 or len(ctx.bucket_meta) != 1:
+        raise AssertionError(f"chain_build: component sizes {sizes}")
+    n = int(sizes[0])
+    pn = mas.p_norm(ctx, arrays, *rates)
+    A, d = mas.bucket_systems(ctx, arrays, pn,
+                              mas.deactivation(ctx, arrays, pn), 0)
+    return A[:, :n, :n].contiguous(), torch.diag_embed(d[:, :n])
+
+
 def check_chain_build(atom, ps):
-    """The macro-atom chain build (torch ops, not yet a kernel) timed alone
-    at the main path's shapes.  Its bound: the (L, S) inputs read once and
-    the two row tables written once, against the block normalisation and
-    one LU solve with n right-hand sides per (shell, component), 8/3 n^3
-    operations at the component's real size n."""
-    from tardis_torch.opacities.macro_atom_solver import (
-        chain_context,
-        solve_macro_chain,
-    )
+    """K8 (``macro_chain``) against its plain version on the card, in both
+    modes, at the bench shape and at K8_WIDE_SHELLS shells: within
+    K8_CHAIN_ATOL / K8_EMIT_ATOL with the shares of entries equal bit for
+    bit, the copied columns bit for bit, every row non-decreasing, and two
+    K8 calls bit for bit equal; each timed as device time of queued calls
+    (``ms``, with ``held``) beside the plain version (``plain_ms``, CUDA
+    events around each call) and its bound.  At the bench shape
+    (macroatom) also with CUDA events around ``solve_macro_chain`` as the
+    main path calls it (``entry_ms``) and beside one torch.linalg.solve of
+    the same systems at their real size (``library_ms``, the yardstick;
+    the port never calls it).  Returns the main path's chain tables and
+    K8's kernels-line entry."""
+    from tardis_torch.opacities import macro_atom_solver as mas
     from tardis_torch.transport.tables import NU_UNIT
 
-    args = (atom.macro_atom, ps.beta_sobolev, ps.j_blues,
-            ps.stimulated_emission_factor)
-    kw = dict(mode="macroatom", line_nu_scaled=atom.line_nu / NU_UNIT)
-    ms, chain = cuda_ms(lambda: solve_macro_chain(*args, **kw), 10)
-    ctx = chain_context(atom.macro_atom, "macroatom", atom.line_nu / NU_UNIT)
-    S = ps.beta_sobolev.shape[1]
-    T = atom.macro_atom.n_transitions
-    lu_ops = 0.0
-    for bi, meta in enumerate(ctx.bucket_meta):
-        sizes = ctx.arrays_np[f"b{bi}_member_valid"].reshape(
-            meta["n_cb"], meta["Wp"]).sum(axis=1).astype(np.float64)
-        lu_ops += S * float((8.0 / 3.0 * sizes**3).sum())
-    # ~6 operations per (transition, shell) of the normalisation, ~4 per
-    # entry of the CDF rows (clamp, running sum, division)
-    n_ops = lu_ops + 6.0 * T * S + 4.0 * (chain.chain_cdf.numel()
-                                          + chain.emit_cdf.numel())
-    b_ms, b_by = bound(nbytes(*args[1:]) + nbytes(chain.chain_cdf,
-                                                  chain.emit_cdf), n_ops)
-    say("chain_build", ms=ms, bound_ms=b_ms, bound_by=b_by,
-        states=chain.n_states, chain_width=chain.chain_width,
-        emit_width=chain.emit_width, lu_ops=lu_ops)
-    return chain
+    nu = atom.line_nu / NU_UNIT
+    rates = tuple(t.to(torch.float64).contiguous() for t in (
+        ps.beta_sobolev, ps.j_blues, ps.stimulated_emission_factor))
+    S = rates[0].shape[1]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    entry, checks = None, {}
+    for mode in ("macroatom", "downbranch"):
+        macro = atom.macro_atom if mode == "macroatom" else atom.downbranch
+        ctx = mas.chain_context(macro, mode, nu)
+        arrays = ctx.arrays(rates[0].device)
+        for shells in (S, K8_WIDE_SHELLS):
+            r = rates if shells == S else shells_repeated(rates, shells)
+            what = f"{mode} {shells} shells"
+            k = mas.macro_chain(ctx, arrays, *r)
+            if not chain_bitwise(k, mas.macro_chain(ctx, arrays, *r)):
+                raise AssertionError(f"macro_chain {what}: two runs differ")
+            plain_ms, p = cuda_ms(lambda: mas.chain_tables(
+                ctx, arrays, mas.p_norm(ctx, arrays, *r)), 3)
+            nums = compare_chain(ctx, k, p, what)
+            del p
+            ms, _, held = cuda_ms_queued(
+                lambda: mas.macro_chain(ctx, arrays, *r), 20,
+                report_hold=True)
+            b_ms, b_by, gj_ops = k8_bound(ctx, arrays, r, k)
+            nums.update(ms=ms, held=held, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, gj_ops=gj_ops,
+                        slots=mas.k8_workspace(ctx, shells, sms)[1],
+                        panel=mas.k8_panel(ctx.k8_n_max) if ctx.W else None,
+                        systems=ctx.k8_groups * shells)
+            if mode == "macroatom" and shells == S:
+                entry_ms, chain = cuda_ms(lambda: mas.solve_macro_chain(
+                    macro, *rates, mode=mode, line_nu_scaled=nu), 10)
+                A, rhs = chain_library_inputs(ctx, arrays, rates)
+                library_ms, _ = cuda_ms(lambda: torch.linalg.solve(A, rhs),
+                                        10)
+                del A, rhs
+                nums.update(entry_ms=entry_ms, library_ms=library_ms)
+                entry = dict(name="macro_chain", route="cuda",
+                             source="tardis_torch/csrc/macro_chain.cu",
+                             replaces=REPLACES_K8,
+                             max_abs_err=nums["chain_max_abs"], ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=library_ms,
+                             held=held, entry_ms=entry_ms,
+                             emit_max_abs=nums["emit_max_abs"],
+                             chain_bitwise_share=nums["chain_bitwise_share"])
+            say("chain_build", mode=mode, shells=shells, states=ctx.M,
+                chain_width=ctx.W, emit_width=ctx.We, **nums)
+            checks[what] = {key: nums[key] for key in (
+                "ms", "plain_ms", "bound_ms", "chain_max_abs",
+                "emit_max_abs") if key in nums}
+            del k
+            torch.cuda.empty_cache()
+    entry["checks"] = checks
+    return chain, entry
 
 
 def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0,
@@ -1746,6 +1881,7 @@ def wrappers():
     from tardis_torch.plasma.line_tables import line_tables
     from tardis_torch.spectrum.formal_integral import integrate_rays
     from tardis_torch.energy_input.gamma_kernel import gamma_step_transport
+    from tardis_torch.opacities.macro_atom_solver import macro_chain
     from tardis_torch.transport.kernel import transport_loop
     from tardis_torch.transport.nonhomologous import nonhom_transport_loop
     from tardis_torch.transport.source import blackbody_source
@@ -1756,7 +1892,8 @@ def wrappers():
             "vpacket_volley": trace_vpacket_records,
             "formal_integral": integrate_rays,
             "nonhom_loop": nonhom_transport_loop,
-            "gamma_step": gamma_step_transport, "scale2": probe2.scale2,
+            "gamma_step": gamma_step_transport, "macro_chain": macro_chain,
+            "scale2": probe2.scale2,
             "take_1d": probe2.take_1d,
             "take_along_rows": probe2.take_along_rows}
 
@@ -2334,7 +2471,8 @@ def run_helium_path(device, k2_name, k1, k1_walk):
         k1_lines=[conv, final])
     names = {"helium_s": ("_recomb_helium", 1.0)}
     expected = {"line_tables": None, k2_name: HELIUM_ITERATIONS,
-                conv: HELIUM_ITERATIONS - 1, final: 1}
+                conv: HELIUM_ITERATIONS - 1, final: 1,
+                "macro_chain": HELIUM_ITERATIONS if chain else 0}
     with host_seconds((PlasmaSolver, "_recomb_helium", False)) as spent:
         sim, recomb, wall = run_path(
             "helium_path", HELIUM_CONFIG, atom, device, expected,
@@ -2353,7 +2491,8 @@ def run_helium_path(device, k2_name, k1, k1_walk):
             [np.arange(20.0), np.geomspace(1e-8, 1e-6, 20)]))
         cfg = copy.deepcopy(NUMERICAL_HELIUM_CONFIG)
         cfg["plasma"]["heating_rate_data_file"] = heating
-        expected = {"line_tables": None, k2_name: 1, conv: 1}
+        expected = {"line_tables": None, k2_name: 1, conv: 1,
+                    "macro_chain": 1 if chain else 0}
         with host_seconds((helium, "helium_numerical_nlte", False)) as spent:
             reset_launches()
             torch.cuda.synchronize()
@@ -2478,7 +2617,8 @@ def run_model_file_path(device, k1, k1_walk, k2_name, k4_name):
                                  f"{zs} {shell0} (Ni {ni_bateman})")
         expected = {"line_tables": None, k2_name: MODEL_FILE_ITERATIONS,
                     conv: MODEL_FILE_ITERATIONS - 1, final: 1, k4_name: 1,
-                    "formal_integral": 1}
+                    "formal_integral": 1,
+                    "macro_chain": MODEL_FILE_ITERATIONS if chain else 0}
         sim, launches, _ = run_path("model_file_path", path, atom, device,
                                     expected)
     if sim.state.no_of_shells != MODEL_FILE_SHELLS:
@@ -5073,7 +5213,7 @@ def main() -> int:
         ps, k3, k3_est = check_line_tables(state, atom, device,
                                            K3_WIDE_SHELLS)
         pools, k2 = check_pools(state, device)
-        chain = check_chain_build(atom, ps)
+        chain, k8 = check_chain_build(atom, ps)
         tables = path_tables(state, atom, ps, chain)
         walk_tables, walk_build = walk_path_tables(state, atom, ps)
         iip_state, iip_atom = build_iip_problem()
@@ -5126,16 +5266,20 @@ def main() -> int:
         # lines as often as it runs them (K1 without line estimators in
         # every convergence iteration, with them in the final one), and no
         # other variant
+        # K8: one chain build an iteration on every classic path that
+        # takes the chain tables
         expected = {path: {"line_tables": None,
                            k2[opts["pool"]]["name"]: ITERATIONS,
                            k1[path]["name"]: ITERATIONS - 1,
-                           k1[f"{path}_final"]["name"]: 1}
+                           k1[f"{path}_final"]["name"]: 1,
+                           "macro_chain": ITERATIONS}
                     for path, opts in PATHS.items()}
         for path in ("main", "relativity"):
             expected[path].update({k4[path]["name"]: 1, "formal_integral": 1})
         expected["options"].update({
             k2["weighted"]["name"]: OPTIONS_ITERATIONS,
-            k1["options"]["name"]: OPTIONS_ITERATIONS - 1})
+            k1["options"]["name"]: OPTIONS_ITERATIONS - 1,
+            "macro_chain": OPTIONS_ITERATIONS})
         for path, n in (("iip", IIP_ITERATIONS),
                         ("iip_options", IIP_OPTIONS_ITERATIONS)):
             expected[path] = {"line_tables": None,
@@ -5151,7 +5295,7 @@ def main() -> int:
             k1["iip"]["name"]: 1, k1["iip_records"]["name"]: 1,
             k4_continuum["counted_as"]: 1, k2["simple"]["name"]: 2,
             k1["v_inner"]["name"]: 1, k1["v_inner_final"]["name"]: 1,
-            k4["main"]["name"]: 1}
+            k4["main"]["name"]: 1, "macro_chain": 2}
         expected["nonhom"] = {"line_tables": None,
                               k2["simple"]["name"]: NONHOM_ITERATIONS,
                               k7["name"]: NONHOM_ITERATIONS - 1,
@@ -5166,7 +5310,8 @@ def main() -> int:
             "line_tables": 3, k3_est["name"]: 3 * (ITERATIONS - 1),
             k2["simple"]["name"]: ITERATIONS,
             k1["main_final"]["name"]: ITERATIONS,
-            k4["main"]["name"]: 1, "formal_integral": 1}
+            k4["main"]["name"]: 1, "formal_integral": 1,
+            "macro_chain": ITERATIONS}
         # the main path with two shards: K1 twice an iteration
         expected["sharded"] = dict(expected["main"])
         expected["sharded"][k1["main"]["name"]] = 2 * (ITERATIONS - 1)
@@ -5186,7 +5331,8 @@ def main() -> int:
                            k2["simple"]["name"]: CLI_ITERATIONS,
                            k1["main"]["name"]: CLI_ITERATIONS - 1,
                            k1["main_final"]["name"]: 1,
-                           k4["main"]["name"]: 1}
+                           k4["main"]["name"]: 1,
+                           "macro_chain": CLI_ITERATIONS}
         # the v_inner path: its own K1 lines (last-interaction rows), the
         # main path's K4, no K5; a grid row: the main path's K1 lines, no
         # K4
@@ -5194,12 +5340,15 @@ def main() -> int:
                                k2["simple"]["name"]: V_INNER_ITERATIONS,
                                k1["v_inner"]["name"]: V_INNER_ITERATIONS - 1,
                                k1["v_inner_final"]["name"]: 1,
-                               k4["main"]["name"]: 1}
+                               k4["main"]["name"]: 1,
+                               "macro_chain": V_INNER_ITERATIONS}
         expected["grid"] = {"line_tables": None,
                             k2["simple"]["name"]: GRID_CONFIG[
                                 "montecarlo"]["iterations"],
                             k1["main"]["name"]: 1,
-                            k1["main_final"]["name"]: 1}
+                            k1["main_final"]["name"]: 1,
+                            "macro_chain": GRID_CONFIG["montecarlo"][
+                                "iterations"]}
         launches = {}
         sim, launches["main"], wall = run_path("main_path", BENCH_CONFIG,
                                                atom, device,
@@ -5271,7 +5420,7 @@ def main() -> int:
         k6["path_device_ms_total"] = profile_gamma_path(state, device)
     # each line's launches come from the path that runs it
     lines = [(k1["main"], "main"), (k1["main_final"], "main"),
-             (k2["simple"], "main"), (k3, "main"),
+             (k2["simple"], "main"), (k3, "main"), (k8, "main"),
              (k4["main"], "main"), (k5, "main"),
              (k3_est, "detailed_nlte"),
              (k1["relativity"], "relativity"),

@@ -1,4 +1,5 @@
-"""Absorbing-chain macro-atom sampling tables, built with PyTorch ops.
+"""Absorbing-chain macro-atom sampling tables (kernel K8,
+``csrc/macro_chain.cu``).
 
 Counterpart of ``tardis_tpu/opacities/macro_atom_solver.py``
 (``_ChainContext``, ``_device_p_norm``, ``_device_chain_tables``,
@@ -15,10 +16,15 @@ probabilities.  The transport loop draws from two row tables:
 
 The structure (``_ChainContext``) depends only on the transition table's
 sparsity and is built once in numpy.  The per-iteration numbers are built
-on the device in f64 (segment sums by ``index_add_``, one batched
-``torch.linalg.solve`` per component-size bucket) and rounded to f32 for
-the kernel.  These are table builds off the transport hot loop; they stay
-PyTorch ops in this slice.
+on the device in f64 and rounded to f32 for the transport kernels:
+``macro_chain`` launches K8 for tensors on the card (one launch a build:
+each (component, shell) system's block sums, emission rows and in-place
+Gauss-Jordan inverse without pivoting, in transition order, no atomics)
+and runs the plain version ``p_norm`` + ``chain_tables`` (segment sums by
+``index_add_``, one batched ``torch.linalg.solve_ex`` per component-size
+bucket) only for CPU tensors.  A singular system (a closed internal cycle
+with no emission) gives non-finite rows in both, which take the
+self-deactivation fallback, as the JAX package's NaN rows do.
 
 ``solve_transition_probabilities`` is the host f64 copy of the JAX
 package's, which the formal integral's source function reads.
@@ -31,15 +37,25 @@ chain tables do not fit the device budget (``chain_tables_fit``;
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tardis_torch import cuda
 from tardis_torch.atomic.atom_data import MACRO_INTERNAL_UP, MacroAtomData
 
 F64 = torch.float64
+# K8's launch shape (csrc/macro_chain.cu BLOCK and TC), the panel widths
+# of its elimination, widest first, and the shared memory its panel and
+# tile may take (of a block's 227 KB)
+K8_BLOCK = 256
+K8_TILE = 64
+K8_PANELS = (32, 8, 1)
+K8_SMEM = 200 * 1024
+K8_BLOCKS_PER_SM = 2
 
 
 @dataclass
@@ -101,9 +117,22 @@ class _ChainContext:
             nu_dense=nu_dense,
         )
 
+        # K8's transition table in 32-bit integers
+        arrays.update(
+            k8_refs=refs.astype(np.int32),
+            k8_line=np.asarray(macro.transition_line_id, np.int32),
+            k8_type=np.asarray(ttype, np.int8),
+            k8_dest=np.asarray(macro.destination_level_id, np.int32),
+        )
+        self.n_lines_read = (int(macro.transition_line_id.max()) + 1
+                             if len(ttype) else 0)
+
         self.bucket_meta = []
         if mode == "downbranch":
             self.W = 0
+            # K8's work groups: runs of K8_BLOCK levels (emission rows only)
+            g_base = np.arange(0, M, K8_BLOCK, dtype=np.int64)
+            g_size = np.minimum(K8_BLOCK, M - g_base)
         else:
             from scipy.sparse import coo_matrix
             from scipy.sparse.csgraph import connected_components
@@ -137,6 +166,8 @@ class _ChainContext:
             base = np.zeros(M, np.int64)
             for a, b in ranges:
                 base[a : b + 1] = a
+            # K8's work groups: the components
+            g_base, g_size = r_lo, sizes
             arrays.update(
                 base=base.astype(np.float32),
                 local=(np.arange(M) - base).astype(np.int64),
@@ -185,6 +216,18 @@ class _ChainContext:
                 arrays[f"b{bi}_lvl_local"] = np.asarray(
                     levels - base[levels], np.int64
                 )
+        # largest first, so a persistent grid's last round holds the
+        # small ones; each group's transitions are one contiguous range
+        order = np.argsort(-g_size, kind="stable")
+        g_base, g_size = g_base[order], g_size[order]
+        g_t0, g_t1 = refs[g_base], refs[g_base + g_size]
+        arrays.update(
+            k8_base=g_base.astype(np.int32), k8_size=g_size.astype(np.int32),
+            k8_t0=g_t0.astype(np.int32), k8_t1=g_t1.astype(np.int32),
+        )
+        self.k8_groups = len(g_base)
+        self.k8_n_max = int(g_size.max()) if self.W and len(g_size) else 0
+        self.k8_t_max = int((g_t1 - g_t0).max()) if len(g_base) else 0
         self.arrays_np = arrays
         self._on_device: dict = {}
 
@@ -214,6 +257,15 @@ class _ChainContext:
         return (n_shells * self.M * (self.W + 1) * 4.0
                 + n_shells * self.M * 3 * self.We * 4.0 + solve)
 
+    def plain_bytes(self, n_shells: int) -> float:
+        """Device bytes of the plain version's largest f64 intermediate:
+        the three (Wp, Wp) matrices of a bucket's batched solve (A, the
+        right-hand side, B), or in downbranch mode the (T, S) p_norm."""
+        if self.W == 0:
+            return 8.0 * len(self.arrays_np["coef"]) * n_shells
+        return max((n_shells * b["n_cb"] * b["Wp"] * b["Wp"] * 8.0 * 3
+                    for b in self.bucket_meta), default=0.0)
+
 
 def chain_context(macro: MacroAtomData, mode: str,
                   line_nu_scaled) -> _ChainContext:
@@ -242,6 +294,30 @@ def p_norm(ctx: _ChainContext, arrays: dict, beta, j_blues, stim):
                        0.0)
 
 
+def deactivation(ctx: _ChainContext, arrays: dict, pn: torch.Tensor):
+    """Each level's deactivation probability d (M, S): the sum of its
+    emission p_norm."""
+    return _segment_sum(pn[arrays["emit_idx"]], arrays["e_src"], ctx.M)
+
+
+def bucket_systems(ctx: _ChainContext, arrays: dict, pn: torch.Tensor,
+                   deact: torch.Tensor, bi: int):
+    """Size bucket ``bi``'s (shell, component) systems as the plain
+    version solves them: A = I - Q (S*n_cb, Wp, Wp), each component padded
+    to Wp with identity rows, and d (S*n_cb, Wp), zero in the padding."""
+    S = pn.shape[1]
+    Wp, n_cb = ctx.bucket_meta[bi]["Wp"], ctx.bucket_meta[bi]["n_cb"]
+    p_int = pn[arrays[f"b{bi}_i_idx"]]  # (Tb, S)
+    Q = _segment_sum(p_int, arrays[f"b{bi}_seg"], n_cb * Wp * Wp)
+    Q = (Q.reshape(n_cb, Wp, Wp, S).permute(3, 0, 1, 2)
+         .reshape(S * n_cb, Wp, Wp))
+    eye = torch.eye(Wp, dtype=F64, device=pn.device)
+    d = deact[arrays[f"b{bi}_member_flat"]]  # (n_cb*Wp, S)
+    d = torch.where(arrays[f"b{bi}_member_valid"][:, None], d, 0.0)
+    d = d.reshape(n_cb, Wp, S).permute(2, 0, 1).reshape(S * n_cb, Wp)
+    return eye[None] - Q, d
+
+
 def chain_tables(ctx: _ChainContext, arrays: dict, pn: torch.Tensor):
     """(chain_cdf, emit_cdf) f32 row tables from p_norm (T, S)."""
     S = pn.shape[1]
@@ -265,41 +341,136 @@ def chain_tables(ctx: _ChainContext, arrays: dict, pn: torch.Tensor):
     if ctx.W == 0:  # downbranch: no absorbing chain
         return None, emit_cdf
 
-    deact = _segment_sum(e_p, arrays["e_src"], M)  # (M, S)
+    deact = deactivation(ctx, arrays, pn)
     W = ctx.W
     rows = torch.zeros((S, M, W), dtype=F64, device=pn.device)
     for bi, meta in enumerate(ctx.bucket_meta):
         Wp, n_cb = meta["Wp"], meta["n_cb"]
-        p_int = pn[arrays[f"b{bi}_i_idx"]]  # (Tb, S)
-        Q = _segment_sum(p_int, arrays[f"b{bi}_seg"], n_cb * Wp * Wp)
-        Q = (Q.reshape(n_cb, Wp, Wp, S).permute(3, 0, 1, 2)
-             .reshape(S * n_cb, Wp, Wp))
-        eye = torch.eye(Wp, dtype=F64, device=pn.device)
-        d = deact[arrays[f"b{bi}_member_flat"]]  # (n_cb*Wp, S)
-        d = torch.where(arrays[f"b{bi}_member_valid"][:, None], d, 0.0)
-        d = d.reshape(n_cb, Wp, S).permute(2, 0, 1).reshape(S * n_cb, Wp)
-        B = torch.linalg.solve(eye[None] - Q, torch.diag_embed(d))
+        A, d = bucket_systems(ctx, arrays, pn, deact, bi)
+        # no host check: a singular system's rows come out non-finite
+        B = torch.linalg.solve_ex(A, torch.diag_embed(d))[0]
         Bl = B.reshape(S, n_cb, Wp, Wp)[
             :, arrays[f"b{bi}_lvl_pos"], arrays[f"b{bi}_lvl_local"], :
         ]  # (S, n_levels_in_bucket, Wp)
         wc = min(Wp, W)  # pow2 padding beyond W is zero-mass
         rows[:, arrays[f"b{bi}_levels"], :wc] = Bl[:, :, :wc]
 
+    finite = torch.isfinite(rows).all(dim=2, keepdim=True)
     rows = torch.clamp(rows, min=0.0)
     rcum = torch.cumsum(rows, dim=2)
     rtot = rcum[:, :, -1:]
-    # rows with no reachable deactivation: self-deactivation step CDF
+    # rows with no reachable deactivation, and the non-finite rows of a
+    # singular system: self-deactivation step CDF
     fallback = (
         torch.arange(W, device=pn.device)[None, None, :]
         >= arrays["local"][None, :, None]
     ).to(F64)
-    ccdf = torch.where(rtot > 0, rcum / torch.where(rtot > 0, rtot, 1.0),
-                       fallback)
+    ccdf = torch.where((rtot > 0) & finite,
+                       rcum / torch.where(rtot > 0, rtot, 1.0), fallback)
     chain_cdf = torch.cat(
         [ccdf.float(), arrays["base"][None, :, None].expand(S, M, 1)],
         dim=2,
     ).reshape(S * M, W + 1)
     return chain_cdf, emit_cdf
+
+
+def k8_panel(n_max: int) -> int:
+    """K8's panel width for components of up to ``n_max`` levels: the
+    widest of K8_PANELS whose panel (n_max rows, each width + 1 apart
+    where the width is above 1) and tile (width x K8_TILE) of f64 fit
+    K8_SMEM."""
+    for kb in K8_PANELS:
+        ldc = 1 if kb == 1 else kb + 1
+        if (n_max * ldc + kb * K8_TILE) * 8 <= K8_SMEM:
+            return kb
+    raise ValueError(
+        f"macro_chain: a component of {n_max} levels is more than K8 holds "
+        f"({K8_SMEM // 8 - K8_TILE} levels)")
+
+
+def k8_workspace(ctx: _ChainContext, n_shells: int, sms: int):
+    """(f64 entries a slot, slots) of K8's workspace on a card of ``sms``
+    multiprocessors: a slot holds one system's matrix (n_max^2), its
+    deactivation masses (n_max) and its transitions' p, rounded up to 256
+    bytes; one slot a block of the persistent grid, K8_BLOCKS_PER_SM
+    blocks a multiprocessor, no more than the systems, and no more than
+    the plain version's largest f64 intermediate holds (``plain_bytes``),
+    but at least one."""
+    n = ctx.k8_n_max
+    stride = -(-(n * n + n + ctx.k8_t_max) // 32) * 32 or 32
+    cap = int(ctx.plain_bytes(n_shells) // (8 * stride))
+    slots = min(ctx.k8_groups * n_shells, K8_BLOCKS_PER_SM * sms, cap)
+    return stride, max(1, slots)
+
+
+_K8_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+    + [ctypes.c_void_p] * 3)
+
+
+def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
+                j_blues: torch.Tensor, stim: torch.Tensor):
+    """One chain build, (chain_cdf, emit_cdf): K8 on the card; the plain
+    version (``p_norm``, ``chain_tables``) for CPU tensors.
+
+    One launch a build (``launches``; ``launches_by_variant`` by mode,
+    "macroatom" or "downbranch").  The outputs and K8's workspace
+    (``k8_workspace``) are allocated here; ``arrays`` are the context's
+    structure arrays on the tensors' device.
+    """
+    device = beta.device
+    if device.type == "cpu":
+        return chain_tables(ctx, arrays, p_norm(
+            ctx, arrays, beta.to(F64), j_blues.to(F64), stim.to(F64)))
+    if device.type != "cuda":
+        raise ValueError(f"macro_chain: unsupported device {device}")
+    beta, j_blues, stim = (t.to(F64).contiguous()
+                           for t in (beta, j_blues, stim))
+    cuda.check_cuda("macro_chain", device, beta=(beta, F64),
+                    j_blues=(j_blues, F64), stim=(stim, F64))
+    L, S = beta.shape
+    if j_blues.shape != beta.shape or stim.shape != beta.shape:
+        raise ValueError(f"macro_chain: beta {tuple(beta.shape)}, j_blues "
+                         f"{tuple(j_blues.shape)}, stim {tuple(stim.shape)}")
+    if L < ctx.n_lines_read:
+        raise ValueError(f"macro_chain: {L} lines, the transitions read "
+                         f"{ctx.n_lines_read}")
+    M, We, W = ctx.M, ctx.We, ctx.W
+    chain = W > 0
+    kb = k8_panel(ctx.k8_n_max) if chain else 1
+    emit_cdf = torch.empty((S * M, 3 * We), dtype=torch.float32,
+                           device=device)
+    chain_cdf = (torch.empty((S * M, W + 1), dtype=torch.float32,
+                             device=device) if chain else None)
+    stride, slots = k8_workspace(
+        ctx, S, torch.cuda.get_device_properties(device).multi_processor_count)
+    work = torch.empty(stride * slots, dtype=F64, device=device)
+    a = arrays
+    fn = cuda.function("macro_chain", "macro_chain", _K8_ARGTYPES)
+    err = fn(
+        beta.data_ptr(), j_blues.data_ptr(), stim.data_ptr(), S,
+        a["k8_refs"].data_ptr(), a["coef"].data_ptr(),
+        a["k8_line"].data_ptr(), a["k8_type"].data_ptr(),
+        a["k8_dest"].data_ptr(), a["line_dense"].data_ptr(),
+        a["nu_dense"].data_ptr(), M, We, W, a["k8_base"].data_ptr(),
+        a["k8_size"].data_ptr(), a["k8_t0"].data_ptr(),
+        a["k8_t1"].data_ptr(), ctx.k8_groups, ctx.k8_n_max, kb,
+        work.data_ptr(), stride, slots, emit_cdf.data_ptr(),
+        None if chain_cdf is None else chain_cdf.data_ptr(), cuda.stream(),
+    )
+    cuda.check_launch("macro_chain", err)
+    if S and ctx.k8_groups:
+        v = "macroatom" if chain else "downbranch"
+        macro_chain.launches += 1
+        macro_chain.launches_by_variant[v] = (
+            macro_chain.launches_by_variant.get(v, 0) + 1)
+    return chain_cdf, emit_cdf
+
+
+macro_chain.launches = 0  # kernel launches, one a build
+macro_chain.launches_by_variant = {}
 
 
 def solve_transition_probabilities(
@@ -433,19 +604,18 @@ def solve_macro_chain(
     line_nu_scaled,
     max_chain_bytes: float = 6e9,
 ) -> MacroChainState | None:
-    """Build the chain tables on the device of ``beta_sobolev``; None when
-    they would not fit ``max_chain_bytes`` (``chain_tables_fit``), where
-    the event loop walks the macro atom instead (``solve_macro_state``),
-    as in the JAX package.
+    """Build the chain tables on the device of ``beta_sobolev`` (K8 on the
+    card, ``macro_chain``); None when they would not fit
+    ``max_chain_bytes`` (``chain_tables_fit``), where the event loop walks
+    the macro atom instead (``solve_macro_state``), as in the JAX package.
     """
     S = beta_sobolev.shape[1]
     if not chain_tables_fit(macro, S, mode, max_chain_bytes, line_nu_scaled):
         return None
     ctx = chain_context(macro, mode, line_nu_scaled)
     arrays = ctx.arrays(beta_sobolev.device)
-    pn = p_norm(ctx, arrays, beta_sobolev.to(F64), j_blues.to(F64),
-                stim_factor.to(F64))
-    chain_cdf, emit_cdf = chain_tables(ctx, arrays, pn)
+    chain_cdf, emit_cdf = macro_chain(ctx, arrays, beta_sobolev, j_blues,
+                                      stim_factor)
     return MacroChainState(
         n_states=ctx.M,
         chain_width=ctx.W,
