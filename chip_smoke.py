@@ -15,11 +15,14 @@ Phases, one printed line each (plus one line per iteration):
      without options (K2, K3, K5 and the probe's three kernels);
   2. checks at the paths' shapes (bench problem: synthetic atom data
      with 200 levels and level jumps up to 60, 20 shells, macroatom): K8,
-     the macro-atom chain build (check_chain_build: macroatom and
-     downbranch, at 20 and at 100 shells, the chain rows within 1e-6 and
-     the emission rows within 2.4e-7 of the plain version with the shares
-     bit for bit, the copied columns bit for bit, two calls bit for bit,
-     beside one torch.linalg.solve of the same systems), and each kernel
+     the macro-atom chain build (check_chain_build: each instantiation,
+     the cluster one and downbranch at 20 and at 100 shells, the workspace
+     one on 600-level components, with its plan and ptxas's report; the
+     chain rows within 1e-6 and the emission rows within 2.4e-7 of the
+     plain version with the shares bit for bit, the copied columns bit for
+     bit, two calls bit for bit, beside one torch.linalg.solve of the same
+     systems; and a singular component's rows the plain version's
+     self-deactivation step), and each kernel
      against its plain PyTorch
      version on the card, with CUDA-event times of both, the least time the
      card could take (bound) and, where one PyTorch call computes the same
@@ -538,7 +541,7 @@ def line_name(kernel, variant):
     """The kernels-line name of one variant of a wrapper (K2 by pool, K1
     and K4 by the variant names of their modules)."""
     if variant in ("simple", "classic", "scatter", "default") or (
-            kernel, variant) == ("macro_chain", "macroatom"):
+            kernel, variant) == ("macro_chain", "macroatom_cluster"):
         return kernel
     return f"{kernel}[{variant}]"
 
@@ -1227,7 +1230,22 @@ def sorted_rows(rows):
 K8_CHAIN_ATOL = 1e-6
 K8_EMIT_ATOL = 2.4e-7
 K8_WIDE_SHELLS = 100  # K3's wide shape: the bench lines, shells repeated
+# components past the cluster instantiation's reach (384 levels), which
+# take the workspace instantiation: one synthetic element of 600 levels
+K8_WIDE_LEVELS = 600
+K8_WIDE_LEVELS_SHELLS = 4
 REPLACES_K8 = "tardis_tpu/opacities/macro_atom_solver.py:389"
+# a macro table with a closed two-level internal cycle and no emission
+# (levels 0 <-> 1), beside a two-level component with emission (2, 3) and
+# a lone emitting level (4); one line a transition
+K8_CYCLE_LEVELS = (0, 1)
+K8_CYCLE = dict(
+    transition_type=[0, 1, -1, 1, 0, -1, -1, -1],
+    destination_level_id=[1, 0, -1, 3, 2, -1, -1, -1],
+    coef=[1.0, 0.7, 0.8, 0.3, 0.5, 0.9, 0.4, 1.1],
+    block_references=[0, 1, 2, 4, 7, 8],
+    line2macro_level_upper=[1, 0, 2, 3, 2, 3, 3, 4],
+)
 
 
 def shells_repeated(rates, n_shells):
@@ -1311,77 +1329,174 @@ def chain_library_inputs(ctx, arrays, rates):
     return A[:, :n, :n].contiguous(), torch.diag_embed(d[:, :n])
 
 
+def k8_line(mode, variant, nums, ms, plain_ms, b_ms, b_by, library_ms,
+            held, **extra):
+    """K8's kernels-line entry for one instantiation."""
+    return dict(name=line_name("macro_chain", variant), route="cuda",
+                source="tardis_torch/csrc/macro_chain.cu",
+                replaces=REPLACES_K8, variant=variant,
+                max_abs_err=nums.get("chain_max_abs", nums["emit_max_abs"]),
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, held=held,
+                emit_max_abs=nums["emit_max_abs"],
+                emit_bitwise_share=nums["emit_bitwise_share"],
+                chain_bitwise_share=nums.get("chain_bitwise_share"), **extra)
+
+
+def k8_ptxas():
+    """Registers, spills and static shared bytes of each of K8's
+    instantiations, from ptxas's report of the build."""
+    from tardis_torch import cuda
+
+    out, name = {}, None
+    cuda.library("macro_chain")  # built, with its report, if it was not
+    log = cuda.library_path("macro_chain").with_suffix(".log")
+    for ln in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '.*?(workspace_kernel|"
+                      r"chain_cluster_kernel)ILi(\d+)E", ln)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.strip())
+    return out
+
+
+def k8_cycle_rates(device, n_shells=3, seed=SEED):
+    """K8_CYCLE as a MacroAtomData and seeded (beta, j_blues, stim) (L, S)
+    f64 tables on ``device``, with the line frequencies in NU_UNIT."""
+    from tardis_torch.atomic.atom_data import MacroAtomData
+
+    t = K8_CYCLE
+    n = len(t["coef"])
+    macro = MacroAtomData(
+        coef=np.asarray(t["coef"], np.float64),
+        transition_type=np.asarray(t["transition_type"], np.int8),
+        destination_level_id=np.asarray(t["destination_level_id"],
+                                        np.int32),
+        transition_line_id=np.arange(n, dtype=np.int32),
+        block_references=np.asarray(t["block_references"], np.int32),
+        line2macro_level_upper=np.asarray(t["line2macro_level_upper"],
+                                          np.int32))
+    return macro, k8_random_rates(n, n_shells, device, seed), np.linspace(
+        0.5, 1.2, n)
+
+
+def k8_random_rates(n_lines, n_shells, device, seed=SEED):
+    """Seeded (beta, j_blues, stim) (L, S) f64 tables on ``device``."""
+    gen = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(gen.uniform(lo, hi, (n_lines, n_shells)),
+                                 device=device)
+                 for lo, hi in ((0.1, 1.0), (1e-6, 1e-4), (0.5, 1.0)))
+
+
 def check_chain_build(atom, ps):
-    """K8 (``macro_chain``) against its plain version on the card, in both
-    modes, at the bench shape and at K8_WIDE_SHELLS shells: within
-    K8_CHAIN_ATOL / K8_EMIT_ATOL with the shares of entries equal bit for
-    bit, the copied columns bit for bit, every row non-decreasing, and two
-    K8 calls bit for bit equal; each timed as device time of queued calls
-    (``ms``, with ``held``) beside the plain version (``plain_ms``, CUDA
-    events around each call) and its bound.  At the bench shape
-    (macroatom) also with CUDA events around ``solve_macro_chain`` as the
-    main path calls it (``entry_ms``) and beside one torch.linalg.solve of
-    the same systems at their real size (``library_ms``, the yardstick;
-    the port never calls it).  Returns the main path's chain tables and
-    K8's kernels-line entry."""
+    """K8 (``macro_chain``) against its plain version on the card, each of
+    its instantiations (``k8_plan``): the cluster one and downbranch at the
+    bench shape and at K8_WIDE_SHELLS shells, the workspace one on
+    K8_WIDE_LEVELS-level components (a synthetic atom of one element,
+    seeded rates, K8_WIDE_LEVELS_SHELLS shells); each within K8_CHAIN_ATOL
+    / K8_EMIT_ATOL with the shares of entries equal bit for bit, the copied
+    columns bit for bit, every row non-decreasing, and two K8 calls bit for
+    bit equal; each timed as device time of queued calls (``ms``, with
+    ``held``) beside the plain version (``plain_ms``, CUDA events around
+    each call) and its bound, with its plan (blocks a cluster, panel,
+    blocks, rounds and their fill).  Where the systems share one size (the
+    bench shape, the wide components) also beside one torch.linalg.solve
+    of them at their real size (``library_ms``, the yardstick; the port
+    never calls it), and at the bench shape (macroatom) with CUDA events
+    around ``solve_macro_chain`` as the main path calls it (``entry_ms``).
+    Then the singular component (K8_CYCLE): the cycle's rows the
+    self-deactivation step and every row the plain version's, bit for
+    bit.  Returns the main path's chain tables and K8's kernels-line
+    entries by instantiation."""
+    from tardis_torch.atomic.synthetic import make_synthetic_atom_data
     from tardis_torch.opacities import macro_atom_solver as mas
     from tardis_torch.transport.tables import NU_UNIT
 
     nu = atom.line_nu / NU_UNIT
+    device = ps.beta_sobolev.device
     rates = tuple(t.to(torch.float64).contiguous() for t in (
         ps.beta_sobolev, ps.j_blues, ps.stimulated_emission_factor))
     S = rates[0].shape[1]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    entry, checks = None, {}
-    for mode in ("macroatom", "downbranch"):
-        macro = atom.macro_atom if mode == "macroatom" else atom.downbranch
-        ctx = mas.chain_context(macro, mode, nu)
-        arrays = ctx.arrays(rates[0].device)
-        for shells in (S, K8_WIDE_SHELLS):
-            r = rates if shells == S else shells_repeated(rates, shells)
-            what = f"{mode} {shells} shells"
-            k = mas.macro_chain(ctx, arrays, *r)
-            if not chain_bitwise(k, mas.macro_chain(ctx, arrays, *r)):
-                raise AssertionError(f"macro_chain {what}: two runs differ")
-            plain_ms, p = cuda_ms(lambda: mas.chain_tables(
-                ctx, arrays, mas.p_norm(ctx, arrays, *r)), 3)
-            nums = compare_chain(ctx, k, p, what)
-            del p
-            ms, _, held = cuda_ms_queued(
-                lambda: mas.macro_chain(ctx, arrays, *r), 20,
-                report_hold=True)
-            b_ms, b_by, gj_ops = k8_bound(ctx, arrays, r, k)
-            nums.update(ms=ms, held=held, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, gj_ops=gj_ops,
-                        slots=mas.k8_workspace(ctx, shells, sms)[1],
-                        panel=mas.k8_panel(ctx.k8_n_max) if ctx.W else None,
-                        systems=ctx.k8_groups * shells)
-            if mode == "macroatom" and shells == S:
-                entry_ms, chain = cuda_ms(lambda: mas.solve_macro_chain(
-                    macro, *rates, mode=mode, line_nu_scaled=nu), 10)
-                A, rhs = chain_library_inputs(ctx, arrays, rates)
-                library_ms, _ = cuda_ms(lambda: torch.linalg.solve(A, rhs),
-                                        10)
-                del A, rhs
-                nums.update(entry_ms=entry_ms, library_ms=library_ms)
-                entry = dict(name="macro_chain", route="cuda",
-                             source="tardis_torch/csrc/macro_chain.cu",
-                             replaces=REPLACES_K8,
-                             max_abs_err=nums["chain_max_abs"], ms=ms,
-                             plain_ms=plain_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=library_ms,
-                             held=held, entry_ms=entry_ms,
-                             emit_max_abs=nums["emit_max_abs"],
-                             chain_bitwise_share=nums["chain_bitwise_share"])
-            say("chain_build", mode=mode, shells=shells, states=ctx.M,
-                chain_width=ctx.W, emit_width=ctx.We, **nums)
-            checks[what] = {key: nums[key] for key in (
-                "ms", "plain_ms", "bound_ms", "chain_max_abs",
-                "emit_max_abs") if key in nums}
-            del k
-            torch.cuda.empty_cache()
-    entry["checks"] = checks
-    return chain, entry
+    wide = make_synthetic_atom_data(
+        n_levels=K8_WIDE_LEVELS, max_level_jump=60).prepare(
+            selected_atoms=[8], line_interaction_type="macroatom")
+    cases = [(mode, atom, rates, shells) for mode in ("macroatom",
+                                                     "downbranch")
+             for shells in (S, K8_WIDE_SHELLS)]
+    cases.append(("macroatom", wide, k8_random_rates(
+        wide.n_lines, K8_WIDE_LEVELS_SHELLS, device), K8_WIDE_LEVELS_SHELLS))
+    entries, checks, chain = {}, {}, None
+    say("k8_instantiations", ptxas=k8_ptxas())
+    for mode, at, base_rates, shells in cases:
+        macro = at.macro_atom if mode == "macroatom" else at.downbranch
+        ctx = mas.chain_context(macro, mode, at.line_nu / NU_UNIT)
+        arrays = ctx.arrays(device)
+        r = (base_rates if shells == base_rates[0].shape[1]
+             else shells_repeated(base_rates, shells))
+        plan = mas.k8_plan(ctx, shells, sms,
+                           mas.k8_active_clusters(device, ctx.k8_n_max))
+        what = f"{mode} {plan.variant} {shells} shells"
+        k = mas.macro_chain(ctx, arrays, *r)
+        if not chain_bitwise(k, mas.macro_chain(ctx, arrays, *r)):
+            raise AssertionError(f"macro_chain {what}: two runs differ")
+        plain_ms, p = cuda_ms(lambda: mas.chain_tables(
+            ctx, arrays, mas.p_norm(ctx, arrays, *r)), 3)
+        nums = compare_chain(ctx, k, p, what)
+        del p
+        ms, _, held = cuda_ms_queued(
+            lambda: mas.macro_chain(ctx, arrays, *r), 20, report_hold=True)
+        b_ms, b_by, gj_ops = k8_bound(ctx, arrays, r, k)
+        nums.update(ms=ms, held=held, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, gj_ops=gj_ops, **plan._asdict())
+        library_ms = None
+        if ctx.W and len(np.unique(ctx.arrays_np["k8_size"])) == 1:
+            A, rhs = chain_library_inputs(ctx, arrays, r)
+            library_ms, _ = cuda_ms(lambda: torch.linalg.solve(A, rhs), 10)
+            del A, rhs
+            nums.update(library_ms=library_ms)
+        main = at is atom and shells == S
+        if main and mode == "macroatom":
+            entry_ms, chain = cuda_ms(lambda: mas.solve_macro_chain(
+                macro, *rates, mode=mode, line_nu_scaled=nu), 10)
+            nums.update(entry_ms=entry_ms)
+        if main or plan.variant == "macroatom_workspace":
+            entries[plan.variant] = k8_line(
+                mode, plan.variant, nums, ms, plain_ms, b_ms, b_by,
+                library_ms, held, plan=plan._asdict(),
+                **({"entry_ms": nums["entry_ms"]} if "entry_ms" in nums
+                   else {}))
+        say("chain_build", mode=mode, shells=shells, states=ctx.M,
+            chain_width=ctx.W, emit_width=ctx.We, **nums)
+        checks[what] = {key: nums[key] for key in (
+            "ms", "plain_ms", "bound_ms", "chain_max_abs",
+            "emit_max_abs", "rounds", "fill") if key in nums}
+        del k
+        torch.cuda.empty_cache()
+    # the singular component: a closed internal cycle without emission
+    macro, r, cycle_nu = k8_cycle_rates(device)
+    ctx = mas.chain_context(macro, "macroatom", cycle_nu)
+    arrays = ctx.arrays(device)
+    k = mas.macro_chain(ctx, arrays, *r)
+    p = mas.chain_tables(ctx, arrays, mas.p_norm(ctx, arrays, *r))
+    rows = k[0].reshape(-1, ctx.M, ctx.W + 1)[:, list(K8_CYCLE_LEVELS),
+                                               :ctx.W]
+    step = (torch.arange(ctx.W, device=device)[None, :]
+            >= torch.arange(len(K8_CYCLE_LEVELS), device=device)[:, None])
+    p_rows = p[0].reshape(-1, ctx.M, ctx.W + 1)[:, list(K8_CYCLE_LEVELS),
+                                                 :ctx.W]
+    nums = compare_chain(ctx, k, p, "singular component")
+    if not (torch.equal(rows, p_rows)
+            and torch.equal(rows, step.float().expand_as(rows))):
+        raise AssertionError("macro_chain: the singular component's rows "
+                             "are not the plain version's step")
+    checks["singular"] = dict(variant=mas.k8_plan(ctx, 3, sms).variant,
+                              cycle_rows_bitwise=True, **nums)
+    say("chain_build_singular", **checks["singular"])
+    for entry in entries.values():
+        entry["checks"] = checks
+    return chain, entries
 
 
 def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0,
@@ -5213,7 +5328,8 @@ def main() -> int:
         ps, k3, k3_est = check_line_tables(state, atom, device,
                                            K3_WIDE_SHELLS)
         pools, k2 = check_pools(state, device)
-        chain, k8 = check_chain_build(atom, ps)
+        chain, k8s = check_chain_build(atom, ps)
+        k8 = k8s["macroatom_cluster"]
         tables = path_tables(state, atom, ps, chain)
         walk_tables, walk_build = walk_path_tables(state, atom, ps)
         iip_state, iip_atom = build_iip_problem()
@@ -5442,6 +5558,13 @@ def main() -> int:
             k.setdefault("checks", []).append("large_prefix")
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on its path")
+    # K8's other instantiations, held above off the paths: the main path
+    # launches neither (its components are the cluster one's)
+    for variant in ("macroatom_workspace", "downbranch"):
+        k = k8s[variant]
+        k["launches"] = launches["main"].get(k["name"], 0)
+        k["on_main_path"] = False
+        lines.append((k, None))
     # the same K1 instantiations, two shards an iteration on the sharded
     # path
     for key in ("main", "main_final"):

@@ -33,7 +33,11 @@ of mu, nu and w.  The probe's ``take_1d`` (labels ``probe take_1d``: a
 scale2``: 120 MB) print their calls queued back to back (``device_ms``,
 warm) and, for ``take_1d``, each call after an L2 flush (``cold_ms``,
 ``chip_smoke.cuda_ms_cold``), with a hash of the output; the inputs come
-from one seeded generator, the same for every tree.  For a like-for-like
+from one seeded generator, the same for every tree.  K8 (labels ``k8
+<mode> <shells>``: macroatom and downbranch at 20 and 100 shells, the bench
+plasma's columns repeated) prints its builds queued back to back
+(``device_ms``), each build by events (``ms``) and a hash of each row
+table.  For a like-for-like
 reading run the trees in the order A, B, B, A, one after another on the
 same card, and compare each tree with itself first.
 """
@@ -51,6 +55,7 @@ import sys
 K2_SHAPES = (1_048_576, 2_097_152, 4_194_304)
 K2_POOLS = ("simple", "relativistic", "weighted")
 PROBE_TABLE, PROBE_INDICES, PROBE_SCALE2_MB = 12_000_000, 1_048_576, 120
+K8_SHELLS = (20, 100)  # the bench shape, and chip_smoke.K8_WIDE_SHELLS
 
 
 def cases(cs):
@@ -73,7 +78,11 @@ def cases(cs):
                 for pool in K2_POOLS for m in K2_SHAPES] + [
                     ("probe take_1d", "probe", "take_1d", PROBE_INDICES, 0,
                      False, False),
-                    ("probe scale2", "probe", "scale2", 0, 0, False, False)]
+                    ("probe scale2", "probe", "scale2", 0, 0, False, False)] + [
+                        (f"k8 {mode} {shells}", "k8", mode, shells, 0, False,
+                         False)
+                        for mode in ("macroatom", "downbranch")
+                        for shells in K8_SHELLS]
 
 
 def this_checkout_smoke():
@@ -124,9 +133,12 @@ def main(tree, build, only=("",)):
     if any(c[1] != "probe" for c in chosen):
         config, state, atom = cs.build_problem(device)
         b = cs.beta_inner(state)
-    if any(c[1] in ("k1", "k7") for c in chosen):
+    if any(c[1] in ("k1", "k7", "k8") for c in chosen):
         ps = PlasmaSolver(atom, state, device).update(
             state.t_radiative, state.dilution_factor)
+        rates = tuple(t.to(torch.float64).contiguous() for t in (
+            ps.beta_sobolev, ps.j_blues, ps.stimulated_emission_factor))
+    if any(c[1] in ("k1", "k7") for c in chosen):
         chain = solve_macro_chain(
             atom.macro_atom, ps.beta_sobolev, ps.j_blues,
             ps.stimulated_emission_factor, mode="macroatom",
@@ -150,6 +162,16 @@ def main(tree, build, only=("",)):
             x = torch.rand(PROBE_SCALE2_MB * 1024 * 1024 // 4 // probe2.ROW,
                            probe2.ROW, generator=gen, device=device)
             return (("probe2", ()), lambda: probe2.scale2(x))
+        if kern == "k8":
+            from tardis_torch.opacities import macro_atom_solver as mas
+
+            macro = (atom.macro_atom if where == "macroatom"
+                     else atom.downbranch)
+            ctx = mas.chain_context(macro, where, atom.line_nu / NU_UNIT)
+            arrays = ctx.arrays(device)
+            r = timing.shells_repeated(rates, n)
+            return (("macro_chain", ()),
+                    lambda: mas.macro_chain(ctx, arrays, *r))
         if kern == "k2":
             return (("blackbody_source", ()), lambda: blackbody_source(
                 key, n, state.t_inner, device, where, b))
@@ -190,6 +212,17 @@ def main(tree, build, only=("",)):
                 device_ms=device_ms, **numbers,
                 out_sha=hashlib.sha256(
                     out.cpu().numpy().tobytes()).hexdigest()[:16])
+            continue
+        if label.startswith("k8 "):
+            device_ms, out = timing.cuda_ms_queued(fn, 20)
+            ms, out = timing.cuda_ms(fn, 10)
+            say(phase="launch", label=label, device_ms=device_ms, ms=ms,
+                **{f"{name}_sha": hashlib.sha256(
+                    t.cpu().numpy().tobytes()).hexdigest()[:16]
+                   for name, t in zip(("chain", "emit"), out)
+                   if t is not None})
+            del out
+            torch.cuda.empty_cache()
             continue
         if label.startswith("k2 "):
             numbers = timing.k2_timings(fn)

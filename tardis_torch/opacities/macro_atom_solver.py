@@ -48,14 +48,23 @@ from tardis_torch import cuda
 from tardis_torch.atomic.atom_data import MACRO_INTERNAL_UP, MacroAtomData
 
 F64 = torch.float64
-# K8's launch shape (csrc/macro_chain.cu BLOCK and TC), the panel widths
-# of its elimination, widest first, and the shared memory its panel and
-# tile may take (of a block's 227 KB)
+# K8's launch shape (csrc/macro_chain.cu BLOCK and TC); the workspace
+# instantiation's panel widths, widest first, and the shared memory its
+# panel and tile may take (of a block's 227 KB)
 K8_BLOCK = 256
 K8_TILE = 64
+K8_STAGE = 64  # f64 of shared staging a warp, for its level rows
 K8_PANELS = (32, 8, 1)
 K8_SMEM = 200 * 1024
 K8_BLOCKS_PER_SM = 2
+# the cluster instantiation: cluster sizes, smallest first (8 is the
+# portable limit), its panel width, and the dynamic shared memory a block
+# may take: 232,448 bytes less a kilobyte for the kernel's static shared
+# memory
+K8_CLUSTERS = (2, 4, 8)
+K8_CLUSTER_PANEL = 16
+K8_CLUSTER_SMEM = 232_448 - 1024
+K8_CLUSTER_BLOCK = 512  # threads a block (csrc/macro_chain.cu CBLOCK)
 
 
 @dataclass
@@ -391,23 +400,146 @@ def k8_panel(n_max: int) -> int:
 def k8_workspace(ctx: _ChainContext, n_shells: int, sms: int):
     """(f64 entries a slot, slots) of K8's workspace on a card of ``sms``
     multiprocessors: a slot holds one system's matrix (n_max^2), its
-    deactivation masses (n_max) and its transitions' p, rounded up to 256
-    bytes; one slot a block of the persistent grid, K8_BLOCKS_PER_SM
+    levels' block sums and deactivation masses (n_max, and at least
+    K8_BLOCK, a downbranch work group's levels) and its transitions' p,
+    rounded up to 256 bytes; one slot a block of the persistent grid, K8_BLOCKS_PER_SM
     blocks a multiprocessor, no more than the systems, and no more than
     the plain version's largest f64 intermediate holds (``plain_bytes``),
     but at least one."""
     n = ctx.k8_n_max
-    stride = -(-(n * n + n + ctx.k8_t_max) // 32) * 32 or 32
+    stride = -(-(n * n + max(n, K8_BLOCK) + ctx.k8_t_max) // 32) * 32
     cap = int(ctx.plain_bytes(n_shells) // (8 * stride))
     slots = min(ctx.k8_groups * n_shells, K8_BLOCKS_PER_SM * sms, cap)
     return stride, max(1, slots)
 
 
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def k8_cluster_smem(n: int, cluster: int, panel: int) -> int:
+    """Dynamic shared bytes a block of K8's cluster instantiation takes for
+    components of up to ``n`` levels (``csrc/macro_chain.cu``
+    ``cluster_smem``): its rows of A (a multiple of 16, each row a
+    multiple of 8 plus 4 f64), the panel rows (a multiple of 16 plus 8),
+    two ``panel`` x ``panel`` blocks, d and the warps' staging."""
+    n8 = _round_up(n, 8)
+    rows = _round_up(-(-n // cluster), 16)
+    ldr = n8 if n8 % 16 == 8 else n8 + 8
+    return 8 * (rows * (n8 + 4) + panel * ldr + 2 * panel * panel
+                + _round_up(n, 2) + K8_CLUSTER_BLOCK // 32 * K8_STAGE)
+
+
+def k8_cluster_shape(n_max: int):
+    """(cluster, panel) of K8's cluster instantiation for components of up
+    to ``n_max`` levels: the smallest cluster of K8_CLUSTERS whose blocks
+    hold them with a panel of K8_CLUSTER_PANEL within K8_CLUSTER_SMEM;
+    None past the largest (the workspace instantiation's components)."""
+    for cluster in K8_CLUSTERS:
+        if k8_cluster_smem(n_max, cluster,
+                           K8_CLUSTER_PANEL) <= K8_CLUSTER_SMEM:
+            return cluster, K8_CLUSTER_PANEL
+    return None
+
+
+class K8Plan(NamedTuple):
+    """One K8 launch: its instantiation ("macroatom_cluster",
+    "macroatom_workspace" or "downbranch"), blocks a cluster (1 but for
+    the cluster instantiation), panel width, dynamic shared bytes a block,
+    f64 of a block's workspace slot, blocks of the grid, systems, rounds
+    of the persistent grid and their fill (systems over rounds x the
+    grid's clusters)."""
+
+    variant: str
+    cluster: int
+    panel: int
+    smem: int
+    slot_stride: int
+    blocks: int
+    systems: int
+    rounds: int
+    fill: float
+
+
+def k8_plan(ctx: _ChainContext, n_shells: int, sms: int,
+            active_clusters=None, shape=None) -> K8Plan:
+    """K8's launch for ``n_shells`` shells on a card of ``sms``
+    multiprocessors.  Components of up to ``n_max`` levels take the
+    cluster instantiation where a cluster holds them (``k8_cluster_shape``,
+    or ``shape`` = (cluster, panel) if given), on as many clusters as the
+    card holds at once (``active_clusters(cluster, panel)``, the card's
+    occupancy query; one block a multiprocessor without it) but no more
+    than the systems; each block's slot holds two buffers of p of its own
+    rows' transitions (a system's, and the next one's, gathered during its
+    elimination).  Larger ones take the workspace instantiation
+    (``k8_panel``, ``k8_workspace``; ``shape`` = "workspace" forces it, for
+    a benchmark), which refuses a component past its panel; downbranch
+    mode takes it without a chain."""
+    systems = ctx.k8_groups * n_shells
+    n = ctx.k8_n_max
+    if shape is None and ctx.W:
+        shape = k8_cluster_shape(n)
+    if shape is None or shape == "workspace" or not ctx.W:
+        stride, blocks = k8_workspace(ctx, n_shells, sms)
+        variant = "macroatom_workspace" if ctx.W else "downbranch"
+        panel = k8_panel(n) if ctx.W else 1
+        smem = 8 * (n * (1 if panel == 1 else panel + 1) + panel * K8_TILE
+                    + K8_BLOCK // 32 * K8_STAGE)
+        rounds = -(-systems // blocks)
+        return K8Plan(variant, 1, panel, smem, stride, blocks, systems,
+                      rounds, systems / (rounds * blocks))
+    cluster, panel = shape
+    smem = k8_cluster_smem(n, cluster, panel)
+    if smem > K8_CLUSTER_SMEM:
+        raise ValueError(f"macro_chain: a cluster of {cluster} with panel "
+                         f"{panel} does not hold {n} levels")
+    clusters = (active_clusters(cluster, panel) if active_clusters
+                else sms // cluster)
+    if clusters < 1:
+        raise RuntimeError(f"macro_chain: no cluster of {cluster} blocks "
+                           f"with {smem} shared bytes fits the card")
+    clusters = min(clusters, systems)
+    a = ctx.arrays_np
+    refs = a["k8_refs"].astype(np.int64)
+    base, size = a["k8_base"].astype(np.int64), a["k8_size"].astype(np.int64)
+    h = _round_up(-(-size // cluster), 16)
+    t_max = 0
+    for r in range(cluster):
+        r0 = np.minimum(size, r * h)
+        r1 = np.minimum(size, r0 + h)
+        t_max = max(t_max, int((refs[base + r1] - refs[base + r0]).max()))
+    rounds = -(-systems // clusters)
+    return K8Plan("macroatom_cluster", cluster, panel, smem,
+                  2 * (_round_up(t_max, 32) or 32), clusters * cluster,
+                  systems, rounds, systems / (rounds * clusters))
+
+
 _K8_ARGTYPES = (
     [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
     + [ctypes.c_void_p] * 3)
+_K8_VARIANT_CODE = {"macroatom_workspace": 0, "downbranch": 0,
+                    "macroatom_cluster": 1}
+_active: dict = {}
+
+
+def k8_active_clusters(device, n_max: int, defines=()):
+    """The card's occupancy query for K8's cluster instantiation: a
+    function (cluster, panel) -> clusters the card holds at once for
+    components of up to ``n_max`` levels, asked once a shape."""
+    def query(cluster, panel):
+        key = (str(device), n_max, cluster, panel, tuple(defines))
+        if key not in _active:
+            fn = cuda.function("macro_chain", "macro_chain_clusters",
+                               [ctypes.c_int] * 3 + [ctypes.c_void_p],
+                               tuple(defines))
+            out = ctypes.c_int(0)
+            cuda.check_launch("macro_chain_clusters",
+                              fn(n_max, cluster, panel, ctypes.byref(out)))
+            _active[key] = out.value
+        return _active[key]
+    return query
 
 
 def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
@@ -415,10 +547,12 @@ def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
     """One chain build, (chain_cdf, emit_cdf): K8 on the card; the plain
     version (``p_norm``, ``chain_tables``) for CPU tensors.
 
-    One launch a build (``launches``; ``launches_by_variant`` by mode,
-    "macroatom" or "downbranch").  The outputs and K8's workspace
-    (``k8_workspace``) are allocated here; ``arrays`` are the context's
-    structure arrays on the tensors' device.
+    One launch a build (``launches``; ``launches_by_variant`` by
+    instantiation: "macroatom_cluster", "macroatom_workspace" or
+    "downbranch", which ``k8_plan`` chooses from the largest component).
+    The outputs and K8's workspace are allocated here; ``arrays`` are the
+    context's structure arrays on the tensors' device.  A failed build or
+    launch raises: no instantiation stands in for another.
     """
     device = beta.device
     if device.type == "cpu":
@@ -426,6 +560,23 @@ def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
             ctx, arrays, beta.to(F64), j_blues.to(F64), stim.to(F64)))
     if device.type != "cuda":
         raise ValueError(f"macro_chain: unsupported device {device}")
+    chain_cdf, emit_cdf, plan = k8_launch(ctx, arrays, beta, j_blues, stim)
+    if beta.shape[1] and ctx.k8_groups:
+        v = plan.variant
+        macro_chain.launches += 1
+        macro_chain.launches_by_variant[v] = (
+            macro_chain.launches_by_variant.get(v, 0) + 1)
+    return chain_cdf, emit_cdf
+
+
+def k8_launch(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
+              j_blues: torch.Tensor, stim: torch.Tensor, defines=(),
+              shape=None):
+    """K8 on the card, uncounted: (chain_cdf, emit_cdf, its ``K8Plan``).
+    ``macro_chain``'s launch, and a benchmark's of K8 built with
+    ``defines`` (``K8_PHASES``) or of a cluster ``shape`` = (cluster,
+    panel) other than ``k8_plan``'s."""
+    device = beta.device
     beta, j_blues, stim = (t.to(F64).contiguous()
                            for t in (beta, j_blues, stim))
     cuda.check_cuda("macro_chain", device, beta=(beta, F64),
@@ -438,17 +589,18 @@ def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
         raise ValueError(f"macro_chain: {L} lines, the transitions read "
                          f"{ctx.n_lines_read}")
     M, We, W = ctx.M, ctx.We, ctx.W
-    chain = W > 0
-    kb = k8_panel(ctx.k8_n_max) if chain else 1
+    plan = k8_plan(
+        ctx, S, torch.cuda.get_device_properties(device).multi_processor_count,
+        k8_active_clusters(device, ctx.k8_n_max, defines), shape)
     emit_cdf = torch.empty((S * M, 3 * We), dtype=torch.float32,
                            device=device)
     chain_cdf = (torch.empty((S * M, W + 1), dtype=torch.float32,
-                             device=device) if chain else None)
-    stride, slots = k8_workspace(
-        ctx, S, torch.cuda.get_device_properties(device).multi_processor_count)
-    work = torch.empty(stride * slots, dtype=F64, device=device)
+                             device=device) if W else None)
+    work = torch.empty(plan.slot_stride * plan.blocks, dtype=F64,
+                       device=device)
     a = arrays
-    fn = cuda.function("macro_chain", "macro_chain", _K8_ARGTYPES)
+    fn = cuda.function("macro_chain", "macro_chain", _K8_ARGTYPES,
+                       tuple(defines))
     err = fn(
         beta.data_ptr(), j_blues.data_ptr(), stim.data_ptr(), S,
         a["k8_refs"].data_ptr(), a["coef"].data_ptr(),
@@ -456,17 +608,13 @@ def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
         a["k8_dest"].data_ptr(), a["line_dense"].data_ptr(),
         a["nu_dense"].data_ptr(), M, We, W, a["k8_base"].data_ptr(),
         a["k8_size"].data_ptr(), a["k8_t0"].data_ptr(),
-        a["k8_t1"].data_ptr(), ctx.k8_groups, ctx.k8_n_max, kb,
-        work.data_ptr(), stride, slots, emit_cdf.data_ptr(),
+        a["k8_t1"].data_ptr(), ctx.k8_groups, ctx.k8_n_max,
+        _K8_VARIANT_CODE[plan.variant], plan.cluster, plan.panel,
+        work.data_ptr(), plan.slot_stride, plan.blocks, emit_cdf.data_ptr(),
         None if chain_cdf is None else chain_cdf.data_ptr(), cuda.stream(),
     )
     cuda.check_launch("macro_chain", err)
-    if S and ctx.k8_groups:
-        v = "macroatom" if chain else "downbranch"
-        macro_chain.launches += 1
-        macro_chain.launches_by_variant[v] = (
-            macro_chain.launches_by_variant.get(v, 0) + 1)
-    return chain_cdf, emit_cdf
+    return chain_cdf, emit_cdf, plan
 
 
 macro_chain.launches = 0  # kernel launches, one a build

@@ -5,18 +5,24 @@ No kernel runs here, so ``k8_mirror`` makes K8's choices step by step:
 each work group of ``_ChainContext`` (a component, or a run of K8_BLOCK
 levels in downbranch mode) at its real width, each level's block sum and
 emission running sum in transition order, Q's duplicate (source,
-destination) pairs summed in transition order, the in-place Gauss-Jordan
-inverse of A = I - Q without pivoting in panels of ``k8_panel`` pivots
-(the panel's own steps, then one rank-kb update of the rest from the
-panel rows as they were before it), B = A^-1 diag(d), and the fused clamp,
-running sum, division and fallback (a zero or non-finite pivot, or a
-non-finite row, sends the row to the self-deactivation step).  The plain
-version solves the power-of-two padded systems by LU with partial
-pivoting, so the chain rows agree to rounding: atol 1e-6 on the f32 CDFs
-(the largest difference found is 0: in every case here the f64 results
-round to the same f32 rows); the base column and the emission rows' line
-and frequency columns are copies, bit for bit, and the emission CDFs,
-summed in the same order on both sides, bit for bit too.
+destination) pairs summed in transition order, and the in-place
+Gauss-Jordan inverse of A = I - Q without pivoting in the panels of the
+instantiation ``k8_plan`` chooses: the cluster one's (16 pivots, the rows
+split across the cluster's blocks, each pivot row by the pivot's
+reciprocal, the chain rows' running sums a warp scan in chunks of 32) or
+the workspace one's (32 pivots, pivot rows divided, sequential running
+sums); the panel's own steps, then one rank-kb update of the rest from
+the panel rows as they were before it; B = A^-1 diag(d), and the fused
+clamp, running sum, division and fallback (a zero or non-finite pivot, or
+a non-finite row, sends the row to the self-deactivation step).  The card
+fuses its products (fma, DMMA) where the mirror rounds them apart, so the
+two differ in the last bits of the f64 inverse.  The plain version
+solves the power-of-two padded systems by LU with partial pivoting, so
+the chain rows agree to rounding: atol 1e-6 on the f32 CDFs (the largest
+difference found is 0: in every case here the f64 results round to the
+same f32 rows); the base column and the emission rows' line and
+frequency columns are copies, bit for bit, and the emission CDFs, summed
+in the same order on both sides, bit for bit too.
 """
 
 import contextlib
@@ -32,10 +38,15 @@ from tardis_torch.config.reader import config_from_dict
 from tardis_torch.model.state import SimulationState
 from tardis_torch import cuda
 from tardis_torch.opacities.macro_atom_solver import (
+    K8_CLUSTER_SMEM,
+    K8_CLUSTERS,
     K8_SMEM,
     K8_TILE,
     chain_context,
+    k8_cluster_shape,
+    k8_cluster_smem,
     k8_panel,
+    k8_plan,
     k8_workspace,
     macro_chain,
 )
@@ -49,39 +60,97 @@ torch.set_num_threads(2)
 
 CHAIN_ATOL = 1e-6
 ELEMENTS = [8, 12, 14, 16, 18, 20]
+SMS = 132  # an H100 SXM's multiprocessors
 
 
-def gauss_jordan(a, kb_max):
+def gauss_jordan(a, kb_max, cluster=1):
     """K8's in-place Gauss-Jordan inverse of each (n, n) matrix of ``a``
     (S, n, n) without pivoting, ``kb_max`` pivots a panel; returns the
-    inverses and whether each system met a zero or non-finite pivot."""
+    inverses and whether each system met a zero or non-finite pivot.
+
+    Each panel as the cluster instantiation orders it: the panel rows'
+    diagonal block D runs the kb pivot steps (each step's normalised pivot
+    row kept: by the pivot's reciprocal with ``cluster`` > 1, divided by
+    the pivot in the workspace instantiation), every other row's panel
+    columns take the same steps from the kept rows, then the rank-kb
+    update of the rest from the panel rows as they were before the
+    panel.  With ``cluster`` blocks each block
+    runs this on its own rows (``rows_of`` apart) and its own copy of D;
+    the split changes no arithmetic, which the mirror shows by running it.
+    The card fuses each product into its sum (fma, DMMA), the mirror
+    rounds the two apart: the inverses differ in their last bits."""
     a = a.copy()
     S, n, _ = a.shape
+    h = -(-(-(-n // cluster)) // 16) * 16  # rows_of(n, cluster)
     singular = np.zeros(S, bool)
     with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         for k0 in range(0, n, kb_max):
             kb = min(kb_max, n - k0)
             P = slice(k0, k0 + kb)
-            C = a[:, :, P].copy()
+            R = a[:, P, :].copy()  # every block's copy of the panel rows
+            D = R[:, :, P].copy()
+            kept = np.empty((S, kb, kb))
             for kk in range(kb):
-                k = k0 + kk
-                piv = C[:, k, kk].copy()
+                piv = D[:, kk, kk].copy()
                 singular |= ~((piv != 0.0) & np.isfinite(piv))
-                rk = C[:, k, :].copy()
+                rk = D[:, kk, :].copy()
                 rk[:, kk] = 1.0
-                rk = rk / piv[:, None]
-                f = C[:, :, kk].copy()
-                C[:, :, kk] = 0.0
-                C = C - f[:, :, None] * rk[:, None, :]
-                C[:, k, :] = rk
-            R = a[:, P, :].copy()
-            acc = a.copy()
-            acc[:, P, :] = 0.0
-            for p in range(kb):
-                acc = acc + C[:, :, p:p + 1] * R[:, p:p + 1, :]
-            acc[:, :, P] = C
+                if cluster > 1:  # the reciprocal, one division a step
+                    rk = rk * (1.0 / piv)[:, None]
+                else:
+                    rk = rk / piv[:, None]
+                f = D[:, :, kk].copy()
+                D[:, :, kk] = 0.0
+                D = D - f[:, :, None] * rk[:, None, :]
+                D[:, kk, :] = rk
+                kept[:, kk] = rk
+            acc = np.empty_like(a)
+            for r0 in range(0, n, h):  # each block's rows
+                rows = slice(r0, min(n, r0 + h))
+                C = a[:, rows, P].copy()
+                for kk in range(kb):
+                    f = C[:, :, kk].copy()
+                    C[:, :, kk] = 0.0
+                    C = C - f[:, :, None] * kept[:, None, kk, :]
+                mine = np.arange(rows.start, rows.stop)
+                in_panel = (mine >= k0) & (mine < k0 + kb)
+                C[:, in_panel] = D[:, mine[in_panel] - k0]
+                block = a[:, rows, :].copy()
+                block[:, in_panel, :] = 0.0
+                for p in range(kb):
+                    block = block + C[:, :, p:p + 1] * R[:, p:p + 1, :]
+                block[:, :, P] = C
+                acc[:, rows, :] = block
             a = acc
     return a, singular
+
+
+def warp_scan(x, n):
+    """The cluster instantiation's running sums of each row of ``x`` (...,
+    n), 32 columns a chunk: a Kogge-Stone sum over the chunk's lanes, the
+    previous chunk's last sum added, then a running maximum over the lanes
+    (the sums of non-negative terms, grouped differently lane by lane,
+    could fall by an ulp)."""
+    out = np.empty_like(x)
+    carry = np.zeros(x.shape[:-1])
+    for j0 in range(0, n, 32):
+        v = np.zeros(x.shape[:-1] + (32,))
+        m = min(32, n - j0)
+        v[..., :m] = x[..., j0:j0 + m]
+        o = 1
+        while o < 32:
+            v = np.concatenate([v[..., :o], v[..., o:] + v[..., :-o]],
+                               axis=-1)
+            o *= 2
+        v = carry[..., None] + v
+        o = 1
+        while o < 32:
+            v = np.concatenate([v[..., :o], np.fmax(v[..., o:], v[..., :-o])],
+                               axis=-1)
+            o *= 2
+        out[..., j0:j0 + m] = v[..., :m]
+        carry = v[..., m - 1]
+    return out
 
 
 def k8_mirror(ctx, beta, jb, stim):
@@ -96,7 +165,8 @@ def k8_mirror(ctx, beta, jb, stim):
     emit[:, :, We:2 * We] = a["line_dense"]
     emit[:, :, 2 * We:] = a["nu_dense"]
     chain = np.empty((S, M, W + 1), np.float32) if W else None
-    kb = k8_panel(ctx.k8_n_max) if W else 1
+    plan = k8_plan(ctx, S, SMS)
+    cluster = plan.variant == "macroatom_cluster"
     for g in range(ctx.k8_groups):
         base, n = int(a["k8_base"][g]), int(a["k8_size"][g])
         t0, t1 = int(a["k8_t0"][g]), int(a["k8_t1"][g])
@@ -128,12 +198,15 @@ def k8_mirror(ctx, beta, jb, stim):
         i_lv, i_dest = lv[~em], dest[t0:t1][~em] - base
         for s in range(S):  # np.add.at adds in index order
             np.add.at(Q[s], (i_lv, i_dest), pn[~em, s])
-        ainv, singular = gauss_jordan(np.eye(n)[None] - Q, kb)
+        ainv, singular = gauss_jordan(np.eye(n)[None] - Q, plan.panel,
+                                      plan.cluster)
         d = tot[:, 0, :].T  # (S, n)
         with np.errstate(invalid="ignore", over="ignore"):
             B = ainv * d[:, None, :]
             finite = np.isfinite(B).all(axis=2) & ~singular[:, None]
-            run = np.cumsum(np.maximum(B, 0.0), axis=2)
+            clamped = np.fmax(B, 0.0)
+            run = (warp_scan(clamped, n) if cluster
+                   else np.cumsum(clamped, axis=2))
             rtot = run[:, :, -1:]
             ok = finite[:, :, None] & (rtot > 0)
             rows = np.ones((S, n, W), np.float32)
@@ -227,15 +300,55 @@ def bench_atom():
 
 @pytest.mark.parametrize("n_shells", [2, 4])
 def test_mirror_at_the_bench_width(bench_atom, n_shells):
-    """The bench atom: 18 components of 200 levels, K8's widest panel (32
-    pivots), at 2 and 4 shells."""
+    """The bench atom: 18 components of 200 levels, K8's cluster
+    instantiation (clusters of 2 blocks, 16-pivot panels), at 2 and 4
+    shells."""
     atom = bench_atom
     rates = plasma_rates(atom, n_shells)
     ctx, plain, mirror = plain_and_mirror(
         atom.macro_atom, "macroatom", atom.line_nu / NU_UNIT, *rates)
     assert ctx.k8_n_max == 200 and ctx.k8_groups == 18
-    assert k8_panel(ctx.k8_n_max) == 32
+    plan = k8_plan(ctx, n_shells, SMS)
+    assert (plan.variant, plan.cluster, plan.panel) == (
+        "macroatom_cluster", 2, 16)
     hold(ctx, plain, mirror)
+
+
+@pytest.fixture(scope="module")
+def wide_atom():
+    """One element of 600 levels: a component past a cluster's reach."""
+    return make_synthetic_atom_data(n_levels=600, max_level_jump=60).prepare(
+        selected_atoms=[8], line_interaction_type="macroatom")
+
+
+def test_mirror_on_a_component_past_the_cluster(wide_atom):
+    """A 600-level component takes the workspace instantiation (32-pivot
+    panels, the sequential row sums) at 2 shells."""
+    atom = wide_atom
+    rates = plasma_rates(atom, 2)
+    ctx, plain, mirror = plain_and_mirror(
+        atom.macro_atom, "macroatom", atom.line_nu / NU_UNIT, *rates)
+    assert ctx.k8_n_max == 600 and k8_cluster_shape(600) is None
+    plan = k8_plan(ctx, 2, SMS)
+    assert (plan.variant, plan.cluster, plan.panel) == (
+        "macroatom_workspace", 1, 32)
+    hold(ctx, plain, mirror)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_warp_scan_is_the_running_sum(seed):
+    """The cluster instantiation's row scan on rows of zeros, tiny and
+    large terms past several chunks: non-decreasing, within a few ulps of
+    the sequential running sum, its last entry the row's total."""
+    gen = np.random.default_rng(seed)
+    n = 200
+    x = gen.uniform(0.0, 1.0, (64, n)) * 10.0 ** gen.integers(-30, 3,
+                                                              (64, n))
+    x[gen.uniform(size=x.shape) < 0.3] = 0.0
+    run = warp_scan(x, n)
+    assert (np.diff(run, axis=1) >= 0).all()
+    np.testing.assert_allclose(run, np.cumsum(x, axis=1), rtol=1e-14,
+                               atol=0)
 
 
 def test_mirror_on_a_singular_component():
@@ -274,7 +387,7 @@ def test_k8_workspace_within_the_plain_allocation(bench_atom, n_shells):
                         bench_atom.line_nu / NU_UNIT)
     stride, slots = k8_workspace(ctx, n_shells, 132)
     n = ctx.k8_n_max
-    assert stride % 32 == 0 and stride >= n * n + n + ctx.k8_t_max
+    assert stride % 32 == 0 and stride >= n * n + 256 + ctx.k8_t_max
     assert 1 <= slots <= min(ctx.k8_groups * n_shells, 2 * 132)
     assert 8 * stride * slots <= ctx.plain_bytes(n_shells)
     down = chain_context(bench_atom.downbranch, "downbranch",
@@ -293,6 +406,79 @@ def test_k8_panel_fits_shared_memory(n_max):
     assert (n_max * ldc + kb * K8_TILE) * 8 <= K8_SMEM
     wider = [w for w in (32, 8) if w > kb]
     assert all((n_max * (w + 1) + w * K8_TILE) * 8 > K8_SMEM for w in wider)
+
+
+@pytest.mark.parametrize("n_max", [1, 8, 100, 185, 186, 200, 250, 300,
+                                   384, 385])
+def test_k8_cluster_shape_fits_shared_memory(n_max):
+    """The cluster instantiation's shape for a component size: the
+    smallest cluster of K8_CLUSTERS whose blocks hold it with a panel of
+    16, within a block's 232,448 bytes less the static kilobyte; none past
+    the largest cluster's reach (384 levels)."""
+    shape = k8_cluster_shape(n_max)
+    if n_max > 384:
+        assert shape is None
+        assert k8_cluster_smem(n_max, max(K8_CLUSTERS), 16) > K8_CLUSTER_SMEM
+        return
+    cluster, panel = shape
+    assert panel == 16 and cluster in K8_CLUSTERS
+    assert k8_cluster_smem(n_max, cluster, panel) <= K8_CLUSTER_SMEM
+    assert K8_CLUSTER_SMEM + 1024 == 232_448
+    assert all(k8_cluster_smem(n_max, c, 16) > K8_CLUSTER_SMEM
+               for c in K8_CLUSTERS if c < cluster)
+
+
+@pytest.mark.parametrize("n_shells,rounds", [(20, 6), (100, 28)])
+def test_k8_plan_at_the_bench_shape(bench_atom, n_shells, rounds):
+    """At the bench shape on a card of 132 multiprocessors: clusters of 2
+    with 16-pivot panels, one block a multiprocessor, the rounds and their
+    fill, and each block's slot holding p of its rows' transitions."""
+    ctx = chain_context(bench_atom.macro_atom, "macroatom",
+                        bench_atom.line_nu / NU_UNIT)
+    plan = k8_plan(ctx, n_shells, SMS)
+    assert (plan.variant, plan.cluster, plan.panel, plan.blocks) == (
+        "macroatom_cluster", 2, 16, SMS)
+    assert plan.systems == 18 * n_shells and plan.rounds == rounds
+    assert plan.fill == plan.systems / (rounds * SMS // 2)
+    assert plan.smem == k8_cluster_smem(200, 2, 16) <= K8_CLUSTER_SMEM
+    refs = ctx.arrays_np["k8_refs"]
+    for base in ctx.arrays_np["k8_base"]:
+        for r0, r1 in ((0, 112), (112, 200)):
+            assert refs[base + r1] - refs[base + r0] <= plan.slot_stride // 2
+    assert plan.slot_stride % 64 == 0
+    # the card's occupancy query, where it holds fewer clusters
+    fewer = k8_plan(ctx, n_shells, SMS, active_clusters=lambda c, p: 60)
+    assert fewer.blocks == 120 and fewer.rounds == -(-18 * n_shells // 60)
+    down = chain_context(bench_atom.downbranch, "downbranch",
+                         bench_atom.line_nu / NU_UNIT)
+    plan = k8_plan(down, n_shells, SMS)
+    assert (plan.variant, plan.cluster, plan.panel) == ("downbranch", 1, 1)
+
+
+def test_k8_plan_takes_the_workspace_past_the_cluster(wide_atom):
+    """A 600-level component: the workspace instantiation, its slots and
+    panel as ``k8_workspace`` and ``k8_panel`` size them; a cluster shape
+    forced on it is refused."""
+    ctx = chain_context(wide_atom.macro_atom, "macroatom",
+                        wide_atom.line_nu / NU_UNIT)
+    plan = k8_plan(ctx, 4, SMS)
+    assert plan.variant == "macroatom_workspace"
+    assert (plan.slot_stride, plan.blocks) == k8_workspace(ctx, 4, SMS)
+    assert plan.panel == k8_panel(600) == 32
+    with pytest.raises(ValueError, match="does not hold"):
+        k8_plan(ctx, 4, SMS, shape=(8, 16))
+
+
+def test_k8_plan_refuses_a_component_past_the_workspace():
+    """Past the workspace instantiation's panel (25,536 levels) the plan
+    refuses, as ``k8_panel`` does."""
+    from types import SimpleNamespace
+
+    n = K8_SMEM // 8 - K8_TILE + 1
+    ctx = SimpleNamespace(k8_groups=1, k8_n_max=n, k8_t_max=n, W=n,
+                          plain_bytes=lambda S: 8.0 * 3 * n * n * S)
+    with pytest.raises(ValueError, match="more than K8 holds"):
+        k8_plan(ctx, 1, SMS)
 
 
 def test_k8_refuses_a_component_past_its_panel():
