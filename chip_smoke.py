@@ -237,7 +237,19 @@ Phases, one printed line each (plus one line per iteration):
      path (device time
      by kernel, host time by tardis.* span, the device's busy share; K6's
      device time summed over the gamma path's steps);
- 10. a JSON line of every kernel (each K1, K2 and K4 variant on its own
+ 10. the harness phase: the three benchmark harnesses run as a user runs
+     them, each in a subprocess from the repository's root
+     (python -m tardis_torch.benchmarks.<name>, HARNESS_RUNS):
+     transport_bench with bench.py's workload less --batch and --chunk,
+     production_run at its defaults, scaling_bench over 1, 2 and 4 shards
+     of this card; each JSON line echoed on a "harness" line with the
+     subprocess's wall, held by check_harness_line (exit code 0, every
+     number finite, device cuda, L_emitted / L_requested in [0.8, 1.2],
+     finite spectra, the keys the phase reads), then a harness_phase line:
+     its seconds and the harness's K1 device ms (one launch, line
+     estimators, 2,097,152 packets) beside the same instantiation's at
+     the same shape in phase 2 (detailed_convergence);
+ 11. a JSON line of every kernel (each K1, K2 and K4 variant on its own
      line, K6 and K7 by the instantiations their paths run, K3's
      estimators instantiation as line_tables[estimators], with the
      launches of the path that runs it; K6's entry also carries its
@@ -256,7 +268,8 @@ f32 rate, an FMA counted as two; f64 operations are counted against it
 too, which the card does not exceed) and integer operations (the threefry
 hashes, the searches' index arithmetic and compares) over the card's
 integer rate, its SMs x 64 int32 lanes a clock x its max SM clock, read
-on the card (set_int_rate); the larger time is the bound.  Where the work
+on the card (tardis_torch/benchmarks/bounds.py, card_rates, shared with
+the benchmark harnesses); the larger time is the bound.  Where the work
 depends on the data (events, segments, walk jumps), the count is this
 run's.  K2's bound counts instructions instead: those a packet must issue,
 read from its SASS, each at its pipe's lanes (and all at the SM's issue
@@ -280,16 +293,20 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12  # f32 operations, an FMA counted as two
-# integer operations a second: SMs x 64 int32 lanes x the max SM clock,
-# read from the card by set_int_rate() (an H100 SXM: 132 x 64 x 1.98e9)
-INT_OPS_PER_S = 132 * 64 * 1.98e9
-# one threefry2x32 hash: 20 rounds of an add, a rotate (one funnel
-# shift) and an xor, and 6 key injections of two adds: integer operations
-# (a rotate counted as a shift pair and an or, 120 a hash, put the
-# relativistic pool's bound above its measured time at the integer rate)
-THREEFRY_OPS = 72
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from tardis_torch.benchmarks.bounds import (  # noqa: E402
+    THREEFRY_OPS,
+    Rates,
+    bound,
+    card_line,
+    card_rates,
+    k1_bound,
+    lane_efficiency,
+    nbytes,
+)
+
+# the bounds' rates: an H100 SXM's until main() reads the card's
+RATES = Rates()
 
 N_PACKETS = 2_097_152
 FINAL_PACKETS = 4_194_304
@@ -655,43 +672,6 @@ def host_us(fn, reps):
     return us
 
 
-def bound(n_bytes, n_ops, n_int_ops=0):
-    """Least ms for ``n_bytes`` of traffic, ``n_ops`` float and
-    ``n_int_ops`` integer operations (hashes, searches): the larger of the
-    bytes' time and each kind's time at its own rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(n_ops / OPS_PER_S, n_int_ops / INT_OPS_PER_S) * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def set_int_rate():
-    """INT_OPS_PER_S from the card: its SMs x 64 int32 lanes a clock x its
-    max SM clock (nvidia-smi clocks.max.sm), and SMS and SM_CLOCK_HZ for
-    sass_bound; returns what it read."""
-    global INT_OPS_PER_S, SMS, SM_CLOCK_HZ
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0])
-    INT_OPS_PER_S = sms * 64 * mhz * 1e6
-    SMS, SM_CLOCK_HZ = sms, mhz * 1e6
-    return dict(sms=sms, max_sm_clock_mhz=mhz, int_ops_per_s=INT_OPS_PER_S,
-                float_ops_per_s=OPS_PER_S)
-
-
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
 def build_problem(device):
     from tardis_torch.atomic.synthetic import make_synthetic_atom_data
     from tardis_torch.config.reader import config_from_dict
@@ -782,7 +762,7 @@ def check_estimators(args, k, pop, static):
                       static.g_lower, static.g_upper, static.wl_flu,
                       static.line_nu, static.nu3_coef, est) + 16 * S
     out_bytes = nbytes(ke.stim, ke.tau, ke.beta, ke.j_blues, ke.prefix)
-    b_ms, b_by = bound(in_bytes + out_bytes, L * S * 57)
+    b_ms, b_by = bound(in_bytes + out_bytes, L * S * 57, 0, RATES)
     numbers = dict(L=L, S=S, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
                    estimator_share=taken.double().mean().item(),
@@ -832,7 +812,7 @@ def check_line_tables(state, atom, device, wide_shells=()):
     out_bytes = nbytes(k.stim, k.tau, k.beta, k.j_blues, k.prefix)
     # ~55 f64 operations per element (ratio, stim, tau, two expm1 and the
     # beta / j_blues branches) plus one add of the scan
-    b_ms, b_by = bound(in_bytes + out_bytes, L * S * 56)
+    b_ms, b_by = bound(in_bytes + out_bytes, L * S * 56, 0, RATES)
     say("check_line_tables", L=L, S=S, ms=ms, host_ms=host_ms,
         plain_ms=plain_ms, library_ms=library_ms,
         library_host_ms=library_host_ms, bound_ms=b_ms,
@@ -941,8 +921,6 @@ SASS_PIPES = {
     "fp64": (64, ("DFMA", "DADD", "DMUL")),
     "xu": (16, ("MUFU",)),
 }
-SM_CLOCK_HZ = 1.98e9  # max SM clock, read from the card by set_int_rate()
-SMS = 132
 _SASS_LINE = re.compile(
     r"/\*([0-9a-f]+)\*/\s+(@!?U?P[T0-6]\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 _SASS_PRED = re.compile(r"(^|[\s,])!?U?P[0-6]\b")
@@ -1123,9 +1101,10 @@ def sass_bound(n_bytes, n_packets, per_packet):
     must issue (k2_sass), at the card's SMs and max SM clock.  Returns
     (ms, what bounds it, each term's ms)."""
     lanes = {"issue": ISSUE_LANES, **{k: v[0] for k, v in SASS_PIPES.items()}}
-    terms = {k: n_packets * per_packet[k] / (SMS * lanes[k] * SM_CLOCK_HZ)
-             * 1e3 for k in lanes}
-    terms["bytes"] = n_bytes / HBM_BYTES_PER_S * 1e3
+    terms = {k: n_packets * per_packet[k]
+             / (RATES.sms * lanes[k] * RATES.sm_clock_hz) * 1e3
+             for k in lanes}
+    terms["bytes"] = n_bytes / RATES.hbm_bytes_per_s * 1e3
     top = max(terms, key=terms.get)
     return terms[top], "bytes" if top == "bytes" else "operations", terms
 
@@ -1187,7 +1166,7 @@ def check_blackbody_source(state, device, n_packets, iteration, sass,
     b_ms, b_by, terms = sass_bound(n_out + table, n_packets,
                                    sass[pool]["per_packet"])
     hash_bound_ms, _ = bound(n_out + table, n_packets * 15, n_packets * (
-        K2_HASHES[pool] * THREEFRY_OPS + 30))
+        K2_HASHES[pool] * THREEFRY_OPS + 30), RATES)
     numbers = dict(
         ms=ms, kernel_ms=t["kernel_ms"], device_ms=t["device_ms"],
         held=t["held"], host_us=t["host_us"], plain_ms=plain_ms,
@@ -1297,7 +1276,7 @@ def k8_bound(ctx, arrays, rates, out):
     bound stays a lower bound), ~6 a (transition, shell) for p, the block
     sum and the normalisation, and ~4 an entry of the row tables (the
     product by d, the clamp, the running sum, the division).  Operations
-    at OPS_PER_S, 67e12: the H100 SXM's FP64 tensor-core peak (its FP64
+    at RATES.ops_per_s, 67e12: the H100 SXM's FP64 tensor-core peak (its FP64
     vector peak is half that; K8 uses no tensor cores).  Returns (ms, what
     bounds it, the elimination's operations)."""
     S = rates[0].shape[1]
@@ -1309,7 +1288,8 @@ def k8_bound(ctx, arrays, rates, out):
     gj_ops = S * float((2.0 * sizes**3).sum()) if ctx.W else 0.0
     n_ops = (gj_ops + 6.0 * len(ctx.arrays_np["coef"]) * S
              + 4.0 * sum(t.numel() for t in written))
-    return bound(nbytes(*rates, *read, *written), n_ops) + (gj_ops,)
+    return bound(nbytes(*rates, *read, *written), n_ops, 0, RATES) + (
+        gj_ops,)
 
 
 def chain_library_inputs(ctx, arrays, rates):
@@ -1499,61 +1479,6 @@ def check_chain_build(atom, ps):
     return chain, entries
 
 
-def k1_bound(tables, n_packets, n_events, n_records=0, extra_bytes=0,
-             line_estimators=True, walk_jumps=0):
-    """Least time for K1: every table read once, outputs (spawn records and
-    tracker rows included; the line difference array only with
-    ``line_estimators``) written once, against the events' hashing,
-    search and arithmetic.  Every event hashes at least twice (its key and
-    the tau draw); interactions hash more, so counting two keeps the bound
-    a lower bound.  With continuum, an event also searches the bound-free
-    grid (~4 operations a probe), interpolates and sums the C continua (~8
-    operations each) and adds eight moments (counted as 8 operations), and
-    the continuum tables, moments, free-free heating and per-packet event
-    counts are read or written once.  With the walk tables, the walk
-    tables are read once and each of this run's ``walk_jumps`` jumps
-    hashes once and bisects its level's block (~4 operations a probe,
-    log2 of the mean block's width).  Hashes and searches are integer
-    operations; the rest float."""
-    t = tables
-    in_bytes = 8 * n_packets + nbytes(
-        t.r_inner, t.r_outer, t.chi_e, t.line_nu, t.prefix, t.line2macro,
-        t.chain_cdf, t.emit_cdf)
-    line_diff = 2 * (t.n_lines + 1) * t.n_shells if line_estimators else 0
-    out_bytes = (8 * n_packets + 8 * (line_diff + 2 * t.n_shells + 4)
-                 + 32 * n_records)
-    per_event = 60
-    int_per_event = (2 * THREEFRY_OPS
-                     + 8 * math.ceil(math.log2(t.n_lines + 1)))
-    n_int = 0
-    c = t.continuum
-    if c is not None:
-        in_bytes += nbytes(*(v for v in vars(c).values()
-                             if isinstance(v, torch.Tensor)))
-        out_bytes += (8 * 8 * (c.n_grid - 1) * t.n_shells
-                      + 8 * t.n_shells + 4 * n_packets)
-        per_event += 8 * c.n_continua + 8
-        int_per_event += 4 * math.ceil(math.log2(c.n_grid))
-    if t.walk is not None:
-        w = t.walk
-        in_bytes += nbytes(*w)
-        mean_block = w.dest.shape[0] / max(1, w.block_start.shape[0] - 1)
-        n_int += walk_jumps * (THREEFRY_OPS + 4 * max(
-            1, math.ceil(math.log2(mean_block))))
-    return bound(in_bytes + out_bytes + extra_bytes, n_events * per_event,
-                 n_events * int_per_event + n_int)
-
-
-def lane_efficiency(events, width=32):
-    """Events over the lane-events a layout of one thread a packet spends:
-    sum of the packets' event counts over sum, over groups of ``width``
-    consecutive packets (a warp), of ``width`` times the group's longest."""
-    e = events.double()
-    pad = (-e.numel()) % width
-    groups = torch.cat([e, e.new_zeros(pad)]).view(-1, width)
-    return (e.sum() / (width * groups.max(dim=1).values.sum())).item()
-
-
 def events_numbers(events, stopped):
     """events_per_packet (mean, p99, max, stopped) and the lane efficiency
     of a warp of 32 consecutive packets."""
@@ -1643,7 +1568,7 @@ def compare_transport_loop(tables, pool, run_key, cap, last_interaction=False,
     extra = (0 if w is None else nbytes(w)) + nbytes(k.last_interaction,
                                                      k.tracker)
     tally = getattr(p, "walk_tally", None)
-    b_ms, b_by = k1_bound(tables, n, events[0], n_rec, extra,
+    b_ms, b_by = k1_bound(tables, n, events[0], RATES, n_rec, extra,
                           line_estimators,
                           walk_jumps=tally["jumps"] if tally else 0)
     numbers = dict(n=n, line_estimators=line_estimators, ms=ms,
@@ -1898,7 +1823,7 @@ def check_vpacket_volley(tables, records, device, config=BENCH_CONFIG):
     n_int = segments[0] * (8 + 4 * math.ceil(math.log2(bracket + 1)))
     in_bytes = nbytes(records, tables.r_inner, tables.r_outer, tables.chi_e,
                       tables.line_nu, tables.prefix, buckets.counts, edges)
-    b_ms, b_by = bound(in_bytes + nbytes(k.hist), n_ops, n_int)
+    b_ms, b_by = bound(in_bytes + nbytes(k.hist), n_ops, n_int, RATES)
     rel_branch = tables.full_relativity
     name = line_name("vpacket_volley", variant_name(tables))
     say("check_vpacket_volley", line=name, records=R,
@@ -1972,7 +1897,7 @@ def check_formal_integral(sim, device):
     # start-line search
     n_ops = 16 * n_line + 20 * n_boundary
     b_ms, b_by = bound(nbytes(*a.values()) + nbytes(k.i_p), n_ops,
-                       F * P * 4 * math.ceil(math.log2(L + 1)))
+                       F * P * 4 * math.ceil(math.log2(L + 1)), RATES)
     say("check_formal_integral", frequencies=F, impact_parameters=P,
         lines=L, shells=S, line_events=n_line, boundary_events=n_boundary,
         capped=counts[0][COUNT_CAPPED],
@@ -3171,7 +3096,7 @@ def check_continuum_loop(tables, pool, run_key, replaces, plain_out=None):
         capped[smem] = dict(numbers, ms=capped_ms)
         last_interaction = k.last_interaction
         del k
-    b_ms, b_by = k1_bound(tables, n, events_full,
+    b_ms, b_by = k1_bound(tables, n, events_full, RATES,
                           extra_bytes=nbytes(w, last_interaction))
     name = line_name("transport_loop", variant_name(flags))
     path = runs[picked]
@@ -3348,7 +3273,7 @@ def check_continuum_records(device, tables, pool, run_key, plain):
     del kb, pb, rows_k, rows_p, tables_b
     torch.cuda.empty_cache()
 
-    b_ms, b_by = k1_bound(tables, n, events, n_records=cap,
+    b_ms, b_by = k1_bound(tables, n, events, RATES, n_records=cap,
                           extra_bytes=nbytes(w, last_interaction))
     regs = ptxas_numbers("transport_loop", library_defines(flags))
     numbers = dict(line=name, n=n, ms=ms, events=events, attempts=attempts,
@@ -3915,7 +3840,7 @@ def k7_bound(t, n_packets, n_events, extra_bytes=0, line_estimators=True):
     int_per_event = (2 * THREEFRY_OPS
                      + 8 * math.ceil(math.log2(t.n_lines + 1)))
     return bound(in_bytes + out_bytes + extra_bytes, n_events * 60,
-                 n_events * int_per_event)
+                 n_events * int_per_event, RATES)
 
 
 def check_nonhom_loop(state, atom, ps, pools):
@@ -4265,7 +4190,7 @@ def k6_bound(n_packets, n_moved, n_events, table_bytes, n_quadratures):
     lookup: not counted, so the bound stays a lower bound."""
     return bound(52 * n_packets + 4 * n_moved + table_bytes,
                  n_events * 80 + 1000 * n_quadratures,
-                 n_events * 2 * THREEFRY_OPS)
+                 n_events * 2 * THREEFRY_OPS, RATES)
 
 
 def run_nonhom_path(atom, device, expected):
@@ -4484,7 +4409,8 @@ def reduce_bound(parts, out):
     fields = SUM_FIELDS + CAT_FIELDS + ("vp_records",)
     read = sum(nbytes(getattr(p, f)) for p in parts for f in fields)
     adds = sum(getattr(out, f).numel() for f in SUM_FIELDS) * (len(parts) - 1)
-    return bound(read + sum(nbytes(getattr(out, f)) for f in fields), adds)
+    return bound(read + sum(nbytes(getattr(out, f)) for f in fields), adds,
+                 0, RATES)
 
 
 def check_sharded_transport(tables, pools, device):
@@ -4680,13 +4606,13 @@ def check_probe2(device):
         lib_args = args if name != "take_along_rows" else (
             args[0], args[1].long())
         library_ms, _ = cuda_ms_queued(lambda: library(*lib_args), 50)
-        b_ms, b_by = bound(n_bytes(*args), 0)
+        b_ms, b_by = bound(n_bytes(*args), 0, 0, RATES)
         max_abs = (k - p).abs().max().item()
         extra = {}
         if name == "take_1d":
             tab, idx = args
             old_ms, _ = bound(4 * torch.unique(idx).numel()
-                              + 8 * idx.numel(), 0)
+                              + 8 * idx.numel(), 0, 0, RATES)
             cold = cuda_ms_cold(lambda: kernel(*args), COLD_REPS, device)
             lib_cold = cuda_ms_cold(lambda: library(*args), COLD_REPS,
                                     device)
@@ -5257,6 +5183,109 @@ def run_grid_path(atom, expected):
     say("grid_path", rows=len(grid.grid), wall_s=time.perf_counter() - t0)
 
 
+# the harness phase: each benchmark harness with the arguments a user
+# passes for the bench workload (bench.py's, less the TPU's --batch and
+# --chunk), production_run at its defaults, scaling_bench over shards of
+# this one card
+HARNESS_RUNS = {
+    "transport_bench": ["--packets", str(N_PACKETS), "--levels", "200",
+                        "--jump", "60", "--mode", "macroatom",
+                        "--e2e-iters", "5", "--final-vpackets", "2",
+                        "--iip", "--roofline"],
+    "production_run": [],
+    "scaling_bench": ["--one-card", "--devices", "1", "2", "4"],
+}
+HARNESS_TIMEOUT_S = 420  # a harness's subprocess
+# what each harness's line must hold (dotted paths)
+HARNESS_KEYS = {
+    "transport_bench": ("packets_per_s", "device_ms", "e2e.e2e_packets_per_s",
+                        "final_iteration.time_s", "iip.events_per_s",
+                        "roofline.fraction_of_bound"),
+    "production_run": ("e2e_packets_per_s", "s_per_iteration",
+                       "final_iteration_s", "emitted_over_requested",
+                       "spectra_finite"),
+    "scaling_bench": ("scaling", "shards_of_one_card"),
+}
+EMITTED_BAND = (0.8, 1.2)
+
+
+def numbers_in(x):
+    """Every number (bools aside) in a JSON value, however nested."""
+    if isinstance(x, dict):
+        for v in x.values():
+            yield from numbers_in(v)
+    elif isinstance(x, list):
+        for v in x:
+            yield from numbers_in(v)
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield x
+
+
+def dotted(line, key):
+    for part in key.split("."):
+        if not isinstance(line, dict) or part not in line:
+            return None
+        line = line[part]
+    return line
+
+
+def check_harness_line(name, line, device="cuda"):
+    """Raise unless a harness's line ran on ``device``, holds only finite
+    numbers and the keys HARNESS_KEYS names, every emitted / requested
+    luminosity in EMITTED_BAND, every spectra_finite true, and (the
+    scaling harness) rows of 1, 2 and 4 shards of one card."""
+    faults = []
+    if line.get("device") != device:
+        faults.append(f"device {line.get('device')!r}")
+    if not all(math.isfinite(v) for v in numbers_in(line)):
+        faults.append("a number that is not finite")
+    faults += [f"no {key}" for key in HARNESS_KEYS[name]
+               if dotted(line, key) is None]
+    ratio = line.get("emitted_over_requested")
+    if ratio is not None and not EMITTED_BAND[0] <= ratio <= EMITTED_BAND[1]:
+        faults.append(f"emitted_over_requested {ratio}")
+    if line.get("spectra_finite") is False:
+        faults.append("spectra not finite")
+    if name == "scaling_bench" and not (
+            line.get("shards_of_one_card") is True
+            and [r.get("devices") for r in line.get("scaling", [])]
+            == [1, 2, 4]):
+        faults.append("not 1, 2 and 4 shards of one card")
+    if faults:
+        raise AssertionError(f"harness {name}: {', '.join(faults)}")
+
+
+def run_harness(k1_smoke):
+    """Each of HARNESS_RUNS as a user runs it: ``python -m
+    tardis_torch.benchmarks.<name> <args>`` in a subprocess from this
+    repository's root, its JSON line (the last of its output) echoed and
+    held by check_harness_line.  ``k1_smoke`` is phase 2's device ms of
+    the instantiation and shape the transport harness times."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    lines = {}
+    for name, args in HARNESS_RUNS.items():
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"tardis_torch.benchmarks.{name}", *args],
+            cwd=root, capture_output=True, text=True,
+            timeout=HARNESS_TIMEOUT_S)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            raise AssertionError(f"harness {name} exited with "
+                                 f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        lines[name] = json.loads(proc.stdout.strip().splitlines()[-1])
+        say("harness", harness=name, args=args, wall_s=wall,
+            line=lines[name])
+        check_harness_line(name, lines[name])
+    k1_ms = lines["transport_bench"]["device_ms"]
+    say("harness_phase", wall_s=time.perf_counter() - t0,
+        k1_device_ms_harness=k1_ms, k1_device_ms_smoke=k1_smoke,
+        k1_harness_over_smoke=k1_ms / k1_smoke if k1_ms else None,
+        card=card_line())
+    return lines
+
+
 # what the sharded path holds against the main path's separate run
 MAIN_HELD = ("t_inner", "t_rad", "real_luminosity", "virtual_luminosity",
              "integrated_luminosity")
@@ -5310,7 +5339,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    rates = set_int_rate()
+    global RATES
+    RATES = card_rates()
+    rates = RATES.summary()
     libs = [(name, ()) for name in cuda.KERNELS if name not in WITH_OPTIONS]
     build_s = cuda.build(libs)
     say("header", card=card, torch=torch.__version__,
@@ -5534,6 +5565,8 @@ def main() -> int:
         profile_walk_path(device)
         profile_iip_path(iip_atom, device)
         k6["path_device_ms_total"] = profile_gamma_path(state, device)
+    torch.cuda.empty_cache()
+    run_harness(k1["main_final"]["detailed_convergence"]["device_ms"])
     # each line's launches come from the path that runs it
     lines = [(k1["main"], "main"), (k1["main_final"], "main"),
              (k2["simple"], "main"), (k3, "main"), (k8, "main"),

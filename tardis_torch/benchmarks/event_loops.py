@@ -92,7 +92,14 @@ def this_checkout_smoke():
                         os.pardir, os.pardir, "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("timing_smoke", path)
     mod = importlib.util.module_from_spec(spec)
+    before = set(sys.modules)
     spec.loader.exec_module(mod)
+    # it imported this checkout's tardis_torch (its bounds): forget the
+    # modules it added, so the timed tree's own package is the one
+    # imported next (a package imported before stays)
+    for name in set(sys.modules) - before:
+        if name == "tardis_torch" or name.startswith("tardis_torch."):
+            del sys.modules[name]
     return mod
 
 

@@ -106,6 +106,22 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
     JAX package does.
     """
     devices = packet_devices(devices)
+    parts = _sharded_chunk(
+        tables, pool_mu, pool_nu, key, devices, nu_window=nu_window,
+        vpacket_capacity=vpacket_capacity, pool_w=pool_w,
+        last_interaction=last_interaction, tracker_length=tracker_length,
+        max_events=max_events, line_estimators=line_estimators,
+        progress=progress)
+    return _final_reduce(parts, devices[0])
+
+
+def _sharded_chunk(tables: TransportTables, pool_mu, pool_nu, key, devices,
+                   *, vpacket_capacity: int = 0, pool_w=None, progress=None,
+                   **options) -> list[TransportOutput]:
+    """Every shard's K1 launch, as ``run_transport_sharded`` describes
+    them, each on its device (``options``: the rest of
+    ``transport_loop``'s); returns the shards' outputs, not yet
+    reduced."""
     n_dev = len(devices)
     N = pool_mu.shape[0]
     if N % n_dev:
@@ -125,14 +141,11 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
         with _on(device):
             parts.append(transport_loop(
                 on_device[device], shard(pool_mu), shard(pool_nu), key,
-                nu_window=nu_window, max_events=max_events,
                 vpacket_capacity=capacity, pool_w=shard(pool_w),
-                last_interaction=last_interaction,
-                tracker_length=tracker_length, pid_offset=d * n_local,
-                line_estimators=line_estimators))
+                pid_offset=d * n_local, **options))
         if progress is not None:
             progress(n_local)
-    return _final_reduce(parts, devices[0])
+    return parts
 
 
 def _final_reduce(parts: list[TransportOutput],

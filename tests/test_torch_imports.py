@@ -257,6 +257,16 @@ def test_parallel_and_probe_modules_are_scanned():
     assert (ROOT / "tardis_torch" / "csrc" / "probe2.cu").exists()
 
 
+def test_benchmark_harnesses_are_scanned():
+    """The three benchmark harnesses and the bounds they share with
+    chip_smoke.py are among the files the import scans read."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("transport_bench", "production_run", "scaling_bench",
+                 "bounds"):
+        assert f"tardis_torch/benchmarks/{name}.py" in scanned, name
+    assert "chip_smoke.py" in scanned
+
+
 def test_device_list_asks_for_the_cards(monkeypatch):
     """A list of CUDA devices is no longer refused: without a card it
     raises as the default device does."""
@@ -381,9 +391,6 @@ NOT_PORTED = {
        for name in ("occupancy_probe", "probe_loop_ops", "probe_loop_ops2",
                     "probe_scatter", "probe_scatter_gather", "probe_step2",
                     "probe_step3", "profile_step")},
-    **{f"benchmarks/{name}.py": "a TPU benchmark harness: the port's "
-       "benchmark is written apart from it"
-       for name in ("production_run", "scaling_bench", "transport_bench")},
     "native/__init__.py": "optional host C++ for the line tables: K3 builds "
                           "them on the card",
     "utils/twofloat.py": "two-float f32 pairs for a device without f64: the "
@@ -404,6 +411,12 @@ NAMES_NOT_PORTED = {
     "benchmarks/probe2.py": {
         "timeit": "the JAX probe's XLA timer; the port times with CUDA "
                   "events"},
+    "benchmarks/transport_bench.py": {
+        "measure_row_costs": "the TPU's gather and scatter unit costs, "
+                             "the budget of six row gathers a lockstep "
+                             "step (ROOFLINE_GATHERS); the port's roofline "
+                             "is K1's byte and operation bound "
+                             "(benchmarks/bounds.py k1_bound)"},
     "parallel/transport.py": {
         "packet_mesh": "a JAX device mesh; the port takes a device list",
         "shard_map": "JAX's shard_map shim; the port launches K1 a shard"},

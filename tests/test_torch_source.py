@@ -249,7 +249,7 @@ def test_sass_bound_terms():
 
     per = {"issue": 128.0, "alu": 96.0, "fmaheavy": 0.0, "fma": 0.0,
            "fp64": 0.0, "xu": 0.0}
-    n = cs.SMS * int(cs.SM_CLOCK_HZ) // 1000
+    n = cs.RATES.sms * int(cs.RATES.sm_clock_hz) // 1000
     ms, by, terms = cs.sass_bound(0, n, per)
     assert by == "operations" and terms["issue"] == pytest.approx(1.0)
     assert ms == terms["alu"] == pytest.approx(1.5)
