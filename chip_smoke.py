@@ -16,13 +16,17 @@ Phases, one printed line each (plus one line per iteration):
   2. checks at the paths' shapes (bench problem: synthetic atom data
      with 200 levels and level jumps up to 60, 20 shells, macroatom): K8,
      the macro-atom chain build (check_chain_build: each instantiation,
-     the cluster one and downbranch at 20 and at 100 shells, the workspace
-     one on 600-level components, with its plan and ptxas's report; the
+     the cluster one and downbranch at 20 and at 100 shells, the
+     large-system one on three 600-level components at 4 shells (12
+     systems) and on the large-ion problem at 20 (360), and a mixed build
+     of both (two launches), with the plans and ptxas's report; the
      chain rows within 1e-6 and the emission rows within 2.4e-7 of the
      plain version with the shares bit for bit, the copied columns bit for
-     bit, two calls bit for bit, beside one torch.linalg.solve of the same
-     systems; and a singular component's rows the plain version's
-     self-deactivation step), and each kernel
+     bit, two calls bit for bit, beside one torch.linalg.solve a
+     component size of the same systems; the large-system one forced on
+     the bench build bit for bit the cluster one's tables; and a singular
+     component's rows the plain version's self-deactivation step), and
+     each kernel
      against its plain PyTorch
      version on the card, with CUDA-event times of both, the least time the
      card could take (bound) and, where one PyTorch call computes the same
@@ -119,7 +123,13 @@ Phases, one printed line each (plus one line per iteration):
      sharded path, the same run with device=[card, card] (K1 twice an
      iteration; each iteration replayed on one device from the same
      inputs, bitwise per packet; t_inner, t_rad and the luminosities
-     within 1e-5 of the main path's separate run); then the detailed_nlte
+     within 1e-5 of the main path's separate run); then the large-ion
+     path, the main path's run without the formal integral on the
+     large-ion problem's atomic data (the bench elements with 600 levels
+     and level jumps up to 60: 18 components of 600 levels, 615,060
+     lines), whose 5 chain builds take K8's large-system instantiation and
+     never the cluster one, the luminosity and virtual / real bands held;
+     then the detailed_nlte
      path, the main path with radiative_rates_type: detailed and Si II
      in NLTE (K1 with line estimators in all 5 iterations, K3's
      estimators instantiation in the 4 solves after a convergence
@@ -233,8 +243,8 @@ Phases, one printed line each (plus one line per iteration):
      path's own source-function tables (ms, device_ms, the per-ray event
      distribution, and the ray with the most events alone as floor_ms);
   9. where the time goes: torch.profiler over a two-iteration run of the
-     main path, of the walk path and of the IIP path, and over the gamma
-     path (device time
+     main path, of the large-ion path (profile_large_ion), of the walk
+     path and of the IIP path, and over the gamma path (device time
      by kernel, host time by tardis.* span, the device's busy share; K6's
      device time summed over the gamma path's steps);
  10. the harness phase: the three benchmark harnesses run as a user runs
@@ -439,6 +449,16 @@ GAMMA_OPTIONS = {
     "kasen+artis": dict(photoabsorption_type="kasen",
                         pair_creation_type="artis"),
     "estimators": dict(collect_estimators=True)}
+
+# the large-ion path: the bench run (20 shells, macroatom, 4 convergence
+# iterations and the production final iteration with virtual packets) on
+# the large-ion problem's atomic data, whose 600-level components take K8's
+# large-system instantiation in every build; the real and virtual spectra
+# (the formal integral stays on the main path: its host source function
+# on 10,800 macro-atom levels is the JAX package's host numpy too)
+LARGE_ION_CONFIG = copy.deepcopy(BENCH_CONFIG)
+LARGE_ION_CONFIG["spectrum"].update(method="real")
+del LARGE_ION_CONFIG["spectrum"]["integrated"]
 
 # what each path hands K1: the transport tables' options, the pool, the
 # trackers, and whether its final iteration writes spawn records
@@ -670,6 +690,17 @@ def host_us(fn, reps):
     us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def build_large_ion_atom():
+    """The large-ion problem's atomic data: the bench problem's elements
+    with LARGE_ION_LEVELS levels and level jumps up to LARGE_ION_JUMP."""
+    from tardis_torch.atomic.synthetic import make_synthetic_atom_data
+
+    return make_synthetic_atom_data(
+        n_levels=LARGE_ION_LEVELS, max_level_jump=LARGE_ION_JUMP).prepare(
+            selected_atoms=[8, 12, 14, 16, 18, 20],
+            line_interaction_type="macroatom")
 
 
 def build_problem(device):
@@ -1210,9 +1241,19 @@ K8_CHAIN_ATOL = 1e-6
 K8_EMIT_ATOL = 2.4e-7
 K8_WIDE_SHELLS = 100  # K3's wide shape: the bench lines, shells repeated
 # components past the cluster instantiation's reach (384 levels), which
-# take the workspace instantiation: one synthetic element of 600 levels
+# take the large-system instantiation: one synthetic element of 600 levels
+# (three components) at 4 shells, the few-system case
 K8_WIDE_LEVELS = 600
 K8_WIDE_LEVELS_SHELLS = 4
+# the large-ion problem: the bench problem's six elements with 600 levels
+# and level jumps up to 60 (18 components of 600 levels, 615,060 lines),
+# 20 shells: 360 systems a build, all the large-system instantiation's
+LARGE_ION_LEVELS = 600
+LARGE_ION_JUMP = 60
+# the mixed build: the bench atom's macro table (18 components of 200
+# levels, the cluster instantiation's) and the wide element's (3 of 600,
+# the large one's) side by side, at this many shells
+K8_MIXED_SHELLS = 4
 REPLACES_K8 = "tardis_tpu/opacities/macro_atom_solver.py:389"
 # a macro table with a closed two-level internal cycle and no emission
 # (levels 0 <-> 1), beside a two-level component with emission (2, 3) and
@@ -1293,20 +1334,30 @@ def k8_bound(ctx, arrays, rates, out):
 
 
 def chain_library_inputs(ctx, arrays, rates):
-    """The bench build's (shell, component) systems at their real size n
-    (every component of the bench atom has the same size): A = I - Q and
-    diag(d), from the plain version's arithmetic, for one
-    torch.linalg.solve."""
+    """The build's (shell, component) systems at their real size n: A = I
+    - Q and diag(d), from the plain version's arithmetic, one (A, rhs) a
+    size of each power-of-two bucket (each one torch.linalg.solve)."""
     from tardis_torch.opacities import macro_atom_solver as mas
 
-    sizes = np.unique(ctx.arrays_np["k8_size"])
-    if len(sizes) != 1 or len(ctx.bucket_meta) != 1:
-        raise AssertionError(f"chain_build: component sizes {sizes}")
-    n = int(sizes[0])
     pn = mas.p_norm(ctx, arrays, *rates)
-    A, d = mas.bucket_systems(ctx, arrays, pn,
-                              mas.deactivation(ctx, arrays, pn), 0)
-    return A[:, :n, :n].contiguous(), torch.diag_embed(d[:, :n])
+    deact = mas.deactivation(ctx, arrays, pn)
+    out = []
+    for bi, meta in enumerate(ctx.bucket_meta):
+        A, d = mas.bucket_systems(ctx, arrays, pn, deact, bi)
+        Wp, n_cb = meta["Wp"], meta["n_cb"]
+        sizes = ctx.arrays_np[f"b{bi}_member_valid"].reshape(
+            n_cb, Wp).sum(axis=1)
+        S = A.shape[0] // n_cb
+        for n in np.unique(sizes):
+            n = int(n)
+            idx = torch.as_tensor(
+                (np.arange(S)[:, None] * n_cb
+                 + np.flatnonzero(sizes == n)[None, :]).ravel(),
+                device=A.device)
+            out.append((A[idx, :n, :n].contiguous(),
+                        torch.diag_embed(d[idx, :n])))
+        del A, d
+    return out
 
 
 def k8_line(mode, variant, nums, ms, plain_ms, b_ms, b_by, library_ms,
@@ -1333,9 +1384,10 @@ def k8_ptxas():
     log = cuda.library_path("macro_chain").with_suffix(".log")
     for ln in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '.*?(workspace_kernel|"
-                      r"chain_cluster_kernel)ILi(\d+)E", ln)
+                      r"chain_cluster_kernel|chain_large_kernel)"
+                      r"(?:ILi(\d+)E)?", ln)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
         elif name and ("registers" in ln or "spill" in ln):
             out.setdefault(name, []).append(ln.strip())
     return out
@@ -1369,26 +1421,90 @@ def k8_random_rates(n_lines, n_shells, device, seed=SEED):
                  for lo, hi in ((0.1, 1.0), (1e-6, 1e-4), (0.5, 1.0)))
 
 
-def check_chain_build(atom, ps):
+def k8_mixed_macro(small, large):
+    """The macro tables of two atoms side by side, ``large``'s levels,
+    lines and transitions after ``small``'s, as one MacroAtomData, and
+    their lines' frequencies in NU_UNIT."""
+    from tardis_torch.atomic.atom_data import MacroAtomData
+    from tardis_torch.transport.tables import NU_UNIT
+
+    a, b = small.macro_atom, large.macro_atom
+    levels = len(a.block_references) - 1
+    dest = np.where(b.destination_level_id >= 0,
+                    b.destination_level_id + levels, b.destination_level_id)
+    macro = MacroAtomData(
+        coef=np.concatenate([a.coef, b.coef]),
+        transition_type=np.concatenate([a.transition_type,
+                                        b.transition_type]),
+        destination_level_id=np.concatenate(
+            [a.destination_level_id, dest]).astype(np.int32),
+        transition_line_id=np.concatenate(
+            [a.transition_line_id,
+             b.transition_line_id + small.n_lines]).astype(np.int32),
+        block_references=np.concatenate(
+            [a.block_references,
+             b.block_references[1:] + a.block_references[-1]]).astype(
+                 np.int32),
+        line2macro_level_upper=np.concatenate(
+            [a.line2macro_level_upper,
+             b.line2macro_level_upper + levels]).astype(np.int32))
+    return macro, np.concatenate([small.line_nu, large.line_nu]) / NU_UNIT
+
+
+def chain_cases(atom, rates, large_atom, wide):
+    """K8's check cases (what, mode, macro table, line frequencies, rates,
+    shells): the bench problem in both modes at its shells and at
+    K8_WIDE_SHELLS, the wide element's three 600-level components at
+    K8_WIDE_LEVELS_SHELLS shells (12 systems), the large-ion problem at the
+    bench's shells (360 systems) and the mixed build, each on seeded rates
+    but the bench problem's (its plasma)."""
+    from tardis_torch.transport.tables import NU_UNIT
+
+    device = rates[0].device
+    S = rates[0].shape[1]
+    nu = atom.line_nu / NU_UNIT
+    cases = [(f"bench {mode}", mode,
+              atom.macro_atom if mode == "macroatom" else atom.downbranch,
+              nu, rates if shells == S else shells_repeated(rates, shells),
+              shells)
+             for mode in ("macroatom", "downbranch")
+             for shells in (S, K8_WIDE_SHELLS)]
+    for what, at, shells in (("wide", wide, K8_WIDE_LEVELS_SHELLS),
+                             ("large_ion", large_atom, S)):
+        cases.append((what, "macroatom", at.macro_atom,
+                      at.line_nu / NU_UNIT,
+                      k8_random_rates(at.n_lines, shells, device), shells))
+    macro, mixed_nu = k8_mixed_macro(atom, wide)
+    cases.append(("mixed", "macroatom", macro, mixed_nu,
+                  k8_random_rates(len(mixed_nu), K8_MIXED_SHELLS, device),
+                  K8_MIXED_SHELLS))
+    return cases
+
+
+def check_chain_build(atom, ps, large_atom):
     """K8 (``macro_chain``) against its plain version on the card, each of
-    its instantiations (``k8_plan``): the cluster one and downbranch at the
-    bench shape and at K8_WIDE_SHELLS shells, the workspace one on
-    K8_WIDE_LEVELS-level components (a synthetic atom of one element,
-    seeded rates, K8_WIDE_LEVELS_SHELLS shells); each within K8_CHAIN_ATOL
-    / K8_EMIT_ATOL with the shares of entries equal bit for bit, the copied
-    columns bit for bit, every row non-decreasing, and two K8 calls bit for
-    bit equal; each timed as device time of queued calls (``ms``, with
-    ``held``) beside the plain version (``plain_ms``, CUDA events around
-    each call) and its bound, with its plan (blocks a cluster, panel,
-    blocks, rounds and their fill).  Where the systems share one size (the
-    bench shape, the wide components) also beside one torch.linalg.solve
-    of them at their real size (``library_ms``, the yardstick; the port
-    never calls it), and at the bench shape (macroatom) with CUDA events
-    around ``solve_macro_chain`` as the main path calls it (``entry_ms``).
-    Then the singular component (K8_CYCLE): the cycle's rows the
-    self-deactivation step and every row the plain version's, bit for
-    bit.  Returns the main path's chain tables and K8's kernels-line
-    entries by instantiation."""
+    its instantiations (``k8_plan``) on ``chain_cases``: the cluster one
+    and downbranch at the bench shape and at K8_WIDE_SHELLS shells, the
+    large-system one on the wide element's 12 systems and on the large-ion
+    problem's 360, and the mixed build (both, one launch each); each within
+    K8_CHAIN_ATOL / K8_EMIT_ATOL with the shares of entries equal bit for
+    bit, the copied columns bit for bit, every row non-decreasing, and two
+    K8 calls bit for bit equal; each timed as device time of queued calls
+    (``ms``, with ``held``) beside the plain version (``plain_ms``, CUDA
+    events around each call) and its bound, with its plans (blocks a
+    system, panel, blocks, rounds and their fill, the work groups each
+    takes) and one torch.linalg.solve a component size of the same
+    systems at their real size (``library_ms``, summed, the yardstick; the
+    port never calls it), and at the bench shape (macroatom) with CUDA
+    events around ``solve_macro_chain`` as the main path calls it
+    (``entry_ms``).  The large-system instantiation is also forced on the
+    bench build (``large_on_bench``): bit for bit the cluster one's tables,
+    since it takes the same products in the same order.  Then the singular
+    component (K8_CYCLE): the cycle's rows the self-deactivation step and
+    every row the plain version's, bit for bit.  Returns the main path's
+    chain tables and K8's kernels-line entries by instantiation (the
+    cluster one's at the bench shape, the large one's at the large-ion
+    shape, downbranch's at the bench shape)."""
     from tardis_torch.atomic.synthetic import make_synthetic_atom_data
     from tardis_torch.opacities import macro_atom_solver as mas
     from tardis_torch.transport.tables import NU_UNIT
@@ -1402,56 +1518,65 @@ def check_chain_build(atom, ps):
     wide = make_synthetic_atom_data(
         n_levels=K8_WIDE_LEVELS, max_level_jump=60).prepare(
             selected_atoms=[8], line_interaction_type="macroatom")
-    cases = [(mode, atom, rates, shells) for mode in ("macroatom",
-                                                     "downbranch")
-             for shells in (S, K8_WIDE_SHELLS)]
-    cases.append(("macroatom", wide, k8_random_rates(
-        wide.n_lines, K8_WIDE_LEVELS_SHELLS, device), K8_WIDE_LEVELS_SHELLS))
     entries, checks, chain = {}, {}, None
     say("k8_instantiations", ptxas=k8_ptxas())
-    for mode, at, base_rates, shells in cases:
-        macro = at.macro_atom if mode == "macroatom" else at.downbranch
-        ctx = mas.chain_context(macro, mode, at.line_nu / NU_UNIT)
+    for what, mode, macro, line_nu, r, shells in chain_cases(
+            atom, rates, large_atom, wide):
+        ctx = mas.chain_context(macro, mode, line_nu)
         arrays = ctx.arrays(device)
-        r = (base_rates if shells == base_rates[0].shape[1]
-             else shells_repeated(base_rates, shells))
-        plan = mas.k8_plan(ctx, shells, sms,
-                           mas.k8_active_clusters(device, ctx.k8_n_max))
-        what = f"{mode} {plan.variant} {shells} shells"
+        plans = mas.k8_plan(ctx, shells, sms,
+                            mas.k8_active_clusters(device))
+        variants = "+".join(p.variant for p in plans)
+        what = f"{what} {variants} {shells} shells"
         k = mas.macro_chain(ctx, arrays, *r)
         if not chain_bitwise(k, mas.macro_chain(ctx, arrays, *r)):
             raise AssertionError(f"macro_chain {what}: two runs differ")
         plain_ms, p = cuda_ms(lambda: mas.chain_tables(
-            ctx, arrays, mas.p_norm(ctx, arrays, *r)), 3)
+            ctx, arrays, mas.p_norm(ctx, arrays, *r)),
+            1 if ctx.k8_n_max > 384 else 3)
         nums = compare_chain(ctx, k, p, what)
         del p
         ms, _, held = cuda_ms_queued(
             lambda: mas.macro_chain(ctx, arrays, *r), 20, report_hold=True)
         b_ms, b_by, gj_ops = k8_bound(ctx, arrays, r, k)
         nums.update(ms=ms, held=held, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, gj_ops=gj_ops, **plan._asdict())
+                    bound_by=b_by, gj_ops=gj_ops,
+                    plan=[plan._asdict() for plan in plans])
         library_ms = None
-        if ctx.W and len(np.unique(ctx.arrays_np["k8_size"])) == 1:
-            A, rhs = chain_library_inputs(ctx, arrays, r)
-            library_ms, _ = cuda_ms(lambda: torch.linalg.solve(A, rhs), 10)
-            del A, rhs
+        if ctx.W:
+            solves = chain_library_inputs(ctx, arrays, r)
+            library_ms, _ = cuda_ms(
+                lambda: [torch.linalg.solve(A, rhs) for A, rhs in solves],
+                10)
+            del solves
             nums.update(library_ms=library_ms)
-        main = at is atom and shells == S
+        main = what.startswith("bench") and shells == S
         if main and mode == "macroatom":
             entry_ms, chain = cuda_ms(lambda: mas.solve_macro_chain(
                 macro, *rates, mode=mode, line_nu_scaled=nu), 10)
-            nums.update(entry_ms=entry_ms)
-        if main or plan.variant == "macroatom_workspace":
-            entries[plan.variant] = k8_line(
-                mode, plan.variant, nums, ms, plain_ms, b_ms, b_by,
-                library_ms, held, plan=plan._asdict(),
+            forced = mas.k8_launch(ctx, arrays, *r, shape="large")
+            nums.update(entry_ms=entry_ms,
+                        large_on_bench=dict(
+                            plan=forced[2][0]._asdict(),
+                            bitwise_to_cluster=chain_bitwise(k, forced[:2])))
+            if not nums["large_on_bench"]["bitwise_to_cluster"]:
+                raise AssertionError("macro_chain: the large-system "
+                                     "instantiation on the bench build "
+                                     "differs from the cluster one")
+            del forced
+        if (main or what.startswith("large_ion")) and len(plans) == 1:
+            entries[plans[0].variant] = k8_line(
+                mode, plans[0].variant, nums, ms, plain_ms, b_ms, b_by,
+                library_ms, held, plan=plans[0]._asdict(),
                 **({"entry_ms": nums["entry_ms"]} if "entry_ms" in nums
                    else {}))
-        say("chain_build", mode=mode, shells=shells, states=ctx.M,
-            chain_width=ctx.W, emit_width=ctx.We, **nums)
+        say("chain_build", what=what, mode=mode, shells=shells,
+            states=ctx.M, chain_width=ctx.W, emit_width=ctx.We, **nums)
         checks[what] = {key: nums[key] for key in (
-            "ms", "plain_ms", "bound_ms", "chain_max_abs",
-            "emit_max_abs", "rounds", "fill") if key in nums}
+            "ms", "plain_ms", "bound_ms", "library_ms", "chain_max_abs",
+            "emit_max_abs") if key in nums}
+        checks[what]["plan"] = [(p.variant, p.cluster, p.blocks, p.rounds,
+                                 p.fill) for p in plans]
         del k
         torch.cuda.empty_cache()
     # the singular component: a closed internal cycle without emission
@@ -1471,8 +1596,9 @@ def check_chain_build(atom, ps):
             and torch.equal(rows, step.float().expand_as(rows))):
         raise AssertionError("macro_chain: the singular component's rows "
                              "are not the plain version's step")
-    checks["singular"] = dict(variant=mas.k8_plan(ctx, 3, sms).variant,
-                              cycle_rows_bitwise=True, **nums)
+    checks["singular"] = dict(
+        variants=[p.variant for p in mas.k8_plan(ctx, 3, sms)],
+        cycle_rows_bitwise=True, **nums)
     say("chain_build_singular", **checks["singular"])
     for entry in entries.values():
         entry["checks"] = checks
@@ -1962,13 +2088,14 @@ def read_launches():
 
 
 def run_path(phase, config, atom, device, expected, bands=True,
-             use_macro_chain=None, per_iteration=None):
+             use_macro_chain=None, per_iteration=None, integrated=True):
     """run_tardis on ``config`` with the launch counts reset to 0 just
     before and read just after; every kernels line in ``expected`` must
     have launched exactly that often (None: at least once) and every other
     line, any variant of a wrapper included, never.  With ``bands``, the
     final iteration's luminosity ratios must lie in the bands of PERF.md
-    section 2.  With ``use_macro_chain``, the run is Simulation.from_config
+    section 2 (integrated / real only with ``integrated``: a run without
+    the formal integral has no integrated spectrum).  With ``use_macro_chain``, the run is Simulation.from_config
     with ``sim.transport.use_macro_chain`` set to it before the run.
     ``per_iteration()``, where given, returns numbers for each iteration's
     line."""
@@ -2039,7 +2166,7 @@ def run_path(phase, config, atom, device, expected, bands=True,
     if bands and not 0.85 <= virt_ratio <= 1.18:
         raise AssertionError(f"{phase}: virtual / real luminosity "
                              f"{virt_ratio}")
-    if bands and not 0.7 <= int_ratio <= 1.4:
+    if bands and integrated and not 0.7 <= int_ratio <= 1.4:
         raise AssertionError(f"{phase}: integrated / real luminosity "
                              f"{int_ratio}")
     check_launches(phase, launches, expected)
@@ -2432,6 +2559,23 @@ def drain(spent, names):
     """``spent``'s entries under ``names`` since the last drain, reset."""
     return {name: spent.pop(key, 0.0) * scale
             for name, (key, scale) in names.items()}
+
+
+def run_large_ion_path(large_atom, device, expected):
+    """run_tardis on LARGE_ION_CONFIG with the large-ion problem's atomic
+    data: K8's large-system instantiation once a build and never the
+    cluster one, the final iteration's luminosity in [0.8, 1.2] of the
+    requested and virtual / real in [0.85, 1.18]; prints K8's launches by
+    instantiation beside the problem's size."""
+    sim, launches, wall = run_path("large_ion_path", LARGE_ION_CONFIG,
+                                   large_atom, device, expected,
+                                   integrated=False)
+    say("large_ion_path_k8", launches={
+        k: v for k, v in launches.items() if k.startswith("macro_chain")},
+        states=len(large_atom.macro_atom.block_references) - 1,
+        lines=large_atom.n_lines, shells=sim.state.no_of_shells,
+        wall_s=wall)
+    return launches
 
 
 def run_detailed_nlte_path(atom, device, expected):
@@ -3571,15 +3715,16 @@ def run_iip_path(phase, config, atom, device, expected):
     return launches
 
 
-def profile_main_path(atom, device):
+def profile_main_path(atom, device, config=BENCH_CONFIG, phase="profile"):
     """Where the time goes in a short run of the main path (one convergence
-    iteration and the final one): device time by kernel, host time by
-    tardis.* span, and the device's busy share."""
+    iteration and the final one), or of another path's ``config`` on its
+    ``atom``: device time by kernel, host time by tardis.* span, and the
+    device's busy share, on a ``phase`` line."""
     from torch.profiler import ProfilerActivity, profile
 
     from tardis_torch.simulation.base import run_tardis
 
-    config = copy.deepcopy(BENCH_CONFIG)
+    config = copy.deepcopy(config)
     config["montecarlo"]["iterations"] = PROFILE_ITERATIONS
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3588,7 +3733,7 @@ def profile_main_path(atom, device):
         run_tardis(config, atom_data=atom, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    say_profile("profile", prof, wall, iterations=PROFILE_ITERATIONS)
+    say_profile(phase, prof, wall, iterations=PROFILE_ITERATIONS)
 
 
 def profile_walk_path(device):
@@ -5352,6 +5497,12 @@ def main() -> int:
     config, state, atom = build_problem(device)
     say("problem", lines=atom.n_lines, levels=atom.n_levels,
         shells=state.no_of_shells, setup_s=time.perf_counter() - t)
+    t = time.perf_counter()
+    large_atom = build_large_ion_atom()
+    say("large_ion_problem", lines=large_atom.n_lines,
+        levels=large_atom.n_levels,
+        macro_levels=len(large_atom.macro_atom.block_references) - 1,
+        setup_s=time.perf_counter() - t)
     k1, k4 = {}, {}
     with torch.no_grad():
         t = time.perf_counter()
@@ -5359,7 +5510,7 @@ def main() -> int:
         ps, k3, k3_est = check_line_tables(state, atom, device,
                                            K3_WIDE_SHELLS)
         pools, k2 = check_pools(state, device)
-        chain, k8s = check_chain_build(atom, ps)
+        chain, k8s = check_chain_build(atom, ps, large_atom)
         k8 = k8s["macroatom_cluster"]
         tables = path_tables(state, atom, ps, chain)
         walk_tables, walk_build = walk_path_tables(state, atom, ps)
@@ -5496,6 +5647,12 @@ def main() -> int:
                             k1["main_final"]["name"]: 1,
                             "macro_chain": GRID_CONFIG["montecarlo"][
                                 "iterations"]}
+        # the large-ion path: the main path's lines without K5, K8's
+        # large-system instantiation in place of its cluster one
+        expected["large_ion"] = {
+            key: n for key, n in expected["main"].items()
+            if key not in ("formal_integral", "macro_chain")}
+        expected["large_ion"]["macro_chain[macroatom_large]"] = ITERATIONS
         launches = {}
         sim, launches["main"], wall = run_path("main_path", BENCH_CONFIG,
                                                atom, device,
@@ -5503,6 +5660,9 @@ def main() -> int:
         k5 = check_formal_integral(sim, device)
         main = dict(path_numbers(sim), wall_s=wall)
         del sim
+        torch.cuda.empty_cache()
+        launches["large_ion"] = run_large_ion_path(large_atom, device,
+                                                   expected["large_ion"])
         torch.cuda.empty_cache()
         launches["sharded"] = run_sharded_path(atom, device,
                                                expected["sharded"], main)
@@ -5562,6 +5722,8 @@ def main() -> int:
         launches["probe"] = run_probe_path(device, expected["probe"])
         torch.cuda.empty_cache()
         profile_main_path(atom, device)
+        profile_main_path(large_atom, device, LARGE_ION_CONFIG,
+                          "profile_large_ion")
         profile_walk_path(device)
         profile_iip_path(iip_atom, device)
         k6["path_device_ms_total"] = profile_gamma_path(state, device)
@@ -5591,13 +5753,19 @@ def main() -> int:
             k.setdefault("checks", []).append("large_prefix")
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} never launched on its path")
-    # K8's other instantiations, held above off the paths: the main path
-    # launches neither (its components are the cluster one's)
-    for variant in ("macroatom_workspace", "downbranch"):
-        k = k8s[variant]
-        k["launches"] = launches["main"].get(k["name"], 0)
-        k["on_main_path"] = False
-        lines.append((k, None))
+    # K8's large-system instantiation, on the large-ion path (the main
+    # path's components are the cluster one's)
+    k = k8s["macroatom_large"]
+    k["launches"] = launches["large_ion"][k["name"]]
+    k["main_path_launches"] = launches["main"].get(k["name"], 0)
+    if k["launches"] < 1:
+        raise AssertionError(f"{k['name']} never launched on its path")
+    lines.append((k, "large_ion"))
+    # downbranch, held above off the paths: no path launches it
+    k = k8s["downbranch"]
+    k["launches"] = launches["main"].get(k["name"], 0)
+    k["on_main_path"] = False
+    lines.append((k, None))
     # the same K1 instantiations, two shards an iteration on the sharded
     # path
     for key in ("main", "main_final"):

@@ -35,9 +35,10 @@ warm) and, for ``take_1d``, each call after an L2 flush (``cold_ms``,
 ``chip_smoke.cuda_ms_cold``), with a hash of the output; the inputs come
 from one seeded generator, the same for every tree.  K8 (labels ``k8
 <mode> <shells>``: macroatom and downbranch at 20 and 100 shells, the bench
-plasma's columns repeated) prints its builds queued back to back
-(``device_ms``), each build by events (``ms``) and a hash of each row
-table.  For a like-for-like
+plasma's columns repeated; ``k8 wide 4`` and ``k8 large_ion 20``: 600-level
+components on seeded rates, 12 and 360 systems) prints its builds queued
+back to back (``device_ms``), each build by events (``ms``) and a hash of
+each row table.  For a like-for-like
 reading run the trees in the order A, B, B, A, one after another on the
 same card, and compare each tree with itself first.
 """
@@ -56,6 +57,11 @@ K2_SHAPES = (1_048_576, 2_097_152, 4_194_304)
 K2_POOLS = ("simple", "relativistic", "weighted")
 PROBE_TABLE, PROBE_INDICES, PROBE_SCALE2_MB = 12_000_000, 1_048_576, 120
 K8_SHELLS = (20, 100)  # the bench shape, and chip_smoke.K8_WIDE_SHELLS
+# K8 past a cluster's reach: (label, elements, shells) of 600-level atoms
+# (level jumps up to 60) on seeded rates: one element's three components
+# at 4 shells (12 systems), the large-ion problem at 20 (360)
+K8_LARGE = (("k8 wide 4", (8,), 4),
+            ("k8 large_ion 20", (8, 12, 14, 16, 18, 20), 20))
 
 
 def cases(cs):
@@ -82,7 +88,9 @@ def cases(cs):
                         (f"k8 {mode} {shells}", "k8", mode, shells, 0, False,
                          False)
                         for mode in ("macroatom", "downbranch")
-                        for shells in K8_SHELLS]
+                        for shells in K8_SHELLS] + [
+                            (label, "k8", elements, shells, 0, False, False)
+                            for label, elements, shells in K8_LARGE]
 
 
 def this_checkout_smoke():
@@ -169,6 +177,20 @@ def main(tree, build, only=("",)):
             x = torch.rand(PROBE_SCALE2_MB * 1024 * 1024 // 4 // probe2.ROW,
                            probe2.ROW, generator=gen, device=device)
             return (("probe2", ()), lambda: probe2.scale2(x))
+        if kern == "k8" and isinstance(where, tuple):
+            from tardis_torch.atomic.synthetic import make_synthetic_atom_data
+            from tardis_torch.opacities import macro_atom_solver as mas
+
+            at = make_synthetic_atom_data(
+                n_levels=600, max_level_jump=60).prepare(
+                    selected_atoms=list(where),
+                    line_interaction_type="macroatom")
+            ctx = mas.chain_context(at.macro_atom, "macroatom",
+                                    at.line_nu / NU_UNIT)
+            arrays = ctx.arrays(device)
+            r = timing.k8_random_rates(at.n_lines, n, device)
+            return (("macro_chain", ()),
+                    lambda: mas.macro_chain(ctx, arrays, *r))
         if kern == "k8":
             from tardis_torch.opacities import macro_atom_solver as mas
 

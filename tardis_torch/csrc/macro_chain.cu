@@ -22,21 +22,27 @@
 // Bound on the H100: operations.  At the bench shape (20 shells, 18
 // components of 200 levels: 360 systems) the elimination is 2 n^3 f64
 // operations a system, 5.8e9 in all, while the inputs (three (L, S) f64
-// tables, the transition table) and the two f32 row tables are ~0.2 GB.
+// tables, the transition table) and the two f32 row tables are ~0.2 GB;
+// at 600 levels (the large-ion problem, 360 systems) 1.56e11 against
+// ~1 GB.
 //
-// Three instantiations, one launch a build, chosen by the wrapper
-// (opacities/macro_atom_solver.py k8_plan) from the largest component:
+// The systems of a build go to two instantiations by component size, one
+// launch each on the same stream, writing disjoint rows (the wrapper,
+// opacities/macro_atom_solver.py k8_plan; components largest first, so
+// each launch takes a range of them); downbranch mode has a third:
 //   - cluster (chain_cluster_kernel): one (component, shell) system a
 //     thread-block cluster of 2, 4 or 8 blocks of CBLOCK threads, the
 //     matrix's rows split across the blocks' shared memory (a multiple of
 //     16 rows a block), so it never crosses device memory; a persistent
 //     grid of as many clusters as the card holds at once; components of up
 //     to 384 levels;
-//   - workspace (workspace_kernel): one system a block, the matrix in the
-//     block's slot of a device workspace, for components past a cluster's
-//     reach (up to ~25,000 levels);
-//   - downbranch (workspace_kernel without a chain): work groups of BLOCK
-//     levels, the emission rows only.
+//   - large (chain_large_kernel): the components past a cluster's reach
+//     (600 levels: 2.88 MB of matrix a system), each system spread over
+//     `per` blocks of a persistent cooperative grid of one block a
+//     multiprocessor, a few systems in flight (12 at 600 levels), so a few
+//     large systems still fill the card; see below;
+//   - downbranch (workspace_kernel): work groups of BLOCK levels, one a
+//     block, the emission rows only.
 // Common to all:
 //   - the systems are taken in turn by the persistent grid, components
 //     largest first, the shells of one component next to each other so
@@ -78,14 +84,27 @@
 //     fragment's rows in distinct banks.  Meanwhile GATHER_WARPS warps
 //     gather a slice of the next system's p into the slot's other buffer,
 //     so a system's gather leaves the path of all but the grid's first.
-// The workspace instantiation keeps the elimination this kernel began
-// with: the panel (n x KB, KB = 32, 8 or 1, the widest that fits,
-// k8_panel) in shared memory, three barriers a pivot, and the rank-KB
-// update in tiles of TC columns with one thread a column, the panel rows
-// in registers.
+// The large-system instantiation runs the cluster one's arithmetic, step
+// for step and product for product, on another layout:
+//   - a block holds ceil(n / per) consecutive rows of its system, the first
+//     hs of them in its shared memory and the rest in the system's slot of
+//     a device workspace, which the L2 cache keeps (the plan keeps at
+//     least half of each block's rows in shared memory and the rest of
+//     the systems in flight within ~40 MB);
+//   - the panel's KB rows travel through the slot: whichever block holds a
+//     row of the next panel writes it to the next of two panel buffers as
+//     it finishes its update, and after a barrier of the system's blocks
+//     (a counter in device memory, release / acquire: no grid-wide barrier,
+//     no launch a panel) every block reads the panel's rows from there;
+//     two buffers in turn, so one barrier a panel;
+//   - warp 0 runs the pivot steps from the buffer while the other warps
+//     copy the panel rows into shared memory, in chunks of at most CHUNK
+//     columns (the only limit on n is the workspace);
+//   - one thread a row takes the panel's steps on its panel columns, then
+//     the trailing update runs on DMMA m16n8k8 as the cluster one's, its
+//     fragments read from wherever the rows are.
 // B = A^-1 diag(d) is formed in the last pass, with the clamp, the running
-// sum, the division and the fallback fused: one thread a row in the
-// workspace instantiation, one warp a row in the cluster one, its lanes on
+// sum, the division and the fallback fused: one warp a row, its lanes on
 // consecutive columns, the running sum a fixed-order warp scan made
 // non-decreasing by a running maximum (a sum of non-negative terms whose
 // partial sums were grouped differently could fall by an ulp).  No
@@ -102,9 +121,11 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int BLOCK = 256;        // threads a block (K8_BLOCK in the wrapper)
-constexpr int TC = 64;            // columns of a trailing-update tile (K8_TILE)
-constexpr int ROWS = BLOCK / TC;  // row groups of a tile
 constexpr int WARPS = BLOCK / 32;
+// f64 of the downbranch block's shared memory before its warps' staging
+// (the tile the elimination it once shared a kernel with took; kept, so its
+// launch is the one it always was)
+constexpr int DOWN_TILE = 64;
 // threads a block of the cluster instantiation (K8_CLUSTER_BLOCK in the
 // wrapper), and its warps that gather the next system's p during the
 // trailing updates (256 threads, and 1, 2 or 6 gathering warps, measured
@@ -157,11 +178,6 @@ struct Phases {
 };
 #endif
 
-// the workspace panel's row stride in f64: odd, so the rows of a warp's
-// threads fall in distinct banks (k8_panel in the wrapper sizes it the
-// same way)
-__host__ __device__ constexpr int ldc(int kb) { return kb == 1 ? 1 : kb + 1; }
-
 // The cluster instantiation's shared memory, in f64 (k8_cluster_smem in the
 // wrapper repeats it): each block holds rows_of(n, cs) rows of A (a
 // multiple of 16, an mma tile's rows), lda_of(n)
@@ -208,6 +224,10 @@ struct ChainArgs {
   int64_t slot_stride;
   float* emit_cdf;        // (S M, 3 We)
   float* chain_cdf;       // (S M, W + 1), or null (downbranch)
+  // the large-system instantiation: blocks a system, rows of each block
+  // held in its shared memory, one barrier counter a system in flight
+  int per, hs;
+  unsigned* bar;
 };
 
 // x / y, correctly rounded as the division operator gives it, for y normal
@@ -337,95 +357,20 @@ __device__ double level_warp(const ChainArgs& a, int s, int l, int base,
   return tot;
 }
 
-// ---------------------------------------------------------------- workspace
+// --------------------------------------------------------------- downbranch
 
-// In-place Gauss-Jordan inversion of the n x n row-major matrix a without
-// pivoting, KB pivots a panel.  C: n x KB panel in shared memory, its rows
-// ldc(KB) apart (one thread a row reads it without bank conflicts); R: KB x
-// TC tile of the panel's rows.  Sets *singular where a pivot is 0 or not
-// finite.
-template <int KB>
-__device__ void invert(double* a, int n, double* C, double* R,
-                       int* singular, Phases& ph) {
-  constexpr int LDC = ldc(KB);
-  const int tid = threadIdx.x;
-  const int jc = tid % TC, rg = tid / TC;
-  for (int k0 = 0; k0 < n; k0 += KB) {
-    const int kb = min(KB, n - k0);
-    for (int idx = tid; idx < n * KB; idx += BLOCK) {
-      const int i = idx / KB, q = idx % KB;
-      C[i * LDC + q] = q < kb ? a[(int64_t)i * n + k0 + q] : 0.0;
-    }
-    __syncthreads();
-    // the panel's own kb steps, on its columns only
-    for (int kk = 0; kk < kb; ++kk) {
-      const int k = k0 + kk;
-      const double piv = C[k * LDC + kk];
-      if (tid == 0 && !(piv != 0.0 && isfinite(piv))) *singular = 1;
-      __syncthreads();  // every thread has read piv before row k changes
-      if (tid < kb) {
-        C[k * LDC + tid] = div0(tid == kk ? 1.0 : C[k * LDC + tid], piv);
-      }
-      __syncthreads();
-      const double* ck = C + k * LDC;
-      for (int i = tid; i < n; i += BLOCK) {
-        if (i == k) continue;
-        double* ci = C + i * LDC;
-        const double f = ci[kk];
-#pragma unroll
-        for (int q = 0; q < KB; ++q) {
-          if (q < kb) ci[q] = (q == kk ? 0.0 : ci[q]) - f * ck[q];
-        }
-      }
-      __syncthreads();
-    }
-    ph.stamp(2);
-    // the rest: a[i][j] = (i in panel ? 0 : a[i][j]) + sum_p C[i][p] A12[p][j]
-    // with A12 the panel rows before this panel; the panel's columns take C
-    for (int j0 = 0; j0 < n; j0 += TC) {
-      for (int idx = tid; idx < KB * TC; idx += BLOCK) {
-        const int p = idx / TC, j = j0 + idx % TC;
-        R[idx] = (p < kb && j < n) ? a[(int64_t)(k0 + p) * n + j] : 0.0;
-      }
-      __syncthreads();
-      const int j = j0 + jc;
-      if (j < n && j >= k0 && j < k0 + kb) {
-        for (int i = rg; i < n; i += ROWS) {
-          a[(int64_t)i * n + j] = C[i * LDC + (j - k0)];
-        }
-      } else if (j < n) {
-        double r[KB];
-#pragma unroll
-        for (int p = 0; p < KB; ++p) r[p] = R[p * TC + jc];
-        for (int i = rg; i < n; i += ROWS) {
-          double* aij = a + (int64_t)i * n + j;
-          double acc = (i >= k0 && i < k0 + kb) ? 0.0 : *aij;
-          const double* ci = C + i * LDC;
-#pragma unroll
-          for (int p = 0; p < KB; ++p) acc = acc + ci[p] * r[p];
-          *aij = acc;
-        }
-      }
-      __syncthreads();
-    }
-    ph.stamp(3);
-  }
-}
-
-template <int KB>
+// The downbranch build (no chain): work groups of BLOCK levels, a group a
+// block at a time, p of its transitions in the block's slot of the
+// workspace (after BLOCK f64 of block sums), one thread a level for its
+// block sum, then one warp a level for its emission row.
 __global__ void __launch_bounds__(BLOCK)
 workspace_kernel(ChainArgs a) {
   extern __shared__ double smem[];
-  __shared__ int singular;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const bool chain = a.chain_cdf != nullptr;
+  const int tid = threadIdx.x, warp = tid >> 5;
   double* slot = a.work + blockIdx.x * a.slot_stride;
-  double* mat = slot;                                    // n_max^2
-  double* dvec = mat + (int64_t)a.n_max * a.n_max;       // max(n_max, BLOCK)
-  double* pbuf = dvec + max(a.n_max, BLOCK);             // the group's transitions
-  double* C = smem;                                      // n_max x ldc(KB)
-  double* R = smem + (int64_t)a.n_max * ldc(KB);         // KB x TC
-  double* stage = R + KB * TC;                           // WARPS x STAGE
+  double* dvec = slot;            // BLOCK
+  double* pbuf = dvec + BLOCK;    // the group's transitions
+  double* stage = smem + DOWN_TILE;  // WARPS x STAGE
   const int S = a.S;
   const int64_t n_sys = (int64_t)a.n_groups * S;
   Phases ph;
@@ -433,60 +378,19 @@ workspace_kernel(ChainArgs a) {
     const int g = (int)(sys / S), s = (int)(sys % S);
     const int base = a.g_base[g], n = a.g_size[g];
     const int t0 = a.g_t0[g];
-    if (tid == 0) singular = 0;
     gather_p(a, s, t0, a.g_t1[g], pbuf, tid, BLOCK);
     __syncthreads();
     ph.stamp(0);
-    // one thread a level: its block sum (into dvec); then one warp a
-    // level: emission row, d, row of A
     for (int i = tid; i < n; i += BLOCK) {
       dvec[i] = block_sum(a, base + i, pbuf, t0);
     }
     __syncthreads();
     for (int i = warp; i < n; i += WARPS) {
-      double* row = chain ? mat + (int64_t)i * n : nullptr;
-      if (chain) {
-        for (int j = lane; j < n; j += 32) row[j] = 0.0;
-      }
-      __syncwarp();
-      const double tot = level_warp(a, s, base + i, base, pbuf, t0, dvec[i],
-                                    row, stage + warp * STAGE);
-      __syncwarp();
-      if (chain) {
-        for (int j = lane; j < n; j += 32) {
-          row[j] = (j == i ? 1.0 : 0.0) - row[j];
-        }
-      }
-      if (lane == 0) dvec[i] = tot;
+      level_warp(a, s, base + i, base, pbuf, t0, dvec[i], nullptr,
+                 stage + warp * STAGE);
     }
-    __syncthreads();
+    __syncthreads();  // the slot is rewritten by the next group
     ph.stamp(1);
-    if (chain) {
-      invert<KB>(mat, n, C, R, &singular, ph);
-      // the syncthreads ending invert make the inverse and the flag seen
-      const bool sing = singular != 0;
-      for (int i = tid; i < n; i += BLOCK) {
-        const double* ai = mat + (int64_t)i * n;
-        bool finite = !sing;
-        double tot = 0.0;
-        for (int j = 0; j < n; ++j) {
-          const double b = ai[j] * dvec[j];
-          finite = finite && isfinite(b);
-          tot += fmax(b, 0.0);
-        }
-        const bool ok = finite && tot > 0.0;
-        float* out = a.chain_cdf + ((int64_t)s * a.M + base + i) * (a.W + 1);
-        double run = 0.0;
-        for (int j = 0; j < n; ++j) {
-          run += fmax(ai[j] * dvec[j], 0.0);
-          out[j] = ok ? (float)div0(run, tot) : (j >= i ? 1.0f : 0.0f);
-        }
-        for (int j = n; j < a.W; ++j) out[j] = ok || j >= i ? 1.0f : 0.0f;
-        out[a.W] = (float)base;
-      }
-      __syncthreads();  // the slot is rewritten by the next system
-      ph.stamp(4);
-    }
     ph.system();
   }
   ph.flush();
@@ -916,20 +820,398 @@ chain_cluster_kernel(ChainArgs a) {
   ph.flush();
 }
 
+// -------------------------------------------------------------------- large
+
+// The large-system instantiation's shared memory, in f64 (k8_large_smem in
+// the wrapper repeats it): the panel rows R of a chunk of at most CHUNK
+// columns, ldr_of apart; the kept pivot rows and the panel rows' final
+// diagonal block (KB x KB each); each warp's staging; then the block's
+// first hs rows of A, lda_of apart.  Its workspace slot, one a system in
+// flight (k8_large_slot in the wrapper), in f64 for components of up to
+// n_max levels: A's rows (those past each block's first hs), ldg_of(n)
+// apart; the panel rows of two panels in turn (KB rows each); d of every
+// level; and each block's p of its levels' transitions, (slot_stride -
+// (n_max + 2 KB + 1) ldg_of(n_max)) / per a block.
+constexpr int CHUNK = 1024;
+__host__ __device__ constexpr int ldg_of(int n) { return round_up(n, 8); }
+__host__ __device__ constexpr int chunk_of(int n) {
+  return ldg_of(n) < CHUNK ? ldg_of(n) : CHUNK;
+}
+__host__ __device__ constexpr int64_t large_smem(int n, int kb, int hs) {
+  return 8 * ((int64_t)kb * ldr_of(chunk_of(n)) + 2 * kb * kb
+              + CWARPS * STAGE + (int64_t)hs * lda_of(n));
+}
+// 16-byte loads a thread has in flight copying the panel rows
+constexpr int LCOPY = 8;
+
+// The blocks of one system in flight meet here: each arrives on the
+// system's counter in device memory (release) and waits for it to reach
+// target, per arrivals a barrier (acquire).  The blocks of the grid are
+// resident together (a cooperative launch), so no wait is for a block
+// that has not started; a wait past WAIT_CYCLES (seconds) traps, so a
+// fault shows as a failed launch rather than a card that never returns.
+// The block barriers on either side order the block's other threads with
+// thread 0, which the release and the acquire carry between blocks.
+constexpr long long WAIT_CYCLES = 1LL << 36;
+__device__ __forceinline__ void group_sync(unsigned* bar, unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.add.u32 [%0], 1;\n"
+                 :: "l"(bar) : "memory");
+    const long long t0 = clock64();
+    unsigned v;
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];\n"
+                   : "=r"(v) : "l"(bar) : "memory");
+      if (clock64() - t0 > WAIT_CYCLES) __trap();
+    } while (v < target);
+  }
+  __syncthreads();
+}
+
+// A block's rows of a system: row i of its share (global row r0 + i) in
+// its shared memory for i < hs (lds apart), else in the slot (row 0 of the
+// system at gm, ldg apart).
+struct Rows {
+  double* sm;
+  double* gm;
+  int lds, ldg, hs, r0;
+  __device__ double* row(int i) const {
+    return i < hs ? sm + i * lds : gm + (int64_t)(r0 + i) * ldg;
+  }
+};
+
+// The panel rows' columns [c0, c0 + cw) (cw a multiple of 8), rows kb ..
+// KB zero, from src (KB rows ldg apart) into Rb (ldr apart), 16 bytes a
+// load, COPY loads a thread in flight, by the threads first, first +
+// step, ...
+template <int KB>
+__device__ void copy_panel(const double* src, int ldg, int kb, int c0,
+                           int cw, double* Rb, int ldr, int first, int step) {
+  const int n2 = cw / 2;
+  for (int i0 = first; i0 < KB * n2; i0 += LCOPY * step) {
+    double2 v[LCOPY];
+#pragma unroll
+    for (int u = 0; u < LCOPY; ++u) {
+      const int idx = i0 + u * step, p = idx / n2;
+      v[u] = make_double2(0.0, 0.0);
+      if (idx < KB * n2 && p < kb) {
+        v[u] = *reinterpret_cast<const double2*>(
+            src + (int64_t)p * ldg + c0 + 2 * (idx % n2));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < LCOPY; ++u) {
+      const int idx = i0 + u * step;
+      if (idx < KB * n2) {
+        *reinterpret_cast<double2*>(Rb + (idx / n2) * ldr
+                                    + 2 * (idx % n2)) = v[u];
+      }
+    }
+  }
+}
+
+// The trailing update of a block's rows [0, own) on the 8-column tiles
+// [c0, c1), whose panel rows R are in Rb (ldr apart, from column 8 c0):
+// the cluster instantiation's trailing_update, each warp a strip of 16 rows
+// by NJ tiles on mma.sync m16n8k8, the same products in the same order,
+// with the rows where w puts them and the rows past own neither read nor
+// written; a row of the next panel (global rows [nk0, nk0 + KB)) is also
+// written to nxt, the next panel's rows (ldg apart), unless nxt is null.
+template <int KB>
+__device__ void large_update(const Rows& w, int own, const double* Rb,
+                             int ldr, int c0, int c1, int k0, int kb,
+                             double* nxt, int nk0, int nw) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_tiles = (own + 15) / 16, col_tiles = c1 - c0;
+  const int pc0 = k0 / 8, pc1 = (k0 + round_up(kb, 8)) / 8;
+  const int groups = (col_tiles + NJ - 1) / NJ;
+  for (int it = warp; it < row_tiles * groups; it += nw) {
+    const int i0 = (it / groups) * 16;
+    const int ct0 = c0 + (it % groups) * NJ;
+    // this lane's rows i0 + g + 8 h, h = 0, 1
+    double* rp[2];
+    double* sp[2];
+    bool zero[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = i0 + g + 8 * h, gr = w.r0 + i;
+      rp[h] = i < own ? w.row(i) : nullptr;
+      zero[h] = gr >= k0 && gr < k0 + kb;
+      sp[h] = rp[h] != nullptr && nxt != nullptr && gr >= nk0
+              && gr < nk0 + KB ? nxt + (int64_t)(gr - nk0) * w.ldg : nullptr;
+    }
+    double af[KB / 8][4];
+#pragma unroll
+    for (int ks = 0; ks < KB / 8; ++ks) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int col = 8 * ks + t + 4 * (v / 2);
+        const double* r = rp[v % 2];
+        af[ks][v] = r != nullptr && col < kb ? r[k0 + col] : 0.0;
+      }
+    }
+    double c[NJ][4];
+    bool on[NJ];
+#pragma unroll
+    for (int cj = 0; cj < NJ; ++cj) {
+      const int ct = min(ct0 + cj, c1 - 1);
+      on[cj] = ct0 + cj < c1 && (ct < pc0 || ct >= pc1);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        double2 x = make_double2(0.0, 0.0);
+        if (on[cj] && rp[h] != nullptr && !zero[h]) {
+          x = *reinterpret_cast<const double2*>(rp[h] + ct * 8 + 2 * t);
+        }
+        c[cj][2 * h] = x.x;
+        c[cj][2 * h + 1] = x.y;
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < KB / 8; ++ks) {
+#pragma unroll
+      for (int cj = 0; cj < NJ; ++cj) {
+        const int cc = (min(ct0 + cj, c1 - 1) - c0) * 8;
+        const double b[2] = {Rb[(8 * ks + t) * ldr + cc + g],
+                             Rb[(8 * ks + t + 4) * ldr + cc + g]};
+        mma16(c[cj], af[ks], b);
+      }
+    }
+#pragma unroll
+    for (int cj = 0; cj < NJ; ++cj) {
+      if (!on[cj]) continue;
+      const int col = (ct0 + cj) * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const double2 x = make_double2(c[cj][2 * h], c[cj][2 * h + 1]);
+        if (rp[h] != nullptr) *reinterpret_cast<double2*>(rp[h] + col) = x;
+        if (sp[h] != nullptr) *reinterpret_cast<double2*>(sp[h] + col) = x;
+      }
+    }
+  }
+}
+
+// One (component, shell) system spread over `per` blocks of a persistent
+// cooperative grid, gridDim.x / per systems in flight, each in its slot of
+// the workspace; see the head of the file.
+template <int KB>
+__global__ void __launch_bounds__(CBLOCK, 1)
+chain_large_kernel(ChainArgs a) {
+  extern __shared__ __align__(16) double shm[];
+  __shared__ int singular;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = a.per, grp = blockIdx.x / per, rank = blockIdx.x % per;
+  const int in_flight = gridDim.x / per;
+  const int n_max = a.n_max, ldm = ldg_of(n_max);
+  const int ldr = ldr_of(chunk_of(n_max));
+  double* Rb = shm;
+  double* Pm = Rb + KB * ldr;
+  double* Df = Pm + KB * KB;
+  double* stage = Df + KB * KB;
+  double* srows = stage + CWARPS * STAGE;
+  double* mat = a.work + grp * a.slot_stride;
+  double* stg = mat + (int64_t)n_max * ldm;
+  double* dvec = stg + 2 * KB * ldm;
+  const int64_t tstride =
+      (a.slot_stride - (int64_t)(n_max + 2 * KB + 1) * ldm) / per;
+  double* pbuf = dvec + ldm + rank * tstride;
+  unsigned* bar = a.bar + grp;
+  unsigned epoch = 0;
+  const int S = a.S;
+  const int64_t n_sys = (int64_t)a.n_groups * S;
+  Phases ph;
+  for (int64_t sys = grp; sys < n_sys; sys += in_flight) {
+    const int g = (int)(sys / S), s = (int)(sys % S);
+    const int base = a.g_base[g], n = a.g_size[g];
+    const int h = (n + per - 1) / per;
+    const int r0 = min(n, rank * h), own = min(n, r0 + h) - r0;
+    const int t0 = a.refs[base + r0];
+    const int ld = ldg_of(n);
+    const Rows w{srows, mat, lda_of(n), ld, a.hs, r0};
+    if (tid == 0) singular = 0;
+    gather_p(a, s, t0, a.refs[base + r0 + own], pbuf, tid, CBLOCK);
+    __syncthreads();
+    ph.stamp(0);
+    for (int i = tid; i < own; i += CBLOCK) {
+      dvec[r0 + i] = block_sum(a, base + r0 + i, pbuf, t0);
+    }
+    __syncthreads();
+    ph.stamp(12);
+    // one warp a level: its emission row and its row of A = I - Q, the
+    // first panel's rows also into the first panel buffer
+    for (int i = warp; i < own; i += CWARPS) {
+      double* row = w.row(i);
+      const int li = r0 + i;
+      for (int j = lane; j < ld; j += 32) row[j] = 0.0;
+      __syncwarp();
+      const double d = level_warp(a, s, base + li, base, pbuf, t0, dvec[li],
+                                  row, stage + warp * STAGE);
+      __syncwarp();
+      for (int j = lane; j < n; j += 32) {
+        const double v = (j == li ? 1.0 : 0.0) - row[j];
+        row[j] = v;
+        if (li < KB) stg[li * ld + j] = v;
+      }
+      if (lane == 0) dvec[li] = d;
+    }
+    ph.stamp(13);
+    group_sync(bar, ++epoch * per);
+    ph.stamp(7);
+    const int panels = (n + KB - 1) / KB;
+    const int cw = chunk_of(n);
+    for (int k = 0; k < panels; ++k) {
+      const int k0 = k * KB, kb = min(KB, n - k0);
+      const double* cur = stg + (k & 1) * KB * ld;
+      double* nxt = k + 1 < panels ? stg + ((k + 1) & 1) * KB * ld : nullptr;
+      // the pivot steps on warp 0 (from the panel rows in the slot) while
+      // the warps of the other three schedulers (warp % 4 != 0) copy the
+      // panel rows' first chunk: with warps 4, 8 and 12 copying too, warp
+      // 0's chain of latencies waited on them (2% of the build at the
+      // large-ion shape, PERF.md)
+      if (warp == 0) {
+        panel_pivots<KB>(cur + k0, ld, kb, Pm, Df, stage, &singular);
+        ph.stamp(8);
+      } else if (warp % 4 != 0) {
+        copy_panel<KB>(cur, ld, kb, 0, min(cw, ld), Rb, ldr,
+                       32 * (warp - 1 - warp / 4) + lane, 32 * 12);
+      }
+      __syncthreads();
+      ph.stamp(11);
+      // this block's rows' panel columns: the panel rows take D's final
+      // rows, the others the kb steps from the kept pivot rows
+      for (int i = tid; i < own; i += CBLOCK) {
+        double* row = w.row(i) + k0;
+        const int gr = r0 + i, m = gr - k0;
+        double c[KB];
+        if (m >= 0 && m < kb) {
+#pragma unroll
+          for (int q = 0; q < KB; ++q) c[q] = q < kb ? Df[m * KB + q] : 0.0;
+        } else {
+#pragma unroll
+          for (int q = 0; q < KB; ++q) c[q] = q < kb ? row[q] : 0.0;
+          row_steps<KB>(c, Pm);
+        }
+        double* sr = nxt != nullptr && gr >= k0 + KB && gr < k0 + 2 * KB
+                     ? nxt + (int64_t)(gr - k0 - KB) * ld + k0 : nullptr;
+#pragma unroll
+        for (int q = 0; q < KB; ++q) {
+          if (q < kb) {
+            row[q] = c[q];
+            if (sr != nullptr) sr[q] = c[q];
+          }
+        }
+      }
+      __syncthreads();
+      ph.stamp(10);
+      for (int j0 = 0; j0 < ld; j0 += cw) {
+        const int cols = min(cw, ld - j0);
+        if (j0 > 0) {
+          __syncthreads();  // the last chunk's rows are read
+          copy_panel<KB>(cur, ld, kb, j0, cols, Rb, ldr, tid, CBLOCK);
+          __syncthreads();
+        }
+        large_update<KB>(w, own, Rb, ldr, j0 / 8, (j0 + cols) / 8, k0, kb,
+                         nxt, k0 + KB, CWARPS);
+      }
+      ph.stamp(3);
+      if (nxt != nullptr) {
+        group_sync(bar, ++epoch * per);
+        ph.stamp(7);
+      }
+    }
+    // the chain rows, as the cluster instantiation forms them
+    __syncthreads();
+    const bool sing = singular != 0;
+    for (int i = warp; i < own; i += CWARPS) {
+      double* ai = w.row(i);
+      bool finite = !sing;
+      double carry = 0.0;
+      for (int j0 = 0; j0 < n; j0 += 32 * SCAN) {
+        double v[SCAN];
+#pragma unroll
+        for (int c = 0; c < SCAN; ++c) {
+          const int j = j0 + 32 * c + lane;
+          v[c] = 0.0;
+          if (j < n) {
+            const double b = ai[j] * dvec[j];
+            finite = finite && isfinite(b);
+            v[c] = fmax(b, 0.0);
+          }
+        }
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+          for (int c = 0; c < SCAN; ++c) {
+            const double u = __shfl_up_sync(0xffffffffu, v[c], o);
+            if (lane >= o) v[c] = v[c] + u;
+          }
+        }
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+#pragma unroll
+          for (int c = 0; c < SCAN; ++c) {
+            const double u = __shfl_up_sync(0xffffffffu, v[c], o);
+            if (lane >= o) v[c] = fmax(v[c], u);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < SCAN; ++c) {
+          const int jc = j0 + 32 * c;
+          if (jc < n) {
+            v[c] = carry + v[c];
+            if (jc + lane < n) ai[jc + lane] = v[c];
+            carry = __shfl_sync(0xffffffffu, v[c], min(31, n - 1 - jc));
+          }
+        }
+      }
+      const bool ok = __all_sync(0xffffffffu, finite) && carry > 0.0;
+      const int li = r0 + i;
+      float* out = a.chain_cdf + ((int64_t)s * a.M + base + li) * (a.W + 1);
+      __syncwarp();
+#pragma unroll 4
+      for (int j = lane; j < a.W; j += 32) {
+        out[j] = ok ? (j < n ? (float)div0(ai[j], carry) : 1.0f)
+                    : (j >= li ? 1.0f : 0.0f);
+      }
+      if (lane == 0) out[a.W] = (float)base;
+    }
+    ph.stamp(4);
+    // the slot (d, the panel buffers) is rewritten by the next system
+    group_sync(bar, ++epoch * per);
+    ph.stamp(7);
+    ph.system();
+  }
+  ph.flush();
+}
+
 // ------------------------------------------------------------------ launch
 
-template <int KB>
 int launch_workspace(const ChainArgs& a, int slots, cudaStream_t st) {
-  const size_t smem =
-      ((size_t)a.n_max * ldc(KB) + (size_t)KB * TC + WARPS * STAGE)
-      * sizeof(double);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        workspace_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  workspace_kernel<KB><<<slots, BLOCK, smem, st>>>(a);
+  workspace_kernel<<<slots, BLOCK,
+                     (DOWN_TILE + WARPS * STAGE) * sizeof(double), st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int KB>
+int launch_large(const ChainArgs& a, int blocks, cudaStream_t st) {
+  const int64_t smem = large_smem(a.n_max, KB, a.hs);
+  cudaError_t err = cudaFuncSetAttribute(
+      chain_large_kernel<KB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(CBLOCK);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, chain_large_kernel<KB>, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -979,11 +1261,15 @@ int active_clusters(int n_max, int cs, int* out) {
 
 }  // namespace
 
-// One build.  variant 0: the workspace instantiation (kb: its panel, 32, 8
-// or 1, k8_panel in the wrapper; chain_cdf null selects the downbranch
-// build, emission rows only), `slots` blocks; variant 1: the cluster
-// instantiation (kb 16), clusters of `cluster` blocks, `slots` blocks in
-// all.  work: slots x slot_stride f64.
+// One build of the work groups [0, n_groups) of the arrays passed (the
+// wrapper passes a range of them, components largest first).  variant 0:
+// the downbranch build (chain_cdf null, kb 1), `slots` blocks; variant 1:
+// the cluster instantiation (kb 16), clusters of `cluster` blocks, `slots`
+// blocks in all; variant 2: the large-system instantiation (kb 16),
+// `cluster` blocks a system, `slots` blocks in all (slots / cluster
+// systems in flight, each with its zeroed barrier counter in counters),
+// `smem_rows` rows of each block in its shared memory.  work: slots x
+// slot_stride f64 (variant 2: one slot a system in flight).
 extern "C" int macro_chain(
     const void* beta, const void* jb, const void* stim, int S,
     const void* refs, const void* coef, const void* line, const void* type,
@@ -991,7 +1277,7 @@ extern "C" int macro_chain(
     int We, int W, const void* g_base, const void* g_size, const void* g_t0,
     const void* g_t1, int n_groups, int n_max, int variant, int cluster,
     int kb, void* work, int64_t slot_stride, int slots, void* emit_cdf,
-    void* chain_cdf, void* stream) {
+    void* chain_cdf, int smem_rows, void* counters, void* stream) {
   if (S <= 0 || n_groups <= 0) return 0;
   if (slots <= 0) return (int)cudaErrorInvalidValue;
   ChainArgs a;
@@ -1019,6 +1305,9 @@ extern "C" int macro_chain(
   a.slot_stride = slot_stride;
   a.emit_cdf = (float*)emit_cdf;
   a.chain_cdf = (float*)chain_cdf;
+  a.per = cluster;
+  a.hs = smem_rows;
+  a.bar = (unsigned*)counters;
   cudaStream_t st = (cudaStream_t)stream;
   if (variant == 1) {
     if (chain_cdf == nullptr || cluster < 1 || cluster > 8
@@ -1028,13 +1317,17 @@ extern "C" int macro_chain(
     return kb == 16 ? launch_cluster<16>(a, cluster, slots, st)
                     : (int)cudaErrorInvalidValue;
   }
-  if (variant != 0) return (int)cudaErrorInvalidValue;
-  switch (kb) {
-    case 32: return launch_workspace<32>(a, slots, st);
-    case 8: return launch_workspace<8>(a, slots, st);
-    case 1: return launch_workspace<1>(a, slots, st);
-    default: return (int)cudaErrorInvalidValue;
+  if (variant == 2) {
+    if (chain_cdf == nullptr || counters == nullptr || cluster < 1
+        || slots % cluster != 0 || smem_rows < 0 || kb != 16) {
+      return (int)cudaErrorInvalidValue;
+    }
+    return launch_large<16>(a, slots, st);
   }
+  if (variant != 0 || chain_cdf != nullptr || kb != 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_workspace(a, slots, st);
 }
 
 // How many clusters of `cluster` blocks of the cluster instantiation with

@@ -17,14 +17,17 @@ probabilities.  The transport loop draws from two row tables:
 The structure (``_ChainContext``) depends only on the transition table's
 sparsity and is built once in numpy.  The per-iteration numbers are built
 on the device in f64 and rounded to f32 for the transport kernels:
-``macro_chain`` launches K8 for tensors on the card (one launch a build:
-each (component, shell) system's block sums, emission rows and in-place
-Gauss-Jordan inverse without pivoting, in transition order, no atomics)
-and runs the plain version ``p_norm`` + ``chain_tables`` (segment sums by
-``index_add_``, one batched ``torch.linalg.solve_ex`` per component-size
-bucket) only for CPU tensors.  A singular system (a closed internal cycle
-with no emission) gives non-finite rows in both, which take the
-self-deactivation fallback, as the JAX package's NaN rows do.
+``macro_chain`` launches K8 for tensors on the card (each (component,
+shell) system's block sums, emission rows and in-place Gauss-Jordan
+inverse without pivoting, in transition order, no atomics; one launch a
+build of the cluster instantiation for the components a thread-block
+cluster holds and one of the large-system instantiation for the larger
+ones) and runs the plain version ``p_norm`` + ``chain_tables`` (segment
+sums by ``index_add_``, ``torch.linalg.solve_ex`` per component-size
+bucket, on the CPU one system a call) only for CPU tensors.  A singular
+system (a closed internal cycle with no emission) gives non-finite rows
+in both, which take the self-deactivation fallback, as the JAX package's
+NaN rows do.
 
 ``solve_transition_probabilities`` is the host f64 copy of the JAX
 package's, which the formal integral's source function reads.
@@ -48,14 +51,11 @@ from tardis_torch import cuda
 from tardis_torch.atomic.atom_data import MACRO_INTERNAL_UP, MacroAtomData
 
 F64 = torch.float64
-# K8's launch shape (csrc/macro_chain.cu BLOCK and TC); the workspace
-# instantiation's panel widths, widest first, and the shared memory its
-# panel and tile may take (of a block's 227 KB)
+# K8's downbranch launch (csrc/macro_chain.cu BLOCK): threads a block, and
+# blocks a multiprocessor
 K8_BLOCK = 256
-K8_TILE = 64
 K8_STAGE = 64  # f64 of shared staging a warp, for its level rows
-K8_PANELS = (32, 8, 1)
-K8_SMEM = 200 * 1024
+K8_DOWN_TILE = 64  # f64 of a downbranch block's shared memory before it
 K8_BLOCKS_PER_SM = 2
 # the cluster instantiation: cluster sizes, smallest first (8 is the
 # portable limit), its panel width, and the dynamic shared memory a block
@@ -65,6 +65,12 @@ K8_CLUSTERS = (2, 4, 8)
 K8_CLUSTER_PANEL = 16
 K8_CLUSTER_SMEM = 232_448 - 1024
 K8_CLUSTER_BLOCK = 512  # threads a block (csrc/macro_chain.cu CBLOCK)
+# the large-system instantiation (past a cluster's reach): the columns of
+# the panel rows a block holds at once (csrc/macro_chain.cu CHUNK), and the
+# bytes of the systems in flight's matrix rows outside shared memory, which
+# the card's 50 MB L2 cache should hold
+K8_LARGE_CHUNK = 1024
+K8_LARGE_L2 = 40e6
 
 
 @dataclass
@@ -327,6 +333,18 @@ def bucket_systems(ctx: _ChainContext, arrays: dict, pn: torch.Tensor,
     return eye[None] - Q, d
 
 
+def _solve(A: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """torch.linalg.solve_ex of a batch; on the CPU one system a call:
+    oneMKL 2024.2's batched f64 LU (PyTorch 2.13's CPU build) stops with
+    "Parameter 6 was incorrect on entry to DLASWP" and never returns for
+    two or more systems of 200 levels or more with more than one
+    thread."""
+    if A.device.type != "cpu":
+        return torch.linalg.solve_ex(A, rhs)[0]
+    return torch.cat([torch.linalg.solve_ex(A[i:i + 1], rhs[i:i + 1])[0]
+                      for i in range(A.shape[0])]) if A.shape[0] else rhs
+
+
 def chain_tables(ctx: _ChainContext, arrays: dict, pn: torch.Tensor):
     """(chain_cdf, emit_cdf) f32 row tables from p_norm (T, S)."""
     S = pn.shape[1]
@@ -357,7 +375,7 @@ def chain_tables(ctx: _ChainContext, arrays: dict, pn: torch.Tensor):
         Wp, n_cb = meta["Wp"], meta["n_cb"]
         A, d = bucket_systems(ctx, arrays, pn, deact, bi)
         # no host check: a singular system's rows come out non-finite
-        B = torch.linalg.solve_ex(A, torch.diag_embed(d))[0]
+        B = _solve(A, torch.diag_embed(d))
         Bl = B.reshape(S, n_cb, Wp, Wp)[
             :, arrays[f"b{bi}_lvl_pos"], arrays[f"b{bi}_lvl_local"], :
         ]  # (S, n_levels_in_bucket, Wp)
@@ -383,31 +401,15 @@ def chain_tables(ctx: _ChainContext, arrays: dict, pn: torch.Tensor):
     return chain_cdf, emit_cdf
 
 
-def k8_panel(n_max: int) -> int:
-    """K8's panel width for components of up to ``n_max`` levels: the
-    widest of K8_PANELS whose panel (n_max rows, each width + 1 apart
-    where the width is above 1) and tile (width x K8_TILE) of f64 fit
-    K8_SMEM."""
-    for kb in K8_PANELS:
-        ldc = 1 if kb == 1 else kb + 1
-        if (n_max * ldc + kb * K8_TILE) * 8 <= K8_SMEM:
-            return kb
-    raise ValueError(
-        f"macro_chain: a component of {n_max} levels is more than K8 holds "
-        f"({K8_SMEM // 8 - K8_TILE} levels)")
-
-
 def k8_workspace(ctx: _ChainContext, n_shells: int, sms: int):
-    """(f64 entries a slot, slots) of K8's workspace on a card of ``sms``
-    multiprocessors: a slot holds one system's matrix (n_max^2), its
-    levels' block sums and deactivation masses (n_max, and at least
-    K8_BLOCK, a downbranch work group's levels) and its transitions' p,
-    rounded up to 256 bytes; one slot a block of the persistent grid, K8_BLOCKS_PER_SM
-    blocks a multiprocessor, no more than the systems, and no more than
-    the plain version's largest f64 intermediate holds (``plain_bytes``),
-    but at least one."""
-    n = ctx.k8_n_max
-    stride = -(-(n * n + max(n, K8_BLOCK) + ctx.k8_t_max) // 32) * 32
+    """(f64 entries a slot, slots) of K8's downbranch workspace on a card
+    of ``sms`` multiprocessors: a slot holds a work group's block sums
+    (K8_BLOCK) and its transitions' p, rounded up to 256 bytes; one slot a
+    block of the persistent grid, K8_BLOCKS_PER_SM blocks a
+    multiprocessor, no more than the work groups' systems, and no more
+    than the plain version's largest f64 intermediate holds
+    (``plain_bytes``), but at least one."""
+    stride = -(-(K8_BLOCK + ctx.k8_t_max) // 32) * 32
     cap = int(ctx.plain_bytes(n_shells) // (8 * stride))
     slots = min(ctx.k8_groups * n_shells, K8_BLOCKS_PER_SM * sms, cap)
     return stride, max(1, slots)
@@ -417,24 +419,28 @@ def _round_up(x, m):
     return -(-x // m) * m
 
 
+def _ldr(n):
+    n8 = _round_up(n, 8)
+    return n8 if n8 % 16 == 8 else n8 + 8
+
+
 def k8_cluster_smem(n: int, cluster: int, panel: int) -> int:
     """Dynamic shared bytes a block of K8's cluster instantiation takes for
     components of up to ``n`` levels (``csrc/macro_chain.cu``
     ``cluster_smem``): its rows of A (a multiple of 16, each row a
     multiple of 8 plus 4 f64), the panel rows (a multiple of 16 plus 8),
     two ``panel`` x ``panel`` blocks, d and the warps' staging."""
-    n8 = _round_up(n, 8)
     rows = _round_up(-(-n // cluster), 16)
-    ldr = n8 if n8 % 16 == 8 else n8 + 8
-    return 8 * (rows * (n8 + 4) + panel * ldr + 2 * panel * panel
-                + _round_up(n, 2) + K8_CLUSTER_BLOCK // 32 * K8_STAGE)
+    return 8 * (rows * (_round_up(n, 8) + 4) + panel * _ldr(n)
+                + 2 * panel * panel + _round_up(n, 2)
+                + K8_CLUSTER_BLOCK // 32 * K8_STAGE)
 
 
 def k8_cluster_shape(n_max: int):
     """(cluster, panel) of K8's cluster instantiation for components of up
     to ``n_max`` levels: the smallest cluster of K8_CLUSTERS whose blocks
     hold them with a panel of K8_CLUSTER_PANEL within K8_CLUSTER_SMEM;
-    None past the largest (the workspace instantiation's components)."""
+    None past the largest (the large-system instantiation's components)."""
     for cluster in K8_CLUSTERS:
         if k8_cluster_smem(n_max, cluster,
                            K8_CLUSTER_PANEL) <= K8_CLUSTER_SMEM:
@@ -442,13 +448,40 @@ def k8_cluster_shape(n_max: int):
     return None
 
 
+def k8_large_smem(n: int, panel: int, rows: int) -> int:
+    """Dynamic shared bytes a block of K8's large-system instantiation
+    takes for components of up to ``n`` levels with ``rows`` of its rows
+    in shared memory (``csrc/macro_chain.cu`` ``large_smem``): the panel
+    rows of a chunk of at most K8_LARGE_CHUNK columns (a multiple of 16
+    plus 8 apart), two ``panel`` x ``panel`` blocks, the warps' staging,
+    and the rows (a multiple of 8 plus 4 f64 each)."""
+    chunk = min(_round_up(n, 8), K8_LARGE_CHUNK)
+    return 8 * (panel * _ldr(chunk) + 2 * panel * panel
+                + K8_CLUSTER_BLOCK // 32 * K8_STAGE
+                + rows * (_round_up(n, 8) + 4))
+
+
+def k8_large_slot(n: int, panel: int, per: int, t_share: int) -> int:
+    """f64 of one system's slot of K8's large-system workspace for
+    components of up to ``n`` levels (``csrc/macro_chain.cu``, the large
+    section): its matrix (n rows, n rounded up to 8 apart), two panels'
+    rows, d, and ``per`` blocks' p of up to ``t_share`` transitions each
+    (rounded up to 32)."""
+    ldg = _round_up(n, 8)
+    return ((n + 2 * panel + 1) * ldg
+            + per * (_round_up(t_share, 32) or 32))
+
+
 class K8Plan(NamedTuple):
     """One K8 launch: its instantiation ("macroatom_cluster",
-    "macroatom_workspace" or "downbranch"), blocks a cluster (1 but for
-    the cluster instantiation), panel width, dynamic shared bytes a block,
-    f64 of a block's workspace slot, blocks of the grid, systems, rounds
-    of the persistent grid and their fill (systems over rounds x the
-    grid's clusters)."""
+    "macroatom_large" or "downbranch"), blocks a system (a cluster's
+    blocks, or the blocks a large system is spread over; 1 for
+    downbranch), panel width, dynamic shared bytes a block, f64 of a
+    workspace slot (a block's; a system's in flight for the large one),
+    blocks of the grid, systems, rounds of the persistent grid and their
+    fill (systems over rounds x the systems in flight), the first of the
+    work groups it takes (components largest first) and how many, and the
+    rows of each block in shared memory (large only)."""
 
     variant: str
     cluster: int
@@ -459,76 +492,149 @@ class K8Plan(NamedTuple):
     systems: int
     rounds: int
     fill: float
+    first_group: int = 0
+    n_groups: int = 0
+    smem_rows: int = 0
 
 
-def k8_plan(ctx: _ChainContext, n_shells: int, sms: int,
-            active_clusters=None, shape=None) -> K8Plan:
-    """K8's launch for ``n_shells`` shells on a card of ``sms``
-    multiprocessors.  Components of up to ``n_max`` levels take the
-    cluster instantiation where a cluster holds them (``k8_cluster_shape``,
-    or ``shape`` = (cluster, panel) if given), on as many clusters as the
-    card holds at once (``active_clusters(cluster, panel)``, the card's
-    occupancy query; one block a multiprocessor without it) but no more
-    than the systems; each block's slot holds two buffers of p of its own
-    rows' transitions (a system's, and the next one's, gathered during its
-    elimination).  Larger ones take the workspace instantiation
-    (``k8_panel``, ``k8_workspace``; ``shape`` = "workspace" forces it, for
-    a benchmark), which refuses a component past its panel; downbranch
-    mode takes it without a chain."""
-    systems = ctx.k8_groups * n_shells
-    n = ctx.k8_n_max
-    if shape is None and ctx.W:
-        shape = k8_cluster_shape(n)
-    if shape is None or shape == "workspace" or not ctx.W:
-        stride, blocks = k8_workspace(ctx, n_shells, sms)
-        variant = "macroatom_workspace" if ctx.W else "downbranch"
-        panel = k8_panel(n) if ctx.W else 1
-        smem = 8 * (n * (1 if panel == 1 else panel + 1) + panel * K8_TILE
-                    + K8_BLOCK // 32 * K8_STAGE)
-        rounds = -(-systems // blocks)
-        return K8Plan(variant, 1, panel, smem, stride, blocks, systems,
-                      rounds, systems / (rounds * blocks))
-    cluster, panel = shape
+def _shares(ctx: _ChainContext, first: int, count: int, parts: int,
+            rows=None):
+    """The most transitions that one of ``parts`` consecutive shares of a
+    component's levels holds, over the work groups [first, first +
+    count): ``rows`` levels a share (a multiple of 16, from the largest;
+    the cluster instantiation), else each component's levels over
+    ``parts`` rounded up (the large one)."""
+    a = ctx.arrays_np
+    refs = a["k8_refs"].astype(np.int64)
+    base = a["k8_base"][first:first + count].astype(np.int64)
+    size = a["k8_size"][first:first + count].astype(np.int64)
+    h = rows if rows is not None else -(-size // parts)
+    r0 = np.minimum(size, np.arange(parts)[:, None] * h)
+    r1 = np.minimum(size, r0 + h)
+    return int((refs[base + r1] - refs[base + r0]).max())
+
+
+def _cluster_plan(ctx, first, count, n_shells, sms, active_clusters, shape):
+    systems = count * n_shells
+    n = int(ctx.arrays_np["k8_size"][first])
+    cluster, panel = shape or k8_cluster_shape(n)
     smem = k8_cluster_smem(n, cluster, panel)
     if smem > K8_CLUSTER_SMEM:
         raise ValueError(f"macro_chain: a cluster of {cluster} with panel "
                          f"{panel} does not hold {n} levels")
-    clusters = (active_clusters(cluster, panel) if active_clusters
+    clusters = (active_clusters(n, cluster, panel) if active_clusters
                 else sms // cluster)
     if clusters < 1:
         raise RuntimeError(f"macro_chain: no cluster of {cluster} blocks "
                            f"with {smem} shared bytes fits the card")
     clusters = min(clusters, systems)
-    a = ctx.arrays_np
-    refs = a["k8_refs"].astype(np.int64)
-    base, size = a["k8_base"].astype(np.int64), a["k8_size"].astype(np.int64)
-    h = _round_up(-(-size // cluster), 16)
-    t_max = 0
-    for r in range(cluster):
-        r0 = np.minimum(size, r * h)
-        r1 = np.minimum(size, r0 + h)
-        t_max = max(t_max, int((refs[base + r1] - refs[base + r0]).max()))
+    size = ctx.arrays_np["k8_size"][first:first + count].astype(np.int64)
+    t_max = _shares(ctx, first, count, cluster,
+                    _round_up(-(-size // cluster), 16))
     rounds = -(-systems // clusters)
     return K8Plan("macroatom_cluster", cluster, panel, smem,
                   2 * (_round_up(t_max, 32) or 32), clusters * cluster,
-                  systems, rounds, systems / (rounds * clusters))
+                  systems, rounds, systems / (rounds * clusters), first,
+                  count)
+
+
+def _large_plan(ctx, first, count, n_shells, sms):
+    systems = count * n_shells
+    n = int(ctx.arrays_np["k8_size"][first])
+    panel, ldg = K8_CLUSTER_PANEL, _round_up(n, 8)
+    room = max(0, (K8_CLUSTER_SMEM - k8_large_smem(n, panel, 0))
+               // (8 * (ldg + 4)))
+    # the most systems in flight (the fewest rounds) whose blocks hold at
+    # least half their rows in shared memory, whose rows outside it
+    # K8_LARGE_L2 holds and whose workspace the plain version's largest f64
+    # intermediate does; then the fewest in flight for those rounds
+    in_flight = 1
+    for f in range(min(systems, sms), 1, -1):
+        per = sms // f
+        h = -(-n // per)
+        rows = min(h, room)
+        slot = k8_large_slot(n, panel, per, _shares(ctx, first, count, per))
+        if (h <= 2 * rows
+                and f * (n - per * rows) * ldg * 8 <= K8_LARGE_L2
+                and f * slot * 8 <= ctx.plain_bytes(n_shells)):
+            in_flight = f
+            break
+    rounds = -(-systems // in_flight)
+    in_flight = -(-systems // rounds)
+    per = sms // in_flight
+    rows = min(-(-n // per), room)
+    return K8Plan("macroatom_large", per, panel,
+                  k8_large_smem(n, panel, rows),
+                  k8_large_slot(n, panel, per,
+                                _shares(ctx, first, count, per)),
+                  in_flight * per, systems, rounds,
+                  systems / (rounds * in_flight), first, count, rows)
+
+
+def k8_plan(ctx: _ChainContext, n_shells: int, sms: int,
+            active_clusters=None, shape=None) -> tuple:
+    """K8's launches for ``n_shells`` shells on a card of ``sms``
+    multiprocessors, one ``K8Plan`` each: at most two, on one stream,
+    writing disjoint rows.  The work groups (components, largest first)
+    that a cluster holds (``k8_cluster_shape`` of the largest of them)
+    take the cluster instantiation, on as many clusters as the card holds
+    at once (``active_clusters(n_max, cluster, panel)``, the card's
+    occupancy query; one block a multiprocessor without it) but no more
+    than their systems; each block's slot holds two buffers of p of its
+    own rows' transitions (a system's, and the next one's, gathered during
+    its elimination).  The larger ones take the large-system
+    instantiation, launched first: one block a multiprocessor, the card's
+    blocks split evenly between the systems in flight, as many of each
+    block's rows in its shared memory as fit, and as many systems in
+    flight (at most the systems) as keep at least half of each block's
+    rows in shared memory, the rest within K8_LARGE_L2 and the workspace
+    within the plain version's largest f64 intermediate (the fewest in
+    flight for those rounds).  At the large-ion shape (360 systems of 600
+    levels) 10, 11, 12, 13, 16 and 22 in flight took 24.7, 25.5, 23.6,
+    23.5, 27.3 and 38.2 ms (PERF.md): rows outside shared memory cost
+    more than the rounds they save.  ``shape`` forces one instantiation
+    on every system, for a benchmark: (cluster, panel) the cluster one
+    (refused where it does not hold the largest), "large" the large one.
+    Downbranch mode takes one launch of its own instantiation."""
+    systems = ctx.k8_groups * n_shells
+    if not ctx.W:
+        stride, blocks = k8_workspace(ctx, n_shells, sms)
+        rounds = -(-systems // blocks)
+        return (K8Plan("downbranch", 1, 1, 8 * (K8_DOWN_TILE
+                                                + K8_BLOCK // 32 * K8_STAGE),
+                       stride, blocks, systems, rounds,
+                       systems / (rounds * blocks), 0, ctx.k8_groups),)
+    size = ctx.arrays_np["k8_size"]
+    if shape == "large":
+        large = ctx.k8_groups
+    elif shape is not None:
+        large = 0
+    else:
+        large = sum(k8_cluster_shape(int(n)) is None for n in size)
+    plans = []
+    if large:
+        plans.append(_large_plan(ctx, 0, large, n_shells, sms))
+    if large < ctx.k8_groups:
+        plans.append(_cluster_plan(ctx, large, ctx.k8_groups - large,
+                                   n_shells, sms, active_clusters, shape))
+    return tuple(plans)
 
 
 _K8_ARGTYPES = (
     [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 7
     + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
     + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
-    + [ctypes.c_void_p] * 3)
-_K8_VARIANT_CODE = {"macroatom_workspace": 0, "downbranch": 0,
-                    "macroatom_cluster": 1}
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2)
+_K8_VARIANT_CODE = {"downbranch": 0, "macroatom_cluster": 1,
+                    "macroatom_large": 2}
 _active: dict = {}
 
 
-def k8_active_clusters(device, n_max: int, defines=()):
+def k8_active_clusters(device, defines=()):
     """The card's occupancy query for K8's cluster instantiation: a
-    function (cluster, panel) -> clusters the card holds at once for
-    components of up to ``n_max`` levels, asked once a shape."""
-    def query(cluster, panel):
+    function (n_max, cluster, panel) -> clusters the card holds at once
+    for components of up to ``n_max`` levels, asked once a shape."""
+    def query(n_max, cluster, panel):
         key = (str(device), n_max, cluster, panel, tuple(defines))
         if key not in _active:
             fn = cuda.function("macro_chain", "macro_chain_clusters",
@@ -547,12 +653,12 @@ def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
     """One chain build, (chain_cdf, emit_cdf): K8 on the card; the plain
     version (``p_norm``, ``chain_tables``) for CPU tensors.
 
-    One launch a build (``launches``; ``launches_by_variant`` by
-    instantiation: "macroatom_cluster", "macroatom_workspace" or
-    "downbranch", which ``k8_plan`` chooses from the largest component).
-    The outputs and K8's workspace are allocated here; ``arrays`` are the
-    context's structure arrays on the tensors' device.  A failed build or
-    launch raises: no instantiation stands in for another.
+    One launch an instantiation that ``k8_plan`` gives systems, at most
+    two a build (``launches``; ``launches_by_variant`` by instantiation:
+    "macroatom_cluster", "macroatom_large" or "downbranch").  The outputs
+    and K8's workspaces are allocated here; ``arrays`` are the context's
+    structure arrays on the tensors' device.  A failed build or launch
+    raises: no instantiation stands in for another.
     """
     device = beta.device
     if device.type == "cpu":
@@ -560,22 +666,23 @@ def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
             ctx, arrays, beta.to(F64), j_blues.to(F64), stim.to(F64)))
     if device.type != "cuda":
         raise ValueError(f"macro_chain: unsupported device {device}")
-    chain_cdf, emit_cdf, plan = k8_launch(ctx, arrays, beta, j_blues, stim)
-    if beta.shape[1] and ctx.k8_groups:
-        v = plan.variant
-        macro_chain.launches += 1
-        macro_chain.launches_by_variant[v] = (
-            macro_chain.launches_by_variant.get(v, 0) + 1)
+    chain_cdf, emit_cdf, plans = k8_launch(ctx, arrays, beta, j_blues, stim)
+    if beta.shape[1]:
+        for plan in plans:
+            v = plan.variant
+            macro_chain.launches += 1
+            macro_chain.launches_by_variant[v] = (
+                macro_chain.launches_by_variant.get(v, 0) + 1)
     return chain_cdf, emit_cdf
 
 
 def k8_launch(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
               j_blues: torch.Tensor, stim: torch.Tensor, defines=(),
               shape=None):
-    """K8 on the card, uncounted: (chain_cdf, emit_cdf, its ``K8Plan``).
-    ``macro_chain``'s launch, and a benchmark's of K8 built with
-    ``defines`` (``K8_PHASES``) or of a cluster ``shape`` = (cluster,
-    panel) other than ``k8_plan``'s."""
+    """K8 on the card, uncounted: (chain_cdf, emit_cdf, its ``K8Plan``s).
+    ``macro_chain``'s launches, and a benchmark's of K8 built with
+    ``defines`` (``K8_PHASES``) or of a ``shape`` that ``k8_plan`` forces
+    on every system."""
     device = beta.device
     beta, j_blues, stim = (t.to(F64).contiguous()
                            for t in (beta, j_blues, stim))
@@ -589,35 +696,46 @@ def k8_launch(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
         raise ValueError(f"macro_chain: {L} lines, the transitions read "
                          f"{ctx.n_lines_read}")
     M, We, W = ctx.M, ctx.We, ctx.W
-    plan = k8_plan(
+    plans = k8_plan(
         ctx, S, torch.cuda.get_device_properties(device).multi_processor_count,
-        k8_active_clusters(device, ctx.k8_n_max, defines), shape)
+        k8_active_clusters(device, defines), shape)
     emit_cdf = torch.empty((S * M, 3 * We), dtype=torch.float32,
                            device=device)
     chain_cdf = (torch.empty((S * M, W + 1), dtype=torch.float32,
                              device=device) if W else None)
-    work = torch.empty(plan.slot_stride * plan.blocks, dtype=F64,
-                       device=device)
     a = arrays
     fn = cuda.function("macro_chain", "macro_chain", _K8_ARGTYPES,
                        tuple(defines))
-    err = fn(
-        beta.data_ptr(), j_blues.data_ptr(), stim.data_ptr(), S,
-        a["k8_refs"].data_ptr(), a["coef"].data_ptr(),
-        a["k8_line"].data_ptr(), a["k8_type"].data_ptr(),
-        a["k8_dest"].data_ptr(), a["line_dense"].data_ptr(),
-        a["nu_dense"].data_ptr(), M, We, W, a["k8_base"].data_ptr(),
-        a["k8_size"].data_ptr(), a["k8_t0"].data_ptr(),
-        a["k8_t1"].data_ptr(), ctx.k8_groups, ctx.k8_n_max,
-        _K8_VARIANT_CODE[plan.variant], plan.cluster, plan.panel,
-        work.data_ptr(), plan.slot_stride, plan.blocks, emit_cdf.data_ptr(),
-        None if chain_cdf is None else chain_cdf.data_ptr(), cuda.stream(),
-    )
-    cuda.check_launch("macro_chain", err)
-    return chain_cdf, emit_cdf, plan
+    for plan in plans:
+        large = plan.variant == "macroatom_large"
+        slots = plan.blocks // plan.cluster if large else plan.blocks
+        work = torch.empty(plan.slot_stride * slots, dtype=F64,
+                           device=device)
+        counters = (torch.zeros(slots, dtype=torch.int32, device=device)
+                    if large else None)
+        g0 = plan.first_group
+        err = fn(
+            beta.data_ptr(), j_blues.data_ptr(), stim.data_ptr(), S,
+            a["k8_refs"].data_ptr(), a["coef"].data_ptr(),
+            a["k8_line"].data_ptr(), a["k8_type"].data_ptr(),
+            a["k8_dest"].data_ptr(), a["line_dense"].data_ptr(),
+            a["nu_dense"].data_ptr(), M, We, W,
+            a["k8_base"][g0:].data_ptr(), a["k8_size"][g0:].data_ptr(),
+            a["k8_t0"][g0:].data_ptr(), a["k8_t1"][g0:].data_ptr(),
+            plan.n_groups, int(ctx.arrays_np["k8_size"][g0]) if W else 0,
+            _K8_VARIANT_CODE[plan.variant], plan.cluster, plan.panel,
+            work.data_ptr(), plan.slot_stride, plan.blocks,
+            emit_cdf.data_ptr(),
+            None if chain_cdf is None else chain_cdf.data_ptr(),
+            plan.smem_rows,
+            None if counters is None else counters.data_ptr(),
+            cuda.stream(),
+        )
+        cuda.check_launch("macro_chain", err)
+    return chain_cdf, emit_cdf, plans
 
 
-macro_chain.launches = 0  # kernel launches, one a build
+macro_chain.launches = 0  # kernel launches, one an instantiation a build
 macro_chain.launches_by_variant = {}
 
 

@@ -7,26 +7,29 @@ levels in downbranch mode) at its real width, each level's block sum and
 emission running sum in transition order, Q's duplicate (source,
 destination) pairs summed in transition order, and the in-place
 Gauss-Jordan inverse of A = I - Q without pivoting in the panels of the
-instantiation ``k8_plan`` chooses: the cluster one's (16 pivots, the rows
-split across the cluster's blocks, each pivot row by the pivot's
-reciprocal, the chain rows' running sums a warp scan in chunks of 32) or
-the workspace one's (32 pivots, pivot rows divided, sequential running
-sums); the panel's own steps, then one rank-kb update of the rest from
-the panel rows as they were before it; B = A^-1 diag(d), and the fused
-clamp, running sum, division and fallback (a zero or non-finite pivot, or
-a non-finite row, sends the row to the self-deactivation step).  The card
-fuses its products (fma, DMMA) where the mirror rounds them apart, so the
-two differ in the last bits of the f64 inverse.  The plain version
+instantiation ``k8_plan`` sends the component to: the cluster one (16
+pivots, the rows split across the cluster's blocks, a multiple of 16 rows
+a block) or the large-system one (16 pivots, ceil(n / per) rows a block of
+the ``per`` a system is spread over), each pivot row by the pivot's
+reciprocal, the panel's own steps on the panel rows' diagonal block, every
+other row's panel columns the same steps from the kept pivot rows, then
+one rank-kb update of each block's rows from the panel rows as they were
+before the panel, every entry of it a sum over the panel's columns in
+their order; B = A^-1 diag(d), and the fused clamp, running sum (a warp
+scan in chunks of 32), division and fallback (a zero or non-finite pivot,
+or a non-finite row, sends the row to the self-deactivation step).  The
+card fuses its products (fma, DMMA) where the mirror rounds them apart, so
+the two differ in the last bits of the f64 inverse.  The plain version
 solves the power-of-two padded systems by LU with partial pivoting, so
-the chain rows agree to rounding: atol 1e-6 on the f32 CDFs (the largest
-difference found is 0: in every case here the f64 results round to the
-same f32 rows); the base column and the emission rows' line and
-frequency columns are copies, bit for bit, and the emission CDFs, summed
-in the same order on both sides, bit for bit too.
+the chain rows agree to rounding: atol 1e-6 on the f32 CDFs; the base
+column and the emission rows' line and frequency columns are copies, bit
+for bit, and the emission CDFs, summed in the same order on both sides,
+bit for bit too.
 """
 
-import contextlib
 import copy
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -40,12 +43,12 @@ from tardis_torch import cuda
 from tardis_torch.opacities.macro_atom_solver import (
     K8_CLUSTER_SMEM,
     K8_CLUSTERS,
-    K8_SMEM,
-    K8_TILE,
+    K8_LARGE_CHUNK,
+    K8_LARGE_L2,
     chain_context,
     k8_cluster_shape,
     k8_cluster_smem,
-    k8_panel,
+    k8_large_smem,
     k8_plan,
     k8_workspace,
     macro_chain,
@@ -56,6 +59,8 @@ from tardis_torch.transport.tables import NU_UNIT
 from tests.test_plasma import BASE_CONFIG
 from tests.test_torch_macro_chain import CYCLE_LEVELS, cycle_macro, cycle_rates
 
+import chip_smoke
+
 torch.set_num_threads(2)
 
 CHAIN_ATOL = 1e-6
@@ -63,25 +68,25 @@ ELEMENTS = [8, 12, 14, 16, 18, 20]
 SMS = 132  # an H100 SXM's multiprocessors
 
 
-def gauss_jordan(a, kb_max, cluster=1):
+def gauss_jordan(a, kb_max, rows=None):
     """K8's in-place Gauss-Jordan inverse of each (n, n) matrix of ``a``
     (S, n, n) without pivoting, ``kb_max`` pivots a panel; returns the
     inverses and whether each system met a zero or non-finite pivot.
 
-    Each panel as the cluster instantiation orders it: the panel rows'
+    Each panel as both chain instantiations order it: the panel rows'
     diagonal block D runs the kb pivot steps (each step's normalised pivot
-    row kept: by the pivot's reciprocal with ``cluster`` > 1, divided by
-    the pivot in the workspace instantiation), every other row's panel
-    columns take the same steps from the kept rows, then the rank-kb
-    update of the rest from the panel rows as they were before the
-    panel.  With ``cluster`` blocks each block
-    runs this on its own rows (``rows_of`` apart) and its own copy of D;
-    the split changes no arithmetic, which the mirror shows by running it.
-    The card fuses each product into its sum (fma, DMMA), the mirror
-    rounds the two apart: the inverses differ in their last bits."""
+    row kept, by the pivot's reciprocal), every other row's panel columns
+    take the same steps from the kept rows, then the rank-kb update of the
+    rest from the panel rows as they were before the panel, a sum over the
+    panel's columns in order.  With ``rows`` each block (of a cluster, or
+    of the blocks a large system is spread over) runs this on its own
+    ``rows`` rows and its own copy of D; the split changes no arithmetic,
+    which the mirror shows by running it.  The card fuses each product
+    into its sum (fma, DMMA), the mirror rounds the two apart: the
+    inverses differ in their last bits."""
     a = a.copy()
     S, n, _ = a.shape
-    h = -(-(-(-n // cluster)) // 16) * 16  # rows_of(n, cluster)
+    h = rows or n
     singular = np.zeros(S, bool)
     with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
         for k0 in range(0, n, kb_max):
@@ -95,10 +100,7 @@ def gauss_jordan(a, kb_max, cluster=1):
                 singular |= ~((piv != 0.0) & np.isfinite(piv))
                 rk = D[:, kk, :].copy()
                 rk[:, kk] = 1.0
-                if cluster > 1:  # the reciprocal, one division a step
-                    rk = rk * (1.0 / piv)[:, None]
-                else:
-                    rk = rk / piv[:, None]
+                rk = rk * (1.0 / piv)[:, None]  # one division a step
                 f = D[:, :, kk].copy()
                 D[:, :, kk] = 0.0
                 D = D - f[:, :, None] * rk[:, None, :]
@@ -106,23 +108,34 @@ def gauss_jordan(a, kb_max, cluster=1):
                 kept[:, kk] = rk
             acc = np.empty_like(a)
             for r0 in range(0, n, h):  # each block's rows
-                rows = slice(r0, min(n, r0 + h))
-                C = a[:, rows, P].copy()
+                rows_b = slice(r0, min(n, r0 + h))
+                C = a[:, rows_b, P].copy()
                 for kk in range(kb):
                     f = C[:, :, kk].copy()
                     C[:, :, kk] = 0.0
                     C = C - f[:, :, None] * kept[:, None, kk, :]
-                mine = np.arange(rows.start, rows.stop)
+                mine = np.arange(rows_b.start, rows_b.stop)
                 in_panel = (mine >= k0) & (mine < k0 + kb)
                 C[:, in_panel] = D[:, mine[in_panel] - k0]
-                block = a[:, rows, :].copy()
+                block = a[:, rows_b, :].copy()
                 block[:, in_panel, :] = 0.0
                 for p in range(kb):
                     block = block + C[:, :, p:p + 1] * R[:, p:p + 1, :]
                 block[:, :, P] = C
-                acc[:, rows, :] = block
+                acc[:, rows_b, :] = block
             a = acc
     return a, singular
+
+
+def block_rows(plans, g, n):
+    """The rows a block holds of work group ``g`` (``n`` levels) in the
+    launch of ``plans`` that takes it: a cluster's rows_of(n, cluster), a
+    multiple of 16, or the large instantiation's ceil(n / per)."""
+    plan, = [p for p in plans
+             if p.first_group <= g < p.first_group + p.n_groups]
+    if plan.variant == "macroatom_large":
+        return plan, -(-n // plan.cluster)
+    return plan, -(-(-(-n // plan.cluster)) // 16) * 16
 
 
 def warp_scan(x, n):
@@ -165,8 +178,7 @@ def k8_mirror(ctx, beta, jb, stim):
     emit[:, :, We:2 * We] = a["line_dense"]
     emit[:, :, 2 * We:] = a["nu_dense"]
     chain = np.empty((S, M, W + 1), np.float32) if W else None
-    plan = k8_plan(ctx, S, SMS)
-    cluster = plan.variant == "macroatom_cluster"
+    plans = k8_plan(ctx, S, SMS)
     for g in range(ctx.k8_groups):
         base, n = int(a["k8_base"][g]), int(a["k8_size"][g])
         t0, t1 = int(a["k8_t0"][g]), int(a["k8_t1"][g])
@@ -198,15 +210,14 @@ def k8_mirror(ctx, beta, jb, stim):
         i_lv, i_dest = lv[~em], dest[t0:t1][~em] - base
         for s in range(S):  # np.add.at adds in index order
             np.add.at(Q[s], (i_lv, i_dest), pn[~em, s])
-        ainv, singular = gauss_jordan(np.eye(n)[None] - Q, plan.panel,
-                                      plan.cluster)
+        plan, h = block_rows(plans, g, n)
+        ainv, singular = gauss_jordan(np.eye(n)[None] - Q, plan.panel, h)
         d = tot[:, 0, :].T  # (S, n)
         with np.errstate(invalid="ignore", over="ignore"):
             B = ainv * d[:, None, :]
             finite = np.isfinite(B).all(axis=2) & ~singular[:, None]
             clamped = np.fmax(B, 0.0)
-            run = (warp_scan(clamped, n) if cluster
-                   else np.cumsum(clamped, axis=2))
+            run = warp_scan(clamped, n)
             rtot = run[:, :, -1:]
             ok = finite[:, :, None] & (rtot > 0)
             rows = np.ones((S, n, W), np.float32)
@@ -218,26 +229,10 @@ def k8_mirror(ctx, beta, jb, stim):
             emit.reshape(S * M, 3 * We))
 
 
-@contextlib.contextmanager
-def one_thread():
-    """PyTorch 2.13's CPU build with oneMKL 2024.2 stops in a batched f64
-    LU of 200-level systems with more than one thread ("Parameter 6 was
-    incorrect on entry to DLASWP") and never returns; with one it solves
-    the bench width's systems in milliseconds."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
 def plain_and_mirror(macro, mode, line_nu_scaled, beta, jb, stim):
     ctx = chain_context(macro, mode, line_nu_scaled)
-    with one_thread():
-        chain, emit = macro_chain(
-            ctx, ctx.arrays("cpu"),
-            *(torch.as_tensor(t) for t in (beta, jb, stim)))
+    chain, emit = macro_chain(
+        ctx, ctx.arrays("cpu"), *(torch.as_tensor(t) for t in (beta, jb, stim)))
     m_chain, m_emit = k8_mirror(ctx, beta, jb, stim)
     return ctx, (chain, emit), (m_chain, m_emit)
 
@@ -308,7 +303,7 @@ def test_mirror_at_the_bench_width(bench_atom, n_shells):
     ctx, plain, mirror = plain_and_mirror(
         atom.macro_atom, "macroatom", atom.line_nu / NU_UNIT, *rates)
     assert ctx.k8_n_max == 200 and ctx.k8_groups == 18
-    plan = k8_plan(ctx, n_shells, SMS)
+    plan, = k8_plan(ctx, n_shells, SMS)
     assert (plan.variant, plan.cluster, plan.panel) == (
         "macroatom_cluster", 2, 16)
     hold(ctx, plain, mirror)
@@ -322,16 +317,54 @@ def wide_atom():
 
 
 def test_mirror_on_a_component_past_the_cluster(wide_atom):
-    """A 600-level component takes the workspace instantiation (32-pivot
-    panels, the sequential row sums) at 2 shells."""
+    """Three 600-level components take the large-system instantiation
+    (16-pivot panels, each system's rows spread over the blocks the plan
+    gives it, the warp scan's row sums) at 2 shells."""
     atom = wide_atom
     rates = plasma_rates(atom, 2)
     ctx, plain, mirror = plain_and_mirror(
         atom.macro_atom, "macroatom", atom.line_nu / NU_UNIT, *rates)
     assert ctx.k8_n_max == 600 and k8_cluster_shape(600) is None
-    plan = k8_plan(ctx, 2, SMS)
-    assert (plan.variant, plan.cluster, plan.panel) == (
-        "macroatom_workspace", 1, 32)
+    plan, = k8_plan(ctx, 2, SMS)
+    assert (plan.variant, plan.panel, plan.systems) == (
+        "macroatom_large", 16, 6)
+    assert plan.cluster * (plan.blocks // plan.cluster) == plan.blocks
+    hold(ctx, plain, mirror)
+
+
+def test_mirror_at_400_levels():
+    """One element of 400 levels (level jumps up to 20): the large-system
+    instantiation at 2 shells, every block's rows in its shared memory."""
+    atom = make_synthetic_atom_data(n_levels=400, max_level_jump=20).prepare(
+        selected_atoms=[8], line_interaction_type="macroatom")
+    rates = plasma_rates(atom, 2)
+    ctx, plain, mirror = plain_and_mirror(
+        atom.macro_atom, "macroatom", atom.line_nu / NU_UNIT, *rates)
+    plan, = k8_plan(ctx, 2, SMS)
+    assert plan.variant == "macroatom_large" and ctx.k8_n_max == 400
+    assert plan.smem_rows == -(-400 // plan.cluster)
+    hold(ctx, plain, mirror)
+
+
+def mixed_context(bench_atom, wide_atom):
+    """The bench atom's macro table and the wide element's side by side,
+    built from their arrays (chip_smoke.k8_mixed_macro): 18 components of
+    200 levels and 3 of 600."""
+    macro, nu = chip_smoke.k8_mixed_macro(bench_atom, wide_atom)
+    return macro, nu, chain_context(macro, "macroatom", nu)
+
+
+def test_mirror_on_a_mixed_context(bench_atom, wide_atom):
+    """The mixed build at 1 shell, on seeded rates: the 600-level systems
+    in the large-system instantiation's order, the 200-level ones in the
+    cluster one's, all against one plain build."""
+    macro, nu, ctx = mixed_context(bench_atom, wide_atom)
+    gen = np.random.default_rng(5)
+    rates = [gen.uniform(lo, hi, (len(nu), 1))
+             for lo, hi in ((0.1, 1.0), (1e-6, 1e-4), (0.5, 1.0))]
+    _, plain, mirror = plain_and_mirror(macro, "macroatom", nu, *rates)
+    assert [p.variant for p in k8_plan(ctx, 1, SMS)] == [
+        "macroatom_large", "macroatom_cluster"]
     hold(ctx, plain, mirror)
 
 
@@ -366,46 +399,63 @@ def test_mirror_on_a_singular_component():
 
 @pytest.mark.parametrize("kb", [32, 8, 1])
 def test_blocked_inverse_is_the_inverse(kb):
-    """Each panel width K8 may take inverts a diagonally dominant
-    M-matrix of a width that is no multiple of it."""
+    """Any panel width inverts a diagonally dominant M-matrix of a width
+    that is no multiple of it, whatever the rows a block holds."""
     gen = np.random.default_rng(kb)
     n = 45
     Q = gen.uniform(0.0, 1.0, (2, n, n)) * (gen.uniform(size=(2, n, n)) < 0.3)
     Q *= gen.uniform(0.5, 0.99, (2, n, 1)) / Q.sum(axis=2, keepdims=True)
     A = np.eye(n)[None] - Q
-    inv, singular = gauss_jordan(A, kb)
-    assert not singular.any()
-    np.testing.assert_allclose(inv, np.linalg.inv(A), rtol=1e-12, atol=1e-14)
+    for rows in (None, 7, 16):
+        inv, singular = gauss_jordan(A, kb, rows)
+        assert not singular.any()
+        np.testing.assert_allclose(inv, np.linalg.inv(A), rtol=1e-12,
+                                   atol=1e-14)
 
 
 @pytest.mark.parametrize("n_shells", [20, 100])
 def test_k8_workspace_within_the_plain_allocation(bench_atom, n_shells):
     """At the bench shape and at 100 shells on a card of 132
-    multiprocessors, K8's workspace holds one system a slot and takes no
-    more than the plain version's f64 solve allocates."""
+    multiprocessors, K8's workspaces (the cluster instantiation's, a slot
+    a block; downbranch's, one work group a slot) take no more than the
+    plain version's f64 solve allocates."""
     ctx = chain_context(bench_atom.macro_atom, "macroatom",
                         bench_atom.line_nu / NU_UNIT)
-    stride, slots = k8_workspace(ctx, n_shells, 132)
-    n = ctx.k8_n_max
-    assert stride % 32 == 0 and stride >= n * n + 256 + ctx.k8_t_max
-    assert 1 <= slots <= min(ctx.k8_groups * n_shells, 2 * 132)
-    assert 8 * stride * slots <= ctx.plain_bytes(n_shells)
+    plan, = k8_plan(ctx, n_shells, SMS)
+    assert 8 * plan.slot_stride * plan.blocks <= ctx.plain_bytes(n_shells)
     down = chain_context(bench_atom.downbranch, "downbranch",
                          bench_atom.line_nu / NU_UNIT)
     stride, slots = k8_workspace(down, n_shells, 132)
-    assert down.k8_n_max == 0 and stride >= down.k8_t_max
+    assert down.k8_n_max == 0 and stride >= 256 + down.k8_t_max
+    assert stride % 32 == 0 and 1 <= slots <= 2 * 132
     assert 8 * stride * slots <= down.plain_bytes(n_shells)
+    assert k8_plan(down, n_shells, SMS)[0][4:6] == (stride, slots)
 
 
 @pytest.mark.parametrize("n_max", [1, 200, 736, 737, 2787, 2788, 25536])
 def test_k8_panel_fits_shared_memory(n_max):
-    """The panel width K8 takes for a component size keeps its panel and
-    tile within K8_SMEM, and is the widest that does."""
-    kb = k8_panel(n_max)
-    ldc = 1 if kb == 1 else kb + 1
-    assert (n_max * ldc + kb * K8_TILE) * 8 <= K8_SMEM
-    wider = [w for w in (32, 8) if w > kb]
-    assert all((n_max * (w + 1) + w * K8_TILE) * 8 > K8_SMEM for w in wider)
+    """The large-system instantiation's panel rows (a chunk of at most
+    K8_LARGE_CHUNK columns), its pivot blocks and staging, and as many of
+    a block's rows as ``k8_plan`` puts there fit a block's shared memory
+    for components of ``n_max`` levels, and one row more would not (unless
+    every row is there)."""
+    from types import SimpleNamespace
+
+    refs = np.arange(n_max + 1, dtype=np.int32) * 3
+    ctx = SimpleNamespace(
+        k8_groups=1, k8_n_max=n_max, W=n_max,
+        arrays_np=dict(k8_size=np.array([n_max], np.int32),
+                       k8_base=np.array([0], np.int32), k8_refs=refs),
+        plain_bytes=lambda S: 24.0 * 2 ** (2 * int(np.ceil(np.log2(
+            max(n_max, 8))))) * S)
+    plan, = k8_plan(ctx, 2, SMS, shape="large")
+    assert plan.smem == k8_large_smem(n_max, 16, plan.smem_rows)
+    assert plan.smem <= K8_CLUSTER_SMEM
+    per = plan.cluster
+    assert (plan.smem_rows == -(-n_max // per)
+            or k8_large_smem(n_max, 16, plan.smem_rows + 1)
+            > K8_CLUSTER_SMEM)
+    assert min(-(-n_max // 8) * 8, K8_LARGE_CHUNK) * 16 * 8 <= plan.smem
 
 
 @pytest.mark.parametrize("n_max", [1, 8, 100, 185, 186, 200, 250, 300,
@@ -430,60 +480,157 @@ def test_k8_cluster_shape_fits_shared_memory(n_max):
 
 @pytest.mark.parametrize("n_shells,rounds", [(20, 6), (100, 28)])
 def test_k8_plan_at_the_bench_shape(bench_atom, n_shells, rounds):
-    """At the bench shape on a card of 132 multiprocessors: clusters of 2
-    with 16-pivot panels, one block a multiprocessor, the rounds and their
-    fill, and each block's slot holding p of its rows' transitions."""
+    """At the bench shape on a card of 132 multiprocessors: one launch,
+    clusters of 2 with 16-pivot panels, one block a multiprocessor, the
+    rounds and their fill, and each block's slot holding p of its rows'
+    transitions."""
     ctx = chain_context(bench_atom.macro_atom, "macroatom",
                         bench_atom.line_nu / NU_UNIT)
-    plan = k8_plan(ctx, n_shells, SMS)
+    plan, = k8_plan(ctx, n_shells, SMS)
     assert (plan.variant, plan.cluster, plan.panel, plan.blocks) == (
         "macroatom_cluster", 2, 16, SMS)
     assert plan.systems == 18 * n_shells and plan.rounds == rounds
     assert plan.fill == plan.systems / (rounds * SMS // 2)
     assert plan.smem == k8_cluster_smem(200, 2, 16) <= K8_CLUSTER_SMEM
+    assert (plan.first_group, plan.n_groups) == (0, 18)
     refs = ctx.arrays_np["k8_refs"]
     for base in ctx.arrays_np["k8_base"]:
         for r0, r1 in ((0, 112), (112, 200)):
             assert refs[base + r1] - refs[base + r0] <= plan.slot_stride // 2
     assert plan.slot_stride % 64 == 0
     # the card's occupancy query, where it holds fewer clusters
-    fewer = k8_plan(ctx, n_shells, SMS, active_clusters=lambda c, p: 60)
+    fewer, = k8_plan(ctx, n_shells, SMS,
+                     active_clusters=lambda n, c, p: 60)
     assert fewer.blocks == 120 and fewer.rounds == -(-18 * n_shells // 60)
     down = chain_context(bench_atom.downbranch, "downbranch",
                          bench_atom.line_nu / NU_UNIT)
-    plan = k8_plan(down, n_shells, SMS)
+    plan, = k8_plan(down, n_shells, SMS)
     assert (plan.variant, plan.cluster, plan.panel) == ("downbranch", 1, 1)
 
 
-def test_k8_plan_takes_the_workspace_past_the_cluster(wide_atom):
-    """A 600-level component: the workspace instantiation, its slots and
-    panel as ``k8_workspace`` and ``k8_panel`` size them; a cluster shape
-    forced on it is refused."""
+# the parent tree's k8_plan on the bench atom (the fields it had), by mode
+# and shells: every path driven before the large-system instantiation keeps
+# its plan, its single launch and its tables
+PARENT_BENCH_PLANS = {
+    ("macroatom", 20): ("macroatom_cluster", 2, 16, 222272, 33024, 132, 360,
+                        6, 0.9090909090909091),
+    ("macroatom", 100): ("macroatom_cluster", 2, 16, 222272, 33024, 132,
+                         1800, 28, 0.974025974025974),
+    ("downbranch", 20): ("downbranch", 1, 1, 4608, 13792, 264, 300, 2,
+                         0.5681818181818182),
+    ("downbranch", 100): ("downbranch", 1, 1, 4608, 13792, 264, 1500, 6,
+                          0.946969696969697),
+}
+
+
+@pytest.mark.parametrize("mode,n_shells", sorted(PARENT_BENCH_PLANS))
+def test_k8_plan_on_the_bench_atom_is_the_parents(bench_atom, mode,
+                                                    n_shells):
+    macro = bench_atom.macro_atom if mode == "macroatom" else \
+        bench_atom.downbranch
+    ctx = chain_context(macro, mode, bench_atom.line_nu / NU_UNIT)
+    plan, = k8_plan(ctx, n_shells, SMS)
+    assert tuple(plan)[:9] == PARENT_BENCH_PLANS[mode, n_shells]
+    assert (plan.first_group, plan.n_groups) == (0, ctx.k8_groups)
+
+
+def test_k8_plan_sends_every_600_level_system_to_the_large_instantiation(
+        wide_atom):
+    """A 600-level atom: one launch of the large-system instantiation for
+    every system (12 at 4 shells: 11 blocks each, the card's 132 busy in
+    one round, 29 of each block's 55 rows in its shared memory); a cluster
+    shape forced on it is refused."""
     ctx = chain_context(wide_atom.macro_atom, "macroatom",
                         wide_atom.line_nu / NU_UNIT)
-    plan = k8_plan(ctx, 4, SMS)
-    assert plan.variant == "macroatom_workspace"
-    assert (plan.slot_stride, plan.blocks) == k8_workspace(ctx, 4, SMS)
-    assert plan.panel == k8_panel(600) == 32
+    plan, = k8_plan(ctx, 4, SMS)
+    assert (plan.variant, plan.first_group, plan.n_groups) == (
+        "macroatom_large", 0, 3)
+    assert (plan.cluster, plan.blocks, plan.systems, plan.rounds) == (
+        11, 132, 12, 1)
+    assert plan.smem_rows == 29 and plan.smem <= K8_CLUSTER_SMEM
     with pytest.raises(ValueError, match="does not hold"):
         k8_plan(ctx, 4, SMS, shape=(8, 16))
 
 
-def test_k8_plan_refuses_a_component_past_the_workspace():
-    """Past the workspace instantiation's panel (25,536 levels) the plan
-    refuses, as ``k8_panel`` does."""
-    from types import SimpleNamespace
+@pytest.mark.parametrize("n_shells", [1, 4, 20])
+def test_k8_plan_partitions_a_mixed_build(bench_atom, wide_atom, n_shells):
+    """The mixed build: two launches, the large-system one for the three
+    600-level components (the first work groups, largest first) and the
+    cluster one for the eighteen 200-level ones, as the bench build plans
+    them; every work group in exactly one, every system counted once."""
+    _, _, ctx = mixed_context(bench_atom, wide_atom)
+    size = ctx.arrays_np["k8_size"]
+    large, cluster = k8_plan(ctx, n_shells, SMS)
+    assert (large.variant, cluster.variant) == ("macroatom_large",
+                                                "macroatom_cluster")
+    taken = np.zeros(ctx.k8_groups, int)
+    for p in (large, cluster):
+        taken[p.first_group:p.first_group + p.n_groups] += 1
+        assert p.systems == p.n_groups * n_shells
+    assert (taken == 1).all()
+    assert (size[:large.n_groups] == 600).all()
+    assert (size[large.n_groups:] == 200).all()
+    bench, = k8_plan(chain_context(bench_atom.macro_atom, "macroatom",
+                                   bench_atom.line_nu / NU_UNIT),
+                     n_shells, SMS)
+    assert tuple(cluster)[:9] == tuple(bench)[:9]
 
-    n = K8_SMEM // 8 - K8_TILE + 1
-    ctx = SimpleNamespace(k8_groups=1, k8_n_max=n, k8_t_max=n, W=n,
-                          plain_bytes=lambda S: 8.0 * 3 * n * n * S)
-    with pytest.raises(ValueError, match="more than K8 holds"):
-        k8_plan(ctx, 1, SMS)
+
+@pytest.mark.parametrize("case", ["wide", "mixed", "bench_forced"])
+@pytest.mark.parametrize("n_shells", [4, 20])
+def test_k8_large_plan_bytes(bench_atom, wide_atom, case, n_shells):
+    """The large-system instantiation's plan within the card: its shared
+    memory within a block's 227 KB (less the static kilobyte), its blocks
+    one a multiprocessor at most, its workspace within the JAX package's
+    byte bound for the solve it replaces (``table_bytes``'s solve term, 12
+    bytes an entry of the padded systems) and its matrices' rows outside
+    shared memory within K8_LARGE_L2."""
+    if case == "mixed":
+        ctx = mixed_context(bench_atom, wide_atom)[2]
+        plan = k8_plan(ctx, n_shells, SMS)[0]
+    else:
+        atom = wide_atom if case == "wide" else bench_atom
+        ctx = chain_context(atom.macro_atom, "macroatom",
+                            atom.line_nu / NU_UNIT)
+        plan, = k8_plan(ctx, n_shells, SMS,
+                        shape="large" if case == "bench_forced" else None)
+    assert plan.variant == "macroatom_large"
+    assert plan.smem <= K8_CLUSTER_SMEM and plan.blocks <= SMS
+    in_flight = plan.blocks // plan.cluster
+    assert plan.blocks == in_flight * plan.cluster
+    solve = max(n_shells * b["n_cb"] * b["Wp"] ** 2 * 12.0
+                for b in ctx.bucket_meta)
+    assert 8 * plan.slot_stride * in_flight <= solve
+    n = int(ctx.arrays_np["k8_size"][plan.first_group])
+    h = -(-n // plan.cluster)
+    assert h <= 2 * plan.smem_rows
+    assert in_flight * (n - plan.cluster * plan.smem_rows) * (
+        -(-n // 8) * 8) * 8 <= K8_LARGE_L2
 
 
-def test_k8_refuses_a_component_past_its_panel():
-    with pytest.raises(ValueError, match="more than K8 holds"):
-        k8_panel(K8_SMEM // 8 - K8_TILE + 1)
+def test_chain_tables_solve_one_system_a_call_on_the_cpu():
+    """The plain version's solve of two 256-level systems with two
+    threads: oneMKL 2024.2's batched LU (PyTorch 2.13's CPU build) stops
+    there and never returns, so the CPU takes one system a call
+    (``macro_atom_solver._solve``); run in a child process with a time
+    limit, its solution that of numpy's."""
+    code = (
+        "import numpy as np, torch\n"
+        "from tardis_torch.opacities.macro_atom_solver import _solve\n"
+        "torch.set_num_threads(2)\n"
+        "g = np.random.default_rng(0)\n"
+        "Q = g.uniform(0, 1, (2, 256, 256)) * (g.uniform(size=(2, 256, 256))"
+        " < 0.05)\n"
+        "Q *= 0.9 / Q.sum(axis=2, keepdims=True)\n"
+        "A = np.eye(256)[None] - Q\n"
+        "B = _solve(torch.as_tensor(A), torch.eye(256, dtype=torch.float64)"
+        ".expand(2, 256, 256).contiguous())\n"
+        "np.testing.assert_allclose(B.numpy(), np.linalg.inv(A), rtol=1e-10,"
+        " atol=1e-12)\n"
+        "print('solved')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and "solved" in out.stdout, out.stderr
 
 
 def test_k8_is_built_and_cpu_tensors_launch_nothing():
