@@ -48,7 +48,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tardis_torch import cuda
+from tardis_torch import cuda, tracing
 from tardis_torch.constants import SIGMA_THOMSON
 from tardis_torch.transport import rng
 
@@ -550,20 +550,19 @@ def gamma_step_transport(r, mu, energy_kev, weight, shell, status,
     # two counters, then the list of moving packets
     queue = torch.empty(B + 2, dtype=i32, device=device)
     p = cuda.ptr
-    err = fn(
+    launch_args = (
         p(r), p(mu), p(energy_kev), p(weight), p(shell), p(status),
         p(dist_budget), p(r_inner), p(r_outer), p(electron_density),
-        p(density), p(iron_fraction), p(kasen_z4), p(kn_log_e), p(kn_table),
-        p(ebin_edges), p(quadrature_mus(device)), B, S, E, n_e, n_q,
-        max_steps, key[0], key[1], float(grey_opacity),
+        p(density), p(iron_fraction), p(kasen_z4), p(kn_log_e),
+        p(kn_table), p(ebin_edges), p(quadrature_mus(device)), B, S, E,
+        n_e, n_q, max_steps, key[0], key[1], float(grey_opacity),
         ctypes.byref(CONSTANTS), *(p(x) for x in outs),
         p(acc["deposition"]), p(acc["escape_hist"]), p(acc["estimators"]),
         p(acc["events"]), p(queue), cuda.stream(),
     )
-    cuda.check_launch("gamma_step_transport", err)
-    name = variant_name(flags)
-    by = gamma_step_transport.launches_by_variant
-    by[name] = by.get(name, 0) + 2
+    with tracing.launch(gamma_step_transport, variant_name(flags), 2):
+        err = fn(*launch_args)
+        cuda.check_launch("gamma_step_transport", err)
     return GammaStepOutput(*outs, **acc)
 
 

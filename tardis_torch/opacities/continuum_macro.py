@@ -30,6 +30,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from tardis_torch import tracing
 from tardis_torch.atomic.atom_data import (
     MACRO_INTERNAL_UP,
     AtomData,
@@ -76,7 +77,8 @@ class ContinuumMacroState:
 def _host(a) -> np.ndarray:
     """An (L, S) line table as a host f64 array (tensors are read back)."""
     if hasattr(a, "detach"):
-        a = a.detach().cpu().numpy()
+        with tracing.sync("continuum_macro.lines"):
+            a = a.detach().cpu().numpy()
     return np.asarray(a, dtype=np.float64)
 
 

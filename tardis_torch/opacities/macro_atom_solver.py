@@ -47,7 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tardis_torch import cuda
+from tardis_torch import cuda, tracing
 from tardis_torch.atomic.atom_data import MACRO_INTERNAL_UP, MacroAtomData
 
 F64 = torch.float64
@@ -654,7 +654,7 @@ def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
     version (``p_norm``, ``chain_tables``) for CPU tensors.
 
     One launch an instantiation that ``k8_plan`` gives systems, at most
-    two a build (``launches``; ``launches_by_variant`` by instantiation:
+    two a build (``launches_by_variant`` by instantiation:
     "macroatom_cluster", "macroatom_large" or "downbranch").  The outputs
     and K8's workspaces are allocated here; ``arrays`` are the context's
     structure arrays on the tensors' device.  A failed build or launch
@@ -666,23 +666,20 @@ def macro_chain(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
             ctx, arrays, beta.to(F64), j_blues.to(F64), stim.to(F64)))
     if device.type != "cuda":
         raise ValueError(f"macro_chain: unsupported device {device}")
-    chain_cdf, emit_cdf, plans = k8_launch(ctx, arrays, beta, j_blues, stim)
-    if beta.shape[1]:
-        for plan in plans:
-            v = plan.variant
-            macro_chain.launches += 1
-            macro_chain.launches_by_variant[v] = (
-                macro_chain.launches_by_variant.get(v, 0) + 1)
+    chain_cdf, emit_cdf, _ = k8_launch(ctx, arrays, beta, j_blues, stim,
+                                       counted=True)
     return chain_cdf, emit_cdf
 
 
 def k8_launch(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
               j_blues: torch.Tensor, stim: torch.Tensor, defines=(),
-              shape=None):
-    """K8 on the card, uncounted: (chain_cdf, emit_cdf, its ``K8Plan``s).
-    ``macro_chain``'s launches, and a benchmark's of K8 built with
-    ``defines`` (``K8_PHASES``) or of a ``shape`` that ``k8_plan`` forces
-    on every system."""
+              shape=None, counted=False):
+    """K8 on the card: (chain_cdf, emit_cdf, its ``K8Plan``s).
+    ``macro_chain``'s launches (``counted``: each launch, where there are
+    shells, goes through ``tracing.launch`` into ``macro_chain``'s
+    counts), and a benchmark's, uncounted, of K8 built with ``defines``
+    (``K8_PHASES``) or of a ``shape`` that ``k8_plan`` forces on every
+    system."""
     device = beta.device
     beta, j_blues, stim = (t.to(F64).contiguous()
                            for t in (beta, j_blues, stim))
@@ -714,7 +711,7 @@ def k8_launch(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
         counters = (torch.zeros(slots, dtype=torch.int32, device=device)
                     if large else None)
         g0 = plan.first_group
-        err = fn(
+        launch_args = (
             beta.data_ptr(), j_blues.data_ptr(), stim.data_ptr(), S,
             a["k8_refs"].data_ptr(), a["coef"].data_ptr(),
             a["k8_line"].data_ptr(), a["k8_type"].data_ptr(),
@@ -731,11 +728,14 @@ def k8_launch(ctx: _ChainContext, arrays: dict, beta: torch.Tensor,
             None if counters is None else counters.data_ptr(),
             cuda.stream(),
         )
-        cuda.check_launch("macro_chain", err)
+        with tracing.launch(macro_chain, plan.variant,
+                            int(counted and S > 0)):
+            err = fn(*launch_args)
+            cuda.check_launch("macro_chain", err)
     return chain_cdf, emit_cdf, plans
 
 
-macro_chain.launches = 0  # kernel launches, one an instantiation a build
+# kernel launches by instantiation, one an instantiation a build
 macro_chain.launches_by_variant = {}
 
 

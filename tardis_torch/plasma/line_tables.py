@@ -29,7 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from tardis_torch import cuda
+from tardis_torch import cuda, tracing
 from tardis_torch.constants import C, H, K_B, SOBOLEV_COEFFICIENT
 
 F64 = torch.float64
@@ -55,8 +55,9 @@ class LineStatic:
         nu = atom.line_nu
 
         def t(a, dtype):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
-                                   device=device)
+            with tracing.sync("line_static"):
+                return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                       device=device)
 
         return cls(
             lower_idx=t(atom.line_lower_idx, torch.int32),
@@ -163,8 +164,8 @@ def line_tables(static: LineStatic, level_pop: torch.Tensor, t_rad, jb_w,
                 w_epsilon: float = 1e-10) -> LineTables:
     """K3 on the card; the plain version for CPU tensors.
 
-    One call launches K3's three passes, one kernel each (``launches``
-    counts the kernels, ``launches_by_variant`` by instantiation:
+    One call launches K3's three passes, one kernel each
+    (``launches_by_variant`` counts the kernels by instantiation:
     "default", or "estimators" where the j_blues take the estimators).
     The five outputs and the passes' scratch are one allocation; h / (k
     T_rad) and W go by value in the launch's parameters up to
@@ -197,7 +198,9 @@ def line_tables(static: LineStatic, level_pop: torch.Tensor, t_rad, jb_w,
                       device=device)
     base = buf.data_ptr()
     fn = cuda.function("line_tables", "line_tables", _ARGTYPES)
-    err = fn(
+    v = "default" if j_estimators is None else "estimators"
+    # passes A, B and C, where there are lines
+    launch_args = (
         level_pop.data_ptr(), static.lower_idx.data_ptr(),
         static.upper_idx.data_ptr(), static.g_lower.data_ptr(),
         static.g_upper.data_ptr(), static.wl_flu.data_ptr(),
@@ -205,21 +208,17 @@ def line_tables(static: LineStatic, level_pop: torch.Tensor, t_rad, jb_w,
         shell.ctypes.data,
         None if shell_dev is None else shell_dev.data_ptr(),
         float(SOBOLEV_COEFFICIENT), float(time_explosion), L, S,
-        base, base + 8 * LS, base + 16 * LS, base + 24 * LS, base + 32 * LS,
-        base + 8 * (4 * LS + S * (L + 1)),
+        base, base + 8 * LS, base + 16 * LS, base + 24 * LS,
+        base + 32 * LS, base + 8 * (4 * LS + S * (L + 1)),
         None if j_estimators is None else j_estimators.data_ptr(),
         float(w_epsilon), cuda.stream(),
     )
-    cuda.check_launch("line_tables", err)
-    if L:  # passes A, B and C
-        line_tables.launches += 3
-        v = "default" if j_estimators is None else "estimators"
-        line_tables.launches_by_variant[v] = (
-            line_tables.launches_by_variant.get(v, 0) + 3)
+    with tracing.launch(line_tables, v, 3 if L else 0):
+        err = fn(*launch_args)
+        cuda.check_launch("line_tables", err)
     stim, tau, beta, jb = buf[:4 * LS].view(4, L, S).unbind(0)
     return LineTables(stim=stim, tau=tau, beta=beta, j_blues=jb,
                       prefix=buf[4 * LS:4 * LS + S * (L + 1)].view(S, L + 1))
 
 
-line_tables.launches = 0  # kernel launches, three a call
-line_tables.launches_by_variant = {}
+line_tables.launches_by_variant = {}  # kernel launches, three a call

@@ -19,8 +19,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from tardis_torch import tracing
 from tardis_torch.atomic.atom_data import AtomData
 from tardis_torch.model.state import SimulationState
 from tardis_torch.plasma import helium, lte
@@ -209,9 +209,11 @@ class PlasmaSolver:
         if j_blues is not None and (
                 self.nlte_species
                 or self.helium_treatment == "numerical-nlte"):
-            jb_host = (j_blues.cpu().numpy()
-                       if isinstance(j_blues, torch.Tensor)
-                       else np.asarray(j_blues, np.float64))
+            if isinstance(j_blues, torch.Tensor):
+                with tracing.sync("plasma.j_blues"):
+                    jb_host = j_blues.cpu().numpy()
+            else:
+                jb_host = np.asarray(j_blues, np.float64)
 
         w_excitation = w if self.excitation == "dilute-lte" else None
         bf = lte.level_boltzmann_factor(
@@ -221,7 +223,7 @@ class PlasmaSolver:
         if self.nlte_species:
             # the NLTE rows replace the species' LTE rows before the
             # partition function; collisions take the previous solve's n_e
-            with record_function("tardis.nlte"):
+            with tracing.span("tardis.nlte"):
                 jb_nlte = (lte.dilute_planck_j_blues(atom.line_nu, t_rad, w)
                            if jb_host is None else jb_host)
                 for species in self.nlte_species:
@@ -251,7 +253,7 @@ class PlasmaSolver:
         he = 2 in self.element_z
         he_override = None
         if self.helium_treatment == "recomb-nlte" and he:
-            with record_function("tardis.helium"):
+            with tracing.span("tardis.helium"):
                 ion_density, n_e, he_override = self._recomb_helium(
                     bf, g_el, beta, w, t_rad, t_electrons, phi,
                     (zeta, delta) if self.ionization == "nebular" else None)
@@ -273,7 +275,7 @@ class PlasmaSolver:
             self._set_helium_levels(n_level, *he_override)
         if self.helium_treatment == "numerical-nlte" and he:
             # the numerical solve overwrites the helium level and ion rows
-            with record_function("tardis.helium"):
+            with tracing.span("tardis.helium"):
                 jb_he = (lte.dilute_planck_j_blues(atom.line_nu, t_rad, w)
                          if jb_host is None else jb_host)
                 e_he = int(np.where(self.element_z == 2)[0][0])
@@ -292,12 +294,14 @@ class PlasmaSolver:
             else w
         j_est = None
         if self.radiative_rates_type == "detailed" and j_blues is not None:
-            j_est = torch.as_tensor(j_blues, dtype=torch.float64,
-                                    device=self.device).contiguous()
+            with tracing.sync("plasma.j_estimators"):
+                j_est = torch.as_tensor(j_blues, dtype=torch.float64,
+                                        device=self.device).contiguous()
+        with tracing.sync("plasma.level_pop"):
+            level_pop = torch.as_tensor(n_level, dtype=torch.float64,
+                                        device=self.device)
         lt = line_tables(
-            self.line_static,
-            torch.as_tensor(n_level, dtype=torch.float64, device=self.device),
-            t_rad, jb_w, self.time_explosion,
+            self.line_static, level_pop, t_rad, jb_w, self.time_explosion,
             j_estimators=j_est, w_epsilon=self.w_epsilon,
         )
         return PlasmaState(

@@ -11,12 +11,16 @@ volley (K4) builds the virtual spectrum; it builds the real-packet spectrum
 and, with ``spectrum.method: integrated``, the formal-integral spectrum
 (host source function, rays on K5).
 
-Each stage runs inside a ``torch.profiler.record_function`` span named
-``tardis.<stage>`` (plasma, macro_chain or macro_walk, transport_tables,
-packet_source, transport_loop, vpacket_volley, finalize, radiation_field,
-spectrum, source_function, formal_integral); a span costs a few
-microseconds when no profiler is recording, and ``chip_smoke.py`` reads
-them.
+Each stage runs inside a span named ``tardis.<stage>`` (from_config,
+plasma, macro_chain or macro_walk, transport_tables, packet_source,
+transport_loop, vpacket_volley, readback, finalize, advance,
+radiation_field, spectrum, source_function, formal_integral), opened by
+``tracing.span`` (``tardis_torch/tracing.py``): a torch profiler span that
+the program's trace recorder records too, beside its kernels' launches
+and its host-device synchronizations (``tracing.sync``); ``iterate``
+starts a new iteration of the recorder.  A span costs a few microseconds
+when nothing records.  The benchmark's ``breakdown`` and per-layer files
+(``portbench/``) and ``chip_smoke.py`` read them.
 
 Everything runs on one device, the card unless the caller passes another,
 except the classic event loop: as in the JAX package, its packets are
@@ -67,8 +71,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from tardis_torch import tracing
 from tardis_torch.atomic.hdf_loader import atom_data_from_hdf
 from tardis_torch.atomic.synthetic import make_synthetic_atom_data
 from tardis_torch.config.reader import ConfigDict
@@ -206,6 +210,7 @@ class Simulation:
         self._callbacks = []
 
     @classmethod
+    @tracing.span("tardis.from_config")
     def from_config(cls, config: ConfigDict, atom_data=None,
                     device=None) -> "Simulation":
         """``device`` may be a list of devices: the simulation lives on
@@ -317,7 +322,7 @@ class Simulation:
         return ok
 
     def _solve_plasma(self, estimator_j_blues=None):
-        with record_function("tardis.plasma"):
+        with tracing.span("tardis.plasma"):
             self.plasma_state = self.plasma_solver.update(
                 self.state.t_radiative, self.state.dilution_factor,
                 j_blues=estimator_j_blues,
@@ -332,6 +337,7 @@ class Simulation:
 
     def iterate(self, n_packets: int, iteration: int) -> TransportResult:
         """One plasma solve (if needed) and Monte Carlo transport run."""
+        tracing.next_iteration()
         if self.plasma_state is None:
             self._solve_plasma()
         result = self.transport.run_iteration(
@@ -345,10 +351,11 @@ class Simulation:
         self.last_transport_result = result
         return result
 
+    @tracing.span("tardis.advance")
     def advance_state(self, result: TransportResult, iteration: int) -> bool:
         """Invert estimators, check convergence, apply damped updates and
         re-solve the plasma."""
-        with record_function("tardis.radiation_field"):
+        with tracing.span("tardis.radiation_field"):
             est_t_rad, est_w, est_j_blues = solve_radiation_field(
                 result, self.state, self.atom_data,
                 w_epsilon=self.plasma_solver.w_epsilon,
@@ -441,7 +448,7 @@ class Simulation:
         )
         self.last_transport_result = result
         self.iterations_executed += 1
-        with record_function("tardis.spectrum"):
+        with tracing.span("tardis.spectrum"):
             self.spectrum_real = real_packet_spectrum(
                 result.output_nu, result.output_energy, result.emitted_mask,
                 self.spectrum_nu_edges, result.time_of_simulation,

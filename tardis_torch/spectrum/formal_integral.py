@@ -41,9 +41,8 @@ import numpy as np
 import scipy.sparse as sp
 import scipy.sparse.linalg as splinalg
 import torch
-from torch.profiler import record_function
 
-from tardis_torch import cuda
+from tardis_torch import cuda, tracing
 from tardis_torch.atomic.atom_data import MACRO_EMISSION, MacroAtomData
 from tardis_torch.constants import C, SIGMA_THOMSON
 from tardis_torch.opacities.macro_atom_solver import (
@@ -452,7 +451,7 @@ class FormalIntegralSolver:
         for the CPU; without a card ``None`` raises)."""
         device = cuda.resolve_device(device)
         check_formal_integral_requirements(line_interaction_type)
-        with record_function("tardis.source_function"):
+        with tracing.span("tardis.source_function"):
             source = solve_source_function(
                 atom_data.macro_atom if line_interaction_type == "macroatom"
                 else atom_data.downbranch,
@@ -510,7 +509,7 @@ class FormalIntegralSolver:
         inputs = self.ray_inputs(nu_edges, sim_state, plasma_state,
                                  transport_result, atom_data,
                                  line_interaction_type, device)
-        with record_function("tardis.formal_integral"):
+        with tracing.span("tardis.formal_integral"):
             rays = integrate_rays(**inputs.tensors)
             i_p = rays.i_p.cpu().numpy().astype(np.float64)
         capped = int(rays.counts[COUNT_CAPPED])

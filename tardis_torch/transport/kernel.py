@@ -109,7 +109,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tardis_torch import cuda
+from tardis_torch import cuda, tracing
 from tardis_torch.transport import rng
 from tardis_torch.transport.macro_walk import lower_bound, macro_walk
 from tardis_torch.transport.tables import (
@@ -1017,7 +1017,7 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     taken = torch.zeros(2, dtype=torch.int64, device=device)
     res.search_fallbacks = taken[1:]
     if cont is None:
-        err = fn(*args, None, p(taken), 0, cuda.stream())
+        args += [None, p(taken), 0, cuda.stream()]
     else:
         fits = smem_tables_fit(t, library_defines(flags))
         if smem_tables is None:
@@ -1025,12 +1025,11 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
         elif smem_tables and not fits:
             raise ValueError("transport_loop: the continuum tables do not "
                              "fit shared memory")
-        err = fn(*args, ctypes.byref(_continuum_args(cont, res)), p(taken),
-                 int(smem_tables), cuda.stream())
-    cuda.check_launch("transport_loop", err)
-    name = variant_name(flags)
-    by = transport_loop.launches_by_variant
-    by[name] = by.get(name, 0) + 1
+        args += [ctypes.byref(_continuum_args(cont, res)), p(taken),
+                 int(smem_tables), cuda.stream()]
+    with tracing.launch(transport_loop, variant_name(flags)):
+        err = fn(*args)
+        cuda.check_launch("transport_loop", err)
     return res
 
 
@@ -1053,9 +1052,10 @@ def library_defines(flags) -> tuple:
                  for name, f in zip(OPTIONS, flags))
 
 
-def warn_immortal(res: TransportOutput) -> int:
-    """Log how many packets the event cap stopped; returns the count."""
-    n = int(res.summary[3])
+def warn_immortal(summary: np.ndarray) -> int:
+    """Log how many packets the event cap stopped (``summary[3]`` of a
+    ``TransportOutput``'s summary on the host); returns the count."""
+    n = int(summary[3])
     if n:
         logger.warning(
             "%d packet(s) stopped after %d events (immortal-packet guard) — "

@@ -73,7 +73,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from tardis_torch import cuda
+from tardis_torch import cuda, tracing
 from tardis_torch.constants import C, SIGMA_THOMSON
 from tardis_torch.opacities.macro_atom_solver import MacroWalkTables
 from tardis_torch.plasma.line_tables import beta_sobolev
@@ -734,9 +734,10 @@ def nonhom_transport_loop(t: NonhomTables, pool_mu, pool_nu, key,
     def walk_ptr(name):
         return None if w is None else p(getattr(w, name))
 
-    err = fn(
-        p(pool_mu), p(pool_nu), N, p(t.r_inner), p(t.r_outer), p(t.beta_in),
-        p(t.m_grad), p(t.chi_e), p(t.line_nu), p(t.prefix), p(t.rev_prefix),
+    launch_args = (
+        p(pool_mu), p(pool_nu), N, p(t.r_inner), p(t.r_outer),
+        p(t.beta_in), p(t.m_grad), p(t.chi_e), p(t.line_nu), p(t.prefix),
+        p(t.rev_prefix),
         walk_ptr("line2macro"), walk_ptr("cum_prob"),
         walk_ptr("block_start"), walk_ptr("dest"), walk_ptr("emit"),
         walk_ptr("line"), L, S, t.max_jumps,
@@ -747,10 +748,9 @@ def nonhom_transport_loop(t: NonhomTables, pool_mu, pool_nu, key,
         p(res.last_interaction), p(res.tracker), tracker_length, p(taken),
         cuda.stream(),
     )
-    cuda.check_launch("nonhom_transport_loop", err)
-    name = variant_name(flags)
-    by = nonhom_transport_loop.launches_by_variant
-    by[name] = by.get(name, 0) + 1
+    with tracing.launch(nonhom_transport_loop, variant_name(flags)):
+        err = fn(*launch_args)
+        cuda.check_launch("nonhom_transport_loop", err)
     return res
 
 

@@ -54,6 +54,16 @@ them under full relativity, as the JAX package's ``_trace_tau`` does: the
 line and Thomson optical depths only, no bound-free or free-free opacity
 along a virtual packet's path.  A random-walking continuum packet makes
 thousands of attempts, so records past the capacity are the rule there.
+
+Each stage of an iteration runs inside a ``tracing.span``
+(``tardis_torch/tracing.py``): ``tardis.continuum_tables``,
+``tardis.macro_chain`` or ``tardis.macro_walk``, ``tardis.transport_tables``,
+``tardis.packet_source``, ``tardis.transport_loop``,
+``tardis.vpacket_volley``, ``tardis.readback`` (``read_back``: the
+blocking copies of K1's summary and estimators, each a ``tracing.sync``,
+in which the host waits for the card) and ``tardis.finalize`` (the host
+arithmetic on them).  The benchmark's ``breakdown`` and per-layer files
+(``portbench/``) and ``chip_smoke.py`` read them.
 """
 
 from __future__ import annotations
@@ -64,8 +74,8 @@ from functools import cached_property
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from tardis_torch import tracing
 from tardis_torch.constants import (
     C,
     H,
@@ -180,7 +190,9 @@ class TransportResult:
 
     def _materialize(self):
         if not hasattr(self, "_out_nu"):
-            out = self._out.cpu().numpy().astype(np.float64)
+            with tracing.sync("result.output"):
+                out = self._out.cpu().numpy()
+            out = out.astype(np.float64)
             nu_signed = out[:, 0]
             self._out_nu = np.abs(nu_signed) * NU_UNIT
             self._out_energy = out[:, 1] * (1.0 / self.n_packets)
@@ -328,7 +340,7 @@ class TransportSolver:
         with_continuum = continuum_state is not None
         if with_continuum:
             # the absorbing-Markov tables replace the macro-atom chain
-            with record_function("tardis.continuum_tables"):
+            with tracing.span("tardis.continuum_tables"):
                 continuum = build_continuum_tables(
                     sim_state.geometry, atom_data, continuum_state,
                     continuum_macro, device)
@@ -338,7 +350,7 @@ class TransportSolver:
             args = (macro, plasma_state.beta_sobolev, plasma_state.j_blues,
                     plasma_state.stimulated_emission_factor)
             if self.use_macro_chain in ("auto", True):
-                with record_function("tardis.macro_chain"):
+                with tracing.span("tardis.macro_chain"):
                     macro_chain = solve_macro_chain(
                         *args, mode=lit,
                         line_nu_scaled=atom_data.line_nu / NU_UNIT)
@@ -347,9 +359,9 @@ class TransportSolver:
                         "use_macro_chain=True: the macro-atom chain tables "
                         "do not fit the device budget (chain_tables_fit)")
             if macro_chain is None:
-                with record_function("tardis.macro_walk"):
+                with tracing.span("tardis.macro_walk"):
                     macro_walk = solve_macro_state(*args)
-        with record_function("tardis.transport_tables"):
+        with tracing.span("tardis.transport_tables"):
             tables = build_transport_tables(
                 sim_state.geometry,
                 plasma_state.electron_densities,
@@ -365,7 +377,7 @@ class TransportSolver:
                 macro_walk=macro_walk,
             )
         src_key, run_key = iteration_keys(seed, iteration)
-        with record_function("tardis.packet_source"):
+        with tracing.span("tardis.packet_source"):
             pool_mu, pool_nu, pool_w = blackbody_source(
                 src_key, n_packets, sim_state.t_inner, device,
                 self.pool_for(with_continuum),
@@ -389,7 +401,7 @@ class TransportSolver:
                 "runs on %s", n_packets, len(devices), device)
             self._logged_one_device = True
         pbar = self._packet_bar(n_packets)
-        with record_function("tardis.transport_loop"):
+        with tracing.span("tardis.transport_loop"):
             if sharded:
                 res = run_transport_sharded(
                     tables, pool_mu, pool_nu, run_key, devices,
@@ -402,14 +414,17 @@ class TransportSolver:
             pbar.close()
         virtual = {}
         if n_vpackets > 0:
-            with record_function("tardis.vpacket_volley"):
+            with tracing.span("tardis.vpacket_volley"):
                 virtual = self._volley(tables, res, n_vpackets,
                                        spectrum_nu_edges,
                                        vpacket_spawn_nu_range, n_packets,
                                        sim_state)
-        with record_function("tardis.finalize"):
-            return self._finalize(res, sim_state, atom_data, n_packets,
-                                  need_line_estimators, lum_nu_window,
+        with tracing.span("tardis.readback"):
+            host = read_back(res, need_line_estimators, atom_data.n_lines,
+                             sim_state.no_of_shells)
+        with tracing.span("tardis.finalize"):
+            return self._finalize(res, host, sim_state, atom_data, n_packets,
+                                  lum_nu_window,
                                   self.full_relativity(with_continuum),
                                   **virtual)
 
@@ -472,29 +487,27 @@ class TransportSolver:
                     virt_energy_hist=vol.hist.cpu().numpy() * e0,
                     vp_records=attempted, vpackets=vpackets)
 
-    def _finalize(self, res, sim_state, atom_data, n_packets,
-                  need_line_estimators, lum_nu_window, full_relativity,
+    def _finalize(self, res, host, sim_state, atom_data, n_packets,
+                  lum_nu_window, full_relativity,
                   **virtual) -> TransportResult:
         """Kernel units -> cgs: length c t_exp, frequency NU_UNIT, energy
-        1/N erg (time of simulation = 1 erg / L_requested)."""
+        1/N erg (time of simulation = 1 erg / L_requested), from K1's
+        outputs read back to the host (``read_back``)."""
         ct = C * sim_state.time_explosion
         e0 = 1.0 / n_packets
         dt = 1.0 / sim_state.luminosity_requested
-        S = sim_state.no_of_shells
-        L = atom_data.n_lines
-        summary = res.summary.cpu().numpy()
-        est_j = res.est_j.cpu().numpy() * e0 * ct
-        est_nubar = res.est_nubar.cpu().numpy() * e0 * ct * NU_UNIT
+        summary = host["summary"]
+        est_j = host["est_j"] * e0 * ct
+        est_nubar = host["est_nubar"] * e0 * ct * NU_UNIT
         j_blue = edot = None
-        if need_line_estimators:
-            with record_function("tardis.line_estimators"):
-                cum = read_line_estimators(res.line_diff, L, S)
+        cum = host["line_estimators"]
+        if cum is not None:
             # under full relativity the increments carry no nu_i factor
             nu_scaled = (1.0 if full_relativity else
                          (atom_data.line_nu / NU_UNIT)[:, None])
             j_blue = cum[:, :, 0] * nu_scaled * (e0 / NU_UNIT)
             edot = cum[:, :, 1] * nu_scaled * e0
-        n_immortal = warn_immortal(res)
+        n_immortal = warn_immortal(summary)
         continuum = None
         if res.cont_moments.numel():
             continuum = reconstruct_continuum_estimators(
@@ -569,7 +582,7 @@ class NonhomologousTransportSolver(TransportSolver):
             geometry = NonhomologousRadial1DGeometry.from_homologous(geometry)
         lit = self.line_interaction_type
         device = plasma_state.tau_prefix.device
-        with record_function("tardis.transport_tables"):
+        with tracing.span("tardis.transport_tables"):
             plasma_nh = nonhomologous_plasma_state(plasma_state, geometry)
             walk = None
             if lit in ("downbranch", "macroatom"):
@@ -585,11 +598,11 @@ class NonhomologousTransportSolver(TransportSolver):
                 inner_boundary_albedo=self.inner_boundary_albedo,
             )
         src_key, run_key = iteration_keys(seed, iteration)
-        with record_function("tardis.packet_source"):
+        with tracing.span("tardis.packet_source"):
             pool_mu, pool_nu, _ = blackbody_source(
                 src_key, n_packets, sim_state.t_inner, device, "simple")
         lo, hi = lum_nu_window
-        with record_function("tardis.transport_loop"):
+        with tracing.span("tardis.transport_loop"):
             res = nonhom_transport_loop(
                 tables, pool_mu, pool_nu, run_key,
                 nu_window=(lo / NU_UNIT, hi / NU_UNIT),
@@ -597,9 +610,12 @@ class NonhomologousTransportSolver(TransportSolver):
                 tracker_length=self.track_rpacket_length,
                 line_estimators=need_line_estimators,
             )
-        with record_function("tardis.finalize"):
-            return self._finalize(res, sim_state, atom_data, n_packets,
-                                  need_line_estimators, lum_nu_window, False)
+        with tracing.span("tardis.readback"):
+            host = read_back(res, need_line_estimators, atom_data.n_lines,
+                             sim_state.no_of_shells)
+        with tracing.span("tardis.finalize"):
+            return self._finalize(res, host, sim_state, atom_data, n_packets,
+                                  lum_nu_window, False)
 
 
 def reconstruct_continuum_estimators(res, atom_data, sim_state, n_packets,
@@ -623,7 +639,8 @@ def reconstruct_continuum_estimators(res, atom_data, sim_state, n_packets,
     S = sim_state.no_of_shells
     grid, xs = build_continuum_grid(pi)
     grid_s = grid / NU_UNIT
-    m = res.cont_moments.cpu().numpy().reshape(len(grid) - 1, S, 8)
+    with tracing.sync("finalize.cont_moments"):
+        m = res.cont_moments.cpu().numpy().reshape(len(grid) - 1, S, 8)
     M0, M1, M2 = m[..., 0], m[..., 1], m[..., 2]
     Mb0, Mb1, Mb2 = m[..., 3], m[..., 4], m[..., 5]
     counts = m[..., 6]
@@ -648,7 +665,8 @@ def reconstruct_continuum_estimators(res, atom_data, sim_state, n_packets,
                            - nu_th[:, None] * contract(Mb1, Mb0)) * ct * e0
     active = (xs[:-1] > 0) & (xs[1:] > 0)
     stats = np.einsum("gc,gs->cs", active.astype(np.float64), counts)
-    ff_heating = res.est_ff_heat.cpu().numpy() * e0
+    with tracing.sync("finalize.ff_heat"):
+        ff_heating = res.est_ff_heat.cpu().numpy() * e0
     norm = 1.0 / (time_of_simulation * sim_state.volume * H)  # (S,)
     return ContinuumEstimators(
         photo_ion=photo_ion * norm[None, :],
@@ -660,6 +678,24 @@ def reconstruct_continuum_estimators(res, atom_data, sim_state, n_packets,
     )
 
 
+def read_back(res, line_estimators: bool, L: int, S: int) -> dict:
+    """K1's (or K7's) summary, j and nu-bar estimators and, where asked,
+    line estimators (L, S, 2) on the host: the blocking copies in which
+    the host waits for the card."""
+    with tracing.sync("readback.summary"):
+        summary = res.summary.cpu().numpy()
+    with tracing.sync("readback.est_j"):
+        est_j = res.est_j.cpu().numpy()
+    with tracing.sync("readback.est_nubar"):
+        est_nubar = res.est_nubar.cpu().numpy()
+    cum = None
+    if line_estimators:
+        with tracing.span("tardis.line_estimators"):
+            cum = read_line_estimators(res.line_diff, L, S)
+    return dict(summary=summary, est_j=est_j, est_nubar=est_nubar,
+                line_estimators=cum)
+
+
 def read_line_estimators(line_diff: torch.Tensor, L: int, S: int):
     """The line estimators on the host, (L, S, 2) f64 [j_blue, edot], from
     K1's or K7's line difference array ((L+1) S 2,): its prefix along the
@@ -668,7 +704,8 @@ def read_line_estimators(line_diff: torch.Tensor, L: int, S: int):
     # the outer dimension of (L+1, 2S) is far slower on the card
     diff = line_diff.reshape(L + 1, 2 * S).T.contiguous()
     cum = torch.cumsum(diff, dim=1)[:, :L].T.contiguous()
-    return cum.cpu().numpy().reshape(L, S, 2)
+    with tracing.sync("readback.line_estimators"):
+        return cum.cpu().numpy().reshape(L, S, 2)
 
 
 def solve_radiation_field(result: TransportResult, sim_state, atom_data,

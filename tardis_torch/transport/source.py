@@ -35,7 +35,7 @@ import functools
 import numpy as np
 import torch
 
-from tardis_torch import cuda
+from tardis_torch import cuda, tracing
 from tardis_torch.constants import H, K_B
 from tardis_torch.transport import rng
 from tardis_torch.transport.tables import NU_UNIT
@@ -224,23 +224,23 @@ def blackbody_source(key, n_packets: int, t_inner: float, device,
     fn = cuda.function("blackbody_source", "blackbody_source", ARGTYPES)
     info = (ctypes.c_int * 3)()
     p = cuda.ptr
-    err = fn(
-        key[0], key[1], n_packets, None if l_array is None else p(l_array),
-        len(_L_ARRAY), float(_L_COEF), float(_nu_coef(t_inner)),
-        float(NU_UNIT), mode, float(beta), float(bb), float(F32(2.0) * beta),
-        float(w_const), float(_LOG_LO), float(_LOG_SPAN), float(h),
-        float(kt), *WEIGHTED_X_CLIP, p(mu), p(nu),
-        None if w is None else p(w), None if slots is None else p(slots),
-        info, cuda.stream(),
+    launch_args = (
+        key[0], key[1], n_packets,
+        None if l_array is None else p(l_array), len(_L_ARRAY),
+        float(_L_COEF), float(_nu_coef(t_inner)), float(NU_UNIT), mode,
+        float(beta), float(bb), float(F32(2.0) * beta), float(w_const),
+        float(_LOG_LO), float(_LOG_SPAN), float(h), float(kt),
+        *WEIGHTED_X_CLIP, p(mu), p(nu), None if w is None else p(w),
+        None if slots is None else p(slots), info, cuda.stream(),
     )
-    if err != 0 and weighted:
-        raise RuntimeError(
-            f"blackbody_source[weighted]: cooperative launch of {info[0]} "
-            f"blocks ({info[2]} SMs x {info[1]} blocks a SM) failed with "
-            f"CUDA error {err}")
-    cuda.check_launch("blackbody_source", err)
-    by = blackbody_source.launches_by_variant
-    by[pool] = by.get(pool, 0) + 1
+    with tracing.launch(blackbody_source, pool):
+        err = fn(*launch_args)
+        if err != 0 and weighted:
+            raise RuntimeError(
+                f"blackbody_source[weighted]: cooperative launch of "
+                f"{info[0]} blocks ({info[2]} SMs x {info[1]} blocks a SM) "
+                f"failed with CUDA error {err}")
+        cuda.check_launch("blackbody_source", err)
     return mu, nu, w
 
 

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from tardis_torch import tracing
 from tardis_torch.constants import C, SIGMA_THOMSON
 from tardis_torch.opacities.macro_atom_solver import MacroWalkTables
 from tardis_torch.transport.macro_walk import max_jumps, walk_steps
@@ -216,8 +217,9 @@ def build_continuum_tables(geometry, atom_data, continuum_state,
     grid, xs = build_continuum_grid(pi)
 
     def dev(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
-                               device=device)
+        with tracing.sync("continuum_tables"):
+            return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype),
+                                   device=device)
 
     def f32(a):
         return dev(np.asarray(a).reshape(-1), np.float32)
@@ -289,7 +291,8 @@ def build_transport_tables(
     mode = LINE_MODES[line_interaction_type]
 
     def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        with tracing.sync("tables.f32"):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
     kw = {}
     if mode == LINE_SCATTER or continuum is not None:
@@ -308,8 +311,9 @@ def build_transport_tables(
             raise ValueError(f"{line_interaction_type} needs macro_chain "
                              "or macro_walk")
         mc = macro_chain
-        line2macro = torch.as_tensor(mc.line2macro, dtype=torch.int32,
-                                     device=device)
+        with tracing.sync("tables.line2macro"):
+            line2macro = torch.as_tensor(mc.line2macro, dtype=torch.int32,
+                                         device=device)
         emit_cdf = mc.emit_cdf
         chain_cdf = (mc.chain_cdf if mc.chain_cdf is not None else
                      torch.zeros((1, 1), dtype=torch.float32, device=device))

@@ -46,7 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tardis_torch import cuda
+from tardis_torch import cuda, tracing
 from tardis_torch.transport.tables import TransportTables, lorentz_gamma
 
 TAU_STOP = 70.0
@@ -278,18 +278,17 @@ def _volley_cuda(t: TransportTables, rec, V, edges, lo, hi, hist, n_seg,
                        library_defines(t))
     p = cuda.ptr
     M = edges.shape[0] - 1
-    err = fn(
-        p(rec), rec.shape[0], V, p(t.r_inner), p(t.r_outer), p(t.chi_e),
-        p(t.line_nu), p(t.prefix), t.n_lines, t.n_shells, p(buckets.counts),
-        buckets.n_buckets, buckets.base, buckets.shift, p(edges), M, lo, hi,
-        p(hist),
-        p(n_seg), None if ray_nu is None else p(ray_nu),
+    launch_args = (
+        p(rec), rec.shape[0], V, p(t.r_inner), p(t.r_outer),
+        p(t.chi_e), p(t.line_nu), p(t.prefix), t.n_lines, t.n_shells,
+        p(buckets.counts), buckets.n_buckets, buckets.base,
+        buckets.shift, p(edges), M, lo, hi, p(hist), p(n_seg),
+        None if ray_nu is None else p(ray_nu),
         None if ray_e is None else p(ray_e), cuda.stream(),
     )
-    cuda.check_launch("vpacket_volley", err)
-    name = variant_name(t)
-    by = trace_vpacket_records.launches_by_variant
-    by[name] = by.get(name, 0) + 1
+    with tracing.launch(trace_vpacket_records, variant_name(t)):
+        err = fn(*launch_args)
+        cuda.check_launch("vpacket_volley", err)
 
 
 _VP, _I64, _CI, _CF = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,

@@ -10,8 +10,8 @@ waiting packets are re-shelled there with an f64 search of the next
 step's inner radii (the JAX package reads the state back every step).
 The positron kinetic energy is deposited locally on the host, as in the
 JAX package.  Runs on the card unless ``device="cpu"`` is passed.  The
-decay pool is drawn inside the ``torch.profiler.record_function`` span
-``tardis.gamma_pool``.
+decay pool is drawn inside the span ``tardis.gamma_pool``
+(``tracing.span``).
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from tardis_torch import tracing
 from tardis_torch.atomic.atom_data import ATOMIC_MASSES
 from tardis_torch.constants import C, DAY, M_U
 from tardis_torch.cuda import resolve_device
@@ -160,7 +160,7 @@ class TARDISHEWorkflow:
         state = self.state
         dev = self.device
         S = state.no_of_shells
-        with record_function("tardis.gamma_pool"):
+        with tracing.span("tardis.gamma_pool"):
             pool = sample_gamma_packets(
                 n_packets, self.isotope_numbers, t_start, t_end,
                 seed=self.seed, radiation=self.radiation,

@@ -21,9 +21,15 @@ The final iteration runs transport at ``last_no_of_packets`` and builds
 the real-packet spectrum.  Runs on the card unless ``device="cpu"``;
 with a list of devices the transport of step 3 splits its packets over
 them (``simulation/base.py``).
-Each stage runs inside a ``torch.profiler.record_function`` span:
+Each stage runs inside a ``tracing.span`` (``tardis_torch/tracing.py``):
 ``tardis.continuum_plasma``, ``tardis.continuum_macro`` and
-``tardis.thermal_balance`` beside the simulation's own.
+``tardis.thermal_balance`` (the whole of ``solve_thermal_balance``, its
+closing plasma solve included) beside the simulation's own;
+``solve_montecarlo`` starts a new iteration of the recorder, and the
+thermal balance counts ``thermal_balance.evaluations`` (calls of its
+residuals) and scipy's ``thermal_balance.nfev`` / ``.njev``.  The
+benchmark's ``breakdown`` and per-layer files (``portbench/``) and
+``chip_smoke.py`` read them.
 """
 
 from __future__ import annotations
@@ -32,8 +38,8 @@ import logging
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from tardis_torch import tracing
 from tardis_torch.constants import SIGMA_SB
 from tardis_torch.opacities.continuum_macro import solve_continuum_macro_state
 from tardis_torch.plasma.continuum import ContinuumEstimators, ContinuumSolver
@@ -76,14 +82,15 @@ class TypeIIPWorkflow(SimpleTARDISWorkflow):
 
     # ------------------------------------------------------------------
     def solve_montecarlo(self, n_packets, iteration):
+        tracing.next_iteration()
         sim = self.sim
         if sim.plasma_state is None:
             self.solve_plasma()
-        with record_function("tardis.continuum_plasma"):
+        with tracing.span("tardis.continuum_plasma"):
             self.cont_state = self.cont_solver.update(
                 sim.plasma_state, self.cont_estimators
             )
-        with record_function("tardis.continuum_macro"):
+        with tracing.span("tardis.continuum_macro"):
             macro = solve_continuum_macro_state(
                 sim.atom_data, sim.plasma_state, self.cont_state,
                 sim.plasma_state.j_blues,
@@ -134,9 +141,12 @@ class TypeIIPWorkflow(SimpleTARDISWorkflow):
         )
 
     # ------------------------------------------------------------------
+    @tracing.span("tardis.thermal_balance")
     def solve_thermal_balance(self):
         """Least-squares solve for (n_e fraction, link) per shell
-        (reference :612-722)."""
+        (reference :612-722), then the plasma at its solution.  Counts
+        ``thermal_balance.evaluations`` (calls of the residuals) and
+        scipy's ``thermal_balance.nfev`` / ``.njev``."""
         from scipy.optimize import least_squares
         from scipy.sparse import block_diag
 
@@ -157,6 +167,7 @@ class TypeIIPWorkflow(SimpleTARDISWorkflow):
         x0[1::2] = np.clip(link0, 1500.0 / t_rad.min(), 1.5)
 
         def residuals(x):
+            tracing.count("thermal_balance.evaluations")
             frac = x[::2]
             link = x[1::2]
             n_e = frac * max_n_e
@@ -183,17 +194,18 @@ class TypeIIPWorkflow(SimpleTARDISWorkflow):
         lower[::2], upper[::2] = 1e-10, 1.0
         lower[1::2], upper[1::2] = 1500.0 / t_rad.min(), 1.5
         x0 = np.clip(x0, lower, upper)
-        with record_function("tardis.thermal_balance"):
-            result = least_squares(
-                residuals,
-                x0,
-                bounds=(lower, upper),
-                jac_sparsity=block_diag([np.ones((2, 2))] * S),
-                xtol=1e-12,
-                ftol=1e-10,
-                max_nfev=self.thermal_balance_max_nfev,
-                method="trf",
-            )
+        result = least_squares(
+            residuals,
+            x0,
+            bounds=(lower, upper),
+            jac_sparsity=block_diag([np.ones((2, 2))] * S),
+            xtol=1e-12,
+            ftol=1e-10,
+            max_nfev=self.thermal_balance_max_nfev,
+            method="trf",
+        )
+        tracing.count("thermal_balance.nfev", int(result.nfev))
+        tracing.count("thermal_balance.njev", int(result.njev or 0))
         # apply the solution persistently (the plasma solver keeps the
         # per-shell link and fixed n_e for later updates)
         frac = result.x[::2]
@@ -226,7 +238,7 @@ class TypeIIPWorkflow(SimpleTARDISWorkflow):
         result = self.solve_montecarlo(
             sim.last_no_of_packets, sim.iterations - 1
         )
-        with record_function("tardis.spectrum"):
+        with tracing.span("tardis.spectrum"):
             sim.spectrum_real = real_packet_spectrum(
                 result.output_nu,
                 result.output_energy,

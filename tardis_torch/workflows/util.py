@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from tardis_torch import tracing
 from tardis_torch.constants import C, H, K_B, SIGMA_THOMSON
 
 
@@ -65,7 +65,7 @@ def get_tau_integ(plasma_state, atom_data, sim_state, bin_size: int = 10):
     """Integrated Rosseland / Planck mean optical depth per shell, as host
     (S,) arrays.  ``plasma_state.tau_sobolev`` may be a tensor on any
     device (the work runs there) or a numpy array (on the CPU)."""
-    with record_function("tardis.tau_integ"):
+    with tracing.span("tardis.tau_integ"):
         tau = torch.as_tensor(plasma_state.tau_sobolev, dtype=torch.float64)
         device = tau.device
         b = line_bins(atom_data.line_nu, bin_size, device)

@@ -67,7 +67,7 @@ def test_k3_estimator_mode_matches_jax_host(atom_data_prepared):
     plain = line_tables_plain(*args)
     for name in ("stim", "tau", "beta", "prefix"):
         assert torch.equal(getattr(got, name), getattr(plain, name)), name
-    assert line_tables.launches == 0  # CPU tensors never launch
+    assert not line_tables.launches_by_variant  # CPU tensors never launch
 
 
 def _both(atom_data_prepared, cfg):
