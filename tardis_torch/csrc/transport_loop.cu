@@ -156,6 +156,20 @@
 //   the f64 atomics does.  The classic instantiations run the same kind of
 //   grid through tardis::lane_loop (ClassicWalker, below); the continuum
 //   loop keeps its own, with its moment runs and staged tables.
+//   Two more launches on the same stream follow it (launch_continuum):
+//     - the drain tail.  Once the queue is empty and no more packets are
+//       live than the tail kernel holds warps (2,112 on an H100 with the
+//       IIP tables in shared memory), each lane parks its packet and
+//       leaves, and continuum_tail_kernel runs each parked packet on a
+//       whole warp: the draws hashed a column a lane, the searches
+//       replayed from their probes evaluated on the lanes at once
+//       (warp_bisect), the bound-free sums' terms a continuum a lane; every
+//       packet's row, event count and draws are the ones its lane makes;
+//     - the moments' sums.  Each SM adds its runs to a private copy of the
+//       moments (moment_row), summed into them in a fixed order by
+//       moments_reduce_kernel: the random walk's hot rows, added to by all
+//       132 SMs in one copy, held the whole loop in the L2's atomics
+//       (4.2 s of a launch at the IIP shape against 1.8 s; PERF.md).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -222,8 +236,21 @@ struct ContinuumArgs {
   double* moments;                 // ((Ng - 1) * S * 8,)
   double* ff_heat;                 // (S,)
   int32_t* events;                 // (N,) events of each packet
+  // the drain tail (continuum_tail_kernel): the packets handed to it
+  // (min(N, tail_threshold) ContPacket entries) and its two counts
+  // [packets handed off, events run there]
+  void* park;
+  double* tail;
+  // moment_copies private copies of moments, one an SM (by %smid, modulo
+  // the copies), summed into moments in a fixed order after the loop
+  double* moments_private;
   int n_grid, n_continua, n_states, k_state, n_two_photon;
   int n_deact, n_fb;               // D, P
+  int moment_copies;
+  // hand a packet to the tail once the queue is empty and at most this many
+  // packets are taken and not ended (0: never; N or more: every packet, at
+  // birth)
+  int64_t tail_threshold;
 };
 
 // bytes of shared memory that stage_tables takes (each table's bytes
@@ -246,15 +273,23 @@ __host__ __device__ inline int64_t continuum_table_bytes(const ContinuumArgs& c,
 // memory, or 512 with the tables staged in shared memory
 constexpr int kContThreads = 128;
 constexpr int kSmemThreads = 512;
-// terms of a lane's run accumulator (Run, below)
+// terms of a lane's run accumulator and of its shell run (Run, below)
 constexpr int kAccTerms = 8;
+constexpr int kShellTerms = 3;
 
 // dynamic shared memory of one continuum block: the per-shell sums, the
 // lanes' run accumulators and, with smem_tables, the staged tables
 inline size_t continuum_shared_bytes(const ContinuumArgs& c, int64_t L, int S,
                                      bool smem_tables) {
   const int threads = smem_tables ? kSmemThreads : kContThreads;
-  return (size_t)(3 * S + 4 + kAccTerms * threads) * sizeof(double)
+  return (size_t)(3 * S + 4 + (kAccTerms + kShellTerms) * threads) * sizeof(double)
+         + (size_t)(smem_tables ? continuum_table_bytes(c, L, S) : 0);
+}
+
+// the tail kernel's: the per-shell sums (each warp keeps its run in
+// registers) and the same staged tables
+inline size_t tail_shared_bytes(const ContinuumArgs& c, int64_t L, int S, bool smem_tables) {
+  return (size_t)(3 * S + 4) * sizeof(double)
          + (size_t)(smem_tables ? continuum_table_bytes(c, L, S) : 0);
 }
 
@@ -866,28 +901,62 @@ struct ContPacket {
 // one moment row (grid cell x shell), summed per thread in shared memory
 // (acc[k * blockDim.x], k < kAccTerms: the seven moments [w, w/nu, w nu,
 // wb, wb/nu, wb nu, 1] and the free-free heating w chi_ff; est_j and
-// est_nubar are the moments w and w nu) and added to the moments, est_j,
-// est_nubar and the free-free heating when the row changes or the packet
-// leaves the lane.  A packet random-walking through a continuum-thick
-// shell keeps its row for many events, so the hot rows take far fewer
-// atomics; the sums change only in their order.
+// est_nubar are the moments w and w nu) and added to the moments when the
+// row changes or the packet leaves the lane.  A packet random-walking
+// through a continuum-thick shell keeps its row for many events, so the
+// hot rows take far fewer atomics.  The row's est_j, est_nubar and
+// free-free terms go on to the lane's shell run (acc[(kAccTerms + k) *
+// blockDim.x], k < kShellTerms), added to the block's sums when the
+// lane's shell changes and when it leaves the loop: the block's 512 lanes
+// in a few hot shells, each adding at every row change, spent a tenth of
+// the loop in the shared f64 atomics' compare-and-swap.  The sums change
+// only in their order.
 
 struct Run {
   int row = -1;  // gcell * S + shell of the terms in acc; -1: empty
   int shell = 0;
+  int sum_shell = -1;  // the shell of the shell run; -1: empty
 };
+
+__device__ __forceinline__ void shell_flush(Run& run, double* acc, double* sh_j,
+                                            double* sh_nubar, double* sh_ff) {
+  if (run.sum_shell < 0) return;
+  double* sums = acc + kAccTerms * blockDim.x;
+  const int B = blockDim.x;
+  atomicAdd(&sh_j[run.sum_shell], sums[0]);
+  atomicAdd(&sh_nubar[run.sum_shell], sums[B]);
+  atomicAdd(&sh_ff[run.sum_shell], sums[2 * B]);
+#pragma unroll
+  for (int k = 0; k < kShellTerms; ++k) sums[k * B] = 0.0;
+  run.sum_shell = -1;
+}
+
+// moment row ``row`` of this SM's private copy: the hot rows of a random
+// walk, added to by every SM, held the loop up in the L2's atomics
+__device__ __forceinline__ double* moment_row(const Params& p, int row) {
+  unsigned smid;
+  asm("mov.u32 %0, %%smid;" : "=r"(smid));
+  const ContinuumArgs& c = p.cont;
+  return c.moments_private
+         + ((int64_t)(smid % (unsigned)c.moment_copies) * (c.n_grid - 1) * p.S + row) * 8;
+}
 
 __device__ __forceinline__ void cont_flush(const Params& p, Run& run, double* acc,
                                            double* sh_j, double* sh_nubar,
                                            double* sh_ff) {
   if (run.row < 0) return;
   const int B = blockDim.x;
-  double* m = p.cont.moments + (int64_t)run.row * 8;
+  double* m = moment_row(p, run.row);
 #pragma unroll
   for (int k = 0; k < 7; ++k) atomicAdd(m + k, acc[k * B]);
-  atomicAdd(&sh_j[run.shell], acc[0]);
-  atomicAdd(&sh_nubar[run.shell], acc[2 * B]);
-  atomicAdd(&sh_ff[run.shell], acc[7 * B]);
+  if (run.shell != run.sum_shell) {
+    shell_flush(run, acc, sh_j, sh_nubar, sh_ff);
+    run.sum_shell = run.shell;
+  }
+  double* sums = acc + kAccTerms * B;
+  sums[0] += acc[0];
+  sums[B] += acc[2 * B];
+  sums[2 * B] += acc[7 * B];
 #pragma unroll
   for (int k = 0; k < kAccTerms; ++k) acc[k * B] = 0.0;
   run.row = -1;
@@ -1292,6 +1361,30 @@ __device__ __forceinline__ void cont_finish(const Params& p, const ContPacket& q
   atomicAdd(&sh_sum[2], (double)n_ev);
 }
 
+// a lane of the continuum loop looks at the live count before every
+// kTailCheck-th event of its packet
+constexpr int64_t kTailCheck = 32;
+
+// the drain's device counters, zeroed by the caller, after the packet
+// queue: the packets ended in continuum_kernel, those it parked, and the
+// tail kernel's queue of parked packets
+struct DrainCounters {
+  unsigned long long ended, parked, tail_taken;
+};
+
+// whether a lane hands its packet to the drain tail: the queue is empty
+// and at most T packets are taken and not ended (T >= N: every packet, at
+// birth).  Both counters only grow, and ended is read after the queue, so
+// N - ended is never below the live count: no more than T packets are
+// ever handed off.
+__device__ __forceinline__ bool hand_off(const unsigned long long* taken,
+                                         const DrainCounters* c, int64_t N, int64_t T) {
+  if (T >= N) return true;
+  if (T <= 0) return false;
+  if (*(const volatile unsigned long long*)taken < (unsigned long long)N) return false;
+  return N - (int64_t)*(const volatile unsigned long long*)&c->ended <= T;
+}
+
 // The continuum loop: a persistent grid (as many blocks as are resident)
 // whose lanes take packet ids from a counter, a warp-aggregated atomicAdd
 // at a time.  Each lane runs one event per loop iteration, so a lane whose
@@ -1300,17 +1393,23 @@ __device__ __forceinline__ void cont_finish(const Params& p, const ContPacket& q
 // max_events is stopped and counted.  Nothing waits on another block.
 // Each lane sums its packet's estimator terms in its run accumulator (Run,
 // above); the block's shared accumulators flush once, at exit.
+//
+// The drain tail: once the queue is empty, the few packets still walking
+// hold a lane each, nearly alone in their warps.  When hand_off says so,
+// a lane flushes its run, parks its packet's state in the parking list
+// and leaves, and continuum_tail_kernel, queued behind this launch, runs
+// each parked packet on a whole warp.
 template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights,
           bool kTwoPhoton, bool kAdiabatic, bool kRecords, bool kSmemTables>
 __global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
-    continuum_kernel(Params p, unsigned long long* taken) {
+    continuum_kernel(Params p, unsigned long long* taken, DrainCounters* ctr) {
   extern __shared__ double shm[];
   double* sh_j = shm;
   double* sh_nubar = shm + p.S;
   double* sh_sum = shm + 2 * p.S;
   double* sh_ff = shm + 2 * p.S + 4;
-  double* acc = shm + 3 * p.S + 4 + threadIdx.x;  // (kAccTerms, blockDim.x)
-  const int n_shared = 3 * p.S + 4 + kAccTerms * blockDim.x;
+  double* acc = shm + 3 * p.S + 4 + threadIdx.x;  // (kAccTerms + kShellTerms, blockDim.x)
+  const int n_shared = 3 * p.S + 4 + (kAccTerms + kShellTerms) * blockDim.x;
   for (int i = threadIdx.x; i < n_shared; i += blockDim.x) shm[i] = 0.0;
   if constexpr (kSmemTables) stage_tables(p, reinterpret_cast<char*>(shm + n_shared));
   __syncthreads();
@@ -1328,6 +1427,13 @@ __global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
       kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + q.pid));
       have = true;
     }
+    if ((q.ev & (kTailCheck - 1)) == 0
+        && hand_off(taken, ctr, p.n_packets, p.cont.tail_threshold)) {
+      cont_flush(p, run, acc, sh_j, sh_nubar, sh_ff);
+      static_cast<ContPacket*>(p.cont.park)[tardis::take_slot(&ctr->parked)] = q;
+      have = false;
+      continue;
+    }
     if (q.ev >= p.max_events) {
       atomicAdd(&sh_sum[3], 1.0);
       cont_finish<kLast>(p, q, p.max_events, sh_sum);
@@ -1338,9 +1444,11 @@ __global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
       if (alive) continue;
       cont_finish<kLast>(p, q, q.ev, sh_sum);
     }
+    atomicAdd(&ctr->ended, 1ull);
     cont_flush(p, run, acc, sh_j, sh_nubar, sh_ff);
     have = false;
   }
+  shell_flush(run, acc, sh_j, sh_nubar, sh_ff);
   __syncthreads();
   for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
     atomicAdd(&p.est_j[i], sh_j[i]);
@@ -1350,9 +1458,588 @@ __global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
   if (threadIdx.x < 4) atomicAdd(&p.summary[threadIdx.x], sh_sum[threadIdx.x]);
 }
 
+// ---- the drain tail: one parked continuum packet a warp
+
+constexpr unsigned kFull = 0xffffffffu;
+// columns of an event key a continuum event may draw (kColFf is the last)
+constexpr int kDraws = 10;
+
+// The bisection `while (lo < hi) { mid = (lo + hi) >> 1; if (right(mid))
+// lo = mid + 1; else hi = mid; }`, called by the 32 lanes of a warp with
+// the same lo and hi.  Each round evaluates right() at once at every index
+// the bisection may probe next, one a lane: where [lo, hi) is longer than
+// 32, the 31 probes of its next five levels (lane l the node l + 1 of that
+// subtree in heap order: node n's children are 2n where right() is false
+// and 2n + 1 where it is true), else every index of [lo, hi).  Every lane
+// then replays the bisection's own path on the ballot's bits, so the index
+// is the bisection's bit for bit, also where right() is not monotone.
+template <class Right>
+__device__ __forceinline__ int warp_bisect(int lo, int hi, int lane, Right right) {
+  while (hi - lo > 32) {
+    const int node = lane + 1;
+    const int depth = 31 - __clz(node);
+    int a = lo, b = hi;
+#pragma unroll
+    for (int d = 3; d >= 0; --d) {
+      if (d < depth) {
+        const int mid = (a + b) >> 1;
+        const bool r = (node >> d) & 1;
+        a = r ? mid + 1 : a;
+        b = r ? b : mid;
+      }
+    }
+    const unsigned bits = __ballot_sync(kFull, lane < 31 && a < b && right((a + b) >> 1));
+    unsigned n = 1;
+#pragma unroll
+    for (int level = 0; level < 5; ++level) {
+      const int mid = (lo + hi) >> 1;
+      const bool r = (bits >> (n - 1)) & 1u;
+      lo = r ? mid + 1 : lo;
+      hi = r ? hi : mid;
+      n = 2 * n + r;
+    }
+  }
+  if (lo < hi) {
+    const int base = lo;
+    const unsigned bits = __ballot_sync(kFull, lane < hi - lo && right(base + lane));
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      const bool r = (bits >> (mid - base)) & 1u;
+      lo = r ? mid + 1 : lo;
+      hi = r ? hi : mid;
+    }
+  }
+  return lo;
+}
+
+// bound_free_sum on a warp: lanes 0-15 compute the terms of 16 continua
+// at a time, and every lane adds them left to right in the same f32 order,
+// so the sum and the continuum picked are bound_free_sum's
+__device__ __forceinline__ float warp_bound_free_sum(const ContinuumArgs& c, int S, int shell,
+                                                    int gcell, float tfrac, float boltz,
+                                                    int lane, float stop_at, int* first) {
+  constexpr int kChunk = 16;
+  const int C = c.n_continua;
+  const float* x0 = c.xsect + (int64_t)gcell * C;
+  const float* x1 = x0 + C;
+  float cum = 0.0f;
+  for (int k0 = 0; k0 < C; k0 += kChunk) {
+    const int k = k0 + lane;
+    float term = 0.0f;
+    if (lane < kChunk && k < C) {
+      const float xs = x0[k] + tfrac * (x1[k] - x0[k]);
+      const float a = c.coef_a[k * S + shell];
+      const float b = c.coef_b[k * S + shell];
+      term = fmaxf(xs * (a - b * boltz), 0.0f);
+    }
+    float terms[kChunk];
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) terms[j] = __shfl_sync(kFull, term, j);
+    const int n = min(kChunk, C - k0);
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (j < n) {
+        cum = cum + terms[j];
+        if (first != nullptr && cum >= stop_at) {
+          *first = k0 + j;
+          return cum;
+        }
+      }
+    }
+  }
+  if (first != nullptr) *first = C;
+  return cum;
+}
+
+// free_bound_nu with its search on the warp
+__device__ __forceinline__ float warp_free_bound_nu(const ContinuumArgs& c, int S, int shell,
+                                                   int cont_id, float z, int lane) {
+  const int cc = min(max(cont_id, 0), c.n_continua - 1);
+  const int b0 = c.pion_block_start[cc];
+  const int b1 = c.pion_block_start[cc + 1];
+  int idx = warp_bisect(b0, b1, lane, [&](int i) {
+    return c.fb_cdf[(int64_t)i * S + shell] < z;
+  });
+  idx = min(max(idx, b0 + 1), max(b1 - 1, b0 + 1));
+  const float cdf_i = c.fb_cdf[(int64_t)idx * S + shell];
+  const float cdf_im = c.fb_cdf[(int64_t)(idx - 1) * S + shell];
+  const float nu_i = c.fb_nu[idx];
+  const float nu_im = c.fb_nu[idx - 1];
+  const float frac = cdf_i > cdf_im ? (cdf_i - z) / (cdf_i - cdf_im) : 0.0f;
+  return nu_i - frac * (nu_i - nu_im);
+}
+
+// cont_event's event search, the bisection of [lo, L], on the warp (L <
+// 2^30, as the wrapper checks)
+template <bool kRel>
+__device__ __forceinline__ int64_t tail_line_search(const float* line_nu, const double* prow,
+                                                    double c0, int64_t lo, int64_t L, float nu,
+                                                    float z, float p2, float chi,
+                                                    float tau_event, float nu_thresh,
+                                                    int lane) {
+  return warp_bisect((int)lo, (int)L, lane, [&](int mid) {
+    const float nl = line_nu[mid];
+    const float s = resonance_distance<kRel>(nl, nu, z, p2);
+    const float g = (float)(prow[mid + 1] - c0) + chi * s;
+    return !((nl <= nu_thresh) || (g > tau_event));
+  });
+}
+
+// a warp's run accumulator: Run's terms in registers, the same in every
+// lane; lane 0 adds them
+struct TailRun {
+  int row = -1;
+  int shell = 0;
+  double acc[kAccTerms] = {};
+};
+
+__device__ __forceinline__ void tail_flush(const Params& p, TailRun& run, int lane,
+                                           double* sh_j, double* sh_nubar, double* sh_ff) {
+  if (run.row < 0) return;
+  if (lane == 0) {
+    double* m = moment_row(p, run.row);
+#pragma unroll
+    for (int k = 0; k < 7; ++k) atomicAdd(m + k, run.acc[k]);
+    atomicAdd(&sh_j[run.shell], run.acc[0]);
+    atomicAdd(&sh_nubar[run.shell], run.acc[2]);
+    atomicAdd(&sh_ff[run.shell], run.acc[7]);
+  }
+#pragma unroll
+  for (int k = 0; k < kAccTerms; ++k) run.acc[k] = 0.0;
+  run.row = -1;
+}
+
+// one event of a parked packet on a warp: cont_event's expressions, with
+// the draws, the searches and the bound-free sums spread over the lanes.
+// Every lane holds the packet's state and computes the same values; lane 0
+// alone writes (atomics, rows, records).  ke is the event's key on entry
+// and the next event's on return: lane c < kDraws hashes column c of the
+// event key, lane kDraws the next event's key, in one round.
+template <bool kRel, bool kTrack, bool kReflect, bool kTwoPhoton, bool kAdiabatic,
+          bool kRecords>
+__device__ __forceinline__ bool tail_event(const Params& p, ContPacket& q, tardis::Key kp,
+                                           tardis::Key& ke, int lane, TailRun& run,
+                                           double* sh_j, double* sh_nubar, double* sh_sum,
+                                           double* sh_ff) {
+  const int S = p.S;
+  const int64_t L = p.L;
+  const ContinuumArgs& cont = p.cont;
+  const int64_t ev = q.ev;
+  const int64_t pid = q.pid;
+  float& r = q.r;
+  float& mu = q.mu;
+  float& nu = q.nu;
+  float& energy = q.energy;
+  int& shell = q.shell;
+  int64_t& next_line = q.next_line;
+  LastInteraction& li = q.li;
+  const bool writer = lane == 0;
+
+  float u[kDraws];
+  {
+    uint32_t x0 = 0u, x1 = lane < kDraws ? (uint32_t)lane : (uint32_t)(ev + 1);
+    tardis::threefry2x32(lane < kDraws ? ke : kp, x0, x1);
+    const float mine = tardis::uniform_f32(x0 ^ x1, kUMin, 1.0f);
+#pragma unroll
+    for (int c = 0; c < kDraws; ++c) u[c] = __shfl_sync(kFull, mine, c);
+    ke = tardis::Key{__shfl_sync(kFull, x0, kDraws), __shfl_sync(kFull, x1, kDraws)};
+  }
+
+  const float chi_e = p.chi_e[shell];
+  const float r_in = p.r_inner[shell];
+  const float r_out = p.r_outer[shell];
+  const float z = mu * r;
+  float dop;
+  if constexpr (kRel) dop = (1.0f - z) * lorentz_gamma(r);
+  else dop = 1.0f - z;
+  const float nu_cmf = nu * dop;
+
+  const int glo = warp_bisect(0, cont.n_grid, lane, [&](int i) {
+    return cont.grid_nu[i] <= nu_cmf;
+  });
+  const int gcell = min(max(glo - 1, 0), cont.n_grid - 2);
+  const float g0 = cont.grid_nu[gcell];
+  const float dg = cont.grid_nu[gcell + 1] - g0;
+  const float tfrac = fminf(fmaxf((nu_cmf - g0) / fmaxf(dg, 1e-30f), 0.0f), 1.0f);
+  const float boltz = (float)exp(-(double)(nu_cmf * cont.boltz_coef[shell]));
+  const float chi_bf =
+      warp_bound_free_sum(cont, S, shell, gcell, tfrac, boltz, lane, 0.0f, nullptr);
+  const float nuc = fmaxf(nu_cmf, 1e-30f);
+  const float chi_ff = cont.ff_coef[shell] / ((nuc * nuc) * nuc) * (1.0f - boltz);
+  const float chi_cmf = chi_e + chi_bf + chi_ff;
+  float chi = chi_cmf;
+  if constexpr (kRel) chi = chi * dop;
+
+  const float out_d =
+      sqrtf(fmaxf(r_out * r_out + (mu * mu - 1.0f) * r * r, 0.0f)) - r * mu;
+  const float check = r_in * r_in + r * r * (mu * mu - 1.0f);
+  const bool hits_inner = (mu < 0.0f) && (check >= 0.0f);
+  const float in_d = -r * mu - sqrtf(fmaxf(check, 0.0f));
+  const float d_b = fmaxf(hits_inner ? in_d : out_d, 0.0f);
+  const int delta = hits_inner ? -1 : 1;
+
+  const float tau_event = (float)(-log((double)u[0]));
+
+  const double* prow = p.prefix + (int64_t)shell * (L + 1);
+  const double c0 = prow[next_line];
+  float nu_thresh, p2 = 0.0f;
+  if constexpr (kRel) {
+    p2 = fmaxf((r * r) * (1.0f - mu * mu), 0.0f);
+    const float rb2 = (r * r + d_b * d_b) + ((2.0f * r) * d_b) * mu;
+    nu_thresh = (nu * (1.0f - (z + d_b))) / sqrtf(fmaxf(1.0f - rb2, kGammaFloor));
+  } else {
+    nu_thresh = nu * (1.0f - (z + d_b));
+  }
+  const int64_t i_ev = tail_line_search<kRel>(p.line_nu, prow, c0, next_line, L, nu, z, p2,
+                                              chi, tau_event, nu_thresh, lane);
+  const float nu_ev = i_ev < L ? p.line_nu[i_ev] : __int_as_float(0xff800000);
+  const bool found = (i_ev < L) && (nu_ev > nu_thresh);
+  const float s_ev = resonance_distance<kRel>(nu_ev, nu, z, p2);
+  const float tau_at = (float)(prow[i_ev] - c0);
+  const float d_cont = fmaxf((tau_event - tau_at) / chi, 0.0f);
+  const bool escat_f = p.disable_line_scattering || (d_cont < s_ev);
+  const bool escat_nf = d_cont < d_b;
+  int event;
+  float distance;
+  if (found) {
+    event = escat_f ? kEvEscat : kEvLine;
+    distance = escat_f ? d_cont : s_ev;
+  } else {
+    event = escat_nf ? kEvEscat : kEvBoundary;
+    distance = escat_nf ? d_cont : d_b;
+  }
+  const int64_t end_line = (event == kEvLine) ? i_ev + 1 : i_ev;
+
+  float w_j;
+  if constexpr (kRel) w_j = (energy * dop) * (distance * dop);
+  else w_j = (energy * dop) * distance;
+  {
+    const int row = gcell * S + shell;
+    if (row != run.row) {
+      tail_flush(p, run, lane, sh_j, sh_nubar, sh_ff);
+      run.row = row;
+      run.shell = shell;
+    }
+    const float inv_nu = 1.0f / fmaxf(nu_cmf, 1e-30f);
+    const float wb = w_j * boltz;
+    run.acc[0] += (double)w_j;
+    run.acc[1] += (double)(w_j * inv_nu);
+    run.acc[2] += (double)(w_j * nu_cmf);
+    run.acc[3] += (double)wb;
+    run.acc[4] += (double)(wb * inv_nu);
+    run.acc[5] += (double)(wb * nu_cmf);
+    run.acc[6] += 1.0;
+    run.acc[7] += (double)(w_j * chi_ff);
+  }
+  if (writer && end_line != next_line) {
+    float w1, w2;
+    if constexpr (kRel) {
+      w1 = energy / nu;
+      w2 = energy;
+    } else {
+      w1 = energy / (nu * nu);
+      w2 = energy / nu;
+    }
+    double* a = p.line_diff + (next_line * S + shell) * 2;
+    double* b = p.line_diff + (end_line * S + shell) * 2;
+    atomicAdd(a, (double)w1);
+    atomicAdd(a + 1, (double)w2);
+    atomicAdd(b, -(double)w1);
+    atomicAdd(b + 1, -(double)w2);
+  }
+
+  const float r_new = sqrtf(fmaxf(
+      r * r + distance * distance + 2.0f * r * distance * mu, 1e-20f));
+  const float mu_new = (mu * r + distance) / r_new;
+
+  if (event == kEvBoundary) {
+    const int new_shell = shell + delta;
+    bool reflected = false;
+    if constexpr (kReflect) reflected = new_shell < 0 && u[kColAlbedo] < p.albedo;
+    if (!reflected && (new_shell >= S || new_shell < 0)) {
+      const bool emitted = new_shell >= S;
+      if (writer) {
+        if constexpr (kTrack) {
+          if (ev < p.tracker_length) {
+            float2* row = reinterpret_cast<float2*>(
+                p.tracker + (pid * p.tracker_length + ev) * 6);
+            row[0] = make_float2(r_new, nu);
+            row[1] = make_float2(energy, (float)shell);
+            row[2] = make_float2(3.0f, mu_new);
+          }
+        }
+        p.out[2 * pid] = emitted ? nu : -nu;
+        p.out[2 * pid + 1] = energy;
+        if (emitted) {
+          if (nu > p.nu_lo && nu < p.nu_hi) atomicAdd(&sh_sum[0], (double)energy);
+        } else {
+          atomicAdd(&sh_sum[1], (double)energy);
+        }
+      }
+      return false;
+    }
+    if (!reflected) shell = new_shell;
+    r = r_new;
+    mu = reflected ? -mu_new : mu_new;
+    next_line = end_line;
+    if constexpr (kTrack) {
+      if (writer && ev < p.tracker_length) {
+        float2* row = reinterpret_cast<float2*>(
+            p.tracker + (pid * p.tracker_length + ev) * 6);
+        row[0] = make_float2(r, nu);
+        row[1] = make_float2(energy, (float)shell);
+        row[2] = make_float2(3.0f, mu);
+      }
+    }
+    return true;
+  }
+
+  const bool contproc =
+      event == kEvEscat && u[kColEscat] >= chi_e / fmaxf(chi_cmf, 1e-30f);
+
+  const float mu_draw = 2.0f * u[1] - 1.0f;
+  float dop_old_pos, inv_dop_new, mu_emit;
+  if constexpr (kRel) {
+    const float gamma_new = lorentz_gamma(r_new);
+    dop_old_pos = (1.0f - mu_new * r_new) * gamma_new;
+    inv_dop_new = (1.0f + mu_draw * r_new) * gamma_new;
+    mu_emit = (mu_draw + r_new) / (1.0f + r_new * mu_draw);
+  } else {
+    dop_old_pos = 1.0f - mu_new * r_new;
+    inv_dop_new = 1.0f / (1.0f - mu_draw * r_new);
+    mu_emit = mu_draw;
+  }
+  const float nu_in = nu;
+  bool adiabatic = false;
+  if (event == kEvEscat && !contproc) {
+    nu = nu * dop_old_pos * inv_dop_new;
+    next_line = end_line;
+    li.type = 1.0f;
+    li.in_line = -1.0f;
+    li.out_line = -1.0f;
+  } else {
+    int state0;
+    if (event == kEvLine) {
+      state0 = cont.line2state[i_ev];
+    } else if (u[kColBfFf] < chi_bf / fmaxf(chi_bf + chi_ff, 1e-30f)) {
+      int c_sel;
+      warp_bound_free_sum(cont, S, shell, gcell, tfrac, boltz, lane,
+                          u[kColContSel] * chi_bf, &c_sel);
+      state0 = cont.photo_ion_state[min(c_sel, cont.n_continua - 1)];
+    } else {
+      state0 = cont.k_state;
+    }
+    const int M = cont.n_states;
+    const float* brow = cont.mk_cum_b + ((int64_t)shell * M + state0) * M;
+    const float u_row = u[kColMkRow];
+    const int a = min(warp_bisect(0, M, lane, [&](int i) { return brow[i] < u_row; }), M - 1);
+    const int b0 = cont.deact_block_start[a];
+    const int b1 = cont.deact_block_start[a + 1];
+    const float u_deact = u[kColMkDeact];
+    int t = warp_bisect(b0, b1, lane, [&](int i) {
+      return cont.deact_cum_prob[(int64_t)i * S + shell] < u_deact;
+    });
+    t = min(max(t, b0), max(b1 - 1, b0));
+    const int kind = cont.deact_kind[t];
+    const int chan = cont.deact_id[t];
+    const int64_t em_line = chan < 0 ? 0 : (chan >= L ? L - 1 : (int64_t)chan);
+    float nu_cmf_em;
+    if (kind == kEmitLine) {
+      nu_cmf_em = p.line_nu[em_line];
+    } else if (kind == kEmitBf) {
+      nu_cmf_em = warp_free_bound_nu(cont, S, shell, chan, u[kColFb], lane);
+    } else if (kTwoPhoton && kind == kEmitTwoPhoton) {
+      const int tpn = cont.n_two_photon;
+      const float pos = u[kColFb] * (float)(tpn - 1);
+      const int i_tp = min(max((int)pos, 0), tpn - 2);
+      const float frac = pos - (float)i_tp;
+      nu_cmf_em = cont.two_photon_nu[i_tp] * (1.0f - frac)
+                  + cont.two_photon_nu[i_tp + 1] * frac;
+    } else {
+      nu_cmf_em = (float)(-log((double)u[kColFf])) / cont.boltz_coef[shell];
+    }
+    nu = nu_cmf_em * inv_dop_new;
+    if (kind == kEmitLine) {
+      next_line = em_line + 1;
+    } else {
+      next_line = warp_bisect(0, (int)L, lane, [&](int i) { return p.line_nu[i] >= nu_cmf_em; });
+    }
+    if constexpr (kAdiabatic) adiabatic = kind == kEmitAdiabatic;
+    const bool line = event == kEvLine;
+    li.type = line ? 2.0f : 3.0f;
+    li.in_line = line ? (float)i_ev : -1.0f;
+    li.out_line = line ? (float)em_line : -1.0f;
+  }
+  li.shell = (float)shell;
+  li.in_nu = nu_in;
+  li.r = r_new;
+  energy = energy * dop_old_pos * inv_dop_new;
+  r = r_new;
+  mu = mu_emit;
+  if constexpr (kTrack) {
+    if (writer && ev < p.tracker_length) {
+      float2* row = reinterpret_cast<float2*>(
+          p.tracker + (pid * p.tracker_length + ev) * 6);
+      row[0] = make_float2(r, nu);
+      row[1] = make_float2(energy, (float)shell);
+      row[2] = make_float2(event == kEvLine ? 2.0f : (contproc ? 4.0f : 1.0f), mu);
+    }
+  }
+  if constexpr (kRecords) {
+    if (writer) {
+      const bool absorbs = !(event == kEvEscat && !contproc);
+      spawn_record(p, r, mu, nu, energy, shell, next_line,
+                   event == kEvLine ? 2.0f : (contproc ? 3.0f : 1.0f),
+                   absorbs ? (float)(next_line - 1) : -1.0f);
+    }
+  }
+  if constexpr (kAdiabatic) {
+    if (adiabatic) {
+      if (writer) {
+        p.out[2 * pid] = -nu_in;
+        p.out[2 * pid + 1] = 0.0f;
+      }
+      return false;
+    }
+  }
+  return true;
+}
+
+// The drain tail: a persistent grid of warps, queued behind continuum_kernel
+// on its stream.  Each warp takes one parked packet at a time and runs its
+// events (tail_event) until it ends or reaches max_events;
+// its key and first event key are hashed again from the packet's id and
+// event index, so its draws are the ones its lane would have made.  Counts
+// the packets handed off and the events run here in cont.tail.
+template <bool kRel, bool kLast, bool kTrack, bool kReflect, bool kWeights,
+          bool kTwoPhoton, bool kAdiabatic, bool kRecords, bool kSmemTables>
+__global__ void __launch_bounds__(kSmemTables ? kSmemThreads : kContThreads, 1)
+    continuum_tail_kernel(Params p, DrainCounters* ctr) {
+  const unsigned long long parked = ctr->parked;
+  if (parked == 0) return;
+  extern __shared__ double shm[];
+  double* sh_j = shm;
+  double* sh_nubar = shm + p.S;
+  double* sh_sum = shm + 2 * p.S;
+  double* sh_ff = shm + 2 * p.S + 4;
+  const int n_shared = 3 * p.S + 4;
+  for (int i = threadIdx.x; i < n_shared; i += blockDim.x) shm[i] = 0.0;
+  if constexpr (kSmemTables) stage_tables(p, reinterpret_cast<char*>(shm + n_shared));
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const ContPacket* park = static_cast<const ContPacket*>(p.cont.park);
+  TailRun run;
+  int64_t events = 0;
+  for (;;) {
+    unsigned long long slot = 0;
+    if (lane == 0) slot = atomicAdd(&ctr->tail_taken, 1ull);
+    slot = __shfl_sync(kFull, slot, 0);
+    if (slot >= parked) break;
+    ContPacket q = park[slot];
+    const tardis::Key kp = tardis::fold_in(p.key, (uint32_t)(p.pid_offset + q.pid));
+    tardis::Key ke = tardis::fold_in(kp, (uint32_t)q.ev);
+    const int64_t ev0 = q.ev;
+    for (;;) {
+      if (q.ev >= p.max_events) {
+        if (lane == 0) {
+          atomicAdd(&sh_sum[3], 1.0);
+          cont_finish<kLast>(p, q, p.max_events, sh_sum);
+        }
+        break;
+      }
+      const bool alive = tail_event<kRel, kTrack, kReflect, kTwoPhoton, kAdiabatic, kRecords>(
+          p, q, kp, ke, lane, run, sh_j, sh_nubar, sh_sum, sh_ff);
+      q.ev += 1;
+      if (!alive) {
+        if (lane == 0) cont_finish<kLast>(p, q, q.ev, sh_sum);
+        break;
+      }
+    }
+    events += q.ev - ev0;
+    tail_flush(p, run, lane, sh_j, sh_nubar, sh_ff);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < p.S; i += blockDim.x) {
+    atomicAdd(&p.est_j[i], sh_j[i]);
+    atomicAdd(&p.est_nubar[i], sh_nubar[i]);
+    atomicAdd(&p.cont.ff_heat[i], sh_ff[i]);
+  }
+  if (threadIdx.x < 4) atomicAdd(&p.summary[threadIdx.x], sh_sum[threadIdx.x]);
+  if (lane == 0 && events) atomicAdd(&p.cont.tail[1], (double)events);
+  if (blockIdx.x == 0 && threadIdx.x == 0) p.cont.tail[0] = (double)parked;
+}
+
 #if TL_CONTINUUM
+// The tests' view of the tail's searches: warp w runs tail_line_search on
+// state w or, with line_nu null, warp_bisect of [lo, hi) with right(i) =
+// values[i] < u[w].
+__global__ void tail_search_kernel(bool rel, const float* line_nu, const double* prefix,
+                                   int64_t L, const float* values, int64_t n,
+                                   const int64_t* shell, const int64_t* lo, const int64_t* hi,
+                                   const float* u, const float* chi, const float* z,
+                                   const float* nu, const float* tau_event,
+                                   const float* nu_thresh, const float* p2, int64_t* out) {
+  const int64_t w = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (w >= n) return;
+  int64_t k;
+  if (line_nu == nullptr) {
+    const float uw = u[w];
+    k = warp_bisect((int)lo[w], (int)hi[w], lane, [&](int i) { return values[i] < uw; });
+  } else {
+    const double* prow = prefix + shell[w] * (L + 1);
+    const double c0 = prow[lo[w]];
+    k = rel ? tail_line_search<true>(line_nu, prow, c0, lo[w], L, nu[w], z[w], p2[w], chi[w],
+                                     tau_event[w], nu_thresh[w], lane)
+            : tail_line_search<false>(line_nu, prow, c0, lo[w], L, nu[w], z[w], p2[w], chi[w],
+                                      tau_event[w], nu_thresh[w], lane);
+  }
+  if (lane == 0) out[w] = k;
+}
+
+// moments[e] += the private copies' entries e (n each), copy 0 first
+__global__ void moments_reduce_kernel(const double* priv, int copies, int64_t n,
+                                      double* moments) {
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  double sum = 0.0;
+  for (int c = 0; c < copies; ++c) sum += priv[c * n + e];
+  moments[e] += sum;
+}
+
+// the continuum instantiation's tail kernel
+template <bool kSmemTables>
+auto tail_kernel() {
+  return continuum_tail_kernel<TL_FULL_RELATIVITY != 0, TL_LAST_INTERACTION != 0,
+                               TL_TRACKER != 0, TL_REFLECTIVE != 0, TL_WEIGHTS != 0,
+                               TL_TWO_PHOTON != 0, TL_ADIABATIC != 0, TL_RECORDS != 0,
+                               kSmemTables>;
+}
+
+// blocks of the tail kernel resident on the current device (at most
+// enough for n_warps warps)
+template <bool kSmemTables>
+cudaError_t tail_blocks(const ContinuumArgs& c, int64_t L, int S, int64_t n_warps,
+                        unsigned* blocks) {
+  const int threads = kSmemTables ? kSmemThreads : kContThreads;
+  return tardis::persistent_blocks(tail_kernel<kSmemTables>(), threads,
+                                   tail_shared_bytes(c, L, S, kSmemTables), n_warps * 32,
+                                   blocks);
+}
+
+// the default tail threshold: the warps of the tail kernel resident at once
+template <bool kSmemTables>
+cudaError_t tail_warps(const ContinuumArgs& c, int64_t L, int S, int64_t* warps) {
+  unsigned blocks = 0;
+  const cudaError_t err = tail_blocks<kSmemTables>(c, L, S, (int64_t)1 << 40, &blocks);
+  *warps = (int64_t)blocks * ((kSmemTables ? kSmemThreads : kContThreads) / 32);
+  return err;
+}
+
 // the continuum instantiation: as many blocks as are resident, with the
-// accumulators' and (kSmemTables) the tables' shared memory
+// accumulators' and (kSmemTables) the tables' shared memory; then, where
+// packets may be handed off, the tail kernel; then the moments' private
+// copies summed; all on one stream
 template <bool kSmemTables>
 cudaError_t launch_continuum(const Params& p, unsigned long long* taken,
                              cudaStream_t stream) {
@@ -1362,10 +2049,25 @@ cudaError_t launch_continuum(const Params& p, unsigned long long* taken,
                                  kSmemTables>;
   const int threads = kSmemTables ? kSmemThreads : kContThreads;
   const size_t shm = continuum_shared_bytes(p.cont, p.L, p.S, kSmemTables);
+  DrainCounters* ctr = reinterpret_cast<DrainCounters*>(taken + 2);
   unsigned blocks = 0;
-  const cudaError_t err = tardis::persistent_blocks(kernel, threads, shm, p.n_packets, &blocks);
+  cudaError_t err = tardis::persistent_blocks(kernel, threads, shm, p.n_packets, &blocks);
   if (err != cudaSuccess) return err;
-  kernel<<<blocks, threads, shm, stream>>>(p, taken);
+  kernel<<<blocks, threads, shm, stream>>>(p, taken, ctr);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t capacity =
+      p.cont.tail_threshold < p.n_packets ? p.cont.tail_threshold : p.n_packets;
+  if (capacity > 0) {
+    err = tail_blocks<kSmemTables>(p.cont, p.L, p.S, capacity, &blocks);
+    if (err != cudaSuccess) return err;
+    auto tail = tail_kernel<kSmemTables>();
+    tail<<<blocks, threads, tail_shared_bytes(p.cont, p.L, p.S, kSmemTables), stream>>>(p,
+                                                                                      ctr);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  const int64_t n = (int64_t)(p.cont.n_grid - 1) * p.S * 8;
+  moments_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      p.cont.moments_private, p.cont.moment_copies, n, p.cont.moments);
   return cudaGetLastError();
 }
 #endif
@@ -1384,6 +2086,45 @@ extern "C" int continuum_smem_fits(const ContinuumArgs* cont, int64_t L, int S, 
   *fits = err == cudaSuccess && continuum_shared_bytes(*cont, L, S, true) <= (size_t)limit;
   return (int)err;
 }
+
+// The drain tail of the continuum loop on the current device: *warps, the
+// warps of the tail kernel resident at once (the default hand-off
+// threshold), *packet_bytes, one entry of the parking list, and
+// *moment_copies, the moments' private copies (one an SM).
+extern "C" int continuum_tail_plan(const ContinuumArgs* cont, int64_t L, int S,
+                                   int smem_tables, int64_t* warps, int* packet_bytes,
+                                   int* moment_copies) {
+#if TL_CONTINUUM
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(moment_copies, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = smem_tables ? tail_warps<true>(*cont, L, S, warps)
+                      : tail_warps<false>(*cont, L, S, warps);
+  *packet_bytes = (int)sizeof(ContPacket);
+  return (int)err;
+#else
+  return (int)cudaErrorInvalidValue;
+#endif
+}
+
+#if TL_CONTINUUM
+extern "C" int tail_search(int rel, const void* line_nu, const void* prefix, int64_t L,
+                           const void* values, int64_t n, const void* shell, const void* lo,
+                           const void* hi, const void* u, const void* chi, const void* z,
+                           const void* nu, const void* tau_event, const void* nu_thresh,
+                           const void* p2, void* out, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((n * 32 + 127) / 128);
+  tail_search_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+      rel != 0, (const float*)line_nu, (const double*)prefix, L, (const float*)values, n,
+      (const int64_t*)shell, (const int64_t*)lo, (const int64_t*)hi, (const float*)u,
+      (const float*)chi, (const float*)z, (const float*)nu, (const float*)tau_event,
+      (const float*)nu_thresh, (const float*)p2, (int64_t*)out);
+  return (int)cudaGetLastError();
+}
+#endif
 
 // One launch of K1: a persistent grid whose lanes take packet ids from the
 // zeroed device counter taken[0] (classic: cont null, smem_tables 0; the

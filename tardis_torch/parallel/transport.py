@@ -52,7 +52,7 @@ from tardis_torch.transport.tables import TransportTables
 # fields summed over the shards (f64, or i64 for vp_count and
 # search_fallbacks), and fields concatenated in shard order (per packet)
 SUM_FIELDS = ("est_j", "est_nubar", "line_diff", "summary", "vp_count",
-              "cont_moments", "est_ff_heat", "search_fallbacks")
+              "cont_moments", "est_ff_heat", "search_fallbacks", "tail")
 CAT_FIELDS = ("out", "last_interaction", "tracker", "events")
 
 

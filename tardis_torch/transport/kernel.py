@@ -174,6 +174,10 @@ class TransportOutput:
     # bisection (classic loop under full relativity on the card; 0 from
     # the plain version, which always bisects)
     search_fallbacks: torch.Tensor
+    # continuum only ((0,) otherwise): (2,) f64 [packets handed to the
+    # drain tail, events run there] (0 from the plain version, which has no
+    # tail)
+    tail: torch.Tensor
 
     @property
     def n_vp_records(self) -> int:
@@ -241,6 +245,7 @@ def _allocate(n_packets, S, L, capacity, last_interaction, tracker_length,
                  dtype=torch.int32,
                  device=device),
         search_fallbacks=z(1, dtype=torch.int64, device=device),
+        tail=z(0 if cont is None else 2, dtype=f64, device=device),
     )
 
 
@@ -828,17 +833,24 @@ class ContinuumArgs(ctypes.Structure):
         "mk_cum_b", "deact_block_start", "deact_cum_prob", "deact_kind",
         "deact_id", "line2state", "photo_ion_state", "fb_cdf", "fb_nu",
         "pion_block_start", "two_photon_nu", "moments", "ff_heat",
-        "events")] + [(name, ctypes.c_int) for name in (
-            "n_grid", "n_continua", "n_states", "k_state", "n_two_photon",
-            "n_deact", "n_fb")]
+        "events", "park", "tail", "moments_private")] + [
+            (name, ctypes.c_int) for name in (
+                "n_grid", "n_continua", "n_states", "k_state",
+                "n_two_photon", "n_deact", "n_fb", "moment_copies")] + [
+                    ("tail_threshold", ctypes.c_int64)]
 
 
-def _continuum_args(c: ContinuumTables, res: TransportOutput | None):
+def _continuum_args(c: ContinuumTables, res: TransportOutput | None,
+                    park=None, moments_private=None, moment_copies: int = 0,
+                    tail_threshold: int = 0):
     """K1's continuum tables and outputs as a ``ContinuumArgs`` (with no
-    ``res``, null output pointers: the sizes alone)."""
+    ``res``, null output pointers: the sizes alone); ``park`` the drain
+    tail's parking list, ``tail_threshold`` its hand-off threshold,
+    ``moments_private`` the moments' ``moment_copies`` per-SM copies."""
     p = cuda.ptr
-    outs = ((None, None, None) if res is None else
-            (p(res.cont_moments), p(res.est_ff_heat), p(res.events)))
+    outs = ((None,) * 6 if res is None else
+            (p(res.cont_moments), p(res.est_ff_heat), p(res.events),
+             p(park), p(res.tail), p(moments_private)))
     return ContinuumArgs(
         p(c.grid_nu), p(c.xsect), p(c.coef_a), p(c.coef_b), p(c.boltz_coef),
         p(c.ff_coef), p(c.mk_cum_b), p(c.deact_block_start),
@@ -846,7 +858,7 @@ def _continuum_args(c: ContinuumTables, res: TransportOutput | None):
         p(c.photo_ion_state), p(c.fb_cdf), p(c.fb_nu), p(c.pion_block_start),
         p(c.two_photon_nu), *outs, c.n_grid, c.n_continua, c.n_states,
         c.k_state, c.two_photon_nu.shape[0], c.deact_kind.shape[0],
-        c.fb_nu.shape[0])
+        c.fb_nu.shape[0], moment_copies, tail_threshold)
 
 
 def smem_tables_fit(t: TransportTables, defines: tuple) -> bool:
@@ -862,6 +874,25 @@ def smem_tables_fit(t: TransportTables, defines: tuple) -> bool:
         ctypes.byref(_continuum_args(t.continuum, None)), t.n_lines,
         t.n_shells, ctypes.byref(fits)))
     return bool(fits.value)
+
+
+def tail_plan(t: TransportTables, defines: tuple, smem_tables: bool):
+    """The continuum K1's drain tail on the current device, asked of K1
+    library ``defines`` (``continuum_tail_plan`` in csrc/transport_loop.cu):
+    (the warps its tail kernel holds resident, the default hand-off
+    threshold; the bytes of one parked packet; the moments' private copies,
+    one an SM)."""
+    warps, packet_bytes, copies = (ctypes.c_int64(0), ctypes.c_int(0),
+                                   ctypes.c_int(0))
+    fn = cuda.function("transport_loop", "continuum_tail_plan", [
+        ctypes.POINTER(ContinuumArgs), ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)], defines)
+    cuda.check_launch("continuum_tail_plan", fn(
+        ctypes.byref(_continuum_args(t.continuum, None)), t.n_lines,
+        t.n_shells, int(smem_tables), ctypes.byref(warps),
+        ctypes.byref(packet_bytes), ctypes.byref(copies)))
+    return warps.value, packet_bytes.value, copies.value
 
 
 def _check_walk(t: TransportTables, device):
@@ -903,7 +934,8 @@ def _check_continuum(c: ContinuumTables, t: TransportTables, device):
             or c.deact_id.shape != (D,) or c.line2state.shape != (L,)
             or c.fb_cdf.shape != (P * S,)
             or c.pion_block_start.shape != (C + 1,) or Ng < 2
-            or (c.two_photon and c.two_photon_nu.shape[0] < 2)):
+            or (c.two_photon and c.two_photon_nu.shape[0] < 2)
+            or L >= 1 << 30):
         raise ValueError("transport_loop: continuum table shapes do not "
                          "agree")
 
@@ -916,7 +948,8 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
                    tracker_length: int = 0,
                    pid_offset: int = 0,
                    smem_tables: bool | None = None,
-                   line_estimators: bool = True) -> TransportOutput:
+                   line_estimators: bool = True,
+                   tail_threshold: int | None = None) -> TransportOutput:
     """K1 on the card; the plain version for CPU tensors.
 
     ``key`` is the iteration's run key; ``nu_window`` the (lo, hi)
@@ -932,11 +965,12 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     take packet ids from a queue and refill as soon as a packet ends, so no
     lane waits on a warp's longest packet.
 
-    With continuum the card runs one launch of a persistent grid (as many
-    blocks as are resident) whose lanes take packet ids from a queue and
-    refill as soon as a packet ends: the counterpart of the JAX package's
-    lane refill and ``_repack_jit``.  No lane waits on a long random walk
-    while the queue has work.
+    With continuum the card runs a persistent grid (as many blocks as are
+    resident) whose lanes take packet ids from a queue and refill as soon
+    as a packet ends: the counterpart of the JAX package's lane refill and
+    ``_repack_jit``.  No lane waits on a long random walk while the queue
+    has work.  Two launches follow it on the same stream: the drain tail
+    and the sum of the moments' per-SM copies (below).
 
     The continuum loop has two instantiations, picked by size: when the
     tables an event reads (the prefix, the line, grid, cross-section,
@@ -946,6 +980,17 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     copies them there once and its events read them there; otherwise (real
     atom data, L ~ 1e5) blocks of 128 lanes read them from device memory.  ``smem_tables`` forces one
     instantiation (True must fit).
+
+    The drain tail: once the queue is empty and no more packets are live
+    than the tail kernel holds warps (``tail_plan``), the lanes still
+    walking park their packets, and a second launch on the same stream runs
+    each parked packet on a whole warp (``res.tail`` counts them and their
+    events).  Each SM adds the moments to a private copy, summed into
+    ``cont_moments`` by a third launch.  Every packet's row, event count
+    and draws are the same whichever kernel runs its events; the f64 sums
+    change only in their order.  ``tail_threshold`` replaces the tail's
+    threshold (0: no hand-off; N or more: every packet at birth), for the
+    tests.
     """
     device = pool_mu.device
     if device.type == "cpu":
@@ -957,9 +1002,12 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     if device.type != "cuda":
         raise ValueError(f"transport_loop: unsupported device {device}")
     cont = t.continuum
-    if cont is None and smem_tables is not None:
-        raise ValueError("transport_loop: smem_tables applies to the "
-                         "continuum loop")
+    if cont is None and (smem_tables is not None
+                         or tail_threshold is not None):
+        raise ValueError("transport_loop: smem_tables and tail_threshold "
+                         "apply to the continuum loop")
+    if tail_threshold is not None and tail_threshold < 0:
+        raise ValueError("transport_loop: tail_threshold must be >= 0")
     _check_line_estimators(cont, line_estimators)
     f32 = torch.float32
     N = pool_mu.shape[0]
@@ -1012,21 +1060,32 @@ def transport_loop(t: TransportTables, pool_mu, pool_nu, key,
     args += ([None] * 5 + [0] if w is None else
              [p(w.cum_prob), p(w.block_start), p(w.dest), p(w.emit),
               p(w.line), t.max_jumps])
-    # the lanes' packet queue (the next packet id to take), then the count
-    # of the full-relativity search's fallbacks to the bisection
-    taken = torch.zeros(2, dtype=torch.int64, device=device)
-    res.search_fallbacks = taken[1:]
+    # the lanes' packet queue (the next packet id to take), the count of
+    # the full-relativity search's fallbacks to the bisection, and the
+    # continuum loop's drain tail: the packets ended in the first kernel,
+    # the packets parked, the tail kernel's queue
+    taken = torch.zeros(5, dtype=torch.int64, device=device)
+    res.search_fallbacks = taken[1:2]
     if cont is None:
         args += [None, p(taken), 0, cuda.stream()]
     else:
-        fits = smem_tables_fit(t, library_defines(flags))
+        defines = library_defines(flags)
+        fits = smem_tables_fit(t, defines)
         if smem_tables is None:
             smem_tables = fits
         elif smem_tables and not fits:
             raise ValueError("transport_loop: the continuum tables do not "
                              "fit shared memory")
-        args += [ctypes.byref(_continuum_args(cont, res)), p(taken),
-                 int(smem_tables), cuda.stream()]
+        warps, packet_bytes, copies = tail_plan(t, defines, smem_tables)
+        if tail_threshold is None:
+            tail_threshold = warps
+        park = torch.empty(min(N, tail_threshold) * packet_bytes,
+                           dtype=torch.uint8, device=device)
+        private = torch.zeros(copies * res.cont_moments.numel(),
+                              dtype=torch.float64, device=device)
+        args += [ctypes.byref(_continuum_args(cont, res, park, private,
+                                              copies, tail_threshold)),
+                 p(taken), int(smem_tables), cuda.stream()]
     with tracing.launch(transport_loop, variant_name(flags)):
         err = fn(*args)
         cuda.check_launch("transport_loop", err)

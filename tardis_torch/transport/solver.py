@@ -682,8 +682,15 @@ def read_back(res, line_estimators: bool, L: int, S: int) -> dict:
     """K1's (or K7's) summary, j and nu-bar estimators and, where asked,
     line estimators (L, S, 2) on the host: the blocking copies in which
     the host waits for the card."""
+    # the continuum loop's drain-tail counts come back in the same copy
+    tail = res.tail.numel()
     with tracing.sync("readback.summary"):
-        summary = res.summary.cpu().numpy()
+        summary = (torch.cat((res.summary, res.tail)) if tail
+                   else res.summary).cpu().numpy()
+    if tail:
+        tracing.count("k1.tail_packets", int(summary[4]))
+        tracing.count("k1.tail_events", int(summary[5]))
+        summary = summary[:4]
     with tracing.sync("readback.est_j"):
         est_j = res.est_j.cpu().numpy()
     with tracing.sync("readback.est_nubar"):

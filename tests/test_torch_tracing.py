@@ -303,3 +303,70 @@ def test_thermal_balance_counts_its_residual_evaluations(monkeypatch):
     plasma = [s for s in recs["spans"] if s.name == "tardis.plasma"
               and recs["spans"][s.parent].name == "tardis.thermal_balance"]
     assert len(plasma) == 1
+
+
+def _read_back_counters(res):
+    from tardis_torch.transport.solver import read_back
+
+    tracing.start()
+    it = tracing.next_iteration()
+    read_back(res, False, 1, res.est_j.shape[0])
+    tracing.stop()
+    return tracing.records()["by_iteration"][it]
+
+
+@pytest.mark.parametrize("continuum", [False, True])
+def test_readback_counts_the_tail_in_the_summary_copy(continuum):
+    """K1's drain-tail counts come back in the summary's copy: the
+    continuum loop's output records ``k1.tail_packets`` and
+    ``k1.tail_events`` with no synchronization more than the classic
+    loop's (summary, est_j, est_nubar)."""
+    from types import SimpleNamespace
+
+    from tardis_torch.transport.kernel import _allocate
+
+    cont = SimpleNamespace(n_grid=3) if continuum else None
+    res = _allocate(4, 2, 1, 0, False, 0, "cpu", cont)
+    res.summary[:] = torch.tensor([1.0, 2.0, 40.0, 0.0], dtype=torch.float64)
+    if continuum:
+        res.tail[:] = torch.tensor([3.0, 25.0], dtype=torch.float64)
+    c = _read_back_counters(res)
+    assert c["syncs"] == c["sync.readback.summary"] + 2 == 3
+    if continuum:
+        assert c["k1.tail_packets"] == 3 and c["k1.tail_events"] == 25
+    else:
+        assert "k1.tail_packets" not in c and "k1.tail_events" not in c
+
+
+@pytest.mark.card
+def test_tail_counters_on_the_card():
+    """An IIP launch on the card (chip_smoke.py's IIP problem, 4,096
+    packets of its first iteration) hands packets to the drain tail:
+    ``k1.tail_packets`` >= 1 and ``k1.tail_events`` at most the launch's
+    events; its read-back synchronizes as often as the launch without the
+    hand-off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from tardis_torch.transport.kernel import transport_loop
+    from tardis_torch.transport.solver import iteration_keys
+    from tardis_torch.transport.source import blackbody_source
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    state, atom = chip_smoke.build_iip_problem()
+    tables = chip_smoke.iip_tables(state, atom, device)
+    src_key, run_key = iteration_keys(chip_smoke.SEED, 0)
+    mu, nu, w = blackbody_source(src_key, 4096, state.t_inner, device,
+                                 "relativistic", chip_smoke.beta_inner(state))
+    counters = []
+    for threshold in (None, 0):
+        res = transport_loop(tables, mu, nu, run_key, max_events=2000,
+                             pool_w=w, last_interaction=True,
+                             tail_threshold=threshold)
+        counters.append((_read_back_counters(res), res.summary[2].item()))
+    (on, events), (off, _) = counters
+    assert on["k1.tail_packets"] >= 1
+    assert 0 < on["k1.tail_events"] <= events
+    assert off["k1.tail_packets"] == 0
+    syncs = {k: v for k, v in on.items() if k.startswith("sync")}
+    assert syncs == {k: v for k, v in off.items() if k.startswith("sync")}
