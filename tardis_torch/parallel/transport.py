@@ -12,7 +12,14 @@ device may repeat) and:
   order of ``_chunk_slice`` (``:361-368``), with ``pid_offset`` d N/D, so
   every packet draws the bits of its global id and each packet's outputs
   are bitwise those of a one-device run.  Every shard is launched, on its
-  device's current stream, before any is read;
+  device's current stream, before any is read.  The transport tables are
+  sent to each other card inside every iteration (``tables.to(device)``),
+  beside its slice of the pool: on the tardis_example W7 problem (20
+  shells, 183,060 lines, 3,606 macro-atom levels) the tables are 140.5
+  MB a card (the tau prefix 29.3 MB of it, the chain CDFs most of the
+  rest), and the slices 8 B a packet.  PyTorch runs a copy between two
+  cards on the source card's current stream, so these sends queue on the
+  first card's stream behind its own shard's launch;
 - ``_final_reduce`` (``:241``) is ``_final_reduce`` below: the per-shard
   estimator partials are copied to the first device and summed there in
   f64 in shard order (the adds are queued on the first device's stream in
@@ -33,15 +40,26 @@ The collective stays outside the kernel, as peer copies and torch adds.
 The JAX path is one process, and users call ``run_tardis`` once, so no
 ``torch.distributed`` process group is involved.  Only the classic
 ``TransportSolver.run_iteration`` shards, as in the JAX package.
+
+The trace recorder (``tardis_torch/tracing.py``) sees each shard's sends
+in a ``tardis.shard_tables`` span, the reduce in a ``tardis.shard_reduce``
+span and, on the card, as a launch interval of its own on the first
+device (``_final_reduce``, variant ``shard_reduce``: from the reduce's
+enqueue to its last add, so its end marks the gathered outputs), and
+counts ``shard.shards`` and ``shard.peer_bytes``: the bytes of the tables,
+pool slices and shard outputs that the iteration queued between two
+devices of the list (a device that repeats moves nothing).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
 
+from tardis_torch import tracing
 from tardis_torch.transport.kernel import (
     MAX_EVENTS,
     TransportOutput,
@@ -112,7 +130,33 @@ def run_transport_sharded(tables: TransportTables, pool_mu, pool_nu, key,
         last_interaction=last_interaction, tracker_length=tracker_length,
         max_events=max_events, line_estimators=line_estimators,
         progress=progress)
-    return _final_reduce(parts, devices[0])
+    with tracing.span("tardis.shard_reduce"), _on(devices[0]), \
+            tracing.launch(_final_reduce, "shard_reduce"):
+        out = _final_reduce(parts, devices[0])
+    if tracing.recording():
+        tracing.count("shard.shards", len(devices))
+        # the kept records' count, read by the reduce already
+        tracing.count("shard.peer_bytes", sum(
+            _nbytes(*(getattr(p, f) for f in SUM_FIELDS + CAT_FIELDS),
+                   p.vp_records[:p.n_vp_records]
+                   if p.vp_records.shape[0] else None)
+            for p, d in zip(parts, devices) if d != devices[0]))
+    return out
+
+
+def _nbytes(*items) -> int:
+    """The bytes of the tensors in ``items``: tensors, tables dataclasses
+    (their nested tables included), tuples of tensors, or None."""
+    total = 0
+    for x in items:
+        if isinstance(x, torch.Tensor):
+            total += x.numel() * x.element_size()
+        elif isinstance(x, tuple):
+            total += _nbytes(*x)
+        elif dataclasses.is_dataclass(x):
+            total += _nbytes(*(getattr(x, f.name)
+                              for f in dataclasses.fields(x)))
+    return total
 
 
 def _sharded_chunk(tables: TransportTables, pool_mu, pool_nu, key, devices,
@@ -131,18 +175,22 @@ def _sharded_chunk(tables: TransportTables, pool_mu, pool_nu, key, devices,
     on_device = {}
     parts = []
     for d, device in enumerate(devices):
-        if device not in on_device:
-            on_device[device] = tables.to(device)
         sl = slice(d * n_local, (d + 1) * n_local)
-
-        def shard(x):
-            return None if x is None else x[sl].to(device, non_blocking=True)
-
+        with tracing.span("tardis.shard_tables"):
+            peer = device != devices[0]
+            if device not in on_device:
+                on_device[device] = tables.to(device)
+                if peer and tracing.recording():
+                    tracing.count("shard.peer_bytes", _nbytes(tables))
+            mu, nu, w = (None if x is None
+                         else x[sl].to(device, non_blocking=True)
+                         for x in (pool_mu, pool_nu, pool_w))
+            if peer and tracing.recording():
+                tracing.count("shard.peer_bytes", _nbytes(mu, nu, w))
         with _on(device):
             parts.append(transport_loop(
-                on_device[device], shard(pool_mu), shard(pool_nu), key,
-                vpacket_capacity=capacity, pool_w=shard(pool_w),
-                pid_offset=d * n_local, **options))
+                on_device[device], mu, nu, key, vpacket_capacity=capacity,
+                pool_w=w, pid_offset=d * n_local, **options))
         if progress is not None:
             progress(n_local)
     return parts
@@ -172,3 +220,6 @@ def _final_reduce(parts: list[TransportOutput],
     else:
         fields["vp_records"] = here(parts[0].vp_records)
     return TransportOutput(**fields)
+
+
+_final_reduce.launches_by_variant = {}  # "shard_reduce": reduces recorded

@@ -25,15 +25,22 @@ and ``stop()``.  Otherwise a call costs one check of that flag beside the
 ``record_function`` and the dict update it wraps: no CUDA event, no
 synchronization.  Records stay in memory until the next recording session
 starts.  A session starts with one ``torch.cuda.synchronize()`` (where
-CUDA is in use) and an anchor event; each ``sync`` re-anchors when it
-returns, when the stream is known to be empty, so each launch's events
-are put on the host's clock from the anchor before them and cannot drift
-far.  ``records()`` synchronizes once and returns the session's spans,
-launch intervals (on the host's clock) and counters; ``idle_by_span``
-splits the card's idle time (the complement of the launch intervals) by
-the host spans open during it.  Launch intervals cover the kernels that
-``launch`` wraps: torch's own fills, copies and elementwise kernels count
-as idle there.
+CUDA is in use) and an anchor event on the current device; each ``sync``
+re-anchors it when it returns, when the stream is known to be empty, so
+each launch's events are put on the host's clock from the anchor before
+them and cannot drift far.  Where a process sees several cards, each
+launch records the index of the card it runs on, and each card has
+anchors of its own: the first launch of a session on another card
+synchronizes that card and anchors it, and a ``sync`` re-anchors it too
+where its last recorded launch has ended (it is synchronized first, so
+the anchor is taken on an empty stream), since an event of one card
+cannot be timed against another's.  ``records()`` synchronizes every card
+that holds launches, once, and returns the session's spans, launch
+intervals (on the host's clock, each from its own card's anchor) and
+counters; ``idle_by_span`` splits a card's idle time (the complement of
+its launch intervals; card 0 unless asked for another) by the host spans
+open during it.  Launch intervals cover the kernels that ``launch`` wraps:
+torch's own fills, copies and elementwise kernels count as idle there.
 """
 
 from __future__ import annotations
@@ -66,6 +73,8 @@ class Launch(NamedTuple):
     variant: str
     start_ns: int
     end_ns: int
+    device: int = 0  # the CUDA device index it ran on
+    iteration: int = 0  # the iteration it was launched in
 
 
 class _Recorder:
@@ -76,12 +85,15 @@ class _Recorder:
         self.open = False  # a session is recording
         self.session = 0  # bumped at each session's start
         self.cuda = False  # CUDA in use when the session started
+        self.cards = False  # the process sees more than one card
         self.iteration = 0
         self.t0 = 0  # host ns at the session's start
         self.spans = []  # [name, parent, start, end, iteration]
         self.stack = []  # indices of the open spans
-        self.launches = []  # (kernel, variant, event a, event b, anchor)
-        self.anchors = []  # (event, host ns)
+        # (kernel, variant, event a, event b, device, anchor, iteration)
+        self.launches = []
+        self.anchors = {}  # device -> [(event, host ns)]
+        self.last_end = {}  # device -> end event of its last launch
         self.counters = {}
         self.by_iteration = {}  # iteration -> its counters
         self.last_anchor_launches = 0
@@ -91,23 +103,45 @@ class _Recorder:
         self.session += 1
         self.open = True
         self.spans, self.stack, self.launches = [], [], []
-        self.anchors, self.counters, self.by_iteration = [], {}, {}
+        self.anchors, self.last_end = {}, {}
+        self.counters, self.by_iteration = {}, {}
         self.cached = None
         self.cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+        self.cards = self.cuda and torch.cuda.device_count() > 1
         if self.cuda:
             torch.cuda.synchronize()
-        self.anchor()
-        self.t0 = self.anchors[-1][1] if self.anchors else _now()
+        here = self.device()
+        self.anchor(here)
+        self.t0 = self.anchors[here][-1][1] if self.anchors else _now()
 
-    def anchor(self):
-        """An event on the current stream, taken where the stream is empty,
-        beside the host's clock."""
+    def device(self) -> int:
+        """The current device's index (0 where the process sees one)."""
+        return torch.cuda.current_device() if self.cards else 0
+
+    def anchor(self, device: int):
+        """An event on ``device``'s current stream, taken where the stream
+        is empty, beside the host's clock."""
         if not self.cuda:
             return
         ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self.anchors.append((ev, _now()))
+        if device == self.device():
+            ev.record()
+        else:
+            with torch.cuda.device(device):
+                ev.record()
+        self.anchors.setdefault(device, []).append((ev, _now()))
         self.last_anchor_launches = len(self.launches)
+
+    def reanchor(self):
+        """After a synchronization: the current device, whose stream the
+        host has just waited for, and each other card whose last launch
+        has ended, once synchronized."""
+        here = self.device()
+        self.anchor(here)
+        for d, end in self.last_end.items():
+            if d != here and d in self.anchors and end.query():
+                torch.cuda.synchronize(d)
+                self.anchor(d)
 
 
 _R = _Recorder()
@@ -198,7 +232,7 @@ class launch:
     """``with launch(fn, variant, n):`` around the launch of ``n`` kernels
     that ``fn`` counts in its ``launches_by_variant``."""
 
-    __slots__ = ("kernel", "variant", "n", "a", "session")
+    __slots__ = ("kernel", "variant", "n", "a", "session", "device")
 
     def __init__(self, kernel, variant: str, n: int = 1):
         self.kernel, self.variant, self.n = kernel, variant, n
@@ -207,6 +241,11 @@ class launch:
         self.a = None
         if recording() and _R.cuda and self.n:
             self.session = _R.session
+            self.device = _R.device()
+            if self.device not in _R.anchors:
+                # a card's first launch of the session: anchor it idle
+                torch.cuda.synchronize(self.device)
+                _R.anchor(self.device)
             self.a = torch.cuda.Event(enable_timing=True)
             self.a.record()
         return self
@@ -220,7 +259,10 @@ class launch:
             b = torch.cuda.Event(enable_timing=True)
             b.record()
             _R.launches.append((self.kernel.__name__, self.variant, self.a,
-                                b, len(_R.anchors) - 1))
+                                b, self.device,
+                                len(_R.anchors[self.device]) - 1,
+                                _R.iteration))
+            _R.last_end[self.device] = b
         return False
 
 
@@ -248,7 +290,7 @@ class sync:
         _add("syncs", 1)
         _add("sync." + self.site, 1)
         if len(_R.launches) > _R.last_anchor_launches:
-            _R.anchor()
+            _R.reanchor()
         return False
 
 
@@ -268,20 +310,22 @@ def _add(name: str, n: int):
 def records() -> dict:
     """The last session's records: ``window`` (host ns at its start, and
     at the end of its last span or launch), ``spans`` (``Span``, in the
-    order they opened), ``launches`` (``Launch``, on the host's clock),
-    ``counters`` and ``by_iteration`` (each iteration's counters).
-    Synchronizes once, the first time it is asked after a session; spans
-    still open end at the window's end."""
+    order they opened), ``launches`` (``Launch``, on the host's clock,
+    each from the last anchor of its own card before it), ``counters``
+    and ``by_iteration`` (each iteration's counters).  Synchronizes each
+    card that holds launches once, the first time it is asked after a
+    session; spans still open end at the window's end."""
     if _R.cached is not None and _R.cached[0] == _R.session:
         return _R.cached[1]
     launches = []
     if _R.launches:
-        torch.cuda.synchronize()
-        for kernel, variant, a, b, k in _R.launches:
-            ev, host = _R.anchors[k]
+        for d in sorted({x[4] for x in _R.launches}):
+            torch.cuda.synchronize(d)
+        for kernel, variant, a, b, d, k, it in _R.launches:
+            ev, host = _R.anchors[d][k]
             launches.append(Launch(
                 kernel, variant, host + round(ev.elapsed_time(a) * 1e6),
-                host + round(ev.elapsed_time(b) * 1e6)))
+                host + round(ev.elapsed_time(b) * 1e6), d, it))
     ends = [s[3] for s in _R.spans if s[3] is not None]
     t1 = max([_R.t0] + ends + [x.end_ns for x in launches])
     child = [0] * len(_R.spans)
@@ -299,12 +343,13 @@ def records() -> dict:
     return out
 
 
-def idle_gaps(recs: dict) -> list:
-    """The card's idle intervals in the window: the complement of the
-    union of the launch intervals, in host ns."""
+def idle_gaps(recs: dict, device: int = 0) -> list:
+    """Card ``device``'s idle intervals in the window: the complement of
+    the union of its launch intervals, in host ns."""
     t0, t1 = recs["window"]
     gaps, cur = [], t0
-    for s, e in sorted((x.start_ns, x.end_ns) for x in recs["launches"]):
+    for s, e in sorted((x.start_ns, x.end_ns) for x in recs["launches"]
+                       if x.device == device):
         if s > cur:
             gaps.append((cur, min(s, t1)))
         cur = max(cur, e)
@@ -315,12 +360,13 @@ def idle_gaps(recs: dict) -> list:
     return [(a, b) for a, b in gaps if b > a]
 
 
-def idle_by_span(recs: dict, stages=None) -> dict:
-    """Seconds of the card's idle time by host span: each idle gap split
-    across the innermost spans open during it, in proportion to overlap,
-    with ``NO_SPAN`` where none is open.  With ``stages`` (span names),
-    each span's share goes to the nearest of them that encloses it (itself
-    included), else to ``NO_SPAN``.  The parts add up to the total idle."""
+def idle_by_span(recs: dict, stages=None, device: int = 0) -> dict:
+    """Seconds of card ``device``'s idle time by host span: each idle gap
+    split across the innermost spans open during it, in proportion to
+    overlap, with ``NO_SPAN`` where none is open.  With ``stages`` (span
+    names), each span's share goes to the nearest of them that encloses it
+    (itself included), else to ``NO_SPAN``.  The parts add up to the total
+    idle."""
     t0, t1 = recs["window"]
     spans = recs["spans"]
     owner = []
@@ -350,7 +396,7 @@ def idle_by_span(recs: dict, stages=None) -> dict:
     if cur < t1:
         pieces.append((cur, t1, NO_SPAN))
     idle, k = {}, 0
-    for a, b in idle_gaps(recs):
+    for a, b in idle_gaps(recs, device):
         while k < len(pieces) and pieces[k][1] <= a:
             k += 1
         j = k

@@ -246,6 +246,134 @@ def test_launches_share_the_host_clock_through_anchors(monkeypatch):
     assert abs(sum(idle.values()) * 1e9 + busy - (hi - lo)) < 1e-3
 
 
+class Cards:
+    """Stand-ins for ``torch.cuda`` on a host of ``n`` cards, each with a
+    clock of its own (card d runs ``OFFSET * (d + 1)`` ns ahead of the
+    host): events know their card, and one card's event cannot be timed
+    against another's, as on the hardware."""
+
+    OFFSET = 5_000_000_000
+
+    def __init__(self, monkeypatch, n):
+        cards = self
+        self.current, self.synced = 0, []
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+        monkeypatch.setattr(torch.cuda, "current_device",
+                            lambda: cards.current)
+        monkeypatch.setattr(torch.cuda, "synchronize",
+                            lambda d=None: cards.synced.append(
+                                cards.current if d is None else d))
+
+        class Event:
+            def __init__(self, enable_timing=False):
+                self.t = self.card = None
+
+            def record(self):
+                self.card = cards.current
+                self.t = time.perf_counter_ns() \
+                    + cards.OFFSET * (self.card + 1)
+
+            def query(self):
+                return True
+
+            def elapsed_time(self, other):
+                assert self.card == other.card, "events of two cards"
+                return (other.t - self.t) * 1e-6
+
+        class Device:
+            def __init__(self, d):
+                self.d = d
+
+            def __enter__(self):
+                self.prev, cards.current = cards.current, self.d
+
+            def __exit__(self, *exc):
+                cards.current = self.prev
+
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "device", Device)
+
+
+def test_each_card_has_its_own_anchors(monkeypatch):
+    cards = Cards(monkeypatch, 4)
+    tracing.start()
+    it = tracing.next_iteration()
+    assert cards.synced == [0]  # the session's start: the current card
+    h0 = time.perf_counter_ns()
+    with tracing.launch(kernel, "default"):
+        time.sleep(0.002)
+    h1 = time.perf_counter_ns()
+    with torch.cuda.device(2):
+        with tracing.launch(kernel, "default"):
+            time.sleep(0.003)
+    h2 = time.perf_counter_ns()
+    # card 2's first launch synchronized it and anchored it
+    assert cards.synced == [0, 2]
+    assert sorted(tracing._R.anchors) == [0, 2]
+    with tracing.sync("site"):
+        pass
+    # the sync re-anchors the current card and card 2, whose last launch
+    # has ended (synchronized first)
+    assert [len(tracing._R.anchors[d]) for d in (0, 2)] == [2, 2]
+    assert cards.synced == [0, 2, 2]
+    with torch.cuda.device(2):
+        with tracing.launch(kernel, "other"):
+            time.sleep(0.001)
+    tracing.stop()
+    recs = tracing.records()
+    assert cards.synced[3:] == [0, 2]  # each card that holds launches
+    first, second, third = recs["launches"]
+    assert [x.device for x in recs["launches"]] == [0, 2, 2]
+    assert {x.iteration for x in recs["launches"]} == {it}
+    # each on the host's clock, from its own card's anchors
+    assert h0 - 200_000 <= first.start_ns <= first.end_ns <= h1 + 200_000
+    assert h1 - 200_000 <= second.start_ns <= second.end_ns <= h2 + 200_000
+    assert second.end_ns - second.start_ns >= 3_000_000
+    assert third.start_ns >= second.end_ns
+    # idle: card 0 by default, another card where asked
+    lo, hi = recs["window"]
+    idle0 = sum(b - a for a, b in tracing.idle_gaps(recs))
+    idle2 = sum(b - a for a, b in tracing.idle_gaps(recs, 2))
+    assert idle0 == hi - lo - (first.end_ns - first.start_ns)
+    assert idle2 == hi - lo - sum(x.end_ns - x.start_ns
+                                  for x in (second, third))
+    assert abs(sum(tracing.idle_by_span(recs, device=2).values()) * 1e9
+               - idle2) < 1e-3
+
+
+def test_one_card_session_reads_as_before(monkeypatch):
+    """A process that sees one card: every launch on card 0 without asking
+    for the current device, one synchronization at the session's start
+    and one in ``records()``; its idle split is that of its launches, and
+    launches of other cards added to the records leave it unchanged."""
+    cards = Cards(monkeypatch, 1)
+    monkeypatch.setattr(torch.cuda, "current_device", None)
+    tracing.start()
+    with tracing.span("tardis.stage"):
+        with tracing.launch(kernel, "default"):
+            time.sleep(0.002)
+        with tracing.sync("site"):
+            pass
+        with tracing.launch(kernel, "default"):
+            pass
+    tracing.stop()
+    recs = tracing.records()
+    assert cards.synced == [0, 0]
+    assert [x.device for x in recs["launches"]] == [0, 0]
+    assert [len(v) for v in tracing._R.anchors.values()] == [2]
+    lo, hi = recs["window"]
+    busy = sum(x.end_ns - x.start_ns for x in recs["launches"])
+    idle = tracing.idle_by_span(recs)
+    assert abs(sum(idle.values()) * 1e9 + busy - (hi - lo)) < 1e-3
+    other = dict(recs, launches=recs["launches"] + [
+        Launch("k", "v", lo, hi, 1, 0)])
+    assert tracing.idle_by_span(other) == idle
+    assert tracing.idle_gaps(other) == tracing.idle_gaps(recs)
+    assert tracing.idle_gaps(other, 1) == []
+
+
 IIP_CONFIG = {
     "supernova": {"luminosity_requested": "9.44 log_lsun",
                   "time_explosion": "16 day"},
